@@ -1,0 +1,571 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (src/repro_torch) on one NVIDIA GPU.
+
+  python3 chip_smoke.py            # every phase, one card
+
+Phases:
+  device   require CUDA; print the card's name and power limit (nvidia-smi)
+  build    build the four CUDA kernels from src/repro_torch/kernels/csrc
+  kernels  hold each kernel against its plain PyTorch version on the card, at
+           the serving path's shapes and a few small GQA / soft-cap /
+           empty-slot / int8 cases, each max error beside its tolerance
+  serve    full-width bitnet-1.3b (seeded random weights): a ServeEngine with
+           4 slots serves 5 staggered greedy requests (one prompt wraps the
+           1024-slot ring); checks token counts, the kernels' launch counts,
+           finite logits, bitwise batch invariance, and a reduced-size model
+           on the card against the same model on the CPU
+  times    each kernel at its decode shape: CUDA-event median beside its
+           bound, its plain version and one PyTorch call of the same function
+
+The line before the last is a JSON object {"kernels": [...]}; the last is
+{"ok": true, "device": {...}}.  Any failure exits non-zero without them.
+The script imports neither JAX nor the JAX package.
+"""
+
+from __future__ import annotations
+
+import argparse
+import copy
+import json
+import statistics
+import subprocess
+import sys
+import time
+import traceback
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+PHASES = ("device", "build", "kernels", "serve", "times")
+
+# H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, bf16 and f32 FLOP/s
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+
+# the TPU kernel each CUDA kernel replaces (the pallas_call line)
+KERNEL_INFO = {
+    "das_topk": ("src/repro_torch/kernels/csrc/topk_mask.cu",
+                 "src/repro/kernels/topk_mask.py:52"),
+    "das_ternary_gemm": ("src/repro_torch/kernels/csrc/das_gemm.cu",
+                         "src/repro/kernels/das_gemm.py:189"),
+    "ternary_gemm": ("src/repro_torch/kernels/csrc/ternary_gemm.cu",
+                     "src/repro/kernels/ternary_gemm.py:133"),
+    "sparse_attention": ("src/repro_torch/kernels/csrc/sparse_attn.cu",
+                         "src/repro/kernels/sparse_attn.py:97"),
+}
+
+TOL_F32_GEMM, TOL_BF16, TOL_F32_ATTN = 1e-4, 2e-2, 3e-4
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+class Smoke:
+    def __init__(self, torch, seed: int):
+        self.torch = torch
+        self.dev = torch.device("cuda")
+        self.seed = seed
+        self.errs: dict[str, float] = {}       # kernel -> max error at its timed shape
+        self.launches: dict[str, int] = {}
+        self.timed: dict[str, dict] = {}
+
+    # -- helpers -----------------------------------------------------------
+
+    def gen(self, seed):
+        g = self.torch.Generator(device=self.dev)
+        g.manual_seed(seed)
+        return g
+
+    def check(self, label: str, got, want, tol: float, exact: bool = False) -> float:
+        torch = self.torch
+        torch.cuda.synchronize()
+        got_f, want_f = got.float().cpu(), want.float().cpu()
+        if got_f.shape != want_f.shape:
+            raise AssertionError(f"{label}: shape {tuple(got_f.shape)} != "
+                                 f"{tuple(want_f.shape)}")
+        err = float((got_f - want_f).abs().max()) if got_f.numel() else 0.0
+        if exact:
+            ok = torch.equal(got_f, want_f)
+        else:
+            ok = bool(torch.isfinite(got_f).all()) and bool(
+                ((got_f - want_f).abs() <= tol + tol * want_f.abs()).all())
+        log(f"[kernels] {label}: max_abs_err {err:.3e} "
+            f"(tol {'exact' if exact else f'{tol:g} abs+rel'}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{label} disagrees with its plain version")
+        return err
+
+    # -- phases ------------------------------------------------------------
+
+    def phase_build(self):
+        from repro_torch.kernels import build
+        t0 = time.perf_counter()
+        build.library(verbose=True)
+        log(f"[build] kernels ready in {time.perf_counter() - t0:.1f} s "
+            f"(nvcc {build.last_build_seconds() or 0.0:.1f} s) -> {build.BUILD_DIR}")
+
+    def _packed(self, g, k, n):
+        from repro_torch.core import twd
+        trits = self.torch.randint(-1, 2, (k, n), generator=g, device=self.dev)
+        return twd.pack_ternary(trits, row_align=16)
+
+    def phase_kernels(self):
+        torch = self.torch
+        from repro_torch.core import das as das_lib
+        from repro_torch.kernels import ref
+        from repro_torch.kernels.das_gemm import das_ternary_gemm_cuda
+        from repro_torch.kernels.sparse_attn import sparse_attention_cuda
+        from repro_torch.kernels.ternary_gemm import ternary_gemm_cuda
+        from repro_torch.kernels.topk_mask import das_topk_cuda
+        g = self.gen(self.seed + 1)
+        bf16, f32 = torch.bfloat16, torch.float32
+        scale = torch.tensor(0.37, device=self.dev)
+
+        # das_topk: the DAS step before every projection (exact)
+        for m, k, dt in ((4, 2048, bf16), (256, 2048, bf16), (4, 5460, bf16),
+                         (256, 5460, bf16), (3, 96, f32)):
+            x = torch.randn((m, k), generator=g, device=self.dev).to(dt)
+            if dt == f32:   # tie-heavy integers exercise the lower-lane rule
+                x = torch.randint(-3, 4, (m, k), generator=g, device=self.dev).to(dt)
+            got, want = das_topk_cuda(x, keep=16, block=32), ref.das_topk_ref(
+                x, keep=16, block=32)
+            err = self.check(f"das_topk mask {dt} ({m},{k})", got.mask, want.mask, 0, True)
+            if k % 32 == 0:
+                self.check(f"das_topk values ({m},{k})", got.values, want.values, 0, True)
+                self.check(f"das_topk indices ({m},{k})", got.indices, want.indices, 0, True)
+            else:
+                self.check(f"das_topk dense ({m},{k})", got.dense, want.dense, 0, True)
+            if (m, k, dt) == (4, 2048, bf16):
+                self.errs["das_topk"] = err
+
+        # das_ternary_gemm: q/k/v/o (N=2048) and gate/up (N=5460), padded rows
+        for m, k, n, dt in ((4, 2048, 2048, bf16), (4, 2048, 5460, bf16),
+                            (256, 2048, 2048, bf16), (256, 2048, 5460, bf16),
+                            (4, 2048, 2048, f32), (3, 320, 130, f32)):
+            x = torch.randn((m, k), generator=g, device=self.dev).to(dt)
+            ca = das_lib.das_compact(x, block_size=32, keep=16)
+            packed = self._packed(g, k, n)
+            got = das_ternary_gemm_cuda(ca.values, ca.indices, packed, scale)
+            want = ref.das_ternary_gemm_ref(ca.values, ca.indices, packed, scale)
+            tol = TOL_BF16 if dt == bf16 else TOL_F32_GEMM
+            err = self.check(f"das_ternary_gemm {dt} ({m},{k})x({packed.shape[0]},{n})",
+                             got, want, tol)
+            if (m, k, n, dt) == (4, 2048, 5460, bf16):
+                self.errs["das_ternary_gemm"] = err
+
+        # ternary_gemm: the down projection (K=5460, DAS-masked dense input)
+        for m, k, n, dt in ((4, 5460, 2048, bf16), (256, 5460, 2048, bf16),
+                            (4, 5460, 2048, f32), (8, 640, 256, torch.int8)):
+            if dt == torch.int8:
+                x = torch.randint(-127, 128, (m, k), generator=g, device=self.dev).to(dt)
+                xs = torch.rand((m, 1), generator=g, device=self.dev) + 0.5
+            else:
+                v = torch.randn((m, k), generator=g, device=self.dev).to(dt)
+                x = das_lib.das_apply(v, das_lib.das_mask(v, keep=16))
+                xs = None
+            packed = self._packed(g, k, n)
+            got = ternary_gemm_cuda(x, packed, scale, xs)
+            want = ref.ternary_gemm_ref(x, packed, scale, xs)
+            exact = dt == torch.int8
+            tol = TOL_BF16 if dt == bf16 else TOL_F32_GEMM
+            err = self.check(f"ternary_gemm {dt} ({m},{k})x({packed.shape[0]},{n})",
+                             got, want, tol, exact)
+            if (m, k, n, dt) == (4, 5460, 2048, bf16):
+                self.errs["ternary_gemm"] = err
+
+        # sparse_attention: ring decode, prefill pack, GQA, soft-cap, empty row
+        def attn_case(label, b, lq, lk, hq, hkv, d, dt, q_pos, k_pos, sink, window,
+                      cap=None, tol=TOL_BF16):
+            q = torch.randn((b, lq, hq, d), generator=g, device=self.dev).to(dt)
+            k_ = torch.randn((b, lk, hkv, d), generator=g, device=self.dev).to(dt)
+            v = torch.randn((b, lk, hkv, d), generator=g, device=self.dev).to(dt)
+            got = sparse_attention_cuda(q, k_, v, q_pos, k_pos, sink=sink, window=window,
+                                        softcap=cap)
+            want = ref.sparse_attention_ref(q, k_, v, q_pos, k_pos, sink=sink,
+                                            window=window, softcap=cap)
+            return self.check(f"sparse_attention {label}", got, want, tol)
+
+        i32 = torch.int32
+        # decode: 4 slots at positions that wrap the 128 + 896 ring differently
+        qp = torch.tensor([[1500], [1023], [300], [5]], dtype=i32, device=self.dev)
+        ring = []
+        for t in qp[:, 0].tolist():
+            pos = torch.full((1024,), -1, dtype=torch.int64)
+            for p in range(t + 1):
+                pos[p if p < 128 else 128 + (p - 128) % 896] = p
+            ring.append(pos)
+        kp = torch.stack(ring).to(i32).to(self.dev)
+        self.errs["sparse_attention"] = attn_case(
+            "decode bf16 B=4 H=32 Lk=1024", 4, 1, 1024, 32, 32, 64, bf16, qp, kp, 128, 896)
+        # prefill pack 2 of a 3-pack prompt: [sink | window | pack] keys
+        t0 = 512
+        sink_pos = torch.where(torch.arange(128) < t0, torch.arange(128), -1)
+        win = t0 - 896 + torch.arange(896)
+        win_pos = torch.where((win >= 128) & (win >= 0), win, -1)
+        kp = torch.cat([sink_pos, win_pos, t0 + torch.arange(256)]).to(i32)
+        attn_case("prefill bf16 Lq=256 Lk=1280", 1, 256, 1280, 32, 32, 64, bf16,
+                  (t0 + torch.arange(256)).to(i32)[None].to(self.dev),
+                  kp[None].to(self.dev), 128, 896)
+        # GQA + soft-cap + an empty row (every slot -1) in float32
+        qp = torch.tensor([[40, 41], [7, 8]], dtype=i32, device=self.dev)
+        kp = torch.arange(48, dtype=i32, device=self.dev)[None].repeat(2, 1)
+        kp[1] = -1
+        attn_case("gqa 8/2 softcap f32 + empty row", 2, 2, 48, 8, 2, 64, f32, qp, kp,
+                  4, 16, cap=30.0, tol=TOL_F32_ATTN)
+        for d in (16, 80):
+            qp = torch.tensor([[30]], dtype=i32, device=self.dev)
+            kp = torch.arange(32, dtype=i32, device=self.dev)[None]
+            attn_case(f"head_dim {d} f32", 1, 1, 32, 4, 2, d, f32, qp, kp, 8, 24,
+                      tol=TOL_F32_ATTN)
+
+    def phase_serve(self):
+        torch = self.torch
+        from repro_torch.configs import get_config, reduced
+        from repro_torch.kernels import ops
+        from repro_torch.models import model as MD
+        from repro_torch.serve import Request, ServeConfig, ServeEngine
+
+        cfg = get_config("bitnet-1.3b")
+        t0 = time.perf_counter()
+        model = MD.export_serving(MD.init_params(cfg, seed=self.seed, device=self.dev), cfg)
+        torch.cuda.synchronize()
+        log(f"[serve] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, d_ff "
+            f"{cfg.d_ff}, packed rows {model.layers[0].attn.wq.packed.shape[0]}/"
+            f"{model.layers[0].ffn.w_out.packed.shape[0]}; init+export "
+            f"{time.perf_counter() - t0:.1f} s")
+        gen_len, chunk = 32, cfg.lpsa.chunk
+        prompt_lens = (1100, 300, 256, 40, 700)
+        rng = torch.Generator().manual_seed(self.seed)
+        prompts = [torch.randint(0, cfg.vocab, (p,), generator=rng).numpy()
+                   for p in prompt_lens]
+        trace = [Request(uid=i, prompt=p, max_new_tokens=gen_len, arrival=2 * i)
+                 for i, p in enumerate(prompts)]
+        sc = ServeConfig(max_slots=4, max_len=max(prompt_lens) + gen_len, seed=self.seed)
+        eng = ServeEngine(model, sc, device="cuda")
+        for r in trace:
+            eng.submit(r)
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        ops.reset_launches()                   # the main path starts here
+        ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        ev0.record()
+        results = eng.run()
+        ev1.record()
+        torch.cuda.synchronize()
+        self.launches = dict(ops.launches)     # ... and ends here
+        st = eng.stats
+        run_ms = ev0.elapsed_time(ev1)
+        log(f"[serve] {len(results)} requests, {st.decode_steps} decode steps, "
+            f"{st.generated_tokens} tokens, {st.prefill_tokens} prefill tokens; run "
+            f"{run_ms:.1f} ms (CUDA events), decode {1e3 * st.decode_seconds / st.decode_steps:.3f}"
+            f" ms/step (host clock, each step ends in a device sync), "
+            f"{st.generated_tokens / (run_ms / 1e3):.1f} tok/s end to end, "
+            f"{st.active_slot_steps / st.decode_seconds:.1f} tok/s in decode steps; "
+            f"peak memory {torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+        for r in trace:
+            got = results[r.uid].tokens
+            if len(got) != gen_len:
+                raise AssertionError(f"request {r.uid}: {len(got)} tokens, want {gen_len}")
+            log(f"[serve] req {r.uid}: prompt {r.prompt_len}, ttft "
+                f"{results[r.uid].ttft_steps} steps, ids {got[:8].tolist()}...")
+
+        # launches: per decode step 4/6/1/1 per layer; per prefill of n packs,
+        # per layer n+3 / 3n+3 / 1 / n (q/k/v per pack; o, gate/up, down once)
+        n_l, steps = cfg.n_layers, st.decode_steps
+        packs = [p // chunk for p in prompt_lens if p >= chunk]
+        want = {"das_topk": n_l * (4 * steps + sum(n + 3 for n in packs)),
+                "das_ternary_gemm": n_l * (6 * steps + sum(3 * n + 3 for n in packs)),
+                "ternary_gemm": n_l * (steps + len(packs)),
+                "sparse_attention": n_l * (steps + sum(packs))}
+        log(f"[serve] launches on the main path: {self.launches} (expected {want})")
+        if self.launches != want:
+            raise AssertionError("launch counts differ from the path's structure")
+
+        # finite logits of the expected shape at full width
+        tok = torch.as_tensor(prompts[2][:chunk], dtype=torch.long, device=self.dev)[None]
+        logits, caches = MD.prefill(model, tok, max_len=sc.max_len)
+        lg2, _ = MD.decode_step(model, caches, logits.argmax(-1),
+                                torch.tensor([chunk], device=self.dev))
+        for name, lg in (("prefill", logits), ("decode", lg2)):
+            if tuple(lg.shape) != (1, cfg.vocab_padded) or not bool(
+                    torch.isfinite(lg[:, :cfg.vocab]).all()):
+                raise AssertionError(f"{name} logits: shape {tuple(lg.shape)} or not finite")
+        log(f"[serve] logits finite, shape {tuple(lg2.shape)}")
+
+        # batch invariance: re-served alone, a request gives the same tokens
+        for uid in (0, 3):
+            r = trace[uid]
+            eng.submit(Request(uid=100 + uid, prompt=r.prompt, max_new_tokens=gen_len))
+            alone = eng.run()[100 + uid].tokens
+            same = alone.tolist() == results[uid].tokens.tolist()
+            log(f"[serve] req {uid} re-served alone: bitwise "
+                f"{'identical' if same else 'DIFFERENT'}")
+            if not same:
+                raise AssertionError(f"request {uid} is not batch invariant")
+        del eng, caches
+
+        # where a decode step's time goes: a decode-only trace (40-token
+        # prompts fed through the decode step) under torch.profiler
+        self._profile_decode(model, sc, prompts, ServeEngine, Request)
+        del model
+        torch.cuda.empty_cache()
+
+        # a reduced model on the card (kernels) against the CPU (plain versions)
+        small = reduced(cfg)
+        params = MD.init_params(small, seed=self.seed, device="cpu")
+        m_cpu = MD.export_serving(params, small)
+        m_gpu = copy.deepcopy(m_cpu).to(self.dev)
+        prompt = torch.as_tensor(prompts[0][:48] % small.vocab, dtype=torch.long)[None]
+        lg_c, c_c = MD.prefill(m_cpu, prompt, max_len=64)
+        lg_g, c_g = MD.prefill(m_gpu, prompt.to(self.dev), max_len=64)
+        err = (lg_g.cpu() - lg_c).abs().max().item()
+        toks_c, toks_g = [int(lg_c.argmax())], [int(lg_g.argmax())]
+        for i in range(8):
+            t = torch.tensor([48 + i])
+            lg_c, _ = MD.decode_step(m_cpu, c_c, torch.tensor([toks_c[-1]]), t)
+            lg_g, _ = MD.decode_step(m_gpu, c_g, torch.tensor([toks_c[-1]], device=self.dev),
+                                     t.to(self.dev))
+            err = max(err, (lg_g.cpu() - lg_c).abs().max().item())
+            toks_c.append(int(lg_c.argmax()))
+            toks_g.append(int(lg_g.argmax()))
+        log(f"[serve] reduced {small.name} f32, card vs CPU: prefill + 8 teacher-forced "
+            f"steps, max logit err {err:.2e} (tol 2e-4), greedy tokens "
+            f"{'equal' if toks_c == toks_g else 'DIFFERENT'}")
+        if err > 2e-4 or toks_c != toks_g:
+            raise AssertionError("the card's reduced model disagrees with the CPU's")
+
+    def _profile_decode(self, model, sc, prompts, ServeEngine, Request):
+        torch = self.torch
+        from torch.profiler import ProfilerActivity, profile
+        eng = ServeEngine(model, sc, device="cuda")
+
+        def submit():
+            for i in range(4):
+                eng.submit(Request(uid=i, prompt=prompts[i][:40], max_new_tokens=24))
+
+        submit()
+        eng.run()                                   # warm the allocator
+        submit()
+        steps0 = eng.stats.decode_steps
+        ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        ev0.record()
+        eng.run()                                   # no prefill: decode steps only
+        ev1.record()
+        torch.cuda.synchronize()
+        log(f"[profile] decode-only trace without the profiler: "
+            f"{ev0.elapsed_time(ev1) / (eng.stats.decode_steps - steps0):.3f} ms/step "
+            f"(CUDA events around the run), 4 active slots")
+        submit()
+        steps1 = eng.stats.decode_steps
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            eng.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        steps = eng.stats.decode_steps - steps1        # the profiled run's steps
+        by_name = {}   # device kernels only: a CPU op's device time repeats its kernels'
+        for e in prof.key_averages():
+            if "CUDA" not in str(getattr(e, "device_type", "")):
+                continue
+            dt = getattr(e, "self_device_time_total", None)
+            if dt is None:
+                dt = getattr(e, "self_cuda_time_total", 0.0)
+            if dt > 0:
+                by_name[e.key] = by_name.get(e.key, 0.0) + dt
+        busy_us = sum(by_name.values())
+        if not busy_us:
+            log("[profile] the profiler recorded no device time: not measured")
+            return
+        log(f"[profile] decode-only trace, {steps} steps under torch.profiler: wall "
+            f"{1e3 * wall / steps:.3f} ms/step, device busy {busy_us / 1e3 / steps:.3f} "
+            f"ms/step, idle share {1 - busy_us / 1e6 / wall:.3f}")
+        for name, dt in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
+            log(f"[profile]   {dt / 1e3 / steps:8.4f} ms/step  {name[:90]}")
+        host = sorted(((e.self_cpu_time_total, e.count, e.key) for e in prof.key_averages()),
+                      reverse=True)[:12]
+        log("[profile] host: self CPU time per step, calls per step")
+        for dt, count, name in host:
+            log(f"[profile]   {dt / 1e3 / steps:8.4f} ms/step {count / steps:7.1f}  {name[:80]}")
+
+    def phase_times(self):
+        torch = self.torch
+        from repro_torch.core import das as das_lib
+        from repro_torch.core import twd
+        from repro_torch.kernels import ref
+        from repro_torch.kernels.das_gemm import das_ternary_gemm_cuda
+        from repro_torch.kernels.sparse_attn import sparse_attention_cuda
+        from repro_torch.kernels.ternary_gemm import ternary_gemm_cuda
+        from repro_torch.kernels.topk_mask import das_topk_cuda
+        g = self.gen(self.seed + 2)
+        bf16 = torch.bfloat16
+        flush = torch.empty(64 << 20, dtype=torch.uint8, device=self.dev)  # > 50 MB L2
+        scale = torch.tensor(0.37, device=self.dev)
+
+        def t_ms(fn, reps=25):
+            """Median CUDA-event time of one call, L2 flushed before each.
+
+            A spin of ~5 ms queued ahead keeps the card busy while the host
+            enqueues the call, so the events bracket device time only."""
+            for _ in range(3):
+                fn()
+            times = []
+            for _ in range(reps):
+                flush.zero_()
+                torch.cuda._sleep(10_000_000)
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                fn()
+                e1.record()
+                e1.synchronize()
+                times.append(e0.elapsed_time(e1))
+            return statistics.median(times)
+
+        def row(name, fn, plain, library, nbytes, flops, dtype, shape):
+            ms, plain_ms = t_ms(fn), t_ms(plain)
+            lib_ms = t_ms(library) if library is not None else None
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+            self.timed[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                                "bound_ms": max(t_bytes, t_ops),
+                                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                                "shape": shape}
+            log(f"[times] {name} {shape}: {ms * 1e3:.1f} us, bound {max(t_bytes, t_ops) * 1e3:.2f}"
+                f" us ({self.timed[name]['bound_by']}), plain {plain_ms * 1e3:.1f} us, "
+                f"library {'n/a' if lib_ms is None else f'{lib_ms * 1e3:.1f} us'}")
+
+        m, k, n, f = 4, 2048, 2048, 5460
+        x = torch.randn((m, k), generator=g, device=self.dev).to(bf16)
+        kc = k // 2
+        row("das_topk", lambda: das_topk_cuda(x, keep=16, block=32),
+            lambda: ref.das_topk_ref(x, keep=16, block=32), None,
+            m * k * 2 + m * k + m * kc * (2 + 4), 32 * m * k, "bfloat16",
+            f"x ({m},{k}) bf16")
+
+        ca = das_lib.das_compact(x, block_size=32, keep=16)
+        packed = twd.pack_ternary(torch.randint(-1, 2, (k, f), generator=g,
+                                                device=self.dev), row_align=16)
+        w_bf16 = (twd.unpack_ternary_arith(packed, packed.shape[0] * 5).float()
+                  * 0.37).to(bf16)
+        dense = torch.zeros((m, w_bf16.shape[0]), dtype=bf16, device=self.dev)
+        dense.scatter_(1, ca.indices.long(), ca.values)
+        row("das_ternary_gemm",
+            lambda: das_ternary_gemm_cuda(ca.values, ca.indices, packed, scale),
+            lambda: ref.das_ternary_gemm_ref(ca.values, ca.indices, packed, scale),
+            lambda: torch.matmul(dense, w_bf16),
+            m * kc * (2 + 4) + packed.numel() + m * f * 4 + 4, 2 * m * kc * f, "bfloat16",
+            f"({m},{kc} of {k}) x packed {tuple(packed.shape)} (gate/up)")
+
+        xd = torch.randn((m, f), generator=g, device=self.dev).to(bf16)
+        xd = das_lib.das_apply(xd, das_lib.das_mask(xd, keep=16))
+        packed_d = twd.pack_ternary(torch.randint(-1, 2, (f, n), generator=g,
+                                                  device=self.dev), row_align=16)
+        wd_bf16 = (twd.unpack_ternary_arith(packed_d, f).float() * 0.37).to(bf16)
+        nnz = int((xd != 0).sum())
+        row("ternary_gemm", lambda: ternary_gemm_cuda(xd, packed_d, scale),
+            lambda: ref.ternary_gemm_ref(xd, packed_d, scale),
+            lambda: torch.matmul(xd, wd_bf16),
+            m * f * 2 + packed_d.numel() + m * n * 4 + 4, 2 * nnz * n, "bfloat16",
+            f"x ({m},{f}) bf16 x packed {tuple(packed_d.shape)} (down)")
+
+        # prefill shapes (a 256-token pack), printed for the breakdown
+        xp = torch.randn((256, k), generator=g, device=self.dev).to(bf16)
+        cap = das_lib.das_compact(xp, block_size=32, keep=16)
+        xpd = torch.randn((256, f), generator=g, device=self.dev).to(bf16)
+        for label, fn, nbytes, flops in (
+                ("das_topk (256,2048)", lambda: das_topk_cuda(xp, keep=16, block=32),
+                 256 * k * 9, 32 * 256 * k),
+                ("das_ternary_gemm (256,1024 of 2048)x(416,5460)",
+                 lambda: das_ternary_gemm_cuda(cap.values, cap.indices, packed, scale),
+                 256 * kc * 6 + packed.numel() + 256 * f * 4, 2 * 256 * kc * f),
+                ("ternary_gemm (256,5460)x(1104,2048)",
+                 lambda: ternary_gemm_cuda(xpd, packed_d, scale),
+                 256 * f * 2 + packed_d.numel() + 256 * n * 4, 2 * 256 * f * n)):
+            ms = t_ms(fn)
+            bound = max(nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS["bfloat16"]) * 1e3
+            log(f"[times] prefill {label}: {ms * 1e3:.1f} us, bound {bound * 1e3:.2f} us")
+
+        b, h, d, s = 4, 32, 64, 1024
+        q = torch.randn((b, 1, h, d), generator=g, device=self.dev).to(bf16)
+        kk = torch.randn((b, s, h, d), generator=g, device=self.dev).to(bf16)
+        vv = torch.randn((b, s, h, d), generator=g, device=self.dev).to(bf16)
+        qp = torch.full((b, 1), 2000, dtype=torch.int32, device=self.dev)
+        kp = torch.cat([torch.arange(128), 2000 - 895 + torch.arange(896)]).to(
+            torch.int32).to(self.dev)[None].repeat(b, 1)
+        allowed = (kp >= 0) & (kp <= qp) & ((kp < 128) | (qp - kp < 896))
+        qt, kt, vt = q.transpose(1, 2), kk.transpose(1, 2), vv.transpose(1, 2)
+        bmask = allowed[:, None, None, :]
+        n_keys = int(allowed.sum())
+        row("sparse_attention",
+            lambda: sparse_attention_cuda(q, kk, vv, qp, kp, sink=128, window=896),
+            lambda: ref.sparse_attention_ref(q, kk, vv, qp, kp, sink=128, window=896),
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=bmask),
+            2 * n_keys * h * d * 2 + b * h * d * 2 * 2 + b * s * 4 + b * 4,
+            4 * n_keys * h * d, "bfloat16",
+            f"decode q ({b},1,{h},{d}) over a {s}-slot ring bf16")
+
+
+def _nvidia_smi() -> str:
+    res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60)
+    if res.returncode:
+        raise RuntimeError(f"nvidia-smi failed: {res.stderr.strip()}")
+    return res.stdout.strip().splitlines()[0]
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help=f"comma-separated subset of {','.join(PHASES)}")
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+    phases = [p for p in args.phases.split(",") if p]
+    unknown = set(phases) - set(PHASES)
+    if unknown:
+        ap.error(f"unknown phases {sorted(unknown)}")
+
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)",
+              file=sys.stderr)
+        return 2
+    src = ROOT / "src"
+    if not (src / "repro_torch" / "kernels" / "csrc").is_dir():
+        print(f"chip_smoke: the port's sources are not under {src}", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(src))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    smoke = Smoke(torch, args.seed)
+    try:
+        log(f"[device] {_nvidia_smi()}")
+        log(f"[device] torch {torch.__version__}, CUDA {torch.version.cuda}, "
+            f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+        for phase in phases:
+            if phase != "device":
+                t0 = time.perf_counter()
+                getattr(smoke, f"phase_{phase}")()
+                log(f"[{phase}] done in {time.perf_counter() - t0:.1f} s")
+        if set(PHASES) <= set(phases):
+            kernels = []
+            for name, (source, replaces) in KERNEL_INFO.items():
+                kernels.append({"name": name, "route": "cuda", "source": source,
+                                "replaces": replaces,
+                                "launches": smoke.launches[name],
+                                "max_abs_err": smoke.errs[name], **smoke.timed[name]})
+            print(json.dumps({"kernels": kernels}), flush=True)
+    except Exception:  # a failed phase fails the run, with its traceback
+        traceback.print_exc()
+        return 1
+    torch.cuda.synchronize()
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

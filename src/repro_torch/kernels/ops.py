@@ -1,0 +1,94 @@
+"""Kernel entry points: dispatch by the tensors' device, and launch counts.
+
+A CPU tensor goes to the kernel's plain PyTorch version (kernels/ref.py).
+A CUDA tensor launches the hand-written kernel or raises — there is no
+fallback from a kernel that fails to build, refuses a shape or fails to
+launch.  ``launches`` counts each kernel's launches (plain ints, bumped once
+per successful launch) so a run can show that it went through the kernels;
+``reset_launches`` zeroes them.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import ref
+from .das_gemm import das_ternary_gemm_cuda
+from .ref import DasTopK
+from .sparse_attn import sparse_attention_cuda
+from .ternary_gemm import ternary_gemm_cuda
+from .topk_mask import das_topk_cuda
+
+__all__ = ["KERNELS", "launches", "reset_launches", "DasTopK", "das_topk",
+           "das_ternary_gemm", "ternary_gemm", "sparse_attention"]
+
+KERNELS = ("das_topk", "das_ternary_gemm", "ternary_gemm", "sparse_attention")
+
+launches: dict[str, int] = {name: 0 for name in KERNELS}
+
+
+def reset_launches() -> None:
+    for name in KERNELS:
+        launches[name] = 0
+
+
+def _on_cuda(*tensors: torch.Tensor) -> bool:
+    """True for CUDA tensors, False for CPU ones; mixed devices raise."""
+    dev = tensors[0].device
+    for t in tensors[1:]:
+        if t is not None and t.device != dev:
+            raise ValueError(f"tensors on {dev} and {t.device}")
+    if dev.type == "cuda":
+        return True
+    if dev.type == "cpu":
+        return False
+    raise ValueError(f"no kernel for device {dev}")
+
+
+def _scale(s, like: torch.Tensor) -> torch.Tensor:
+    return torch.as_tensor(s, dtype=torch.float32, device=like.device)
+
+
+def das_topk(x: torch.Tensor, *, keep: int, block: int = 32) -> DasTopK:
+    """(..., K) -> DasTopK over the flattened rows (M, K)."""
+    x2 = x.reshape(-1, x.shape[-1])
+    if not _on_cuda(x2):
+        return ref.das_topk_ref(x2, keep=keep, block=block)
+    out = das_topk_cuda(x2.contiguous(), keep=keep, block=block)
+    launches["das_topk"] += 1
+    return out
+
+
+def das_ternary_gemm(values: torch.Tensor, indices: torch.Tensor,
+                     packed: torch.Tensor, w_scale) -> torch.Tensor:
+    """(M, Kc) compacted activations x packed (R, N) -> (M, N) float32."""
+    w_scale = _scale(w_scale, packed)
+    if not _on_cuda(values, indices, packed):
+        return ref.das_ternary_gemm_ref(values, indices, packed, w_scale)
+    out = das_ternary_gemm_cuda(values, indices, packed, w_scale)
+    launches["das_ternary_gemm"] += 1
+    return out
+
+
+def ternary_gemm(x: torch.Tensor, packed: torch.Tensor, w_scale,
+                 x_scale: torch.Tensor | None = None) -> torch.Tensor:
+    """(M, K) x packed (R, N), 5R >= K -> (M, N) float32."""
+    w_scale = _scale(w_scale, packed)
+    if not _on_cuda(x, packed, x_scale):
+        return ref.ternary_gemm_ref(x, packed, w_scale, x_scale)
+    out = ternary_gemm_cuda(x, packed, w_scale, x_scale)
+    launches["ternary_gemm"] += 1
+    return out
+
+
+def sparse_attention(q, k, v, q_pos, k_pos, *, sink: int, window: int,
+                     softcap: float | None = None) -> torch.Tensor:
+    """LPSA attention; q (B, Lq, Hq, D), k/v (B, Lk, Hkv, D), int32
+    positions (B, Lq) / (B, Lk), -1 = empty slot."""
+    if not _on_cuda(q, k, v, q_pos, k_pos):
+        return ref.sparse_attention_ref(q, k, v, q_pos, k_pos, sink=sink,
+                                        window=window, softcap=softcap)
+    out = sparse_attention_cuda(q, k, v, q_pos, k_pos, sink=sink,
+                                window=window, softcap=softcap)
+    launches["sparse_attention"] += 1
+    return out

@@ -1,0 +1,96 @@
+"""Plain PyTorch versions of the four CUDA kernels on the serving path.
+
+Each function computes what its kernel computes, on any device, with
+PyTorch operators: the kernel wrappers (kernels/ops.py) take these for CPU
+tensors, the CPU tests hold them against the JAX package's oracles, and
+chip_smoke.py holds each kernel against its plain version on the card.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.core import das as das_lib
+from repro_torch.core import twd
+from repro_torch.core.lpsa import lpsa_allowed
+
+__all__ = ["DasTopK", "das_topk_ref", "ternary_gemm_ref",
+           "das_ternary_gemm_ref", "sparse_attention_ref", "NEG_INF"]
+
+NEG_INF = -1e30
+
+
+class DasTopK(NamedTuple):
+    """What the DAS step hands the projections: the int8 mask (M, K) and
+    either the compaction (values, indices) when the block divides K, or the
+    masked dense activations (tail lanes kept) when it does not."""
+    mask: torch.Tensor
+    values: torch.Tensor | None
+    indices: torch.Tensor | None
+    dense: torch.Tensor | None
+
+
+def das_topk_ref(x: torch.Tensor, *, keep: int, block: int) -> DasTopK:
+    """x (M, K) -> DasTopK, the semantics of core.das on one flat batch."""
+    mask = das_lib.das_mask(x, block_size=block, keep=keep)
+    if x.shape[-1] % block == 0:
+        ca = das_lib.das_compact(x, block_size=block, keep=keep)
+        return DasTopK(mask.to(torch.int8), ca.values, ca.indices, None)
+    return DasTopK(mask.to(torch.int8), None, None,
+                   das_lib.das_apply(x, mask))
+
+
+def _decoded(packed: torch.Tensor) -> torch.Tensor:
+    """All 5R lanes of the packed slab as float32 (padding lanes are 0)."""
+    return twd.unpack_ternary_arith(packed, packed.shape[0] * 5).float()
+
+
+def ternary_gemm_ref(x: torch.Tensor, packed: torch.Tensor,
+                     w_scale: torch.Tensor | float,
+                     x_scale: torch.Tensor | None = None) -> torch.Tensor:
+    """(M, K) x packed (R, N), 5R >= K -> (M, N) float32.
+
+    int8 activations: every partial sum is an integer below 2**24, so the
+    float32 product is exact, as the kernel's int32 accumulation is."""
+    k = x.shape[-1]
+    w = _decoded(packed)[:k]
+    out = (x.float() @ w) * w_scale
+    if x_scale is not None:
+        out = out * x_scale.reshape(-1, 1)
+    return out
+
+
+def das_ternary_gemm_ref(values: torch.Tensor, indices: torch.Tensor,
+                         packed: torch.Tensor,
+                         w_scale: torch.Tensor | float) -> torch.Tensor:
+    """(M, Kc) compacted values at absolute lanes `indices` x packed (R, N)
+    -> (M, N) float32: the values scattered to their dense lanes, times the
+    decoded weights (the JAX oracle gathers weight rows instead — the same
+    sum over the kept lanes)."""
+    w = _decoded(packed)
+    dense = torch.zeros((values.shape[0], w.shape[0]), dtype=torch.float32,
+                        device=values.device)
+    dense.scatter_(1, indices.long(), values.float())
+    return (dense @ w) * w_scale
+
+
+def sparse_attention_ref(q, k, v, q_pos, k_pos, *, sink: int, window: int,
+                         softcap: float | None = None) -> torch.Tensor:
+    """q (B, Lq, Hq, D); k, v (B, Lk, Hkv, D); q_pos (B, Lq); k_pos (B, Lk)
+    with k_pos < 0 an empty slot.  Float32 softmax; rows with no allowed key
+    give 0.  Returns (B, Lq, Hq, D) in q's dtype."""
+    d = q.shape[-1]
+    n_rep = q.shape[2] // k.shape[2]
+    kr = k.float().repeat_interleave(n_rep, dim=2)
+    vr = v.float().repeat_interleave(n_rep, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kr) * (1.0 / d ** 0.5)
+    if softcap is not None:
+        s = torch.tanh(s / softcap) * softcap
+    mask = lpsa_allowed(q_pos[:, :, None], k_pos[:, None, :], sink, window)
+    mask = (mask & (k_pos >= 0)[:, None, :])[:, None]          # (B,1,Lq,Lk)
+    s = torch.where(mask, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    p = torch.where(mask.any(-1, keepdim=True), p, 0.0)
+    return torch.einsum("bhqk,bkhd->bqhd", p, vr).to(q.dtype)

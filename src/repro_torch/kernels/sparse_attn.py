@@ -1,0 +1,58 @@
+"""CUDA launch of ``sparse_attention`` (kernels/csrc/sparse_attn.cu).
+
+Replaces the JAX package's ``kernels/sparse_attn.py::sparse_attention``
+(Pallas ``_attn_kernel``): LPSA sink + window attention with an online
+softmax in float32, GQA, optional tanh soft-cap, empty slots at position -1.
+One kernel serves the ring-cache decode (Lq = 1), the prefill packs
+(``[sink | window | pack]`` keys) and full-cache serving (sink = 2**30).
+Bounded on the H100 by the K/V bytes at decode.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import build
+
+__all__ = ["sparse_attention_cuda", "HEAD_DIMS"]
+
+HEAD_DIMS = (16, 32, 64, 80)   # head sizes the kernel is instantiated for
+
+
+def sparse_attention_cuda(q, k, v, q_pos, k_pos, *, sink: int, window: int,
+                          softcap: float | None = None) -> torch.Tensor:
+    """q (B, Lq, Hq, D); k, v (B, Lk, Hkv, D); q_pos (B, Lq), k_pos (B, Lk)
+    int32 -> (B, Lq, Hq, D) in q's dtype."""
+    if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
+        raise ValueError(f"want q (B, Lq, Hq, D) and k, v (B, Lk, Hkv, D); got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    b, lq, hq, d = q.shape
+    _, lk, hkv, _ = k.shape
+    if k.shape[0] != b or k.shape[3] != d or hq % hkv:
+        raise ValueError(f"q {tuple(q.shape)} does not match k {tuple(k.shape)}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head_dim {d} not in the kernel's {HEAD_DIMS}")
+    if q.dtype not in (torch.float32, torch.bfloat16) or k.dtype != q.dtype \
+            or v.dtype != q.dtype:
+        raise ValueError(f"sparse_attention takes float32/bfloat16 q, k, v of "
+                         f"one dtype; got {q.dtype}, {k.dtype}, {v.dtype}")
+    if q_pos.shape != (b, lq) or k_pos.shape != (b, lk) \
+            or q_pos.dtype != torch.int32 or k_pos.dtype != torch.int32:
+        raise ValueError("q_pos (B, Lq) and k_pos (B, Lk) must be int32")
+    for t in (q, k, v, q_pos, k_pos):
+        if not t.is_contiguous():
+            raise ValueError("sparse_attention needs contiguous inputs")
+        if t.device != q.device:
+            raise ValueError(f"tensors on {q.device} and {t.device}")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("q, k, v must be 16-byte aligned")
+    if min(b, lq, lk) < 1:
+        raise ValueError("sparse_attention needs non-empty B, Lq, Lk")
+    out = torch.empty_like(q)
+    err = build.library().tenet_sparse_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
+        k_pos.data_ptr(), out.data_ptr(), build.dtype_code(q), b, lq, lk, hq,
+        hkv, d, sink, window, 0.0 if softcap is None else float(softcap),
+        1.0 / d ** 0.5, build.stream_of(q))
+    build.check_launch(err, "sparse_attention")
+    return out

@@ -1,0 +1,139 @@
+"""GQA attention with ternary projections: streaming (LPSA) prefill, full
+prefill and one-token decode, all through the ``sparse_attention`` kernel.
+
+Layer kinds: "attn" — global attention, sink + window under LPSA or full
+causal; "local" — sliding window (sink 0, window ``cfg.window``).  Tensor
+layout at these functions is the JAX package's: (B, L, H, D).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core import lpsa as lpsa_lib
+from repro_torch.kernels import ops
+from repro_torch.models import kvcache as KV
+from repro_torch.models import layers as L
+from repro_torch.models.ternary_linear import TernaryLinear, tlin_compact
+
+__all__ = ["FULL_SINK", "Attention", "kind_sink_window", "qkv_project",
+           "attn_prefill_streaming", "attn_prefill_full", "DecodeStep",
+           "decode_step_inputs", "attn_decode"]
+
+FULL_SINK = 1 << 30   # a sink beyond any position == full causal attention
+
+
+class Attention(nn.Module):
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        d, qd, kvd, tc = cfg.d_model, cfg.q_dim, cfg.kv_dim, cfg.ternary
+        self.wq = TernaryLinear(d, qd, tc, device)
+        self.wk = TernaryLinear(d, kvd, tc, device)
+        self.wv = TernaryLinear(d, kvd, tc, device)
+        self.wo = TernaryLinear(qd, d, tc, device)
+
+
+def kind_sink_window(cfg: ModelConfig, kind: str, serve_sparse: bool) -> tuple[int, int]:
+    """(sink, window) of a layer kind; serve_sparse turns LPSA on for globals."""
+    if kind == "local":
+        return 0, cfg.window
+    if cfg.lpsa is not None and serve_sparse:
+        return cfg.lpsa.sink, cfg.lpsa.window
+    return FULL_SINK, 0
+
+
+def qkv_project(p: Attention, cfg: ModelConfig, x: torch.Tensor):
+    """(B, L, D) -> q (B, L, Hq, Dh), k/v (B, L, Hkv, Dh); one DAS step of x
+    feeds all three projections."""
+    b, l, _ = x.shape
+    ca = tlin_compact(x, cfg.ternary)
+    hd = cfg.head_dim_
+    return (p.wq(x, ca).reshape(b, l, cfg.n_heads, hd),
+            p.wk(x, ca).reshape(b, l, cfg.n_kv_heads, hd),
+            p.wv(x, ca).reshape(b, l, cfg.n_kv_heads, hd))
+
+
+def _rope_fn(cfg: ModelConfig):
+    def f(x, pos):
+        cos, sin = L.rope(pos, cfg.head_dim_, cfg.rope_theta)
+        return L.apply_rope(x, cos, sin)
+    return f
+
+
+def attn_prefill_streaming(p: Attention, cfg: ModelConfig, x: torch.Tensor,
+                           kind: str):
+    """LPSA Algorithm-1 prefill -> (y (B, L, D), stream state for the ring)."""
+    sink, window = kind_sink_window(cfg, kind, True)
+    if sink >= FULL_SINK:
+        raise ValueError("streaming prefill needs a sparse pattern (lpsa/local)")
+    spec = lpsa_lib.LpsaSpec(sink=sink, window=window,
+                             chunk=cfg.lpsa.chunk if cfg.lpsa else 256)
+    o, state = lpsa_lib.lpsa_prefill(
+        x, lambda pack: qkv_project(p, cfg, pack), spec=spec,
+        num_q_heads=cfg.n_heads, num_kv_heads=cfg.n_kv_heads,
+        head_dim=cfg.head_dim_, rope=_rope_fn(cfg), softcap=cfg.attn_softcap,
+        attend=ops.sparse_attention)
+    b, l = x.shape[0], x.shape[1]
+    return p.wo(o.reshape(b, l, cfg.q_dim)), state
+
+
+def attn_prefill_full(p: Attention, cfg: ModelConfig, x: torch.Tensor,
+                      max_len: int):
+    """Full causal prefill -> (y (B, L, D), a full cache of max_len slots)."""
+    b, l, _ = x.shape
+    q, k, v = qkv_project(p, cfg, x)
+    pos = torch.arange(l, device=x.device)
+    rp = _rope_fn(cfg)
+    q, k = rp(q, pos), rp(k, pos)
+    pos_b = pos.to(torch.int32)[None].expand(b, l).contiguous()
+    o = ops.sparse_attention(q, k, v, pos_b, pos_b, sink=FULL_SINK, window=0,
+                             softcap=cfg.attn_softcap)
+    cache = KV.init_cache(cfg, KV.CacheSpec("full", b, max_len=max_len,
+                                            dtype=x.dtype), x.device)
+    cache["k"][:, :l] = k
+    cache["v"][:, :l] = v
+    cache["pos"][:, :l] = pos_b
+    return p.wo(o.reshape(b, l, cfg.q_dim)), cache
+
+
+class DecodeStep(NamedTuple):
+    """What every layer of one decode step shares (decode_step_inputs)."""
+    t: torch.Tensor        # (B,) int64 absolute positions
+    q_pos: torch.Tensor    # (B, 1) int32 query positions for the kernel
+    rows: torch.Tensor     # (B,) int64 batch rows
+    rope_cs: tuple         # RoPE cos, sin (B, 1, Dh/2)
+    slots: dict            # layer kind -> (B,) cache slot of position t
+
+
+def decode_step_inputs(cfg: ModelConfig, t: torch.Tensor, kinds,
+                       serve_sparse: bool) -> DecodeStep:
+    """Positions, RoPE tables and cache slots of one decode step at positions
+    t (B,), computed once for all layers of ``kinds``."""
+    t = t.to(torch.int64)
+    slots = {}
+    for kind in set(kinds):
+        sink, window = kind_sink_window(cfg, kind, serve_sparse)
+        slots[kind] = KV.write_slot(t, sink=sink, window=window,
+                                    ring=sink < FULL_SINK)
+    return DecodeStep(t, t.to(torch.int32)[:, None],
+                      torch.arange(t.shape[0], device=t.device),
+                      L.rope(t[:, None], cfg.head_dim_, cfg.rope_theta), slots)
+
+
+def attn_decode(p: Attention, cfg: ModelConfig, x: torch.Tensor, cache: dict,
+                step: DecodeStep, kind: str, *, serve_sparse: bool = True):
+    """One-token decode.  x (B, 1, D) at the positions of ``step``; the cache
+    is updated in place.  Returns y (B, 1, D)."""
+    b = x.shape[0]
+    sink, window = kind_sink_window(cfg, kind, serve_sparse)
+    q, k, v = qkv_project(p, cfg, x)
+    q, k = L.apply_rope(q, *step.rope_cs), L.apply_rope(k, *step.rope_cs)
+    KV.attn_write(cache, k, v, step.q_pos[:, 0], step.slots[kind], step.rows)
+    k_all, v_all, k_pos = KV.attn_read(cache)
+    o = ops.sparse_attention(q, k_all, v_all, step.q_pos, k_pos, sink=sink,
+                             window=window, softcap=cfg.attn_softcap)
+    return p.wo(o.reshape(b, 1, cfg.q_dim))

@@ -1,0 +1,197 @@
+"""Public model API: TernaryLM, init / export, prefill, decode step, caches.
+
+``init_params`` draws master weights from a seeded ``torch.Generator`` into
+the JAX package's tree layout ({embed, final_norm, layers: {stacked, tail,
+shared}} with {"w"} leaves); ``export_serving`` quantizes and packs them and
+loads the result into a ``TernaryLM``.  ``TernaryLM.from_tree`` loads any
+serving tree in that layout — the port's own export, or the JAX package's
+through ``repro_torch.bridge`` — leaf path by leaf path.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import kvcache as KV
+from repro_torch.models import layers as L
+from repro_torch.models import transformer as T
+from repro_torch.models.ternary_linear import export_tlin, tlin_init
+
+__all__ = ["TernaryLM", "init_params", "export_serving", "flatten_tree",
+           "prefill", "decode_step", "init_caches"]
+
+
+class TernaryLM(nn.Module):
+    """Serving weights of a dense ternary LM with tied embeddings, on the
+    CUDA device unless ``device="cpu"``."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        if not cfg.tie_embeddings or cfg.frontend != "none":
+            raise NotImplementedError("the port serves token-input models with "
+                                      "tied embeddings")
+        dt = L.torch_dtype(cfg.dtype)
+        device = resolve_device(device)
+        self.cfg = cfg
+        self.register_buffer("embed", torch.zeros((cfg.vocab_padded, cfg.d_model),
+                                                  dtype=dt, device=device))
+        self.final_norm = L.RMSNorm(cfg.d_model, dt, device)
+        self.layers = nn.ModuleList(T.Block(cfg, kind, dt, device)
+                                    for kind in cfg.layer_kinds())
+        # logits past `vocab` are padding rows: masked out
+        bias = torch.where(torch.arange(cfg.vocab_padded) < cfg.vocab, 0.0, -1e30)
+        self.register_buffer("vocab_bias", bias.to(device), persistent=False)
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+    @classmethod
+    def from_tree(cls, tree: dict, cfg: ModelConfig, device=None) -> "TernaryLM":
+        """A model on ``device`` holding the serving tree's tensors.
+
+        Every buffer must have a leaf of its shape and dtype at its path, and
+        every leaf a buffer; anything else raises."""
+        model = cls(cfg, device)
+        flat = flatten_tree(tree, cfg)
+        own = model.state_dict()
+        missing, extra = sorted(set(own) - set(flat)), sorted(set(flat) - set(own))
+        if missing or extra:
+            raise KeyError(f"serving tree does not match {cfg.name}: missing "
+                           f"{missing[:8]}, unexpected {extra[:8]}")
+        for name, buf in own.items():
+            src = flat[name]
+            if tuple(src.shape) != tuple(buf.shape) or src.dtype != buf.dtype:
+                raise ValueError(f"{name}: tree has {tuple(src.shape)} {src.dtype}, "
+                                 f"model wants {tuple(buf.shape)} {buf.dtype}")
+            buf.copy_(src)
+        return model
+
+
+def flatten_tree(tree: dict, cfg: ModelConfig) -> dict:
+    """{module-style name: leaf} of a serving tree in the JAX package's
+    layout; scan-stacked groups (leading group axis) are split per layer."""
+    lay = tree["layers"]
+    if lay.get("shared") is not None:
+        raise NotImplementedError("shared attention blocks are not ported")
+    blocks: list = []
+    if lay.get("stacked") is not None:
+        per_pos = lay["stacked"]
+        groups = _leaves(per_pos[0])[0].shape[0]
+        for g in range(groups):
+            for pos_tree in per_pos:
+                blocks.append(_map(lambda a, g=g: a[g], pos_tree))
+    blocks.extend(lay["tail"])
+    if len(blocks) != cfg.n_layers:
+        raise ValueError(f"tree holds {len(blocks)} layers, {cfg.name} has "
+                         f"{cfg.n_layers}")
+    out: dict = {}
+    _flatten({"embed": tree["embed"], "final_norm": tree["final_norm"]}, "", out)
+    for i, b in enumerate(blocks):
+        _flatten(b, f"layers.{i}.", out)
+    return out
+
+
+def _flatten(tree, prefix: str, out: dict) -> None:
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            _flatten(v, f"{prefix}{k}.", out)
+    elif tree is not None:
+        out[prefix[:-1]] = tree
+
+
+def _leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    return [tree]
+
+
+def _map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def init_params(cfg: ModelConfig, *, seed: int = 0, device=None) -> dict:
+    """Seeded random master weights in cfg.dtype, one tree per layer."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    dt = L.torch_dtype(cfg.dtype)
+    d, qd, kvd, f = cfg.d_model, cfg.q_dim, cfg.kv_dim, cfg.d_ff
+    zeros = lambda: {"scale": torch.zeros(d, dtype=dt, device=dev)}  # noqa: E731
+
+    def block() -> dict:
+        return {
+            "norm1": zeros(),
+            "attn": {"wq": tlin_init(gen, d, qd, dt),
+                     "wk": tlin_init(gen, d, kvd, dt),
+                     "wv": tlin_init(gen, d, kvd, dt),
+                     "wo": tlin_init(gen, qd, d, dt,
+                                     scale=(qd * 2 * cfg.n_layers) ** -0.5)},
+            "norm2": zeros(),
+            "ffn": {"w_gate": tlin_init(gen, d, f, dt),
+                    "w_in": tlin_init(gen, d, f, dt),
+                    "w_out": tlin_init(gen, f, d, dt,
+                                       scale=(f * 2 * cfg.n_layers) ** -0.5)},
+        }
+
+    embed = torch.randn((cfg.vocab_padded, d), generator=gen, device=dev) * 0.02
+    return {"embed": embed.to(dt), "final_norm": zeros(),
+            "layers": {"stacked": None,
+                       "tail": tuple(block() for _ in cfg.layer_kinds()),
+                       "shared": None}}
+
+
+def export_serving(params: dict, cfg: ModelConfig) -> TernaryLM:
+    """Master weights -> a TernaryLM with TWD-packed ternary linears, on the
+    master weights' device."""
+    def conv(tree):
+        if isinstance(tree, dict):
+            if "w" in tree:
+                return export_tlin(tree, cfg.ternary)
+            return {k: conv(v) for k, v in tree.items()}
+        if isinstance(tree, tuple):
+            return tuple(conv(v) for v in tree)
+        return tree
+    return TernaryLM.from_tree(conv(params), cfg, params["embed"].device)
+
+
+def _logits(model: TernaryLM, x: torch.Tensor) -> torch.Tensor:
+    cfg = model.cfg
+    lg = L.logits_from_embed(model.embed, model.final_norm(x), cfg.logit_softcap)
+    if cfg.vocab_padded > cfg.vocab:
+        lg = lg + model.vocab_bias
+    return lg
+
+
+def prefill(model: TernaryLM, tokens: torch.Tensor, *, max_len: int | None = None,
+            serve_sparse: bool = True):
+    """tokens (B, S) -> (last-position logits (B, V) float32, caches)."""
+    s = tokens.shape[1]
+    x = model.embed[tokens]
+    x, caches = T.stack_prefill(model.layers, model.cfg, x, serve_sparse=serve_sparse,
+                                max_len=max_len if max_len is not None else s + 1)
+    return _logits(model, x[:, -1:])[:, 0], caches
+
+
+def decode_step(model: TernaryLM, caches: list, tokens: torch.Tensor,
+                t: torch.Tensor, *, serve_sparse: bool = True):
+    """One token per sequence: tokens (B,), positions t (B,).  The caches
+    are updated in place and returned with the logits (B, V) float32."""
+    x = model.embed[tokens][:, None]
+    x = T.stack_decode(model.layers, model.cfg, x, caches, t,
+                       serve_sparse=serve_sparse)
+    return _logits(model, x)[:, 0], caches
+
+
+def init_caches(cfg: ModelConfig, batch: int, max_len: int, *, device=None,
+                dtype: torch.dtype | None = None, serve_sparse: bool = True) -> list:
+    """Empty decode caches, one dict per layer."""
+    dt = dtype if dtype is not None else L.torch_dtype(cfg.dtype)
+    return [KV.init_cache(cfg, T.layer_cache_spec(cfg, kind, batch, max_len, dt,
+                                                  serve_sparse=serve_sparse), device)
+            for kind in cfg.layer_kinds()]

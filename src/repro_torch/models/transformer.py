@@ -1,0 +1,108 @@
+"""Decoder blocks and the layer-stack loops for the dense attention kinds.
+
+A ``Block`` is rmsnorm -> attention -> residual -> rmsnorm -> gated FFN ->
+residual.  The JAX package scans stacked layer groups; here the stack is a
+loop over the model's ``ModuleList``.  Layer kinds "attn" and "local" are
+served; mamba, rwkv, gla and MoE wait for later slices (ROADMAP).
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+from torch.nn import functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as A
+from repro_torch.models import kvcache as KV
+from repro_torch.models.layers import RMSNorm
+from repro_torch.models.ternary_linear import TernaryLinear, tlin_compact
+
+__all__ = ["FFN", "Block", "ffn_apply", "block_prefill", "block_decode",
+           "layer_cache_spec", "stack_prefill", "stack_decode"]
+
+
+class FFN(nn.Module):
+    """Gated FFN: w_out(silu(w_gate x) * w_in x)."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        if cfg.ffn_kind != "gated" or cfg.act != "silu":
+            raise NotImplementedError(
+                f"ffn_kind {cfg.ffn_kind!r}, act {cfg.act!r}: the port serves "
+                f"the silu-gated FFN")
+        d, f, tc = cfg.d_model, cfg.d_ff, cfg.ternary
+        self.w_gate = TernaryLinear(d, f, tc, device)
+        self.w_in = TernaryLinear(d, f, tc, device)
+        self.w_out = TernaryLinear(f, d, tc, device)
+
+
+class Block(nn.Module):
+    def __init__(self, cfg: ModelConfig, kind: str, dtype: torch.dtype,
+                 device=None):
+        super().__init__()
+        if kind not in ("attn", "local") or cfg.moe is not None:
+            raise NotImplementedError(
+                f"layer kind {kind!r} (moe={cfg.moe is not None}): the port "
+                f"serves dense attn/local blocks")
+        self.kind = kind
+        self.norm1 = RMSNorm(cfg.d_model, dtype, device)
+        self.attn = A.Attention(cfg, device)
+        self.norm2 = RMSNorm(cfg.d_model, dtype, device)
+        self.ffn = FFN(cfg, device)
+
+
+def ffn_apply(p: FFN, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """gate and up share one DAS step of x."""
+    ca = tlin_compact(x, cfg.ternary)
+    h = F.silu(p.w_gate(x, ca)) * p.w_in(x, ca)
+    return p.w_out(h)
+
+
+def block_prefill(bp: Block, cfg: ModelConfig, x: torch.Tensor, *,
+                  serve_sparse: bool, max_len: int):
+    """-> (x, cache) with the cache ready for decode at position L."""
+    xin = bp.norm1(x)
+    sink, window = A.kind_sink_window(cfg, bp.kind, serve_sparse)
+    if sink < A.FULL_SINK:
+        y, state = A.attn_prefill_streaming(bp.attn, cfg, xin, bp.kind)
+        cache = KV.ring_from_stream(cfg, state, sink=sink, window=window)
+    else:
+        y, cache = A.attn_prefill_full(bp.attn, cfg, xin, max_len)
+    x = x + y
+    return x + ffn_apply(bp.ffn, cfg, bp.norm2(x)), cache
+
+
+def block_decode(bp: Block, cfg: ModelConfig, x: torch.Tensor, cache: dict,
+                 step: A.DecodeStep, *, serve_sparse: bool) -> torch.Tensor:
+    """One token per sequence at the positions of ``step``; the cache
+    updates in place."""
+    x = x + A.attn_decode(bp.attn, cfg, bp.norm1(x), cache, step, bp.kind,
+                          serve_sparse=serve_sparse)
+    return x + ffn_apply(bp.ffn, cfg, bp.norm2(x))
+
+
+def layer_cache_spec(cfg: ModelConfig, kind: str, batch: int, max_len: int,
+                     dtype: torch.dtype, *, serve_sparse: bool) -> KV.CacheSpec:
+    sink, window = A.kind_sink_window(cfg, kind, serve_sparse)
+    if sink < A.FULL_SINK:
+        return KV.CacheSpec("ring", batch, sink=sink, window=window, dtype=dtype)
+    return KV.CacheSpec("full", batch, max_len=max_len, dtype=dtype)
+
+
+def stack_prefill(layers: nn.ModuleList, cfg: ModelConfig, x: torch.Tensor, *,
+                  serve_sparse: bool, max_len: int):
+    caches = []
+    for bp in layers:
+        x, c = block_prefill(bp, cfg, x, serve_sparse=serve_sparse,
+                             max_len=max_len)
+        caches.append(c)
+    return x, caches
+
+
+def stack_decode(layers: nn.ModuleList, cfg: ModelConfig, x: torch.Tensor,
+                 caches: list, t: torch.Tensor, *, serve_sparse: bool) -> torch.Tensor:
+    step = A.decode_step_inputs(cfg, t, [bp.kind for bp in layers], serve_sparse)
+    for bp, c in zip(layers, caches):
+        x = block_decode(bp, cfg, x, c, step, serve_sparse=serve_sparse)
+    return x

@@ -1,0 +1,123 @@
+"""Request queue for the continuous-batching engine.
+
+A copy of the JAX package's ``serve/scheduler.py`` (pure Python) less the
+deadline scheduler, which waits for the serving-periphery slice.  Time is
+virtual: one unit = one batched decode step.  ``FifoScheduler`` orders by
+priority then arrival, with **aging**: a request's effective priority decays
+by one level per ``aging_steps`` of queue wait, which reduces to the static
+heap key ``priority * aging_steps + arrival`` (``aging_steps=0`` keeps the
+strict, starvation-prone order).
+"""
+
+from __future__ import annotations
+
+import heapq
+import itertools
+from dataclasses import dataclass, field
+from typing import Any
+
+__all__ = ["Request", "FifoScheduler"]
+
+
+@dataclass(frozen=True)
+class Request:
+    """One generation request.
+
+    prompt: (P,) integer token ids.  temperature 0 = greedy, the only
+    sampling the port serves yet.  priority: lower runs first (ties by
+    arrival, then submission order).  eos_id ends the request when sampled.
+    """
+    uid: int
+    prompt: Any
+    max_new_tokens: int
+    temperature: float = 0.0
+    eos_id: int | None = None
+    arrival: int = 0
+    priority: int = 0
+
+    @property
+    def prompt_len(self) -> int:
+        return int(self.prompt.shape[0])
+
+
+@dataclass
+class FifoScheduler:
+    """Aged priority-then-arrival FIFO over future-dated requests.
+
+    `pop_ready(now)` only releases requests whose arrival time has passed,
+    so a replayed trace admits requests exactly when they "arrive" even
+    though the whole trace is submitted up front.  Two heaps: future-dated
+    entries wait in an arrival-ordered heap and migrate to the ready heap
+    as the clock passes them — amortized O(log N) per request.
+
+    Aging: with ``aging_steps = A > 0`` a request's effective priority at
+    time ``now`` is ``priority - (now - arrival) / A``.  Comparing two
+    requests, ``p_i - (now - a_i)/A < p_j - (now - a_j)/A`` iff
+    ``p_i*A + a_i < p_j*A + a_j`` — time cancels, so the heap key
+    ``(priority*A + arrival, priority, arrival)`` implements continuous
+    aging without ever re-keying the heap.  A starved low-priority request
+    therefore overtakes a fresh high-priority one after waiting
+    ``A * (priority gap)`` steps.  ``aging_steps = 0`` keeps the legacy
+    strict ``(priority, arrival)`` order (starvation-prone under a
+    saturating high-priority stream).
+    """
+    aging_steps: int = 64
+    _future: list = field(default_factory=list)   # (arrival, tie, req)
+    _ready: list = field(default_factory=list)    # (rank, tie, req)
+    _tie: itertools.count = field(default_factory=itertools.count)
+    # O(1) next_arrival: a monotone lower bound on the ready entries'
+    # arrivals, maintained at migration time and cleared when the ready
+    # heap drains.  Every ready entry's arrival had already passed when it
+    # migrated, so the bound (like the exact min) is always <= the current
+    # clock — the idle fast-forward `vtime = max(vtime, next_arrival())`
+    # behaves identically without rescanning the heap per idle tick.
+    _ready_min_arrival: int | None = None
+
+    def _rank(self, req: Request) -> tuple:
+        if self.aging_steps:
+            return (req.priority * self.aging_steps + req.arrival,
+                    req.priority, req.arrival)
+        return (req.priority, req.arrival)
+
+    def add(self, req: Request) -> None:
+        heapq.heappush(self._future, (req.arrival, next(self._tie), req))
+
+    def _migrate(self, now: int) -> None:
+        while self._future and self._future[0][0] <= now:
+            arrival, tie, req = heapq.heappop(self._future)
+            heapq.heappush(self._ready, (self._rank(req), tie, req))
+            if self._ready_min_arrival is None \
+                    or arrival < self._ready_min_arrival:
+                self._ready_min_arrival = arrival
+
+    def pop_ready(self, now: int) -> Request | None:
+        """Best admissible request (arrival <= now), else None.
+        Future-dated entries never block admissible ones."""
+        self._migrate(now)
+        if self._ready:
+            req = heapq.heappop(self._ready)[-1]
+            if not self._ready:
+                self._ready_min_arrival = None
+            return req
+        return None
+
+    def next_arrival(self) -> int | None:
+        """Earliest arrival among queued requests (for idle fast-forward).
+
+        O(1): when the ready heap is non-empty this returns a lower bound
+        on its arrivals (exact until the entry holding the minimum pops);
+        since every ready arrival has already passed, any such bound leaves
+        `max(vtime, next_arrival())` unchanged — only the future-heap head,
+        which is exact, ever moves the clock."""
+        cands = []
+        if self._ready and self._ready_min_arrival is not None:
+            cands.append(self._ready_min_arrival)
+        if self._future:
+            cands.append(self._future[0][0])
+        return min(cands, default=None)
+
+    def __len__(self) -> int:
+        return len(self._future) + len(self._ready)
+
+    def __bool__(self) -> bool:
+        return bool(self._future or self._ready)

@@ -1,0 +1,65 @@
+"""The package boundary of the port, checked in a fresh interpreter.
+
+Importing every ``repro_torch`` module and chip_smoke.py's module-level
+imports must pull in neither JAX nor any module of the JAX package, and
+without a CUDA device the entry points must refuse to start unless the
+caller asks for the CPU.
+"""
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+_PROBE = r"""
+import importlib, pkgutil, sys
+import numpy as np
+import torch
+import repro_torch
+for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
+    importlib.import_module(m.name)
+import chip_smoke  # module-level imports only; main() is not run
+leaked = sorted(k for k in sys.modules
+                if k.split(".")[0] in ("jax", "jaxlib", "repro"))
+assert not leaked, f"the port imported {leaked}"
+assert not torch.cuda.is_available()
+
+from repro_torch.configs import get_config, reduced
+from repro_torch.models import model as MD
+from repro_torch.serve import ServeEngine
+cfg = reduced(get_config("bitnet-1.3b"))
+for call in (lambda: MD.TernaryLM(cfg), lambda: MD.init_params(cfg),
+             lambda: ServeEngine(MD.TernaryLM(cfg, "cpu"))):
+    try:
+        call()
+    except RuntimeError as e:
+        assert "device='cpu'" in str(e), e
+    else:
+        raise AssertionError("started without CUDA and without device='cpu'")
+eng = ServeEngine(MD.TernaryLM(cfg, "cpu"), device="cpu")
+assert eng.device.type == "cpu"
+print("BOUNDARY-OK")
+"""
+
+
+def test_port_imports_no_jax_and_needs_cuda_or_cpu_request():
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=os.pathsep.join([str(ROOT / "src"), str(ROOT)]))
+    res = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert "BOUNDARY-OK" in res.stdout
+
+
+def test_chip_smoke_fails_without_cuda(tmp_path):
+    """Alone in a directory, or without a card, the smoke script exits
+    non-zero and prints no result line."""
+    (tmp_path / "chip_smoke.py").write_text((ROOT / "chip_smoke.py").read_text())
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    for cwd, script in ((tmp_path, tmp_path / "chip_smoke.py"),
+                        (ROOT, ROOT / "chip_smoke.py")):
+        res = subprocess.run([sys.executable, str(script)], cwd=cwd, env=env,
+                             capture_output=True, text=True, timeout=300)
+        assert res.returncode != 0
+        assert '"ok": true' not in res.stdout

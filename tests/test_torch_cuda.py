@@ -1,0 +1,143 @@
+"""The port's CUDA kernels and model on a card, against their plain versions.
+
+Imports neither JAX nor the JAX package, so it runs on a GPU machine that
+has only PyTorch:
+
+    PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
+
+Every test takes the ``cuda`` fixture and skips without a card.
+Tolerances as in tests/test_kernels.py: 1e-4 for float32 GEMMs, 2e-2 for
+bfloat16, 3e-4 for attention, exact for masks and int8; the model 2e-4.
+"""
+import copy
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import get_config, reduced
+from repro_torch.core import das, twd
+from repro_torch.kernels import ops, ref
+from repro_torch.models import model as MD
+from repro_torch.serve import Request, ServeConfig, ServeEngine
+
+pytestmark = pytest.mark.cuda
+SCALE = 0.37
+
+
+@pytest.fixture()
+def cuda():
+    """The CUDA device with float32 matmuls in full precision, or a skip:
+    the kernels build and run only there."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU build)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _packed(rng, k, n, device):
+    trits = torch.from_numpy(rng.integers(-1, 2, size=(k, n)).astype(np.int8))
+    return twd.pack_ternary(trits, row_align=16).to(device)
+
+
+@pytest.mark.parametrize("m,k", [(4, 2048), (64, 5460), (3, 96)])
+def test_cuda_das_topk(cuda, rng, m, k):
+    x = torch.from_numpy(rng.integers(-3, 4, size=(m, k)).astype(np.float32)).to(cuda)
+    got = ops.das_topk(x, keep=16)
+    want = ref.das_topk_ref(x, keep=16, block=32)
+    for a, b in zip(got, want):
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("m,k,n,dtype", [(4, 2048, 2048, torch.bfloat16),
+                                         (9, 2048, 130, torch.float32)])
+def test_cuda_das_ternary_gemm(cuda, rng, m, k, n, dtype):
+    p = _packed(rng, k, n, cuda)
+    x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32)).to(cuda, dtype)
+    ca = das.das_compact(x, keep=16)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(ops.das_ternary_gemm(ca.values, ca.indices, p, SCALE),
+                               ref.das_ternary_gemm_ref(ca.values, ca.indices, p, SCALE),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("m,k,n,dtype", [(4, 5460, 2048, torch.bfloat16),
+                                         (5, 640, 256, torch.float32),
+                                         (8, 640, 256, torch.int8)])
+def test_cuda_ternary_gemm(cuda, rng, m, k, n, dtype):
+    p = _packed(rng, k, n, cuda)
+    if dtype == torch.int8:
+        x = torch.from_numpy(rng.integers(-127, 128, size=(m, k)).astype(np.int8)).to(cuda)
+        xs = torch.from_numpy((rng.random((m, 1)) + 0.5).astype(np.float32)).to(cuda)
+        assert torch.equal(ops.ternary_gemm(x, p, SCALE, xs),
+                           ref.ternary_gemm_ref(x, p, SCALE, xs))
+        return
+    x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32)).to(cuda, dtype)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(ops.ternary_gemm(x, p, SCALE),
+                               ref.ternary_gemm_ref(x, p, SCALE), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("hq,hkv,d,cap", [(8, 2, 64, None), (4, 4, 16, 30.0),
+                                          (4, 2, 80, None)])
+def test_cuda_sparse_attention(cuda, rng, hq, hkv, d, cap):
+    b, lq, lk = 2, 3, 40
+    mk = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(cuda)  # noqa: E731
+    q, k, v = mk(b, lq, hq, d), mk(b, lk, hkv, d), mk(b, lk, hkv, d)
+    qp = torch.tensor([[37, 38, 39], [5, 6, 7]], dtype=torch.int32, device=cuda)
+    kp = torch.arange(lk, dtype=torch.int32, device=cuda)[None].repeat(b, 1)
+    kp[1] = -1                                     # an empty batch row
+    torch.testing.assert_close(
+        ops.sparse_attention(q, k, v, qp, kp, sink=4, window=16, softcap=cap),
+        ref.sparse_attention_ref(q, k, v, qp, kp, sink=4, window=16, softcap=cap),
+        rtol=3e-4, atol=3e-4)
+
+
+def test_cuda_kernel_refuses_what_it_cannot_take(cuda):
+    x = torch.zeros((2, 64), device=cuda)
+    with pytest.raises(ValueError):
+        ops.das_topk(x, keep=8, block=16)             # the kernel ranks 32 lanes
+    with pytest.raises(ValueError):
+        ops.ternary_gemm(x, torch.zeros((8, 6), dtype=torch.uint8, device=cuda), SCALE)
+
+
+def test_cuda_model_matches_cpu(cuda):
+    """Reduced bitnet-1.3b: prefill + 8 decode steps through the kernels
+    agree with the same weights through the plain versions on the CPU, and
+    every kernel launched."""
+    cfg = reduced(get_config("bitnet-1.3b"))
+    m_cpu = MD.export_serving(MD.init_params(cfg, seed=3, device="cpu"), cfg)
+    m_gpu = copy.deepcopy(m_cpu).to(cuda)
+    prompt = torch.from_numpy(np.random.default_rng(3).integers(0, cfg.vocab, 48))[None]
+    ops.reset_launches()
+    lg_c, c_c = MD.prefill(m_cpu, prompt, max_len=64)
+    lg_g, c_g = MD.prefill(m_gpu, prompt.to(cuda), max_len=64)
+    torch.testing.assert_close(lg_g.cpu(), lg_c, rtol=0, atol=2e-4)
+    tok = int(lg_c.argmax())
+    for i in range(8):
+        t = torch.tensor([48 + i])
+        lg_c, _ = MD.decode_step(m_cpu, c_c, torch.tensor([tok]), t)
+        lg_g, _ = MD.decode_step(m_gpu, c_g, torch.tensor([tok], device=cuda), t.to(cuda))
+        torch.testing.assert_close(lg_g.cpu(), lg_c, rtol=0, atol=2e-4)
+        assert int(lg_g.argmax()) == int(lg_c.argmax())
+        tok = int(lg_c.argmax())
+    # reduced d_ff = 128 divides 32, so the down projection is compacted too
+    assert all(ops.launches[k] > 0 for k in ("das_topk", "das_ternary_gemm",
+                                             "sparse_attention"))
+
+
+def test_cuda_engine_batch_invariance(cuda):
+    cfg = reduced(get_config("bitnet-1.3b"))
+    model = MD.export_serving(MD.init_params(cfg, seed=4, device=cuda), cfg)
+    rng = np.random.default_rng(4)
+    reqs = [Request(uid=i, prompt=rng.integers(0, cfg.vocab, p), max_new_tokens=6,
+                    arrival=i) for i, p in enumerate((40, 16, 9))]
+    eng = ServeEngine(model, ServeConfig(max_slots=2, max_len=64), device="cuda")
+    for r in reqs:
+        eng.submit(r)
+    batched = eng.run()
+    eng.submit(Request(uid=9, prompt=reqs[2].prompt, max_new_tokens=6))
+    assert eng.run()[9].tokens.tolist() == batched[2].tokens.tolist()
