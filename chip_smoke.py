@@ -5,15 +5,23 @@
 
 Phases:
   device   require CUDA; print the card's name and power limit (nvidia-smi)
-  build    build the four CUDA kernels from src/repro_torch/kernels/csrc
+  build    build the six CUDA kernels from src/repro_torch/kernels/csrc
   kernels  hold each kernel against its plain PyTorch version on the card, at
-           the serving path's shapes and a few small GQA / soft-cap /
+           the serving paths' shapes and a few small GQA / soft-cap /
            empty-slot / int8 cases, each max error beside its tolerance
-  serve    full-width bitnet-1.3b (seeded random weights): a ServeEngine with
-           4 slots serves 5 staggered greedy requests (one prompt wraps the
-           1024-slot ring); checks token counts, the kernels' launch counts,
-           finite logits, bitwise batch invariance, and a reduced-size model
-           on the card against the same model on the CPU
+  serve    full-width bitnet-1.3b (seeded random weights) on three paths, each
+           driven with the launch counts at 0 and read after it:
+             packed    base-3 packed weights: a ServeEngine with 4 slots
+                       serves 5 staggered greedy requests (one prompt wraps
+                       the 1024-slot ring);
+             int8w     serve_format "int8": the trits are twd_decode of the
+                       packed weights (checked equal to the int8 export), then
+                       the same trace through das_gemv;
+             baseline  int8 trits, no DAS, no LPSA (full caches): 2 requests;
+           each checks token counts, the kernels' launch counts, finite
+           logits and bitwise batch invariance; packed and int8w also a
+           reduced-size model on the card against the CPU; then the decode
+           step of packed and int8w under torch.profiler, in turns
   times    each kernel at its decode shape: CUDA-event median beside its
            bound, its plain version and one PyTorch call of the same function
 
@@ -26,6 +34,7 @@ from __future__ import annotations
 
 import argparse
 import copy
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -51,6 +60,10 @@ KERNEL_INFO = {
                      "src/repro/kernels/ternary_gemm.py:133"),
     "sparse_attention": ("src/repro_torch/kernels/csrc/sparse_attn.cu",
                          "src/repro/kernels/sparse_attn.py:97"),
+    "twd_decode": ("src/repro_torch/kernels/csrc/twd_decode.cu",
+                   "src/repro/kernels/ternary_gemm.py:60"),
+    "das_gemv": ("src/repro_torch/kernels/csrc/das_gemv.cu",
+                 "src/repro/kernels/das_gemm.py:90"),
 }
 
 TOL_F32_GEMM, TOL_BF16, TOL_F32_ATTN = 1e-4, 2e-2, 3e-4
@@ -66,7 +79,7 @@ class Smoke:
         self.dev = torch.device("cuda")
         self.seed = seed
         self.errs: dict[str, float] = {}       # kernel -> max error at its timed shape
-        self.launches: dict[str, int] = {}
+        self.launches: dict[str, int] = {name: 0 for name in KERNEL_INFO}  # summed over paths
         self.timed: dict[str, dict] = {}
 
     # -- helpers -----------------------------------------------------------
@@ -114,9 +127,11 @@ class Smoke:
         from repro_torch.core import das as das_lib
         from repro_torch.kernels import ref
         from repro_torch.kernels.das_gemm import das_ternary_gemm_cuda
+        from repro_torch.kernels.das_gemv import das_gemv_cuda
         from repro_torch.kernels.sparse_attn import sparse_attention_cuda
         from repro_torch.kernels.ternary_gemm import ternary_gemm_cuda
         from repro_torch.kernels.topk_mask import das_topk_cuda
+        from repro_torch.kernels.twd_decode import twd_decode_cuda
         g = self.gen(self.seed + 1)
         bf16, f32 = torch.bfloat16, torch.float32
         scale = torch.tensor(0.37, device=self.dev)
@@ -173,6 +188,39 @@ class Smoke:
             if (m, k, n, dt) == (4, 5460, 2048, bf16):
                 self.errs["ternary_gemm"] = err
 
+        # twd_decode: every projection shape's packed rows -> trits (exact)
+        for k, n in ((2048, 2048), (2048, 5460), (5460, 2048)):
+            packed = self._packed(g, k, n)
+            err = self.check(f"twd_decode ({packed.shape[0]},{n}) -> ({k},{n})",
+                             twd_decode_cuda(packed, k), ref.twd_decode_ref(packed, k),
+                             0, True)
+            if (k, n) == (2048, 5460):
+                self.errs["twd_decode"] = err
+
+        # das_gemv: the int8w projections (compacted rows, dense rows with the
+        # 20-lane tail of the down projection) and the baseline's (DAS off),
+        # at decode and at a 256-row prefill pack
+        for form, k, n in (("compact", 2048, 2048), ("compact", 2048, 5460),
+                           ("dense", 5460, 2048), ("off", 2048, 5460),
+                           ("off", 5460, 2048)):
+            w = torch.randint(-1, 2, (k, n), generator=g, device=self.dev).to(torch.int8)
+            for m in (4, 256):
+                for dt in (f32, bf16):
+                    x = torch.randn((m, k), generator=g, device=self.dev).to(dt)
+                    if form == "compact":
+                        ca = das_lib.das_compact(x, block_size=32, keep=16)
+                        vals, idx = ca.values, ca.indices
+                    elif form == "dense":
+                        vals, idx = das_lib.das_apply(x, das_lib.das_mask(x, keep=16)), None
+                    else:
+                        vals, idx = x, None
+                    tol = TOL_BF16 if dt == bf16 else TOL_F32_GEMM
+                    err = self.check(f"das_gemv {form} {dt} ({m},{vals.shape[1]} of {k})"
+                                     f"x({k},{n})", das_gemv_cuda(vals, idx, w, scale),
+                                     ref.das_gemv_ref(vals, idx, w, scale), tol)
+                    if (form, m, k, n, dt) == ("compact", 4, 2048, 5460, bf16):
+                        self.errs["das_gemv"] = err
+
         # sparse_attention: ring decode, prefill pack, GQA, soft-cap, empty row
         def attn_case(label, b, lq, lk, hq, hkv, d, dt, q_pos, k_pos, sink, window,
                       cap=None, tol=TOL_BF16):
@@ -220,20 +268,20 @@ class Smoke:
 
     def phase_serve(self):
         torch = self.torch
-        from repro_torch.configs import get_config, reduced
-        from repro_torch.kernels import ops
+        from repro_torch.configs import get_config
         from repro_torch.models import model as MD
-        from repro_torch.serve import Request, ServeConfig, ServeEngine
+        from repro_torch.serve import Request, ServeConfig
 
         cfg = get_config("bitnet-1.3b")
         t0 = time.perf_counter()
-        model = MD.export_serving(MD.init_params(cfg, seed=self.seed, device=self.dev), cfg)
+        params = MD.init_params(cfg, seed=self.seed, device=self.dev)
+        model = MD.export_serving(params, cfg)
         torch.cuda.synchronize()
         log(f"[serve] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, d_ff "
             f"{cfg.d_ff}, packed rows {model.layers[0].attn.wq.packed.shape[0]}/"
             f"{model.layers[0].ffn.w_out.packed.shape[0]}; init+export "
             f"{time.perf_counter() - t0:.1f} s")
-        gen_len, chunk = 32, cfg.lpsa.chunk
+        gen_len, chunk, n_l = 32, cfg.lpsa.chunk, cfg.n_layers
         prompt_lens = (1100, 300, 256, 40, 700)
         rng = torch.Generator().manual_seed(self.seed)
         prompts = [torch.randint(0, cfg.vocab, (p,), generator=rng).numpy()
@@ -241,21 +289,109 @@ class Smoke:
         trace = [Request(uid=i, prompt=p, max_new_tokens=gen_len, arrival=2 * i)
                  for i, p in enumerate(prompts)]
         sc = ServeConfig(max_slots=4, max_len=max(prompt_lens) + gen_len, seed=self.seed)
+        packs = [p // chunk for p in prompt_lens if p >= chunk]
+        zero = {name: 0 for name in KERNEL_INFO}
+
+        # path "packed": per decode step 4/6/1/1 launches per layer; per
+        # prefill of n packs, per layer n+3 / 3n+3 / 1 / n (q/k/v per pack;
+        # o, gate/up, down once)
+        def want_packed(steps):
+            return {**zero,
+                    "das_topk": n_l * (4 * steps + sum(n + 3 for n in packs)),
+                    "das_ternary_gemm": n_l * (6 * steps + sum(3 * n + 3 for n in packs)),
+                    "ternary_gemm": n_l * (steps + len(packs)),
+                    "sparse_attention": n_l * (steps + sum(packs))}
+
+        _, eng, res = self._serve_path("packed", lambda: model, trace, sc, want_packed)
+        lg_packed = self._finite_logits("packed", model, prompts[2][:chunk], sc.max_len)
+        self._batch_invariance("packed", eng, trace, res, (0, 3))
+        del eng
+        self._reduced_parity("packed", cfg, prompts[0])
+
+        # path "int8w": the trits come from twd_decode of the packed weights
+        # (7 per layer, in the path's count); per decode step 4/7/1 launches
+        # of das_topk/das_gemv/sparse_attention per layer, per prefill of n
+        # packs n+3 / 3n+4 / n; the packed GEMMs never launch
+        cfg8 = dataclasses.replace(cfg, ternary=dataclasses.replace(
+            cfg.ternary, serve_format="int8"))
+
+        def want_int8(steps):
+            return {**zero, "twd_decode": 7 * n_l,
+                    "das_topk": n_l * (4 * steps + sum(n + 3 for n in packs)),
+                    "das_gemv": n_l * (7 * steps + sum(3 * n + 4 for n in packs)),
+                    "sparse_attention": n_l * (steps + sum(packs))}
+
+        model8, eng, res = self._serve_path(
+            "int8w", lambda: MD.trits_from_packed(model, cfg8), trace, sc, want_int8)
+        exported = MD.export_serving(params, cfg8).state_dict()
+        for name, buf in model8.state_dict().items():
+            if not torch.equal(buf, exported[name]):
+                raise AssertionError(f"int8w: {name} differs from the int8 export")
+        n_trits = sum(b.numel() for k, b in exported.items() if k.endswith(".trits"))
+        log(f"[serve] int8w: {n_trits / 1e9:.3f} G trits from twd_decode equal the int8 "
+            f"export of the same master weights exactly")
+        del exported, params
+        lg8 = self._finite_logits("int8w", model8, prompts[2][:chunk], sc.max_len)
+        log(f"[serve] int8w vs packed prefill logits at full width: max abs diff "
+            f"{(lg8 - lg_packed).abs().max().item():.3e} (a diagnostic, not a gate)")
+        self._batch_invariance("int8w", eng, trace, res, (0, 3))
+        del eng
+        self._reduced_parity("int8w", cfg8, prompts[0])
+
+        # path "baseline": int8 trits, DAS off, full attention (no LPSA): a
+        # whole prompt prefills at admission; per decode step 7 das_gemv and
+        # 1 sparse_attention per layer, per prefill the same once
+        cfgb = dataclasses.replace(cfg8, ternary=dataclasses.replace(cfg8.ternary, das=None),
+                                   lpsa=None)
+        trace_b = [Request(uid=i, prompt=prompts[i][:16], max_new_tokens=16, arrival=i)
+                   for i in range(2)]
+        sc_b = ServeConfig(max_slots=4, max_len=32, seed=self.seed)
+
+        def want_base(steps):
+            return {**zero, "twd_decode": 7 * n_l,
+                    "das_gemv": n_l * 7 * (steps + len(trace_b)),
+                    "sparse_attention": n_l * (steps + len(trace_b))}
+
+        model_b, eng, res = self._serve_path(
+            "baseline", lambda: MD.trits_from_packed(model, cfgb), trace_b, sc_b, want_base)
+        self._finite_logits("baseline", model_b, prompts[2][:16], sc_b.max_len)
+        self._batch_invariance("baseline", eng, trace_b, res, (1,))
+        del eng, model_b
+
+        # where a decode step's time goes: packed and int8w in turns
+        turns = []
+        for label, m in (("packed", model), ("int8w", model8), ("int8w", model8),
+                         ("packed", model)):
+            turns.append((label, self._profile_decode(label, m, sc, prompts)))
+        log("[profile] turns (decode ms/step by CUDA events, device busy ms/step): " + ", ".join(
+            f"{label} {r['ms_step']:.3f} / {r['busy_ms_step']}" for label, r in turns))
+        del model, model8
+        torch.cuda.empty_cache()
+
+    def _serve_path(self, label, load, trace, sc, want_fn):
+        """Load a model and serve ``trace`` with the launch counts set to 0
+        just before and read just after; check the counts against
+        ``want_fn(decode steps)`` and every request's token count.
+        Returns (model, engine, results)."""
+        torch = self.torch
+        from repro_torch.kernels import ops
+        from repro_torch.serve import ServeEngine
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()                   # the path starts here
+        model = load()
         eng = ServeEngine(model, sc, device="cuda")
         for r in trace:
             eng.submit(r)
-        torch.cuda.reset_peak_memory_stats()
-        torch.cuda.synchronize()
-        ops.reset_launches()                   # the main path starts here
         ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         ev0.record()
         results = eng.run()
         ev1.record()
         torch.cuda.synchronize()
-        self.launches = dict(ops.launches)     # ... and ends here
+        counts = dict(ops.launches)            # ... and ends here
         st = eng.stats
         run_ms = ev0.elapsed_time(ev1)
-        log(f"[serve] {len(results)} requests, {st.decode_steps} decode steps, "
+        log(f"[serve] {label}: {len(results)} requests, {st.decode_steps} decode steps, "
             f"{st.generated_tokens} tokens, {st.prefill_tokens} prefill tokens; run "
             f"{run_ms:.1f} ms (CUDA events), decode {1e3 * st.decode_seconds / st.decode_steps:.3f}"
             f" ms/step (host clock, each step ends in a device sync), "
@@ -264,58 +400,62 @@ class Smoke:
             f"peak memory {torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
         for r in trace:
             got = results[r.uid].tokens
-            if len(got) != gen_len:
-                raise AssertionError(f"request {r.uid}: {len(got)} tokens, want {gen_len}")
-            log(f"[serve] req {r.uid}: prompt {r.prompt_len}, ttft "
+            if len(got) != r.max_new_tokens:
+                raise AssertionError(f"{label} request {r.uid}: {len(got)} tokens, "
+                                     f"want {r.max_new_tokens}")
+            log(f"[serve] {label} req {r.uid}: prompt {r.prompt_len}, ttft "
                 f"{results[r.uid].ttft_steps} steps, ids {got[:8].tolist()}...")
+        want = want_fn(st.decode_steps)
+        log(f"[serve] {label} launches on the path: {counts} (expected {want})")
+        if counts != want:
+            raise AssertionError(f"{label}: launch counts differ from the path's structure")
+        for name, n in counts.items():
+            self.launches[name] += n
+        return model, eng, results
 
-        # launches: per decode step 4/6/1/1 per layer; per prefill of n packs,
-        # per layer n+3 / 3n+3 / 1 / n (q/k/v per pack; o, gate/up, down once)
-        n_l, steps = cfg.n_layers, st.decode_steps
-        packs = [p // chunk for p in prompt_lens if p >= chunk]
-        want = {"das_topk": n_l * (4 * steps + sum(n + 3 for n in packs)),
-                "das_ternary_gemm": n_l * (6 * steps + sum(3 * n + 3 for n in packs)),
-                "ternary_gemm": n_l * (steps + len(packs)),
-                "sparse_attention": n_l * (steps + sum(packs))}
-        log(f"[serve] launches on the main path: {self.launches} (expected {want})")
-        if self.launches != want:
-            raise AssertionError("launch counts differ from the path's structure")
-
-        # finite logits of the expected shape at full width
-        tok = torch.as_tensor(prompts[2][:chunk], dtype=torch.long, device=self.dev)[None]
-        logits, caches = MD.prefill(model, tok, max_len=sc.max_len)
+    def _finite_logits(self, label, model, prompt, max_len):
+        """Prefill ``prompt`` and decode one step: finite logits of the
+        expected shape.  Returns the prefill logits."""
+        torch = self.torch
+        from repro_torch.models import model as MD
+        cfg = model.cfg
+        tok = torch.as_tensor(prompt, dtype=torch.long, device=self.dev)[None]
+        logits, caches = MD.prefill(model, tok, max_len=max_len)
         lg2, _ = MD.decode_step(model, caches, logits.argmax(-1),
-                                torch.tensor([chunk], device=self.dev))
+                                torch.tensor([tok.shape[1]], device=self.dev))
         for name, lg in (("prefill", logits), ("decode", lg2)):
             if tuple(lg.shape) != (1, cfg.vocab_padded) or not bool(
                     torch.isfinite(lg[:, :cfg.vocab]).all()):
-                raise AssertionError(f"{name} logits: shape {tuple(lg.shape)} or not finite")
-        log(f"[serve] logits finite, shape {tuple(lg2.shape)}")
+                raise AssertionError(f"{label} {name} logits: shape {tuple(lg.shape)} "
+                                     f"or not finite")
+        log(f"[serve] {label} logits finite, shape {tuple(lg2.shape)}")
+        return logits
 
-        # batch invariance: re-served alone, a request gives the same tokens
-        for uid in (0, 3):
+    def _batch_invariance(self, label, eng, trace, batched, uids):
+        """Re-served alone, a request gives the same tokens, bit for bit."""
+        from repro_torch.serve import Request
+        for uid in uids:
             r = trace[uid]
-            eng.submit(Request(uid=100 + uid, prompt=r.prompt, max_new_tokens=gen_len))
+            eng.submit(Request(uid=100 + uid, prompt=r.prompt, max_new_tokens=r.max_new_tokens))
             alone = eng.run()[100 + uid].tokens
-            same = alone.tolist() == results[uid].tokens.tolist()
-            log(f"[serve] req {uid} re-served alone: bitwise "
+            same = alone.tolist() == batched[uid].tokens.tolist()
+            log(f"[serve] {label} req {uid} re-served alone: bitwise "
                 f"{'identical' if same else 'DIFFERENT'}")
             if not same:
-                raise AssertionError(f"request {uid} is not batch invariant")
-        del eng, caches
+                raise AssertionError(f"{label} request {uid} is not batch invariant")
 
-        # where a decode step's time goes: a decode-only trace (40-token
-        # prompts fed through the decode step) under torch.profiler
-        self._profile_decode(model, sc, prompts, ServeEngine, Request)
-        del model
-        torch.cuda.empty_cache()
-
-        # a reduced model on the card (kernels) against the CPU (plain versions)
+    def _reduced_parity(self, label, cfg, prompt_ids):
+        """A reduced model of ``cfg`` on the card (kernels) against the same
+        weights on the CPU (plain versions): prefill + 8 teacher-forced
+        decode steps within 2e-4, equal greedy tokens."""
+        torch = self.torch
+        from repro_torch.configs import reduced
+        from repro_torch.models import model as MD
         small = reduced(cfg)
         params = MD.init_params(small, seed=self.seed, device="cpu")
         m_cpu = MD.export_serving(params, small)
         m_gpu = copy.deepcopy(m_cpu).to(self.dev)
-        prompt = torch.as_tensor(prompts[0][:48] % small.vocab, dtype=torch.long)[None]
+        prompt = torch.as_tensor(prompt_ids[:48] % small.vocab, dtype=torch.long)[None]
         lg_c, c_c = MD.prefill(m_cpu, prompt, max_len=64)
         lg_g, c_g = MD.prefill(m_gpu, prompt.to(self.dev), max_len=64)
         err = (lg_g.cpu() - lg_c).abs().max().item()
@@ -328,15 +468,20 @@ class Smoke:
             err = max(err, (lg_g.cpu() - lg_c).abs().max().item())
             toks_c.append(int(lg_c.argmax()))
             toks_g.append(int(lg_g.argmax()))
-        log(f"[serve] reduced {small.name} f32, card vs CPU: prefill + 8 teacher-forced "
-            f"steps, max logit err {err:.2e} (tol 2e-4), greedy tokens "
+        log(f"[serve] {label} reduced {small.name} f32, card vs CPU: prefill + 8 "
+            f"teacher-forced steps, max logit err {err:.2e} (tol 2e-4), greedy tokens "
             f"{'equal' if toks_c == toks_g else 'DIFFERENT'}")
         if err > 2e-4 or toks_c != toks_g:
-            raise AssertionError("the card's reduced model disagrees with the CPU's")
+            raise AssertionError(f"{label}: the card's reduced model disagrees with the CPU's")
 
-    def _profile_decode(self, model, sc, prompts, ServeEngine, Request):
+    def _profile_decode(self, label, model, sc, prompts):
+        """A decode-only trace (40-token prompts fed through the decode step):
+        CUDA-event ms/step without the profiler, then the device busy time
+        per step under torch.profiler (None: not measured)."""
         torch = self.torch
         from torch.profiler import ProfilerActivity, profile
+
+        from repro_torch.serve import Request, ServeEngine
         eng = ServeEngine(model, sc, device="cuda")
 
         def submit():
@@ -352,9 +497,9 @@ class Smoke:
         eng.run()                                   # no prefill: decode steps only
         ev1.record()
         torch.cuda.synchronize()
-        log(f"[profile] decode-only trace without the profiler: "
-            f"{ev0.elapsed_time(ev1) / (eng.stats.decode_steps - steps0):.3f} ms/step "
-            f"(CUDA events around the run), 4 active slots")
+        ms_step = ev0.elapsed_time(ev1) / (eng.stats.decode_steps - steps0)
+        log(f"[profile] {label} decode-only trace without the profiler: {ms_step:.3f} "
+            f"ms/step (CUDA events around the run), 4 active slots")
         submit()
         steps1 = eng.stats.decode_steps
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -374,9 +519,9 @@ class Smoke:
                 by_name[e.key] = by_name.get(e.key, 0.0) + dt
         busy_us = sum(by_name.values())
         if not busy_us:
-            log("[profile] the profiler recorded no device time: not measured")
-            return
-        log(f"[profile] decode-only trace, {steps} steps under torch.profiler: wall "
+            log(f"[profile] {label}: the profiler recorded no device time: not measured")
+            return {"ms_step": ms_step, "busy_ms_step": None}
+        log(f"[profile] {label} decode-only trace, {steps} steps under torch.profiler: wall "
             f"{1e3 * wall / steps:.3f} ms/step, device busy {busy_us / 1e3 / steps:.3f} "
             f"ms/step, idle share {1 - busy_us / 1e6 / wall:.3f}")
         for name, dt in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
@@ -386,6 +531,7 @@ class Smoke:
         log("[profile] host: self CPU time per step, calls per step")
         for dt, count, name in host:
             log(f"[profile]   {dt / 1e3 / steps:8.4f} ms/step {count / steps:7.1f}  {name[:80]}")
+        return {"ms_step": ms_step, "busy_ms_step": busy_us / 1e3 / steps}
 
     def phase_times(self):
         torch = self.torch
@@ -393,9 +539,11 @@ class Smoke:
         from repro_torch.core import twd
         from repro_torch.kernels import ref
         from repro_torch.kernels.das_gemm import das_ternary_gemm_cuda
+        from repro_torch.kernels.das_gemv import das_gemv_cuda
         from repro_torch.kernels.sparse_attn import sparse_attention_cuda
         from repro_torch.kernels.ternary_gemm import ternary_gemm_cuda
         from repro_torch.kernels.topk_mask import das_topk_cuda
+        from repro_torch.kernels.twd_decode import twd_decode_cuda
         g = self.gen(self.seed + 2)
         bf16 = torch.bfloat16
         flush = torch.empty(64 << 20, dtype=torch.uint8, device=self.dev)  # > 50 MB L2
@@ -468,6 +616,39 @@ class Smoke:
             m * f * 2 + packed_d.numel() + m * n * 4 + 4, 2 * nnz * n, "bfloat16",
             f"x ({m},{f}) bf16 x packed {tuple(packed_d.shape)} (down)")
 
+        # the int8w path: the gate/up weight decoded to trits, and das_gemv on
+        # them; bytes count the trit rows that the 4 rows' kept lanes touch
+        row("twd_decode", lambda: twd_decode_cuda(packed, k),
+            lambda: ref.twd_decode_ref(packed, k), None,
+            packed.numel() + k * f, 2 * k * f, "float32",
+            f"packed {tuple(packed.shape)} -> trits ({k},{f}) (gate/up)")
+        trits = twd.unpack_ternary_arith(packed, k).contiguous()
+        trits_bf16 = trits.to(bf16)
+        dense_k = torch.zeros((m, k), dtype=bf16, device=self.dev)
+        dense_k.scatter_(1, ca.indices.long(), ca.values)
+        kept = torch.zeros(k, dtype=torch.bool, device=self.dev)
+        kept[ca.indices.long().flatten()] = True
+        row("das_gemv", lambda: das_gemv_cuda(ca.values, ca.indices, trits, scale),
+            lambda: ref.das_gemv_ref(ca.values, ca.indices, trits, scale),
+            lambda: torch.matmul(dense_k, trits_bf16),
+            m * kc * (2 + 4) + int(kept.sum()) * f + m * f * 4 + 4, 2 * m * kc * f,
+            "bfloat16", f"({m},{kc} of {k}) x trits ({k},{f}) bf16 (gate/up)")
+
+        # das_gemv at the other decode shapes of the int8w path, printed
+        xq = torch.randn((m, k), generator=g, device=self.dev).to(bf16)
+        caq = das_lib.das_compact(xq, block_size=32, keep=16)
+        trits_q = torch.randint(-1, 2, (k, n), generator=g, device=self.dev).to(torch.int8)
+        trits_dn = twd.unpack_ternary_arith(packed_d, f).contiguous()
+        for label, fn, nbytes in (
+                ("das_gemv (4,1024 of 2048)x(2048,2048) (q/k/v/o)",
+                 lambda: das_gemv_cuda(caq.values, caq.indices, trits_q, scale),
+                 m * kc * 6 + k * n + m * n * 4),
+                ("das_gemv dense (4,5460)x(5460,2048) (down)",
+                 lambda: das_gemv_cuda(xd, None, trits_dn, scale),
+                 m * f * 2 + f * n + m * n * 4)):
+            log(f"[times] decode {label}: {t_ms(fn) * 1e3:.1f} us, bound "
+                f"{nbytes / HBM_BYTES_PER_S * 1e6:.2f} us")
+
         # prefill shapes (a 256-token pack), printed for the breakdown
         xp = torch.randn((256, k), generator=g, device=self.dev).to(bf16)
         cap = das_lib.das_compact(xp, block_size=32, keep=16)
@@ -480,7 +661,13 @@ class Smoke:
                  256 * kc * 6 + packed.numel() + 256 * f * 4, 2 * 256 * kc * f),
                 ("ternary_gemm (256,5460)x(1104,2048)",
                  lambda: ternary_gemm_cuda(xpd, packed_d, scale),
-                 256 * f * 2 + packed_d.numel() + 256 * n * 4, 2 * 256 * f * n)):
+                 256 * f * 2 + packed_d.numel() + 256 * n * 4, 2 * 256 * f * n),
+                ("das_gemv (256,1024 of 2048)x(2048,5460)",
+                 lambda: das_gemv_cuda(cap.values, cap.indices, trits, scale),
+                 256 * kc * 6 + trits.numel() + 256 * f * 4, 2 * 256 * kc * f),
+                ("das_gemv dense (256,5460)x(5460,2048)",
+                 lambda: das_gemv_cuda(xpd, None, trits_dn, scale),
+                 256 * f * 2 + trits_dn.numel() + 256 * n * 4, 2 * 256 * f * n)):
             ms = t_ms(fn)
             bound = max(nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS["bfloat16"]) * 1e3
             log(f"[times] prefill {label}: {ms * 1e3:.1f} us, bound {bound * 1e3:.2f} us")

@@ -3,7 +3,8 @@
 The input is the tree that the JAX package's ``export_serving`` returns,
 with every leaf converted to a numpy array: dict/tuple nesting,
 ``{stacked, tail, shared}`` layers (stacked leaves carry a leading group
-axis), packed ``uint8`` + float32 ``scale`` ternary linears.  bfloat16
+axis), ternary linears as packed ``uint8`` or ``trits`` ``int8`` (the
+"int8" and "bf16" serve formats) + float32 ``scale``.  bfloat16
 leaves (numpy dtype named "bfloat16") are reinterpreted bit for bit.  This
 is how the tests run both packages on the same weights; the port itself
 never imports the JAX package.

@@ -24,7 +24,8 @@ from pathlib import Path
 import torch
 
 __all__ = ["BUILD_DIR", "library", "build", "dtype_code", "stream_of",
-           "check_launch", "last_build_seconds", "staged_rows_fit"]
+           "check_launch", "last_build_seconds", "staged_rows_fit",
+           "gemv_lanes_fit"]
 
 CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -46,6 +47,10 @@ _SIGNATURES = {
     # softcap, scale, stream
     "tenet_sparse_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                _I, _I, _I, _I, _F, _F, _P],
+    # packed, out, R, K, N, stream
+    "tenet_twd_decode": [_P, _P, _I, _I, _I, _P],
+    # values, dtype, indices (or null), trits, w_scale, out, M, Kc, K, N, stream
+    "tenet_das_gemv": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -140,6 +145,13 @@ def staged_rows_fit(rows: int) -> bool:
     packed rows (whole groups of 16, 5 lanes each, 4 bytes a lane) in the
     232,448 bytes of shared memory an H100 block may use (csrc/common.cuh)."""
     return -(-rows // 16) * 16 * 5 * 4 * 4 <= 232448
+
+
+def gemv_lanes_fit(k: int) -> bool:
+    """Whether das_gemv can stage 4 rows of activations for K lanes (whole
+    256-lane tiles, 4 bytes a lane) beside its 8 KB trit tile in the 232,448
+    bytes of shared memory an H100 block may use (csrc/das_gemv.cu)."""
+    return -(-k // 256) * 256 * 4 * 4 + 8192 <= 232448
 
 
 def dtype_code(t: torch.Tensor) -> int:

@@ -31,6 +31,15 @@ __device__ __forceinline__ Acc convert(T v) { return static_cast<Acc>(to_f32(v))
 template <>
 __device__ __forceinline__ int convert<int, int8_t>(int8_t v) { return static_cast<int>(v); }
 
+// One base-3 digit of a packed byte, least significant first: the trit of
+// digit {0,1,2} -> {-1,0,+1}; v moves on to the next digit.  The padding
+// byte 121 (digits 1,1,1,1,1) gives five zero trits.
+__device__ __forceinline__ int next_trit(unsigned& v) {
+  const int t = (int)(v % 3u) - 1;
+  v /= 3u;
+  return t;
+}
+
 // ---------------------------------------------------------------------------
 // Packed ternary GEMM core, shared by ternary_gemm and das_ternary_gemm.
 //
@@ -79,8 +88,7 @@ __device__ __forceinline__ void packed_mac(const uint8_t* __restrict__ packed, i
       const Acc* xr = dense + (size_t)(r0 + g) * 5 * BM;
 #pragma unroll
       for (int d = 0; d < 5; ++d) {
-        const Acc w = (Acc)((int)(v % 3u) - 1);
-        v /= 3u;
+        const Acc w = (Acc)next_trit(v);
 #pragma unroll
         for (int m = 0; m < RPT; ++m) acc[m] += w * xr[d * BM + m];
       }

@@ -14,15 +14,19 @@ import torch
 
 from . import ref
 from .das_gemm import das_ternary_gemm_cuda
+from .das_gemv import das_gemv_cuda
 from .ref import DasTopK
 from .sparse_attn import sparse_attention_cuda
 from .ternary_gemm import ternary_gemm_cuda
 from .topk_mask import das_topk_cuda
+from .twd_decode import twd_decode_cuda
 
 __all__ = ["KERNELS", "launches", "reset_launches", "DasTopK", "das_topk",
-           "das_ternary_gemm", "ternary_gemm", "sparse_attention"]
+           "das_ternary_gemm", "ternary_gemm", "sparse_attention",
+           "twd_decode", "das_gemv"]
 
-KERNELS = ("das_topk", "das_ternary_gemm", "ternary_gemm", "sparse_attention")
+KERNELS = ("das_topk", "das_ternary_gemm", "ternary_gemm", "sparse_attention",
+           "twd_decode", "das_gemv")
 
 launches: dict[str, int] = {name: 0 for name in KERNELS}
 
@@ -91,4 +95,25 @@ def sparse_attention(q, k, v, q_pos, k_pos, *, sink: int, window: int,
     out = sparse_attention_cuda(q, k, v, q_pos, k_pos, sink=sink,
                                 window=window, softcap=softcap)
     launches["sparse_attention"] += 1
+    return out
+
+
+def twd_decode(packed: torch.Tensor, k: int) -> torch.Tensor:
+    """base-3 packed (R, N) uint8 -> int8 trits (k, N), k <= 5R."""
+    if not _on_cuda(packed):
+        return ref.twd_decode_ref(packed, k)
+    out = twd_decode_cuda(packed, k)
+    launches["twd_decode"] += 1
+    return out
+
+
+def das_gemv(values: torch.Tensor, indices: torch.Tensor | None,
+             trits: torch.Tensor, w_scale) -> torch.Tensor:
+    """(M, Kc) values at absolute lanes ``indices`` (None: dense rows, Kc ==
+    K) x int8 trits (K, N) -> (M, N) float32."""
+    w_scale = _scale(w_scale, trits)
+    if not _on_cuda(values, indices, trits):
+        return ref.das_gemv_ref(values, indices, trits, w_scale)
+    out = das_gemv_cuda(values, indices, trits, w_scale)
+    launches["das_gemv"] += 1
     return out

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the four CUDA kernels on the serving path.
+"""Plain PyTorch versions of the six CUDA kernels on the serving paths.
 
 Each function computes what its kernel computes, on any device, with
 PyTorch operators: the kernel wrappers (kernels/ops.py) take these for CPU
@@ -17,7 +17,8 @@ from repro_torch.core import twd
 from repro_torch.core.lpsa import lpsa_allowed
 
 __all__ = ["DasTopK", "das_topk_ref", "ternary_gemm_ref",
-           "das_ternary_gemm_ref", "sparse_attention_ref", "NEG_INF"]
+           "das_ternary_gemm_ref", "sparse_attention_ref", "twd_decode_ref",
+           "das_gemv_ref", "NEG_INF"]
 
 NEG_INF = -1e30
 
@@ -74,6 +75,29 @@ def das_ternary_gemm_ref(values: torch.Tensor, indices: torch.Tensor,
                         device=values.device)
     dense.scatter_(1, indices.long(), values.float())
     return (dense @ w) * w_scale
+
+
+def twd_decode_ref(packed: torch.Tensor, k: int) -> torch.Tensor:
+    """uint8 base-3 packed (R, N) -> int8 trits (k, N), k <= 5R (the JAX
+    oracle's LUT gather)."""
+    return twd.unpack_ternary(packed, k)
+
+
+def das_gemv_ref(values: torch.Tensor, indices: torch.Tensor | None,
+                 trits: torch.Tensor, w_scale: torch.Tensor | float) -> torch.Tensor:
+    """(M, Kc) values at distinct absolute lanes ``indices`` x int8 trits
+    (K, N) -> (M, N) float32; ``indices=None`` takes dense rows (Kc == K).
+
+    The JAX oracle gathers the kept weight rows of one token and dots; this
+    scatters each row's values to their dense lanes and multiplies with all
+    K rows — the same sum over the kept lanes, without an (M, Kc, N) gather."""
+    if indices is None:
+        dense = values.float()
+    else:
+        dense = torch.zeros((values.shape[0], trits.shape[0]), dtype=torch.float32,
+                            device=values.device)
+        dense.scatter_(1, indices.long(), values.float())
+    return (dense @ trits.float()) * w_scale
 
 
 def sparse_attention_ref(q, k, v, q_pos, k_pos, *, sink: int, window: int,

@@ -2,10 +2,13 @@
 
 ``init_params`` draws master weights from a seeded ``torch.Generator`` into
 the JAX package's tree layout ({embed, final_norm, layers: {stacked, tail,
-shared}} with {"w"} leaves); ``export_serving`` quantizes and packs them and
-loads the result into a ``TernaryLM``.  ``TernaryLM.from_tree`` loads any
-serving tree in that layout — the port's own export, or the JAX package's
-through ``repro_torch.bridge`` — leaf path by leaf path.
+shared}} with {"w"} leaves); ``export_serving`` quantizes them to the
+config's serve format (base-3 packed, or int8 trits) and loads the result
+into a ``TernaryLM``.  ``TernaryLM.from_tree`` loads any serving tree in
+that layout — the port's own export, or the JAX package's through
+``repro_torch.bridge`` — leaf path by leaf path.  ``trits_from_packed``
+turns a packed model into the int8-resident form on its device, through the
+``twd_decode`` kernel.
 """
 
 from __future__ import annotations
@@ -15,13 +18,15 @@ from torch import nn
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
 from repro_torch.models import kvcache as KV
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
-from repro_torch.models.ternary_linear import export_tlin, tlin_init
+from repro_torch.models.ternary_linear import (TRITS_FORMATS, TernaryLinear,
+                                               export_tlin, tlin_init)
 
-__all__ = ["TernaryLM", "init_params", "export_serving", "flatten_tree",
-           "prefill", "decode_step", "init_caches"]
+__all__ = ["TernaryLM", "init_params", "export_serving", "trits_from_packed",
+           "flatten_tree", "prefill", "decode_step", "init_caches"]
 
 
 class TernaryLM(nn.Module):
@@ -147,8 +152,8 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None) -> dict:
 
 
 def export_serving(params: dict, cfg: ModelConfig) -> TernaryLM:
-    """Master weights -> a TernaryLM with TWD-packed ternary linears, on the
-    master weights' device."""
+    """Master weights -> a TernaryLM whose ternary linears take the config's
+    serve format (TWD-packed or int8 trits), on the master weights' device."""
     def conv(tree):
         if isinstance(tree, dict):
             if "w" in tree:
@@ -158,6 +163,30 @@ def export_serving(params: dict, cfg: ModelConfig) -> TernaryLM:
             return tuple(conv(v) for v in tree)
         return tree
     return TernaryLM.from_tree(conv(params), cfg, params["embed"].device)
+
+
+def trits_from_packed(packed: TernaryLM, cfg: ModelConfig) -> TernaryLM:
+    """The int8-resident serving form of a packed model, on its device.
+
+    ``cfg`` has the packed model's shapes and serve format "int8" or "bf16"
+    (its DAS and LPSA settings may differ).  Every linear's trits are
+    ``ops.twd_decode`` of its packed weights, cut to d_in rows; the scales,
+    norms and embeddings are copied."""
+    if cfg.ternary.serve_format not in TRITS_FORMATS:
+        raise ValueError(f"serve_format {cfg.ternary.serve_format!r} holds no trits")
+    out = TernaryLM(cfg, packed.device)
+    src = packed.state_dict()
+    lins = {name: m for name, m in packed.named_modules()
+            if isinstance(m, TernaryLinear)}
+    for name, buf in out.state_dict().items():
+        mod, _, leaf = name.rpartition(".")
+        val = (ops.twd_decode(lins[mod].packed, buf.shape[0]) if leaf == "trits"
+               else src[name])
+        if val.shape != buf.shape:
+            raise ValueError(f"{name}: packed model gives {tuple(val.shape)}, "
+                             f"{cfg.name} wants {tuple(buf.shape)}")
+        buf.copy_(val)
+    return out
 
 
 def _logits(model: TernaryLM, x: torch.Tensor) -> torch.Tensor:

@@ -1,21 +1,33 @@
-"""TernaryLinear, serving half: base-3 packed weights behind the DAS kernels.
+"""TernaryLinear, serving half: ternary weights behind the DAS kernels.
 
-Export (``export_tlin``) quantizes a master weight (K, N) to trits and packs
-them along K with the packed rows padded to a multiple of 16 — the JAX
-package's export format.  The padding lanes decode to zero trits, so the
-kernels contract over all 5R lanes with zero activations past K and compute
-exactly the reference function; every projection of bitnet-1.3b therefore
-runs on a kernel (in the JAX package none reaches its Pallas GEMM at full
-width, since those require 5R == K).
+Two serving forms, chosen by ``TernaryConfig.serve_format``:
+
+  * "packed": base-3 packed (TWD, 1.6 bits/weight);
+  * "int8" and "bf16": int8-resident trits (d_in, d_out), one byte a weight
+    — the paper's naive INT8 baseline.  Both store the same int8 trits, as
+    in the JAX package's export.
+
+Export (``export_tlin``) quantizes a master weight (K, N) to trits; the
+packed form packs them along K with the packed rows padded to a multiple of
+16 — the JAX package's export format.  The padding lanes decode to zero
+trits, so the kernels contract over all 5R lanes with zero activations past
+K and compute exactly the reference function; every projection of
+bitnet-1.3b therefore runs on a kernel (in the JAX package none reaches its
+Pallas GEMM at full width, since those require 5R == K).
 
 Serving dispatch (``tlin_apply``), with DAS on:
 
-  * 32 | K:  DAS-compact (``das_topk``) -> ``das_ternary_gemm``;
-  * else:    DAS-mask with the dense tail (``das_topk``) -> ``ternary_gemm``;
+  * 32 | K:  DAS-compact (``das_topk``) -> ``das_ternary_gemm`` (packed)
+             or ``das_gemv`` (trits);
+  * else:    DAS-mask with the dense tail (``das_topk``) -> ``ternary_gemm``
+             (packed) or ``das_gemv`` on dense rows (trits);
 
-and ``ternary_gemm`` on the raw activations with DAS off.  ``tlin_compact``
+and the same GEMMs on the raw activations with DAS off.  ``tlin_compact``
 runs the DAS step once for projections that share an input (q/k/v,
-gate/up).  The output is cast back to x's dtype.
+gate/up).  The output is cast back to x's dtype.  The trits form applies
+the scale rounded to x's dtype, as the JAX package multiplies
+``trits.astype(x.dtype) * scale.astype(x.dtype)``; the packed form keeps
+the float32 scale, as the JAX package's packed path does.
 """
 
 from __future__ import annotations
@@ -28,26 +40,36 @@ from repro_torch.core import ternary as tq
 from repro_torch.core import twd
 from repro_torch.kernels import ops
 
-__all__ = ["ROW_ALIGN", "TernaryLinear", "tlin_init", "export_tlin",
-           "tlin_compact", "tlin_apply"]
+__all__ = ["ROW_ALIGN", "TRITS_FORMATS", "TernaryLinear", "tlin_init",
+           "export_tlin", "tlin_compact", "tlin_apply"]
 
 ROW_ALIGN = 16   # packed rows of an export are a multiple of this
+TRITS_FORMATS = ("int8", "bf16")   # serve formats that hold int8 trits
+
+
+def _check_format(tc: TernaryConfig) -> None:
+    if not tc.enabled or tc.serve_format not in ("packed", *TRITS_FORMATS):
+        raise NotImplementedError(
+            "the port serves ternary weights base-3 packed or as int8 trits "
+            f"(enabled={tc.enabled}, serve_format={tc.serve_format!r})")
 
 
 class TernaryLinear(nn.Module):
-    """Serving form of one ternary linear: ``packed`` (R, N) uint8 and the
-    float32 ``scale``, for a logical (d_in, d_out) weight."""
+    """Serving form of one ternary linear for a logical (d_in, d_out)
+    weight: ``packed`` (R, N) uint8 or ``trits`` (d_in, d_out) int8, by the
+    config's serve format, and the float32 ``scale``."""
 
     def __init__(self, d_in: int, d_out: int, tc: TernaryConfig, device=None):
         super().__init__()
-        if not tc.enabled or tc.serve_format != "packed":
-            raise NotImplementedError(
-                "the port serves base-3 packed ternary weights only "
-                f"(enabled={tc.enabled}, serve_format={tc.serve_format!r})")
+        _check_format(tc)
         self.d_in, self.d_out, self.tc = d_in, d_out, tc
-        rows = twd.packed_rows(d_in, ROW_ALIGN)
-        self.register_buffer("packed", torch.zeros((rows, d_out), dtype=torch.uint8,
-                                                   device=device))
+        if tc.serve_format == "packed":
+            rows = twd.packed_rows(d_in, ROW_ALIGN)
+            self.register_buffer("packed", torch.zeros((rows, d_out), dtype=torch.uint8,
+                                                       device=device))
+        else:
+            self.register_buffer("trits", torch.zeros((d_in, d_out), dtype=torch.int8,
+                                                      device=device))
         self.register_buffer("scale", torch.ones((), dtype=torch.float32,
                                                  device=device))
 
@@ -65,12 +87,14 @@ def tlin_init(gen: torch.Generator, d_in: int, d_out: int, dtype: torch.dtype,
 
 
 def export_tlin(p: dict, tc: TernaryConfig) -> dict:
-    """Master {"w"} -> serving {"packed" (R, N) uint8, "scale" float32}."""
-    if not tc.enabled or tc.serve_format != "packed":
-        raise NotImplementedError("the port exports base-3 packed weights only")
+    """Master {"w"} -> serving {"packed" (R, N) uint8 | "trits" (K, N) int8,
+    "scale" float32}."""
+    _check_format(tc)
     tw = tq.ternary_quantize(p["w"])
-    return {"packed": twd.pack_ternary(tw.values, row_align=ROW_ALIGN),
-            "scale": tw.scale}
+    if tc.serve_format == "packed":
+        return {"packed": twd.pack_ternary(tw.values, row_align=ROW_ALIGN),
+                "scale": tw.scale}
+    return {"trits": tw.values, "scale": tw.scale}
 
 
 def tlin_compact(x: torch.Tensor, tc: TernaryConfig) -> ops.DasTopK | None:
@@ -85,13 +109,21 @@ def tlin_apply(lin: TernaryLinear, x: torch.Tensor,
     """x (..., K) -> (..., N) in x's dtype; ``ca`` is a shared DAS step of x."""
     k = x.shape[-1]
     lead = x.shape[:-1]
-    if lin.tc.das is None:
-        y = ops.ternary_gemm(x.reshape(-1, k).contiguous(), lin.packed, lin.scale)
-    else:
+    if lin.tc.das is not None and ca is None:
+        ca = tlin_compact(x, lin.tc)
+    if lin.tc.serve_format == "packed":
         if ca is None:
-            ca = tlin_compact(x, lin.tc)
-        if ca.values is not None:
+            y = ops.ternary_gemm(x.reshape(-1, k).contiguous(), lin.packed, lin.scale)
+        elif ca.values is not None:
             y = ops.das_ternary_gemm(ca.values, ca.indices, lin.packed, lin.scale)
         else:
             y = ops.ternary_gemm(ca.dense, lin.packed, lin.scale)
+    else:
+        scale = lin.scale if x.dtype == torch.float32 else lin.scale.to(x.dtype).float()
+        if ca is None:
+            y = ops.das_gemv(x.reshape(-1, k).contiguous(), None, lin.trits, scale)
+        elif ca.values is not None:
+            y = ops.das_gemv(ca.values, ca.indices, lin.trits, scale)
+        else:
+            y = ops.das_gemv(ca.dense, None, lin.trits, scale)
     return y.reshape(*lead, y.shape[-1]).to(x.dtype)

@@ -10,6 +10,7 @@ Tolerances as in tests/test_kernels.py: 1e-4 for float32 GEMMs, 2e-2 for
 bfloat16, 3e-4 for attention, exact for masks and int8; the model 2e-4.
 """
 import copy
+import dataclasses
 
 import numpy as np
 import pytest
@@ -141,3 +142,71 @@ def test_cuda_engine_batch_invariance(cuda):
     batched = eng.run()
     eng.submit(Request(uid=9, prompt=reqs[2].prompt, max_new_tokens=6))
     assert eng.run()[9].tokens.tolist() == batched[2].tokens.tolist()
+
+
+@pytest.mark.parametrize("k,n,row_align", [(2048, 64, 16), (5460, 40, 16), (300, 7, 1)])
+def test_cuda_twd_decode(cuda, rng, k, n, row_align):
+    trits = torch.from_numpy(rng.integers(-1, 2, size=(k, n)).astype(np.int8))
+    packed = twd.pack_ternary(trits, row_align=row_align).to(cuda)
+    got = ops.twd_decode(packed, k)
+    assert torch.equal(got, ref.twd_decode_ref(packed, k))
+    assert torch.equal(got.cpu(), trits)
+
+
+@pytest.mark.parametrize("m,k,n,dtype,form", [
+    (4, 2048, 2048, torch.bfloat16, "compact"), (9, 2048, 130, torch.float32, "compact"),
+    (4, 5460, 256, torch.bfloat16, "dense"), (9, 5460, 64, torch.float32, "dense"),
+    (37, 640, 96, torch.float32, "off")])
+def test_cuda_das_gemv(cuda, rng, m, k, n, dtype, form):
+    """Compacted rows, DAS-masked dense rows with a tail (K = 5460) and raw
+    dense rows; decode (M <= 4), 8-row and 4-row tiles; N not a multiple of
+    4 (byte loads)."""
+    w = torch.from_numpy(rng.integers(-1, 2, size=(k, n)).astype(np.int8)).to(cuda)
+    x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32)).to(cuda, dtype)
+    if form == "compact":
+        ca = das.das_compact(x, keep=16)
+        vals, idx = ca.values, ca.indices
+    else:
+        vals = das.das_apply(x, das.das_mask(x, keep=16)) if form == "dense" else x
+        idx = None
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(ops.das_gemv(vals, idx, w, SCALE),
+                               ref.das_gemv_ref(vals, idx, w, SCALE), rtol=tol, atol=tol)
+
+
+def test_cuda_trits_kernels_refuse_what_they_cannot_take(cuda):
+    x = torch.zeros((2, 64), device=cuda)
+    with pytest.raises(ValueError):
+        ops.das_gemv(x, None, torch.zeros((32, 8), dtype=torch.int8, device=cuda), SCALE)
+    with pytest.raises(ValueError):
+        ops.twd_decode(torch.zeros((4, 8), dtype=torch.uint8, device=cuda), 21)
+
+
+def test_cuda_trits_model_matches_cpu(cuda):
+    """Reduced bitnet-1.3b served from int8 trits: the card's trits come from
+    twd_decode of the packed export and equal the int8 export; prefill + 8
+    decode steps through das_gemv agree with the CPU's plain versions."""
+    cfg = reduced(get_config("bitnet-1.3b"))
+    cfg8 = dataclasses.replace(cfg, ternary=dataclasses.replace(cfg.ternary,
+                                                                serve_format="int8"))
+    params = MD.init_params(cfg, seed=6, device="cpu")
+    m_cpu = MD.export_serving(params, cfg8)
+    ops.reset_launches()
+    m_gpu = MD.trits_from_packed(MD.export_serving(params, cfg).to(cuda), cfg8)
+    assert ops.launches["twd_decode"] == 7 * cfg.n_layers
+    for key, val in m_gpu.state_dict().items():
+        assert torch.equal(val.cpu(), m_cpu.state_dict()[key]), key
+    prompt = torch.from_numpy(np.random.default_rng(6).integers(0, cfg.vocab, 48))[None]
+    ops.reset_launches()
+    lg_c, c_c = MD.prefill(m_cpu, prompt, max_len=64)
+    lg_g, c_g = MD.prefill(m_gpu, prompt.to(cuda), max_len=64)
+    torch.testing.assert_close(lg_g.cpu(), lg_c, rtol=0, atol=2e-4)
+    tok = int(lg_c.argmax())
+    for i in range(8):
+        t = torch.tensor([48 + i])
+        lg_c, _ = MD.decode_step(m_cpu, c_c, torch.tensor([tok]), t)
+        lg_g, _ = MD.decode_step(m_gpu, c_g, torch.tensor([tok], device=cuda), t.to(cuda))
+        torch.testing.assert_close(lg_g.cpu(), lg_c, rtol=0, atol=2e-4)
+        assert int(lg_g.argmax()) == int(lg_c.argmax())
+        tok = int(lg_c.argmax())
+    assert ops.launches["das_gemv"] > 0 and ops.launches["das_ternary_gemm"] == 0

@@ -18,7 +18,7 @@ from test_torch_model import CONFIGS, jax_and_port
 
 
 def _trace(cfg, request_cls, seed=0):
-    c = cfg.lpsa.chunk
+    c = cfg.lpsa.chunk if cfg.lpsa else 16
     rng = np.random.default_rng(seed)
     spec = [(2 * c + c // 2, 6, 0), (c, 6, 1), (c // 2 + 1, 6, 3)]
     return [request_cls(uid=i, prompt=rng.integers(0, cfg.vocab, p).astype(np.int32),
@@ -111,3 +111,30 @@ def test_cli_reduced_on_cpu(capsys):
     assert "decode steps" in capsys.readouterr().out
     with pytest.raises(SystemExit):
         cli.main(["--arch", "gemma2-2b", "--device", "cpu"])
+
+
+@pytest.mark.parametrize("name", ["bitnet-reduced-int8", "baseline-reduced"])
+def test_trits_engine_tokens_match_jax(name):
+    """The int8-resident formats through the engine: tokens and virtual
+    times equal the JAX engine's on the staggered trace.  The baseline has
+    no LPSA, so every global layer keeps a full cache and a prompt prefills
+    whole at admission."""
+    jcfg, sparams, tcfg, model, mode = jax_and_port(name)
+    jeng = JServeEngine(jcfg, sparams, Runtime(),
+                        config=JServeConfig(max_slots=2, max_len=64, kernel_mode=mode))
+    for r in _trace(jcfg, JRequest):
+        jeng.submit(r)
+    want = jeng.run()
+    eng = ServeEngine(model, ServeConfig(max_slots=2, max_len=64), device="cpu")
+    for r in _trace(tcfg, Request):
+        eng.submit(r)
+    got = eng.run()
+    assert sorted(got) == sorted(want)
+    for uid in want:
+        np.testing.assert_array_equal(got[uid].tokens, want[uid].tokens,
+                                      err_msg=f"request {uid}")
+        assert got[uid].first_token_vtime == want[uid].first_token_vtime
+        assert got[uid].finish_vtime == want[uid].finish_vtime
+    if tcfg.lpsa is None:   # whole-prompt prefill into full caches
+        assert eng.stats.prefill_tokens == sum(len(r.prompt) for r in _trace(tcfg, Request))
+        assert all(c["k"].shape[1] == 64 for c in eng.caches)

@@ -8,17 +8,22 @@ versions on a card).  Tolerances as in tests/test_kernels.py: 1e-4 for
 float32 GEMMs, 2e-2 for bfloat16, 3e-4 for attention, exact for masks and
 int8.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.configs import base as jbase
 from repro.core import das as jdas
 from repro.core import twd as jtwd
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro.models import ternary_linear as jtlin
+from repro_torch.configs import base as tbase
 from repro_torch.core import das
 from repro_torch.kernels import ops
+from repro_torch.models.ternary_linear import TernaryLinear
 
 SCALE = 0.37
 
@@ -152,4 +157,105 @@ def test_cpu_dispatch_launches_nothing(rng):
     ca = ops.das_topk(x, keep=16)
     ops.das_ternary_gemm(ca.values, ca.indices,
                          torch.zeros((16, 8), dtype=torch.uint8), SCALE)
+    trits = ops.twd_decode(torch.zeros((16, 8), dtype=torch.uint8), 64)
+    ops.das_gemv(ca.values, ca.indices, trits, SCALE)
+    ops.das_gemv(x, None, trits, SCALE)
     assert ops.launches == {name: 0 for name in ops.KERNELS}
+    assert len(ops.KERNELS) == 6
+
+
+# -- the int8-resident trits path: twd_decode and das_gemv ------------------
+
+@pytest.mark.parametrize("k,n,row_align", [(320, 128, 1), (640, 256, 1), (1600, 512, 1),
+                                           (300, 128, 16), (2048, 64, 16)])
+def test_twd_decode_matches_jax_kernel(rng, k, n, row_align):
+    """The JAX op slices the kernel's 5R rows to k; row_align=16 is the
+    export's padded form (padding bytes decode to zero trits)."""
+    trits, packed = _packed(rng, k, n, row_align)
+    want = np.asarray(jops.twd_decode(jnp.asarray(packed), k, mode="interpret"))
+    got = ops.twd_decode(torch.from_numpy(packed), k).numpy()
+    assert got.dtype == np.int8
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, trits)
+    full = ops.twd_decode(torch.from_numpy(packed), 5 * packed.shape[0]).numpy()
+    assert full.shape == (5 * packed.shape[0], n) and not full[k:].any()
+
+
+def _compact_rows(rng, m, k, keep=16):
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    ca = jdas.das_compact(jnp.asarray(x), block_size=32, keep=keep)
+    return x, np.array(ca.values), np.array(ca.indices)
+
+
+@pytest.mark.parametrize("k,n", [(512, 256), (1024, 512), (2048, 256)])
+def test_das_gemv_matches_jax_kernel(rng, k, n):
+    """One token, as the Pallas kernel takes it (tests/test_kernels.py)."""
+    _, vals, idx = _compact_rows(rng, 1, k)
+    w = rng.integers(-1, 2, size=(k, n)).astype(np.int8)
+    want = np.asarray(jops.das_gemv(jnp.asarray(vals[0]), jnp.asarray(idx[0]),
+                                    jnp.asarray(w), 0.5, keep=16, mode="interpret"))
+    got = ops.das_gemv(torch.from_numpy(vals), torch.from_numpy(idx),
+                       torch.from_numpy(w), 0.5).numpy()
+    np.testing.assert_allclose(got[0], want, rtol=1e-5, atol=1e-4)
+
+
+def test_das_gemv_rows_match_vmapped_jax_kernel(rng):
+    """M = 4 rows against the JAX op vmapped over the rows, as its caller
+    batches it."""
+    k, n = 1024, 256
+    _, vals, idx = _compact_rows(rng, 4, k)
+    w = rng.integers(-1, 2, size=(k, n)).astype(np.int8)
+    jw = jnp.asarray(w)
+    want = np.asarray(jax.vmap(lambda v, i: jops.das_gemv(
+        v, i, jw, SCALE, keep=16, mode="interpret"))(jnp.asarray(vals), jnp.asarray(idx)))
+    got = ops.das_gemv(torch.from_numpy(vals), torch.from_numpy(idx),
+                       torch.from_numpy(w), SCALE).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-4)
+
+
+def _trits_linear(rng, k, n, das_on, fmt="int8"):
+    """The same int8 trits + scale as a JAX serving leaf and a port
+    TernaryLinear, with their TernaryConfigs."""
+    w = rng.integers(-1, 2, size=(k, n)).astype(np.int8)
+    jtc = jbase.TernaryConfig(das=jbase.DasConfig(32, 16) if das_on else None,
+                              serve_format=fmt)
+    ttc = tbase.TernaryConfig(das=tbase.DasConfig(32, 16) if das_on else None,
+                              serve_format=fmt)
+    lin = TernaryLinear(k, n, ttc, device="cpu")
+    lin.trits.copy_(torch.from_numpy(w))
+    lin.scale.fill_(SCALE)
+    jp = {"trits": jnp.asarray(w), "scale": jnp.asarray(SCALE, jnp.float32)}
+    return jp, jtc, lin
+
+
+@pytest.mark.parametrize("k,das_on", [(84, True), (340, True), (340, False), (320, True)])
+def test_das_gemv_tlin_matches_jax_trits_path(rng, k, das_on):
+    """tlin_apply on trits against the JAX package's: compacted rows when 32
+    divides K, dense DAS-masked rows with a 20-lane tail when it does not
+    (84 = 2*32 + 20, 340 = 10*32 + 20), dense rows with DAS off."""
+    jp, jtc, lin = _trits_linear(rng, k, 96, das_on)
+    x = rng.standard_normal((4, k)).astype(np.float32)
+    want = np.asarray(jtlin.tlin_apply(jp, jnp.asarray(x), jtc))
+    got = lin(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("fmt", ["int8", "bf16"])
+def test_trits_bf16_scale_rounds_like_jax(rng, fmt):
+    """bfloat16 activations: the JAX package applies the scale rounded to
+    bfloat16.  Small integers keep every sum exact in both packages, so the
+    outputs are equal bit for bit — and differ with the float32 scale
+    (1 + 2**-8 + 2**-10 rounds to 1 + 2**-7)."""
+    k, n = 320, 64
+    jp, jtc, lin = _trits_linear(rng, k, n, True, fmt)
+    s = 1 + 2 ** -8 + 2 ** -10
+    jp["scale"] = jnp.asarray(s, jnp.float32)
+    lin.scale.fill_(s)
+    x = rng.integers(-3, 4, size=(4, k)).astype(np.float32)
+    want = np.asarray(jtlin.tlin_apply(jp, jnp.asarray(x, jnp.bfloat16), jtc)
+                      .astype(jnp.float32))
+    got = lin(torch.from_numpy(x).to(torch.bfloat16)).float().numpy()
+    np.testing.assert_array_equal(got, want)
+    ca = ops.das_topk(torch.from_numpy(x).to(torch.bfloat16), keep=16)
+    unrounded = ops.das_gemv(ca.values, ca.indices, lin.trits, s).to(torch.bfloat16)
+    assert not np.array_equal(unrounded.float().numpy(), want)
