@@ -23,7 +23,9 @@ Phases:
            reduced-size model on the card against the CPU; then the decode
            step of packed and int8w under torch.profiler, in turns
   times    each kernel at its decode shape: CUDA-event median beside its
-           bound, its plain version and one PyTorch call of the same function
+           bound, its plain version and one PyTorch call of the same function;
+           the packed GEMMs also at q/k/v/o decode and one 256-row prefill
+           pack, beside their bounds and library calls
 
 The line before the last is a JSON object {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}.  Any failure exits non-zero without them.
@@ -160,7 +162,7 @@ class Smoke:
             x = torch.randn((m, k), generator=g, device=self.dev).to(dt)
             ca = das_lib.das_compact(x, block_size=32, keep=16)
             packed = self._packed(g, k, n)
-            got = das_ternary_gemm_cuda(ca.values, ca.indices, packed, scale)
+            got = das_ternary_gemm_cuda(ca.values, ca.indices, packed, scale, keep=16)
             want = ref.das_ternary_gemm_ref(ca.values, ca.indices, packed, scale)
             tol = TOL_BF16 if dt == bf16 else TOL_F32_GEMM
             err = self.check(f"das_ternary_gemm {dt} ({m},{k})x({packed.shape[0]},{n})",
@@ -223,14 +225,14 @@ class Smoke:
 
         # sparse_attention: ring decode, prefill pack, GQA, soft-cap, empty row
         def attn_case(label, b, lq, lk, hq, hkv, d, dt, q_pos, k_pos, sink, window,
-                      cap=None, tol=TOL_BF16):
+                      cap=None, tol=TOL_BF16, rs=False):
             q = torch.randn((b, lq, hq, d), generator=g, device=self.dev).to(dt)
             k_ = torch.randn((b, lk, hkv, d), generator=g, device=self.dev).to(dt)
             v = torch.randn((b, lk, hkv, d), generator=g, device=self.dev).to(dt)
             got = sparse_attention_cuda(q, k_, v, q_pos, k_pos, sink=sink, window=window,
-                                        softcap=cap)
+                                        softcap=cap, round_scores=rs)
             want = ref.sparse_attention_ref(q, k_, v, q_pos, k_pos, sink=sink,
-                                            window=window, softcap=cap)
+                                            window=window, softcap=cap, round_scores=rs)
             return self.check(f"sparse_attention {label}", got, want, tol)
 
         i32 = torch.int32
@@ -254,6 +256,10 @@ class Smoke:
         attn_case("prefill bf16 Lq=256 Lk=1280", 1, 256, 1280, 32, 32, 64, bf16,
                   (t0 + torch.arange(256)).to(i32)[None].to(self.dev),
                   kp[None].to(self.dev), 128, 896)
+        # the streaming prefill's option: scores rounded to bf16 before the scale
+        attn_case("prefill bf16 Lq=256 Lk=1280 round_scores", 1, 256, 1280, 32, 32, 64,
+                  bf16, (t0 + torch.arange(256)).to(i32)[None].to(self.dev),
+                  kp[None].to(self.dev), 128, 896, rs=True)
         # GQA + soft-cap + an empty row (every slot -1) in float32
         qp = torch.tensor([[40, 41], [7, 8]], dtype=i32, device=self.dev)
         kp = torch.arange(48, dtype=i32, device=self.dev)[None].repeat(2, 1)
@@ -598,7 +604,7 @@ class Smoke:
         dense = torch.zeros((m, w_bf16.shape[0]), dtype=bf16, device=self.dev)
         dense.scatter_(1, ca.indices.long(), ca.values)
         row("das_ternary_gemm",
-            lambda: das_ternary_gemm_cuda(ca.values, ca.indices, packed, scale),
+            lambda: das_ternary_gemm_cuda(ca.values, ca.indices, packed, scale, keep=16),
             lambda: ref.das_ternary_gemm_ref(ca.values, ca.indices, packed, scale),
             lambda: torch.matmul(dense, w_bf16),
             m * kc * (2 + 4) + packed.numel() + m * f * 4 + 4, 2 * m * kc * f, "bfloat16",
@@ -615,6 +621,43 @@ class Smoke:
             lambda: torch.matmul(xd, wd_bf16),
             m * f * 2 + packed_d.numel() + m * n * 4 + 4, 2 * nnz * n, "bfloat16",
             f"x ({m},{f}) bf16 x packed {tuple(packed_d.shape)} (down)")
+
+        # the packed GEMMs at their other main-path shapes: q/k/v/o at decode,
+        # and both at one 256-row prefill pack, each beside its bound and its
+        # library call (bf16 matmul of the densified rows with the bf16 weight)
+        def extra(label, fn, library, nbytes, flops):
+            ms, lib_ms = t_ms(fn), t_ms(library)
+            bound = max(nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS["bfloat16"]) * 1e3
+            log(f"[times] {label}: {ms * 1e3:.1f} us, bound {bound * 1e3:.2f} us, "
+                f"library {lib_ms * 1e3:.1f} us")
+
+        xq = torch.randn((m, k), generator=g, device=self.dev).to(bf16)
+        caq = das_lib.das_compact(xq, block_size=32, keep=16)
+        packed_q = twd.pack_ternary(torch.randint(-1, 2, (k, n), generator=g,
+                                                  device=self.dev), row_align=16)
+        wq_bf16 = (twd.unpack_ternary_arith(packed_q, packed_q.shape[0] * 5).float()
+                   * 0.37).to(bf16)
+        dense_q = torch.zeros((m, wq_bf16.shape[0]), dtype=bf16, device=self.dev)
+        dense_q.scatter_(1, caq.indices.long(), caq.values)
+        extra(f"decode das_ternary_gemm ({m},{kc} of {k}) x packed {tuple(packed_q.shape)}"
+              f" (q/k/v/o)",
+              lambda: das_ternary_gemm_cuda(caq.values, caq.indices, packed_q, scale, keep=16),
+              lambda: torch.matmul(dense_q, wq_bf16),
+              m * kc * 6 + packed_q.numel() + m * n * 4 + 4, 2 * m * kc * n)
+        xp = torch.randn((256, k), generator=g, device=self.dev).to(bf16)
+        cap = das_lib.das_compact(xp, block_size=32, keep=16)
+        dense_p = torch.zeros((256, w_bf16.shape[0]), dtype=bf16, device=self.dev)
+        dense_p.scatter_(1, cap.indices.long(), cap.values)
+        extra(f"prefill das_ternary_gemm (256,{kc} of {k}) x packed {tuple(packed.shape)}"
+              f" (gate/up)",
+              lambda: das_ternary_gemm_cuda(cap.values, cap.indices, packed, scale, keep=16),
+              lambda: torch.matmul(dense_p, w_bf16),
+              256 * kc * 6 + packed.numel() + 256 * f * 4 + 4, 2 * 256 * kc * f)
+        xpd = torch.randn((256, f), generator=g, device=self.dev).to(bf16)
+        extra(f"prefill ternary_gemm (256,{f}) x packed {tuple(packed_d.shape)} (down)",
+              lambda: ternary_gemm_cuda(xpd, packed_d, scale),
+              lambda: torch.matmul(xpd, wd_bf16),
+              256 * f * 2 + packed_d.numel() + 256 * n * 4 + 4, 2 * 256 * f * n)
 
         # the int8w path: the gate/up weight decoded to trits, and das_gemv on
         # them; bytes count the trit rows that the 4 rows' kept lanes touch
@@ -635,8 +678,6 @@ class Smoke:
             "bfloat16", f"({m},{kc} of {k}) x trits ({k},{f}) bf16 (gate/up)")
 
         # das_gemv at the other decode shapes of the int8w path, printed
-        xq = torch.randn((m, k), generator=g, device=self.dev).to(bf16)
-        caq = das_lib.das_compact(xq, block_size=32, keep=16)
         trits_q = torch.randint(-1, 2, (k, n), generator=g, device=self.dev).to(torch.int8)
         trits_dn = twd.unpack_ternary_arith(packed_d, f).contiguous()
         for label, fn, nbytes in (
@@ -650,18 +691,9 @@ class Smoke:
                 f"{nbytes / HBM_BYTES_PER_S * 1e6:.2f} us")
 
         # prefill shapes (a 256-token pack), printed for the breakdown
-        xp = torch.randn((256, k), generator=g, device=self.dev).to(bf16)
-        cap = das_lib.das_compact(xp, block_size=32, keep=16)
-        xpd = torch.randn((256, f), generator=g, device=self.dev).to(bf16)
         for label, fn, nbytes, flops in (
                 ("das_topk (256,2048)", lambda: das_topk_cuda(xp, keep=16, block=32),
                  256 * k * 9, 32 * 256 * k),
-                ("das_ternary_gemm (256,1024 of 2048)x(416,5460)",
-                 lambda: das_ternary_gemm_cuda(cap.values, cap.indices, packed, scale),
-                 256 * kc * 6 + packed.numel() + 256 * f * 4, 2 * 256 * kc * f),
-                ("ternary_gemm (256,5460)x(1104,2048)",
-                 lambda: ternary_gemm_cuda(xpd, packed_d, scale),
-                 256 * f * 2 + packed_d.numel() + 256 * n * 4, 2 * 256 * f * n),
                 ("das_gemv (256,1024 of 2048)x(2048,5460)",
                  lambda: das_gemv_cuda(cap.values, cap.indices, trits, scale),
                  256 * kc * 6 + trits.numel() + 256 * f * 4, 2 * 256 * kc * f),

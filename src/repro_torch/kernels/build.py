@@ -24,7 +24,7 @@ from pathlib import Path
 import torch
 
 __all__ = ["BUILD_DIR", "library", "build", "dtype_code", "stream_of",
-           "check_launch", "last_build_seconds", "staged_rows_fit",
+           "check_launch", "last_build_seconds", "packed_rows_fit", "aligned",
            "gemv_lanes_fit"]
 
 CSRC = Path(__file__).with_name("csrc")
@@ -39,14 +39,16 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # x, dtype, M, K, keep, mask, values, indices, dense, stream
     "tenet_das_topk": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
-    # values, dtype, indices, packed, w_scale, out, M, Kc, R, N, stream
-    "tenet_das_ternary_gemm": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # values, dtype, indices, packed, w_scale, out, M, Kc, keep, block, R, N,
+    # stream
+    "tenet_das_ternary_gemm": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                               _P],
     # x, dtype, packed, w_scale, x_scale, out, M, K, R, N, stream
     "tenet_ternary_gemm": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # q, k, v, q_pos, k_pos, out, dtype, B, Lq, Lk, Hq, Hkv, D, sink, window,
-    # softcap, scale, stream
+    # softcap, scale, round_scores, stream
     "tenet_sparse_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                               _I, _I, _I, _I, _F, _F, _P],
+                               _I, _I, _I, _I, _F, _F, _I, _P],
     # packed, out, R, K, N, stream
     "tenet_twd_decode": [_P, _P, _I, _I, _I, _P],
     # values, dtype, indices (or null), trits, w_scale, out, M, Kc, K, N, stream
@@ -140,11 +142,24 @@ def library(verbose: bool = False) -> ctypes.CDLL:
     return _lib
 
 
-def staged_rows_fit(rows: int) -> bool:
-    """Whether the GEMM kernels can stage 4 rows of activations for ``rows``
-    packed rows (whole groups of 16, 5 lanes each, 4 bytes a lane) in the
-    232,448 bytes of shared memory an H100 block may use (csrc/common.cuh)."""
-    return -(-rows // 16) * 16 * 5 * 4 * 4 <= 232448
+# the packed GEMMs' decode class (csrc/common.cuh): M <= 4 rows, K in
+# windows of 32 packed rows, at most 8 windows a block and 16 blocks (one
+# cluster) a column tile
+WIN_ROWS, DECODE_ROWS = 32, 4
+DECODE_MAX_ROWS = WIN_ROWS * 8 * 16
+
+
+def packed_rows_fit(m: int, r: int) -> bool:
+    """Whether the packed GEMMs take R = r packed rows for M = m rows: any R
+    above the decode class, R <= 4096 (K <= 20480) within it."""
+    return m > DECODE_ROWS or r <= DECODE_MAX_ROWS
+
+
+def aligned(t: torch.Tensor) -> torch.Tensor:
+    """t, or a copy of it when its data is not 16-byte aligned: the kernels'
+    vector loads and copies need it, and the route a call takes depends on
+    its shapes only, never on where a tensor happens to start."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def gemv_lanes_fit(k: int) -> bool:

@@ -7,8 +7,10 @@
 // int32 absolute positions, k_pos < 0 marks an empty slot.  Query i attends
 // key j iff  k_pos <= q_pos  &  (k_pos < sink | q_pos - k_pos < window)  &
 // k_pos >= 0.  GQA: q head h reads kv head h / (Hq / Hkv).  Scores are
-// scaled by `scale` (1/sqrt(D)), soft-capped by tanh when softcap > 0, and a
-// row with no allowed key outputs 0.  out: (B, Lq, Hq, D) in q's dtype.
+// rounded to T first when round_scores is set (the JAX package's streaming
+// prefill takes q.k as a T einsum, core/lpsa.py::_softmax_attend), scaled by
+// `scale` (1/sqrt(D)), soft-capped by tanh when softcap > 0, and a row with
+// no allowed key outputs 0.  out: (B, Lq, Hq, D) in q's dtype.
 //
 // One block per (query, q head, batch row); its threads stride over the keys
 // (thread t takes keys t, t + blockDim, ...), each keeping a running max,
@@ -59,7 +61,7 @@ __global__ void __launch_bounds__(kAttnThreads)
 sparse_attn_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                    const int* __restrict__ q_pos, const int* __restrict__ k_pos,
                    T* __restrict__ out, int Lq, int Lk, int Hq, int Hkv, int sink, int window,
-                   float softcap, float scale) {
+                   float softcap, float scale, bool round_scores) {
   __shared__ float s_m[kAttnWarps], s_l[kAttnWarps], s_acc[kAttnWarps][D];
   const int iq = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (Hq / Hkv);
@@ -90,6 +92,7 @@ sparse_attn_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
 #pragma unroll
       for (int e = 0; e < V; ++e) s += qv[i * V + e] * t[e];
     }
+    if (round_scores) s = to_f32(from_f32<T>(s));
     s *= scale;
     if (softcap > 0.f) s = tanhf(s / softcap) * softcap;
     const float m_new = fmaxf(m, s);
@@ -148,33 +151,36 @@ sparse_attn_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
 template <int D, typename T>
 static void launch(const void* q, const void* k, const void* v, const int* q_pos,
                    const int* k_pos, void* out, int B, int Lq, int Lk, int Hq, int Hkv,
-                   int sink, int window, float softcap, float scale, cudaStream_t stream) {
+                   int sink, int window, float softcap, float scale, bool round_scores,
+                   cudaStream_t stream) {
   dim3 grid(Lq, Hq, B);
   sparse_attn_kernel<D, T><<<grid, kAttnThreads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), q_pos,
-      k_pos, static_cast<T*>(out), Lq, Lk, Hq, Hkv, sink, window, softcap, scale);
+      k_pos, static_cast<T*>(out), Lq, Lk, Hq, Hkv, sink, window, softcap, scale,
+      round_scores);
 }
 
 template <typename T>
 static int dispatch_d(int D, const void* q, const void* k, const void* v, const int* q_pos,
                       const int* k_pos, void* out, int B, int Lq, int Lk, int Hq, int Hkv,
-                      int sink, int window, float softcap, float scale, cudaStream_t s) {
+                      int sink, int window, float softcap, float scale, bool rs,
+                      cudaStream_t s) {
   switch (D) {
     case 16:
       launch<16, T>(q, k, v, q_pos, k_pos, out, B, Lq, Lk, Hq, Hkv, sink, window, softcap,
-                    scale, s);
+                    scale, rs, s);
       return 0;
     case 32:
       launch<32, T>(q, k, v, q_pos, k_pos, out, B, Lq, Lk, Hq, Hkv, sink, window, softcap,
-                    scale, s);
+                    scale, rs, s);
       return 0;
     case 64:
       launch<64, T>(q, k, v, q_pos, k_pos, out, B, Lq, Lk, Hq, Hkv, sink, window, softcap,
-                    scale, s);
+                    scale, rs, s);
       return 0;
     case 80:
       launch<80, T>(q, k, v, q_pos, k_pos, out, B, Lq, Lk, Hq, Hkv, sink, window, softcap,
-                    scale, s);
+                    scale, rs, s);
       return 0;
     default:
       return -1;
@@ -187,7 +193,7 @@ extern "C" int tenet_sparse_attention(const void* q, const void* k, const void* 
                                       const void* q_pos, const void* k_pos, void* out,
                                       int dtype, int B, int Lq, int Lk, int Hq, int Hkv,
                                       int D, int sink, int window, float softcap,
-                                      float scale, void* stream) {
+                                      float scale, int round_scores, void* stream) {
   using namespace tenet;
   const int* qp = static_cast<const int*>(q_pos);
   const int* kp = static_cast<const int*>(k_pos);
@@ -195,10 +201,10 @@ extern "C" int tenet_sparse_attention(const void* q, const void* k, const void* 
   int bad = -1;
   if (dtype == kF32)
     bad = dispatch_d<float>(D, q, k, v, qp, kp, out, B, Lq, Lk, Hq, Hkv, sink, window,
-                            softcap, scale, s);
+                            softcap, scale, round_scores != 0, s);
   else if (dtype == kBF16)
     bad = dispatch_d<__nv_bfloat16>(D, q, k, v, qp, kp, out, B, Lq, Lk, Hq, Hkv, sink,
-                                    window, softcap, scale, s);
+                                    window, softcap, scale, round_scores != 0, s);
   if (bad) return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }

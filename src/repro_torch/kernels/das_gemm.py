@@ -1,12 +1,13 @@
 """CUDA launch of ``das_ternary_gemm`` (kernels/csrc/das_gemm.cu).
 
 Replaces the JAX package's ``kernels/das_gemm.py::das_ternary_gemm``
-(Pallas ``_das_ternary_gemm_kernel``).  DAS-compacted activations are
-scattered to their dense lanes in shared memory, once per block, against
-base-3 packed weights decoded in registers.  Unlike the TPU
-kernel it takes the padded export (5R >= K), so every bitnet-1.3b
-projection with a block-divisible K runs on it.  Bounded on the H100 by the
-packed weight bytes at decode; see the source for the design.
+(Pallas ``_das_ternary_gemm_kernel``).  Each block scatters the compacted
+entries of its K window to their dense lanes in shared memory, against
+base-3 packed weights decoded in registers.  Unlike the TPU kernel it takes
+the padded export (5R >= K), so every bitnet-1.3b projection with a
+block-divisible K runs on it.  Bounded on the H100 by the packed weight
+bytes at decode and by the bf16 tensor-core rate at prefill; see
+csrc/common.cuh for the design.
 """
 
 from __future__ import annotations
@@ -15,16 +16,35 @@ import torch
 
 from . import build
 
-__all__ = ["das_ternary_gemm_cuda"]
+__all__ = ["das_ternary_gemm_cuda", "compacted_lanes"]
+
+
+WIN_LANES = 5 * build.WIN_ROWS   # a K window's lanes (csrc/common.cuh)
+
+
+def compacted_lanes(kc: int, keep: int, block: int, rows: int) -> int:
+    """K of (M, Kc) entries that das_compact made with ``keep`` of every
+    ``block`` lanes (Kc = K / block * keep); raises where the kernel cannot
+    take them: a block that does not divide a window's 160 lanes, a Kc that
+    is not whole blocks, or more lanes than the ``rows`` packed rows hold."""
+    if not 1 <= keep <= block or WIN_LANES % block:
+        raise ValueError(f"das_ternary_gemm takes 1 <= keep <= block with block "
+                         f"dividing {WIN_LANES}; got keep={keep}, block={block}")
+    if kc < 1 or kc % keep or kc // keep * block > 5 * rows:
+        raise ValueError(f"Kc={kc} is not K / block * keep for a K of whole "
+                         f"{block}-lane blocks within the {5 * rows} packed lanes "
+                         f"(keep={keep})")
+    return kc // keep * block
 
 
 def das_ternary_gemm_cuda(values: torch.Tensor, indices: torch.Tensor,
-                          packed: torch.Tensor,
-                          w_scale: torch.Tensor) -> torch.Tensor:
+                          packed: torch.Tensor, w_scale: torch.Tensor, *,
+                          keep: int, block: int = 32) -> torch.Tensor:
     """values/indices (M, Kc) x packed (R, N) uint8 -> (M, N) float32.
 
-    ``indices`` are absolute lanes in [0, 5R) (core.das.das_compact or the
-    das_topk kernel)."""
+    ``indices`` are absolute lanes as das_compact lays them out (core.das or
+    the das_topk kernel): ``keep`` ascending lanes of every ``block``, so
+    Kc == K / block * keep (checked)."""
     if values.ndim != 2 or values.shape != indices.shape or packed.ndim != 2:
         raise ValueError(f"want values/indices (M, Kc) and packed (R, N); got "
                          f"{tuple(values.shape)}, {tuple(indices.shape)}, "
@@ -36,12 +56,12 @@ def das_ternary_gemm_cuda(values: torch.Tensor, indices: torch.Tensor,
                          f"{values.dtype}")
     if indices.dtype != torch.int32 or packed.dtype != torch.uint8:
         raise ValueError("indices must be int32 and packed weights uint8")
-    if m < 1 or kc < 1 or kc > 5 * r or n % 2 or packed.data_ptr() % 2:
-        raise ValueError(f"das_ternary_gemm needs M, Kc >= 1, Kc <= 5R, even N "
-                         f"and an even packed address; got M={m}, Kc={kc}, "
-                         f"R={r}, N={n}")
-    if not build.staged_rows_fit(r):
-        raise ValueError(f"packed rows {r}: the staged activations exceed shared memory")
+    if m < 1 or n < 1:
+        raise ValueError(f"das_ternary_gemm needs M, N >= 1; got M={m}, N={n}")
+    compacted_lanes(kc, keep, block, r)
+    if not build.packed_rows_fit(m, r):
+        raise ValueError(f"packed rows {r}: the decode class (M <= 4) takes at most "
+                         f"{build.DECODE_MAX_ROWS}")
     if not (values.is_contiguous() and indices.is_contiguous()
             and packed.is_contiguous()):
         raise ValueError("das_ternary_gemm needs contiguous inputs")
@@ -50,10 +70,12 @@ def das_ternary_gemm_cuda(values: torch.Tensor, indices: torch.Tensor,
     for t in (indices, packed, w_scale):
         if t.device != values.device:
             raise ValueError(f"tensors on {values.device} and {t.device}")
+    values, indices = build.aligned(values), build.aligned(indices)
+    packed = build.aligned(packed)
     out = torch.empty((m, n), dtype=torch.float32, device=values.device)
     err = build.library().tenet_das_ternary_gemm(
         values.data_ptr(), build.dtype_code(values), indices.data_ptr(),
-        packed.data_ptr(), w_scale.data_ptr(), out.data_ptr(), m, kc, r, n,
-        build.stream_of(values))
+        packed.data_ptr(), w_scale.data_ptr(), out.data_ptr(), m, kc, keep,
+        block, r, n, build.stream_of(values))
     build.check_launch(err, "das_ternary_gemm")
     return out

@@ -13,7 +13,7 @@ from __future__ import annotations
 import torch
 
 from . import ref
-from .das_gemm import das_ternary_gemm_cuda
+from .das_gemm import compacted_lanes, das_ternary_gemm_cuda
 from .das_gemv import das_gemv_cuda
 from .ref import DasTopK
 from .sparse_attn import sparse_attention_cuda
@@ -64,12 +64,16 @@ def das_topk(x: torch.Tensor, *, keep: int, block: int = 32) -> DasTopK:
 
 
 def das_ternary_gemm(values: torch.Tensor, indices: torch.Tensor,
-                     packed: torch.Tensor, w_scale) -> torch.Tensor:
-    """(M, Kc) compacted activations x packed (R, N) -> (M, N) float32."""
+                     packed: torch.Tensor, w_scale, *, keep: int,
+                     block: int = 32) -> torch.Tensor:
+    """(M, Kc) activations compacted to ``keep`` of every ``block`` lanes x
+    packed (R, N) -> (M, N) float32; Kc must be K / block * keep."""
     w_scale = _scale(w_scale, packed)
     if not _on_cuda(values, indices, packed):
+        compacted_lanes(values.shape[-1], keep, block, packed.shape[0])
         return ref.das_ternary_gemm_ref(values, indices, packed, w_scale)
-    out = das_ternary_gemm_cuda(values, indices, packed, w_scale)
+    out = das_ternary_gemm_cuda(values, indices, packed, w_scale, keep=keep,
+                                block=block)
     launches["das_ternary_gemm"] += 1
     return out
 
@@ -86,14 +90,18 @@ def ternary_gemm(x: torch.Tensor, packed: torch.Tensor, w_scale,
 
 
 def sparse_attention(q, k, v, q_pos, k_pos, *, sink: int, window: int,
-                     softcap: float | None = None) -> torch.Tensor:
+                     softcap: float | None = None,
+                     round_scores: bool = False) -> torch.Tensor:
     """LPSA attention; q (B, Lq, Hq, D), k/v (B, Lk, Hkv, D), int32
-    positions (B, Lq) / (B, Lk), -1 = empty slot."""
+    positions (B, Lq) / (B, Lk), -1 = empty slot.  ``round_scores`` rounds
+    q.k to q's dtype before the scale (ref.sparse_attention_ref)."""
     if not _on_cuda(q, k, v, q_pos, k_pos):
         return ref.sparse_attention_ref(q, k, v, q_pos, k_pos, sink=sink,
-                                        window=window, softcap=softcap)
+                                        window=window, softcap=softcap,
+                                        round_scores=round_scores)
     out = sparse_attention_cuda(q, k, v, q_pos, k_pos, sink=sink,
-                                window=window, softcap=softcap)
+                                window=window, softcap=softcap,
+                                round_scores=round_scores)
     launches["sparse_attention"] += 1
     return out
 

@@ -18,7 +18,7 @@ from repro_torch.core.lpsa import lpsa_allowed
 
 __all__ = ["DasTopK", "das_topk_ref", "ternary_gemm_ref",
            "das_ternary_gemm_ref", "sparse_attention_ref", "twd_decode_ref",
-           "das_gemv_ref", "NEG_INF"]
+           "das_gemv_ref", "score_scale", "NEG_INF"]
 
 NEG_INF = -1e30
 
@@ -100,16 +100,33 @@ def das_gemv_ref(values: torch.Tensor, indices: torch.Tensor | None,
     return (dense @ trits.float()) * w_scale
 
 
+def score_scale(d: int, dtype: torch.dtype, round_scores: bool) -> float:
+    """The 1/sqrt(D) score scale: in float32, or, with ``round_scores``,
+    computed in the input dtype as the JAX package's reference attention
+    does (``1.0 / jnp.sqrt(d).astype(q.dtype)``, core/lpsa.py)."""
+    if not round_scores:
+        return 1.0 / d ** 0.5
+    return float(1.0 / torch.tensor(d ** 0.5, dtype=torch.float32).to(dtype))
+
+
 def sparse_attention_ref(q, k, v, q_pos, k_pos, *, sink: int, window: int,
-                         softcap: float | None = None) -> torch.Tensor:
+                         softcap: float | None = None,
+                         round_scores: bool = False) -> torch.Tensor:
     """q (B, Lq, Hq, D); k, v (B, Lk, Hkv, D); q_pos (B, Lq); k_pos (B, Lk)
     with k_pos < 0 an empty slot.  Float32 softmax; rows with no allowed key
-    give 0.  Returns (B, Lq, Hq, D) in q's dtype."""
+    give 0.  Returns (B, Lq, Hq, D) in q's dtype.
+
+    ``round_scores`` rounds q.k to q's dtype before the scale (score_scale),
+    as the JAX package's streaming prefill attends (core/lpsa.py
+    ``_softmax_attend``)."""
     d = q.shape[-1]
     n_rep = q.shape[2] // k.shape[2]
     kr = k.float().repeat_interleave(n_rep, dim=2)
     vr = v.float().repeat_interleave(n_rep, dim=2)
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kr) * (1.0 / d ** 0.5)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kr)
+    if round_scores:
+        s = s.to(q.dtype).float()
+    s = s * score_scale(d, q.dtype, round_scores)
     if softcap is not None:
         s = torch.tanh(s / softcap) * softcap
     mask = lpsa_allowed(q_pos[:, :, None], k_pos[:, None, :], sink, window)

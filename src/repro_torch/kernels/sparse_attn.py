@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from . import build
+from . import build, ref
 
 __all__ = ["sparse_attention_cuda", "HEAD_DIMS"]
 
@@ -20,9 +20,12 @@ HEAD_DIMS = (16, 32, 64, 80)   # head sizes the kernel is instantiated for
 
 
 def sparse_attention_cuda(q, k, v, q_pos, k_pos, *, sink: int, window: int,
-                          softcap: float | None = None) -> torch.Tensor:
+                          softcap: float | None = None,
+                          round_scores: bool = False) -> torch.Tensor:
     """q (B, Lq, Hq, D); k, v (B, Lk, Hkv, D); q_pos (B, Lq), k_pos (B, Lk)
-    int32 -> (B, Lq, Hq, D) in q's dtype."""
+    int32 -> (B, Lq, Hq, D) in q's dtype.  ``round_scores`` rounds q.k to
+    q's dtype before the scale, which is then computed in q's dtype
+    (ref.score_scale)."""
     if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
         raise ValueError(f"want q (B, Lq, Hq, D) and k, v (B, Lk, Hkv, D); got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
@@ -53,6 +56,7 @@ def sparse_attention_cuda(q, k, v, q_pos, k_pos, *, sink: int, window: int,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
         k_pos.data_ptr(), out.data_ptr(), build.dtype_code(q), b, lq, lk, hq,
         hkv, d, sink, window, 0.0 if softcap is None else float(softcap),
-        1.0 / d ** 0.5, build.stream_of(q))
+        ref.score_scale(d, q.dtype, round_scores), int(round_scores),
+        build.stream_of(q))
     build.check_launch(err, "sparse_attention")
     return out

@@ -3,8 +3,9 @@
 Replaces the JAX package's ``kernels/ternary_gemm.py::ternary_gemm``
 (Pallas ``_ternary_gemm_kernel``).  Dense activations (float32, bfloat16, or
 int8 with a per-row scale) times base-3 packed ternary weights, decoded in
-registers.  Bounded on the H100 by the packed weight bytes at decode; see
-the source for the design.
+registers.  Bounded on the H100 by the packed weight bytes at decode (split
+over K windows that reduce in order through a thread-block cluster) and by
+the bf16 tensor-core rate at prefill; see csrc/common.cuh for the design.
 """
 
 from __future__ import annotations
@@ -31,13 +32,13 @@ def ternary_gemm_cuda(x: torch.Tensor, packed: torch.Tensor,
         raise ValueError(f"packed weights must be uint8, got {packed.dtype}")
     if 5 * r < k:
         raise ValueError(f"packed rows {r} hold {5 * r} trits < K={k}")
-    if m < 1 or n % 2 or packed.data_ptr() % 2:
-        raise ValueError(f"ternary_gemm needs M >= 1, even N and an even "
-                         f"packed address; got M={m}, N={n}")
+    if m < 1 or n < 1 or k < 1:
+        raise ValueError(f"ternary_gemm needs M, K, N >= 1; got M={m}, K={k}, N={n}")
     if x.dtype == torch.int8 and k > 100_000:
         raise ValueError("int32 accumulation is no longer exact at this K")
-    if not build.staged_rows_fit(r):
-        raise ValueError(f"packed rows {r}: the staged activations exceed shared memory")
+    if not build.packed_rows_fit(m, r):
+        raise ValueError(f"packed rows {r}: the decode class (M <= 4) takes at most "
+                         f"{build.DECODE_MAX_ROWS}")
     if not (x.is_contiguous() and packed.is_contiguous()):
         raise ValueError("ternary_gemm needs contiguous x and packed")
     if w_scale.dtype != torch.float32 or w_scale.numel() != 1:
@@ -49,6 +50,7 @@ def ternary_gemm_cuda(x: torch.Tensor, packed: torch.Tensor,
     for t in (packed, w_scale) + (() if x_scale is None else (x_scale,)):
         if t.device != x.device:
             raise ValueError(f"tensors on {x.device} and {t.device}")
+    x, packed = build.aligned(x), build.aligned(packed)
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     err = build.library().tenet_ternary_gemm(
         x.data_ptr(), build.dtype_code(x), packed.data_ptr(),

@@ -8,6 +8,7 @@ layout at these functions is the JAX package's: (B, L, H, D).
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -66,7 +67,13 @@ def _rope_fn(cfg: ModelConfig):
 
 def attn_prefill_streaming(p: Attention, cfg: ModelConfig, x: torch.Tensor,
                            kind: str):
-    """LPSA Algorithm-1 prefill -> (y (B, L, D), stream state for the ring)."""
+    """LPSA Algorithm-1 prefill -> (y (B, L, D), stream state for the ring).
+
+    The packs attend with their scores rounded to x's dtype before the
+    scale, as the JAX package's streaming prefill always attends
+    (core/lpsa.py ``_softmax_attend``, whatever its kernel mode); the
+    full-cache prefill and decode keep float32 scores, as its
+    ``flash_masked`` and decode attention do."""
     sink, window = kind_sink_window(cfg, kind, True)
     if sink >= FULL_SINK:
         raise ValueError("streaming prefill needs a sparse pattern (lpsa/local)")
@@ -76,7 +83,7 @@ def attn_prefill_streaming(p: Attention, cfg: ModelConfig, x: torch.Tensor,
         x, lambda pack: qkv_project(p, cfg, pack), spec=spec,
         num_q_heads=cfg.n_heads, num_kv_heads=cfg.n_kv_heads,
         head_dim=cfg.head_dim_, rope=_rope_fn(cfg), softcap=cfg.attn_softcap,
-        attend=ops.sparse_attention)
+        attend=functools.partial(ops.sparse_attention, round_scores=True))
     b, l = x.shape[0], x.shape[1]
     return p.wo(o.reshape(b, l, cfg.q_dim)), state
 

@@ -115,7 +115,8 @@ def tlin_apply(lin: TernaryLinear, x: torch.Tensor,
         if ca is None:
             y = ops.ternary_gemm(x.reshape(-1, k).contiguous(), lin.packed, lin.scale)
         elif ca.values is not None:
-            y = ops.das_ternary_gemm(ca.values, ca.indices, lin.packed, lin.scale)
+            y = ops.das_ternary_gemm(ca.values, ca.indices, lin.packed, lin.scale,
+                                     keep=lin.tc.das.keep, block=lin.tc.das.block)
         else:
             y = ops.ternary_gemm(ca.dense, lin.packed, lin.scale)
     else:

@@ -10,7 +10,6 @@ from __future__ import annotations
 
 import torch
 from torch import nn
-from torch.nn import functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as A
@@ -18,7 +17,7 @@ from repro_torch.models import kvcache as KV
 from repro_torch.models.layers import RMSNorm
 from repro_torch.models.ternary_linear import TernaryLinear, tlin_compact
 
-__all__ = ["FFN", "Block", "ffn_apply", "block_prefill", "block_decode",
+__all__ = ["FFN", "Block", "silu", "ffn_apply", "block_prefill", "block_decode",
            "layer_cache_spec", "stack_prefill", "stack_decode"]
 
 
@@ -52,10 +51,18 @@ class Block(nn.Module):
         self.ffn = FFN(cfg, device)
 
 
+def silu(g: torch.Tensor) -> torch.Tensor:
+    """g * (1 / (1 + exp(-g))) with every step rounded to g's dtype: the
+    formula that XLA lowers the JAX package's ``jax.nn.silu`` to, so a
+    bfloat16 model rounds where the reference rounds (``F.silu`` rounds
+    once, and differs from it in over a third of bfloat16 values)."""
+    return g * torch.reciprocal(1 + torch.exp(-g))
+
+
 def ffn_apply(p: FFN, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     """gate and up share one DAS step of x."""
     ca = tlin_compact(x, cfg.ternary)
-    h = F.silu(p.w_gate(x, ca)) * p.w_in(x, ca)
+    h = silu(p.w_gate(x, ca)) * p.w_in(x, ca)
     return p.w_out(h)
 
 

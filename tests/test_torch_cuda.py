@@ -53,22 +53,39 @@ def test_cuda_das_topk(cuda, rng, m, k):
             assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("m,k,n,dtype", [(4, 2048, 2048, torch.bfloat16),
-                                         (9, 2048, 130, torch.float32)])
+# (M, K, N, dtype): decode (M <= 4: K windows with the ordered reduction)
+# and prefill (bf16 on the tensor cores, f32 on FMAs); bitnet-1.3b's shapes,
+# R beyond what one block could stage before (K = 16000: 3200 packed rows),
+# windows that end past K (K = 2048 in 416 rows; K = 96 in 32), N % 4 != 0
+DAS_GEMM_CASES = [(4, 2048, 2048, torch.bfloat16), (4, 2048, 5460, torch.bfloat16),
+                  (1, 2048, 2048, torch.float32), (256, 2048, 5460, torch.bfloat16),
+                  (9, 2048, 130, torch.float32), (37, 2048, 130, torch.bfloat16),
+                  (3, 16000, 64, torch.bfloat16), (70, 16000, 64, torch.bfloat16),
+                  (2, 96, 7, torch.float32), (300, 96, 258, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("m,k,n,dtype", DAS_GEMM_CASES)
 def test_cuda_das_ternary_gemm(cuda, rng, m, k, n, dtype):
     p = _packed(rng, k, n, cuda)
     x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32)).to(cuda, dtype)
     ca = das.das_compact(x, keep=16)
     tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
-    torch.testing.assert_close(ops.das_ternary_gemm(ca.values, ca.indices, p, SCALE),
-                               ref.das_ternary_gemm_ref(ca.values, ca.indices, p, SCALE),
-                               rtol=tol, atol=tol)
+    torch.testing.assert_close(
+        ops.das_ternary_gemm(ca.values, ca.indices, p, SCALE, keep=16),
+        ref.das_ternary_gemm_ref(ca.values, ca.indices, p, SCALE), rtol=tol, atol=tol)
 
 
-@pytest.mark.parametrize("m,k,n,dtype", [(4, 5460, 2048, torch.bfloat16),
-                                         (5, 640, 256, torch.float32),
-                                         (8, 640, 256, torch.int8)])
+TERNARY_GEMM_CASES = [(4, 5460, 2048, torch.bfloat16), (256, 5460, 2048, torch.bfloat16),
+                      (5, 640, 256, torch.float32), (4, 5460, 2048, torch.float32),
+                      (8, 640, 256, torch.int8), (4, 5460, 130, torch.int8),
+                      (3, 16000, 64, torch.float32), (70, 16000, 64, torch.bfloat16),
+                      (4, 100, 7, torch.bfloat16), (33, 102, 130, torch.bfloat16),
+                      (40, 300, 258, torch.int8)]
+
+
+@pytest.mark.parametrize("m,k,n,dtype", TERNARY_GEMM_CASES)
 def test_cuda_ternary_gemm(cuda, rng, m, k, n, dtype):
+    """float32 and bfloat16 within tolerance, int8 exact (int32 sums)."""
     p = _packed(rng, k, n, cuda)
     if dtype == torch.int8:
         x = torch.from_numpy(rng.integers(-127, 128, size=(m, k)).astype(np.int8)).to(cuda)
@@ -80,6 +97,33 @@ def test_cuda_ternary_gemm(cuda, rng, m, k, n, dtype):
     tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
     torch.testing.assert_close(ops.ternary_gemm(x, p, SCALE),
                                ref.ternary_gemm_ref(x, p, SCALE), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("kernel", ["ternary_gemm", "das_ternary_gemm"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_packed_gemm_batch_invariance(cuda, rng, kernel, dtype):
+    """A row's output does not depend on the other rows of the call: the rows
+    of an M = 4 call equal M = 1, 2, 3 calls bit for bit (the decode class),
+    and rows of an M = 256 call equal calls of other M > 4 on slices of them
+    (the prefill class)."""
+    k, n = 2048, 5460
+    p = _packed(rng, k, n, cuda)
+    x = torch.from_numpy(rng.standard_normal((256, k)).astype(np.float32)).to(cuda, dtype)
+
+    def run(rows):
+        if kernel == "ternary_gemm":
+            return ops.ternary_gemm(rows.contiguous(), p, SCALE)
+        ca = das.das_compact(rows.contiguous(), keep=16)
+        return ops.das_ternary_gemm(ca.values, ca.indices, p, SCALE, keep=16)
+
+    dec = run(x[:4])
+    for m in (1, 2, 3):
+        assert torch.equal(run(x[:m]), dec[:m]), m
+        assert torch.equal(run(x[4 - m:4]), dec[4 - m:]), m
+    full = run(x)
+    for lo, hi in ((0, 5), (0, 64), (100, 137), (190, 256), (3, 203)):
+        assert torch.equal(run(x[lo:hi]), full[lo:hi]), (lo, hi)
+    assert torch.equal(run(x[:4]), dec)        # and from call to call
 
 
 @pytest.mark.parametrize("hq,hkv,d,cap", [(8, 2, 64, None), (4, 4, 16, 30.0),
@@ -97,12 +141,35 @@ def test_cuda_sparse_attention(cuda, rng, hq, hkv, d, cap):
         rtol=3e-4, atol=3e-4)
 
 
+@pytest.mark.parametrize("d", [64, 80])
+def test_cuda_sparse_attention_round_scores(cuda, rng, d):
+    """The streaming prefill's option in bfloat16: scores rounded to bfloat16
+    before the scale (computed in bfloat16 too: 1/sqrt(80) rounds)."""
+    b, lq, lk, hq, hkv = 1, 16, 48, 4, 2
+    mk = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(  # noqa: E731
+        cuda, torch.bfloat16)
+    q, k, v = mk(b, lq, hq, d), mk(b, lk, hkv, d), mk(b, lk, hkv, d)
+    qp = torch.arange(32, 48, dtype=torch.int32, device=cuda)[None]
+    kp = torch.arange(lk, dtype=torch.int32, device=cuda)[None]
+    torch.testing.assert_close(
+        ops.sparse_attention(q, k, v, qp, kp, sink=4, window=16, round_scores=True),
+        ref.sparse_attention_ref(q, k, v, qp, kp, sink=4, window=16, round_scores=True),
+        rtol=2e-2, atol=2e-2)
+
+
 def test_cuda_kernel_refuses_what_it_cannot_take(cuda):
     x = torch.zeros((2, 64), device=cuda)
     with pytest.raises(ValueError):
         ops.das_topk(x, keep=8, block=16)             # the kernel ranks 32 lanes
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError):                   # 5R = 40 < K = 64
         ops.ternary_gemm(x, torch.zeros((8, 6), dtype=torch.uint8, device=cuda), SCALE)
+    with pytest.raises(ValueError):                   # Kc != K / block * keep
+        ops.das_ternary_gemm(x, torch.zeros((2, 64), dtype=torch.int32, device=cuda),
+                             torch.zeros((64, 8), dtype=torch.uint8, device=cuda), SCALE,
+                             keep=12)
+    with pytest.raises(ValueError):                   # decode: R > 4096 packed rows
+        ops.ternary_gemm(torch.zeros((4, 20485), device=cuda),
+                         torch.zeros((4097, 8), dtype=torch.uint8, device=cuda), SCALE)
 
 
 def test_cuda_model_matches_cpu(cuda):

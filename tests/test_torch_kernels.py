@@ -81,7 +81,7 @@ def test_das_ternary_gemm_matches_jax_kernel(rng, m, k, n, keep):
                                             SCALE, keep=keep, mode="interpret"))
     got = ops.das_ternary_gemm(torch.from_numpy(np.array(ca.values)),
                                torch.from_numpy(np.array(ca.indices)),
-                               torch.from_numpy(packed), SCALE).numpy()
+                               torch.from_numpy(packed), SCALE, keep=keep).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
 
 
@@ -95,12 +95,28 @@ def test_das_ternary_gemm_padded_rows(rng, k, rows, dtype):
     x = torch.from_numpy(rng.standard_normal((4, k)).astype(np.float32)).to(dtype)
     ca = das.das_compact(x, keep=16)
     got = ops.das_ternary_gemm(ca.values, ca.indices, torch.from_numpy(packed),
-                               SCALE).numpy()
+                               SCALE, keep=16).numpy()
     xm = das.das_apply(x, das.das_mask(x, keep=16)).float().numpy()
     want = np.asarray(jref.ternary_gemm_packed_ref(jnp.asarray(xm), jnp.asarray(packed),
                                                    SCALE, k))
     tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
     np.testing.assert_allclose(got, want, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("kc,keep,block,rows", [
+    (150, 16, 32, 64),    # Kc is not whole blocks of keep
+    (176, 16, 32, 16),    # K = 352 lanes > the 80 that 16 packed rows hold
+    (64, 16, 64, 64),     # a 64-lane block does not divide a 160-lane window
+    (64, 33, 32, 64)])    # keep > block
+def test_das_ternary_gemm_refuses_mismatched_compaction(kc, keep, block, rows):
+    """Kc must be K / block * keep, as das_compact makes it: the entry
+    positions of a K window follow from it.  The check holds on the CPU as
+    on the card."""
+    vals = torch.zeros((2, kc))
+    idx = torch.zeros((2, kc), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        ops.das_ternary_gemm(vals, idx, torch.zeros((rows, 8), dtype=torch.uint8),
+                             SCALE, keep=keep, block=block)
 
 
 @pytest.mark.parametrize("m,k,keep,ties", [(64, 512, 16, False), (32, 2048, 24, False),
@@ -156,7 +172,7 @@ def test_cpu_dispatch_launches_nothing(rng):
     x = torch.from_numpy(rng.standard_normal((2, 64)).astype(np.float32))
     ca = ops.das_topk(x, keep=16)
     ops.das_ternary_gemm(ca.values, ca.indices,
-                         torch.zeros((16, 8), dtype=torch.uint8), SCALE)
+                         torch.zeros((16, 8), dtype=torch.uint8), SCALE, keep=16)
     trits = ops.twd_decode(torch.zeros((16, 8), dtype=torch.uint8), 64)
     ops.das_gemv(ca.values, ca.indices, trits, SCALE)
     ops.das_gemv(x, None, trits, SCALE)

@@ -8,6 +8,7 @@ fused Pallas path (run in interpret mode).  The JAX export goes through
 the JAX greedy tokens must agree within 2e-4 (float32; the frameworks sum in
 different orders) and the greedy tokens must be equal.
 """
+import contextlib
 import dataclasses
 
 import jax
@@ -143,23 +144,28 @@ def test_ring_from_stream_matches_jax(rng, t_end):
 
 
 def _teacher_forced(jcfg, sparams, model, mode, prompt, *, steps=8,
-                    serve_sparse=True):
+                    serve_sparse=True, eager=False):
+    """Prefill + ``steps`` decode steps of both models, each fed the JAX
+    side's greedy token.  ``eager`` runs the JAX side op by op under
+    jax.disable_jit(): jitted, XLA may skip bfloat16 roundings inside a
+    fusion, so only the eager reference rounds where its code says."""
     rt = Runtime(kernel_mode=mode, serve_sparse=serve_sparse)
     max_len = len(prompt) + steps + 1
     jprefill = jax.jit(lambda sp, x: JMD.prefill(sp, jcfg, x, rt, max_len=max_len))
     jdecode = jax.jit(lambda sp, c, tok, t: JMD.decode_step(sp, jcfg, c, tok, t, rt))
-    jlg, jc = jprefill(sparams, jnp.asarray(prompt)[None])
-    tlg, tc = MD.prefill(model, torch.as_tensor(prompt, dtype=torch.long)[None],
-                         max_len=max_len, serve_sparse=serve_sparse)
-    logits = [(np.asarray(jlg), tlg.numpy())]
-    for i in range(steps):
-        tok = int(np.argmax(logits[-1][0][0]))
-        t = len(prompt) + i
-        jlg, jc = jdecode(sparams, jc, jnp.asarray([tok], jnp.int32),
-                          jnp.asarray([t], jnp.int32))
-        tlg, tc = MD.decode_step(model, tc, torch.tensor([tok]), torch.tensor([t]),
-                                 serve_sparse=serve_sparse)
-        logits.append((np.asarray(jlg), tlg.numpy()))
+    with jax.disable_jit() if eager else contextlib.nullcontext():
+        jlg, jc = jprefill(sparams, jnp.asarray(prompt)[None])
+        tlg, tc = MD.prefill(model, torch.as_tensor(prompt, dtype=torch.long)[None],
+                             max_len=max_len, serve_sparse=serve_sparse)
+        logits = [(np.asarray(jlg), tlg.numpy())]
+        for i in range(steps):
+            tok = int(np.argmax(logits[-1][0][0]))
+            t = len(prompt) + i
+            jlg, jc = jdecode(sparams, jc, jnp.asarray([tok], jnp.int32),
+                              jnp.asarray([t], jnp.int32))
+            tlg, tc = MD.decode_step(model, tc, torch.tensor([tok]), torch.tensor([t]),
+                                     serve_sparse=serve_sparse)
+            logits.append((np.asarray(jlg), tlg.numpy()))
     return logits, (jc, tc)
 
 
@@ -229,17 +235,45 @@ def test_trits_from_packed_equals_int8_export(fmt):
 
 
 def test_bf16_das_model_tokens_match_jax(pairs):
-    """Reduced bitnet-1.3b in bfloat16 with DAS on (int8 trits): prefill
-    logits within 2e-2 and equal greedy tokens over prefill + 8 teacher-forced
-    decode steps.  Its decode logits are not held to 2e-2: the JAX reference
-    rounds bfloat16 at other places (its reference prefill attention rounds
-    the scores to bfloat16, core/lpsa.py:80, where the port's kernel keeps
-    float32), and a one-ulp difference flips lanes of the DAS top-k mask, which
-    moves the next layer's projections by whole activations (ROADMAP, port
-    faults)."""
+    """Reduced bitnet-1.3b in bfloat16 with DAS on (int8 trits) against the
+    jitted JAX reference: prefill logits within 2e-2 and equal greedy tokens
+    over prefill + 8 teacher-forced decode steps.  The logits are held
+    bitwise against the eager reference (test_bf16_das_model_matches_eager_jax):
+    the jitted one may skip bfloat16 roundings inside XLA's fusions, and a
+    one-ulp difference can flip lanes of the DAS top-k mask, which moves the
+    next projections by whole activations."""
     jcfg, sparams, _, model, mode = pairs("bitnet-reduced-int8-bfloat16")
     prompt = np.random.default_rng(1).integers(0, jcfg.vocab, 48).astype(np.int32)
     logits, _ = _teacher_forced(jcfg, sparams, model, mode, prompt)
     np.testing.assert_allclose(logits[0][1], logits[0][0], rtol=0, atol=2e-2)
     for step, (want, got) in enumerate(logits):
         assert int(np.argmax(got)) == int(np.argmax(want)), f"greedy token {step}"
+
+
+def test_silu_matches_jax_bf16():
+    """The port's SiLU rounds like jax.nn.silu in bfloat16, bit for bit;
+    F.silu (one rounding) does not."""
+    from repro_torch.models.transformer import silu
+    x = (np.random.default_rng(7).standard_normal(200_000) * 4).astype(np.float32)
+    want = np.asarray(jax.nn.silu(jnp.asarray(x, jnp.bfloat16)).astype(jnp.float32))
+    tx = torch.from_numpy(x).to(torch.bfloat16)
+    np.testing.assert_array_equal(silu(tx).float().numpy(), want)
+    assert not np.array_equal(torch.nn.functional.silu(tx).float().numpy(), want)
+
+
+@pytest.mark.parametrize("serve_sparse", [True, False])
+def test_bf16_das_model_matches_eager_jax(pairs, serve_sparse):
+    """Reduced bitnet-1.3b in bfloat16 with DAS on (int8 trits) against the
+    JAX package run op by op (jax.disable_jit): prefill + 8 teacher-forced
+    decode steps give bitwise equal logits, on the LPSA path (streaming
+    prefill, ring decode) and the full-cache path.  It rests on the port
+    rounding where the reference rounds: SiLU step by step
+    (models/transformer.py::silu) and the streaming prefill's scores to
+    bfloat16 before the scale (ops.sparse_attention round_scores)."""
+    jcfg, sparams, _, model, mode = pairs("bitnet-reduced-int8-bfloat16")
+    prompt = np.random.default_rng(1).integers(0, jcfg.vocab, 48).astype(np.int32)
+    logits, _ = _teacher_forced(jcfg, sparams, model, mode, prompt,
+                                serve_sparse=serve_sparse, eager=True)
+    for step, (want, got) in enumerate(logits):
+        np.testing.assert_array_equal(got, want.astype(np.float32),
+                                      err_msg=f"logits of step {step}")
