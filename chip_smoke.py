@@ -24,8 +24,12 @@ Phases:
            step of packed and int8w under torch.profiler, in turns
   times    each kernel at its decode shape: CUDA-event median beside its
            bound, its plain version and one PyTorch call of the same function;
-           the packed GEMMs also at q/k/v/o decode and one 256-row prefill
-           pack, beside their bounds and library calls
+           the packed GEMMs and das_gemv also at their other decode shapes
+           and one 256-row prefill pack, sparse_attention at a prefill pack,
+           beside their bounds and library calls
+
+  python3 chip_smoke.py --parent DIR   # then both trees' times phases in
+                                       # turns: DIR, this, this, DIR
 
 The line before the last is a JSON object {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}.  Any failure exits non-zero without them.
@@ -201,27 +205,41 @@ class Smoke:
 
         # das_gemv: the int8w projections (compacted rows, dense rows with the
         # 20-lane tail of the down projection) and the baseline's (DAS off),
-        # at decode and at a 256-row prefill pack
+        # at decode and at a 256-row prefill pack; K = 2048 and 5460 end in a
+        # partial 160-lane window
+        def gemv_case(form, m, k, n, dt, w):
+            x = torch.randn((m, k), generator=g, device=self.dev).to(dt)
+            if form == "compact":
+                ca = das_lib.das_compact(x, block_size=32, keep=16)
+                vals, idx = ca.values, ca.indices
+            elif form == "dense":
+                vals, idx = das_lib.das_apply(x, das_lib.das_mask(x, keep=16)), None
+            else:
+                vals, idx = x, None
+            tol = TOL_BF16 if dt == bf16 else TOL_F32_GEMM
+            return self.check(f"das_gemv {form} {dt} ({m},{vals.shape[1]} of {k})x({k},{n})",
+                              das_gemv_cuda(vals, idx, w, scale, keep=16),
+                              ref.das_gemv_ref(vals, idx, w, scale), tol)
+
+        def trits(k, n):
+            return torch.randint(-1, 2, (k, n), generator=g, device=self.dev).to(torch.int8)
+
         for form, k, n in (("compact", 2048, 2048), ("compact", 2048, 5460),
                            ("dense", 5460, 2048), ("off", 2048, 5460),
                            ("off", 5460, 2048)):
-            w = torch.randint(-1, 2, (k, n), generator=g, device=self.dev).to(torch.int8)
+            w = trits(k, n)
             for m in (4, 256):
                 for dt in (f32, bf16):
-                    x = torch.randn((m, k), generator=g, device=self.dev).to(dt)
-                    if form == "compact":
-                        ca = das_lib.das_compact(x, block_size=32, keep=16)
-                        vals, idx = ca.values, ca.indices
-                    elif form == "dense":
-                        vals, idx = das_lib.das_apply(x, das_lib.das_mask(x, keep=16)), None
-                    else:
-                        vals, idx = x, None
-                    tol = TOL_BF16 if dt == bf16 else TOL_F32_GEMM
-                    err = self.check(f"das_gemv {form} {dt} ({m},{vals.shape[1]} of {k})"
-                                     f"x({k},{n})", das_gemv_cuda(vals, idx, w, scale),
-                                     ref.das_gemv_ref(vals, idx, w, scale), tol)
+                    err = gemv_case(form, m, k, n, dt, w)
                     if (form, m, k, n, dt) == ("compact", 4, 2048, 5460, bf16):
                         self.errs["das_gemv"] = err
+        # the decode class's edges: N not a multiple of 4 (byte loads), K =
+        # 9216 (58 windows: 4 a block, 15 blocks a cluster); a prefill that N
+        # sends to the FMA route
+        for form, m, k, n, dt in (("compact", 4, 2048, 130, bf16), ("dense", 3, 5460, 130, f32),
+                                  ("compact", 4, 9216, 2048, bf16), ("off", 4, 9216, 2048, f32),
+                                  ("compact", 256, 9216, 130, bf16)):
+            gemv_case(form, m, k, n, dt, trits(k, n))
 
         # sparse_attention: ring decode, prefill pack, GQA, soft-cap, empty row
         def attn_case(label, b, lq, lk, hq, hkv, d, dt, q_pos, k_pos, sink, window,
@@ -260,6 +278,27 @@ class Smoke:
         attn_case("prefill bf16 Lq=256 Lk=1280 round_scores", 1, 256, 1280, 32, 32, 64,
                   bf16, (t0 + torch.arange(256)).to(i32)[None].to(self.dev),
                   kp[None].to(self.dev), 128, 896, rs=True)
+        # the decode class's edges (keys split over a cluster by Lk alone): a
+        # row with every chunk masked, a full cache of 2500 keys (16 blocks of
+        # 157, two tiles each) under GQA 32/8, float32 head_dim 80 with
+        # soft-cap (64-key tiles), and scores rounded to bf16
+        qp = torch.tensor([[1500], [40], [1023], [7]], dtype=i32, device=self.dev)
+        kp = torch.stack(ring[:2] + ring[:2]).to(i32).to(self.dev)
+        kp[1] = -1
+        attn_case("decode bf16 B=4 Lk=1024 with an empty row", 4, 1, 1024, 32, 32, 64, bf16,
+                  qp, kp, 128, 896)
+        qp = torch.tensor([[2499], [1200]], dtype=i32, device=self.dev)
+        kp = torch.arange(2500, dtype=i32, device=self.dev)[None].repeat(2, 1)
+        kp[1, 1201:] = -1
+        attn_case("decode bf16 full cache Lk=2500 GQA 32/8", 2, 1, 2500, 32, 8, 64, bf16, qp, kp,
+                  1 << 30, 1 << 30)
+        qp = torch.tensor([[650], [90]], dtype=i32, device=self.dev)
+        kp = torch.arange(700, dtype=i32, device=self.dev)[None].repeat(2, 1)
+        attn_case("decode f32 head_dim 80 softcap Lk=700", 2, 1, 700, 8, 4, 80, f32, qp, kp,
+                  16, 256, cap=30.0, tol=TOL_F32_ATTN)
+        qp = torch.tensor([[1500], [1023], [300], [5]], dtype=i32, device=self.dev)
+        attn_case("decode bf16 round_scores", 4, 1, 1024, 32, 32, 64, bf16, qp,
+                  torch.stack(ring).to(i32).to(self.dev), 128, 896, rs=True)
         # GQA + soft-cap + an empty row (every slot -1) in float32
         qp = torch.tensor([[40, 41], [7, 8]], dtype=i32, device=self.dev)
         kp = torch.arange(48, dtype=i32, device=self.dev)[None].repeat(2, 1)
@@ -671,38 +710,42 @@ class Smoke:
         dense_k.scatter_(1, ca.indices.long(), ca.values)
         kept = torch.zeros(k, dtype=torch.bool, device=self.dev)
         kept[ca.indices.long().flatten()] = True
-        row("das_gemv", lambda: das_gemv_cuda(ca.values, ca.indices, trits, scale),
+        row("das_gemv", lambda: das_gemv_cuda(ca.values, ca.indices, trits, scale, keep=16),
             lambda: ref.das_gemv_ref(ca.values, ca.indices, trits, scale),
             lambda: torch.matmul(dense_k, trits_bf16),
             m * kc * (2 + 4) + int(kept.sum()) * f + m * f * 4 + 4, 2 * m * kc * f,
             "bfloat16", f"({m},{kc} of {k}) x trits ({k},{f}) bf16 (gate/up)")
 
-        # das_gemv at the other decode shapes of the int8w path, printed
+        # das_gemv at the other shapes of the int8w path, each beside its
+        # bound and its library call (bf16 matmul of the densified rows with
+        # the bf16 trits): q/k/v/o and down at decode, gate/up and down at a
+        # 256-row prefill pack
         trits_q = torch.randint(-1, 2, (k, n), generator=g, device=self.dev).to(torch.int8)
         trits_dn = twd.unpack_ternary_arith(packed_d, f).contiguous()
-        for label, fn, nbytes in (
-                ("das_gemv (4,1024 of 2048)x(2048,2048) (q/k/v/o)",
-                 lambda: das_gemv_cuda(caq.values, caq.indices, trits_q, scale),
-                 m * kc * 6 + k * n + m * n * 4),
-                ("das_gemv dense (4,5460)x(5460,2048) (down)",
-                 lambda: das_gemv_cuda(xd, None, trits_dn, scale),
-                 m * f * 2 + f * n + m * n * 4)):
-            log(f"[times] decode {label}: {t_ms(fn) * 1e3:.1f} us, bound "
-                f"{nbytes / HBM_BYTES_PER_S * 1e6:.2f} us")
-
-        # prefill shapes (a 256-token pack), printed for the breakdown
-        for label, fn, nbytes, flops in (
-                ("das_topk (256,2048)", lambda: das_topk_cuda(xp, keep=16, block=32),
-                 256 * k * 9, 32 * 256 * k),
-                ("das_gemv (256,1024 of 2048)x(2048,5460)",
-                 lambda: das_gemv_cuda(cap.values, cap.indices, trits, scale),
-                 256 * kc * 6 + trits.numel() + 256 * f * 4, 2 * 256 * kc * f),
-                ("das_gemv dense (256,5460)x(5460,2048)",
-                 lambda: das_gemv_cuda(xpd, None, trits_dn, scale),
-                 256 * f * 2 + trits_dn.numel() + 256 * n * 4, 2 * 256 * f * n)):
-            ms = t_ms(fn)
-            bound = max(nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS["bfloat16"]) * 1e3
-            log(f"[times] prefill {label}: {ms * 1e3:.1f} us, bound {bound * 1e3:.2f} us")
+        dense_qk = torch.zeros((m, k), dtype=bf16, device=self.dev)
+        dense_qk.scatter_(1, caq.indices.long(), caq.values)
+        dense_pk = torch.zeros((256, k), dtype=bf16, device=self.dev)
+        dense_pk.scatter_(1, cap.indices.long(), cap.values)
+        trits_q_bf16, trits_dn_bf16 = trits_q.to(bf16), trits_dn.to(bf16)
+        extra(f"decode das_gemv ({m},{kc} of {k})x({k},{n}) (q/k/v/o)",
+              lambda: das_gemv_cuda(caq.values, caq.indices, trits_q, scale, keep=16),
+              lambda: torch.matmul(dense_qk, trits_q_bf16),
+              m * kc * 6 + k * n + m * n * 4, 2 * m * kc * n)
+        extra(f"decode das_gemv dense ({m},{f})x({f},{n}) (down)",
+              lambda: das_gemv_cuda(xd, None, trits_dn, scale),
+              lambda: torch.matmul(xd, trits_dn_bf16),
+              m * f * 2 + f * n + m * n * 4, 2 * nnz * n)
+        extra(f"prefill das_gemv (256,{kc} of {k})x({k},{f}) (gate/up)",
+              lambda: das_gemv_cuda(cap.values, cap.indices, trits, scale, keep=16),
+              lambda: torch.matmul(dense_pk, trits_bf16),
+              256 * kc * 6 + trits.numel() + 256 * f * 4, 2 * 256 * kc * f)
+        extra(f"prefill das_gemv dense (256,{f})x({f},{n}) (down)",
+              lambda: das_gemv_cuda(xpd, None, trits_dn, scale),
+              lambda: torch.matmul(xpd, trits_dn_bf16),
+              256 * f * 2 + trits_dn.numel() + 256 * n * 4, 2 * 256 * f * n)
+        ms = t_ms(lambda: das_topk_cuda(xp, keep=16, block=32))
+        log(f"[times] prefill das_topk (256,{k}): {ms * 1e3:.1f} us, bound "
+            f"{256 * k * 9 / HBM_BYTES_PER_S * 1e6:.2f} us")
 
         b, h, d, s = 4, 32, 64, 1024
         q = torch.randn((b, 1, h, d), generator=g, device=self.dev).to(bf16)
@@ -724,6 +767,25 @@ class Smoke:
             4 * n_keys * h * d, "bfloat16",
             f"decode q ({b},1,{h},{d}) over a {s}-slot ring bf16")
 
+        # a prefill pack: 256 queries over [sink | window | pack] = 1280 keys
+        t0 = 2000
+        kp1 = torch.cat([torch.arange(128), t0 - 896 + torch.arange(896),
+                         t0 + torch.arange(256)]).to(torch.int32).to(self.dev)[None]
+        qp1 = (t0 + torch.arange(256, device=self.dev)).to(torch.int32)[None]
+        q1 = torch.randn((1, 256, h, d), generator=g, device=self.dev).to(bf16)
+        k1 = torch.randn((1, 1280, h, d), generator=g, device=self.dev).to(bf16)
+        v1 = torch.randn((1, 1280, h, d), generator=g, device=self.dev).to(bf16)
+        allowed1 = ((kp1[:, None, :] <= qp1[:, :, None])
+                    & ((kp1[:, None, :] < 128) | (qp1[:, :, None] - kp1[:, None, :] < 896)))
+        pairs = int(allowed1.sum())
+        extra("prefill sparse_attention q (1,256,32,64) over 1280 keys bf16",
+              lambda: sparse_attention_cuda(q1, k1, v1, qp1, kp1, sink=128, window=896),
+              lambda: torch.nn.functional.scaled_dot_product_attention(
+                  q1.transpose(1, 2), k1.transpose(1, 2), v1.transpose(1, 2),
+                  attn_mask=allowed1[:, None]),
+              (256 + 2 * 1280) * h * d * 2 + 256 * h * d * 2 + (256 + 1280) * 4,
+              4 * pairs * h * d)
+
 
 def _nvidia_smi() -> str:
     res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -734,11 +796,33 @@ def _nvidia_smi() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
+def turns(parent: Path, seed: int) -> None:
+    """The times phase of ``parent`` and of this tree in turns on this card
+    (parent, this, this, parent), each a process of its own tree's script
+    with its own kernel build; prints each run's [times] lines."""
+    for i, tree in enumerate((parent, ROOT, ROOT, parent), 1):
+        label = "parent" if tree == parent else "this"
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, str(tree / "chip_smoke.py"), "--phases",
+                              "device,build,times", "--seed", str(seed)],
+                             cwd=tree, capture_output=True, text=True, timeout=900)
+        if res.returncode:
+            raise RuntimeError(f"turn {i} ({label}) failed:\n{res.stdout[-3000:]}"
+                               f"{res.stderr[-3000:]}")
+        for line in res.stdout.splitlines():
+            if line.startswith("[times]"):
+                log(f"[turns] {i} {label}: {line[len('[times] '):]}")
+        log(f"[turns] {i} {label} took {time.perf_counter() - t0:.1f} s")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
                     help=f"comma-separated subset of {','.join(PHASES)}")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--parent", type=Path, default=None,
+                    help="a checkout of another tree (the parent commit): after the "
+                         "phases, time both trees' kernels in turns")
     args = ap.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(PHASES)
@@ -768,6 +852,8 @@ def main(argv=None) -> int:
                 t0 = time.perf_counter()
                 getattr(smoke, f"phase_{phase}")()
                 log(f"[{phase}] done in {time.perf_counter() - t0:.1f} s")
+        if args.parent is not None:
+            turns(args.parent.resolve(), args.seed)
         if set(PHASES) <= set(phases):
             kernels = []
             for name, (source, replaces) in KERNEL_INFO.items():

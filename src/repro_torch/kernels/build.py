@@ -24,8 +24,7 @@ from pathlib import Path
 import torch
 
 __all__ = ["BUILD_DIR", "library", "build", "dtype_code", "stream_of",
-           "check_launch", "last_build_seconds", "packed_rows_fit", "aligned",
-           "gemv_lanes_fit"]
+           "check_launch", "last_build_seconds", "packed_rows_fit", "aligned"]
 
 CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -51,8 +50,9 @@ _SIGNATURES = {
                                _I, _I, _I, _I, _F, _F, _I, _P],
     # packed, out, R, K, N, stream
     "tenet_twd_decode": [_P, _P, _I, _I, _I, _P],
-    # values, dtype, indices (or null), trits, w_scale, out, M, Kc, K, N, stream
-    "tenet_das_gemv": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # values, dtype, indices (or null), trits, w_scale, out, M, Kc, keep,
+    # block, K, N, stream
+    "tenet_das_gemv": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -142,16 +142,17 @@ def library(verbose: bool = False) -> ctypes.CDLL:
     return _lib
 
 
-# the packed GEMMs' decode class (csrc/common.cuh): M <= 4 rows, K in
-# windows of 32 packed rows, at most 8 windows a block and 16 blocks (one
-# cluster) a column tile
+# the GEMM core's decode class (csrc/common.cuh): M <= 4 rows, K in windows
+# of 32 packed rows (groups of 5 lanes), at most 8 windows a block and 16
+# blocks (one cluster) a column tile
 WIN_ROWS, DECODE_ROWS = 32, 4
 DECODE_MAX_ROWS = WIN_ROWS * 8 * 16
 
 
 def packed_rows_fit(m: int, r: int) -> bool:
-    """Whether the packed GEMMs take R = r packed rows for M = m rows: any R
-    above the decode class, R <= 4096 (K <= 20480) within it."""
+    """Whether the GEMM core takes R = r packed rows (or ceil(K / 5) groups
+    of int8 trit rows) for M = m rows: any R above the decode class, R <=
+    4096 (K <= 20480) within it."""
     return m > DECODE_ROWS or r <= DECODE_MAX_ROWS
 
 
@@ -160,13 +161,6 @@ def aligned(t: torch.Tensor) -> torch.Tensor:
     vector loads and copies need it, and the route a call takes depends on
     its shapes only, never on where a tensor happens to start."""
     return t if t.data_ptr() % 16 == 0 else t.clone()
-
-
-def gemv_lanes_fit(k: int) -> bool:
-    """Whether das_gemv can stage 4 rows of activations for K lanes (whole
-    256-lane tiles, 4 bytes a lane) beside its 8 KB trit tile in the 232,448
-    bytes of shared memory an H100 block may use (csrc/das_gemv.cu)."""
-    return -(-k // 256) * 256 * 4 * 4 + 8192 <= 232448
 
 
 def dtype_code(t: torch.Tensor) -> int:

@@ -99,53 +99,66 @@ __device__ __forceinline__ int Digits4::trit_at<int>(unsigned u, int b) {
 }
 
 // ---------------------------------------------------------------------------
-// Packed ternary GEMM core, shared by ternary_gemm and das_ternary_gemm.
+// Ternary GEMM core, shared by ternary_gemm, das_ternary_gemm and das_gemv.
 //
 //   out[m, n] = epilogue(sum_lane act(m, lane) * trit(lane, n), m)
 //
-// Weights are base-3 packed along K: byte (r, n) holds trits 5r..5r+4 of
-// column n, least significant digit first, digit {0,1,2} -> {-1,0,+1}; the
-// padding byte 121 decodes to five zero trits.  Trits are decoded in
-// registers and never reach device memory.  K is cut into fixed windows of
-// kWinRows = 32 packed rows (kWinLanes = 160 lanes: five DAS blocks of 32),
-// and a block stages only its window's activations in shared memory, so R
-// is not bounded by shared memory.  A row source (DenseRows in
-// ternary_gemm.cu, CompactRows in das_gemm.cu) puts a window's activations.
+// A weight source (below) gives the trits of K lanes in groups of five, one
+// group a packed row r (lanes 5r..5r+4), R groups in all:
+//  * PackedW (ternary_gemm, das_ternary_gemm): base-3 packed (R, N) uint8,
+//    byte (r, n) holds trits 5r..5r+4 of column n, least significant digit
+//    first, digit {0,1,2} -> {-1,0,+1}; the padding byte 121 decodes to
+//    five zero trits.  Trits are decoded in registers and never reach
+//    device memory.
+//  * TritsW (das_gemv): int8-resident trits (K, N), one byte a lane, R =
+//    ceil(K / 5); lanes at or past K read as zero trits, as the padding byte
+//    does.  A trit becomes a digit by one per-byte add (t + 1), so both
+//    sources feed the same digit code.
+// K is cut into fixed windows of kWinRows = 32 groups (kWinLanes = 160
+// lanes: five DAS blocks of 32), and a block stages only its window's
+// activations in shared memory, so K is not bounded by shared memory.  A
+// row source (rows.cuh: DenseRows, CompactRows) puts a window's
+// activations.
 //
 // Two tile classes, chosen by M:
 //  * decode (M <= 4): a block takes 128 columns and 1, 2, 4 or 8 windows
 //    (dec_subs, from R and N), so that the grid fills the card whatever M
 //    is: 208 blocks for bitnet-1.3b's q/k/v/o (13 of one window a column
-//    tile), 301 for gate/up (7 of 2), 144 for down (9 of 4).  Every packed
-//    load of a thread (4 neighbouring columns a row, a warp 32 or 128
-//    contiguous bytes) is issued before the window's activations are
-//    staged.  bf16 rows run on the tensor cores (decode_mma_kernel: the
-//    digits of 4 columns decoded at once into bf16 B fragments, the M rows
-//    in A rows 0..3); f32 and int8 rows on FMAs (decode_kernel).  The
-//    blocks of a column tile are one thread-block cluster (at most 16, so R
-//    <= 4096) and add their sums in block order through distributed shared
-//    memory.  One launch, no atomics.
+//    tile), 301 for gate/up (7 of 2), 144 for down (9 of 4) — packed or
+//    trits alike.  Every weight load of a thread (4 neighbouring columns a
+//    group: a warp 32 or 128 contiguous bytes a row) is issued before the
+//    window's activations are staged.  bf16 rows run on the tensor cores
+//    (decode_mma_kernel: the digits of 4 columns turned at once into bf16
+//    B fragments, the M rows in A rows 0..3); f32 and int8 rows on FMAs
+//    (decode_kernel).  The blocks of a column tile are one thread-block
+//    cluster (at most 16, so R <= 4096, K <= 20480) and add their sums in
+//    block order through distributed shared memory.  One launch, no
+//    atomics.
 //  * prefill (M > 4): bf16 activations run on the tensor cores (mma.sync
 //    m16n8k16, f32 accumulate) in 64 x 64 tiles, K split into parts of
 //    about 8 windows that reduce through a cluster (mma_parts, a function
-//    of R alone): activation and packed tiles of the next windows are
+//    of R alone): activation and weight tiles of the next windows are
 //    copied with cp.async (a ring of 3 windows for dense rows, 2 for
-//    compacted ones) while the current one is decoded and multiplied.
-//    A window's 160 lanes are laid out in
-//    10 k-steps so that each thread decodes 8 whole bytes of one column into
-//    its B fragments, and reads its A fragment as 8 contiguous bytes
-//    (mma_lane).  f32 and int8 activations (and shapes the bf16 path cannot
-//    take) run on FMAs: a thread owns one column and 8 rows and sums its
-//    lanes in ascending order, the next window's bytes loaded ahead.
+//    compacted ones) while the current one is multiplied.  A window's 160
+//    lanes are laid out in 10 k-steps so that each thread takes 40 whole
+//    lanes of one column (8 packed bytes, or 40 trit bytes) into its B
+//    fragments, and reads its A fragment as 8 contiguous bytes (mma_lane).
+//    f32 and int8 activations (and shapes the bf16 path cannot take) run on
+//    FMAs: a thread owns one column and 8 rows and sums its lanes in
+//    ascending order, the next window's weights loaded ahead.
+//
+// What bounds it on the H100: at decode the weight bytes over the 3.35 TB/s
+// of HBM (packed: R*N; trits: K*N, five times as many, which the rows'
+// kept lanes nearly all touch at M = 4); at a prefill pack the bf16
+// tensor-core rate.
 //
 // Batch invariance: the order in which an output's terms are summed depends
-// on (K, R, N, dtype, tile class) only — never on M within a class, on the
+// on (K, N, dtype, tile class) only — never on M within a class, on the
 // values of other rows, or on timing.  The engine runs every decode step at
 // M = max_slots and prefills one request at a time, so a request's tokens
 // do not depend on its batch-mates.
 // ---------------------------------------------------------------------------
 
-constexpr int kGemmThreads = 128;              // das_gemv's block
 constexpr int kMaxSmem = 232448;               // an H100 block's shared memory
 constexpr unsigned kZeroByte = 121;            // digits 1,1,1,1,1: five zero trits
 constexpr int kWinRows = 32;                   // packed rows of a K window
@@ -163,6 +176,39 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], 
       "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// --- the prefill tile and asynchronous copies -----------------------------------
+
+constexpr int kMmaThreads = 128;               // 4 warps, each 64 rows x 16 columns
+constexpr int kMmaRows = 64;
+constexpr int kMmaCols = 64;
+constexpr int kAStride = 176;                  // bf16 of a staged row: 160 + 16 (conflict-free)
+constexpr int kPStride = kMmaCols + 4;         // bytes of a staged weight row (+4: no conflicts)
+
+// Where lane l of a window sits in a staged activation row.  Thread q of a
+// quad decodes packed rows 8q..8q+7 of its column (lanes 40q..40q+39) and
+// feeds them to k-steps 0..9 four lanes at a time; its A fragment of k-step
+// j is then lanes 40q+4j..40q+4j+3, stored contiguously at 16j + 4q.
+__host__ __device__ __forceinline__ int mma_lane(int l) {
+  return (l % 40) / 4 * 16 + l / 40 * 4 + l % 4;
+}
+
+__device__ __forceinline__ void cp_async(void* smem, const void* gmem, int bytes, int src_bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  if (bytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
+                 "r"(src_bytes));
+  else if (bytes == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s), "l"(gmem),
+                 "r"(src_bytes));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(gmem),
+                 "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 // --- decode class ------------------------------------------------------------
@@ -185,6 +231,139 @@ __device__ __forceinline__ unsigned packed_word(const uint8_t* __restrict__ pack
     w |= (c + b < N ? (unsigned)__ldg(p + b) : kZeroByte) << (8 * b);
   return w;
 }
+
+// --- weight sources ------------------------------------------------------------
+//
+// Each gives the core: word(r, c), group r of columns c..c+3 for the decode
+// class, read as Digits (5 steps of 4 digits); group(r, col), group r of one
+// column as a base-3 byte, for the FMA prefill; and a window's tile for the
+// tensor-core prefill: kTileRows rows x 64 columns copied by issue_tile,
+// then digits40, the 40 digits of one column that a quad thread's B
+// fragments take (lanes 40q..40q+39 of the window).
+
+// base-3 packed (R, N) uint8
+struct PackedW {
+  const uint8_t* __restrict__ p;
+  int R, N;
+  bool vec;                                    // N % 4 == 0 and a 4-byte aligned base
+  using Word = unsigned;
+  using Digits = Digits4;
+  static constexpr int kTileRows = kWinRows;   // a window's packed rows
+
+  __device__ __forceinline__ Word word(int r, int c) const {
+    return packed_word(p, r, c, R, N, vec);
+  }
+  __device__ __forceinline__ unsigned group(int r, int col) const {
+    return r < R && col < N ? (unsigned)__ldg(p + (size_t)r * N + col) : kZeroByte;
+  }
+  // packed rows s*32.., columns n0..n0+63: 512 words, 4 a thread (N % 4 == 0)
+  template <int NT>
+  __device__ __forceinline__ void issue_tile(uint8_t* tile, int s, int n0) const {
+#pragma unroll
+    for (int k = 0; k < kTileRows * kMmaCols / 4 / NT; ++k) {
+      const int i = threadIdx.x + k * NT;
+      const int r = i / (kMmaCols / 4), c = i % (kMmaCols / 4) * 4;
+      const int row = s * kWinRows + r, col = n0 + c;
+      const bool ok = row < R && col < N;
+      cp_async(tile + r * kPStride + c, ok ? p + (size_t)row * N + col : p, 4, ok ? 4 : 0);
+    }
+  }
+  // the copy zero-fills rows past R: those read as the padding byte
+  __device__ __forceinline__ void digits40(const uint8_t* tile, int s, int c, int q,
+                                           unsigned (&u)[40]) const {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int r = 8 * q + i;
+      unsigned v = s * kWinRows + r < R ? (unsigned)tile[r * kPStride + c] : kZeroByte;
+#pragma unroll
+      for (int d = 0; d < 5; ++d) u[5 * i + d] = next_digit(v);
+    }
+  }
+};
+
+// five lanes of 4 columns: the int8 trits of lanes 5r..5r+4
+struct TritWord {
+  unsigned w[5];
+};
+
+// Digits of a TritWord: trit t -> digit t + 1, one per-byte add a lane
+struct Digits5 {
+  unsigned w[5];
+  int k = 0;
+  __device__ __forceinline__ explicit Digits5(const TritWord& x) {
+#pragma unroll
+    for (int d = 0; d < 5; ++d) w[d] = x.w[d];
+  }
+  __device__ __forceinline__ void next_digits(unsigned& ul, unsigned& uh) {
+    const unsigned v = __vadd4(w[k++], 0x01010101u);
+    ul = v & 0x00FF00FFu;
+    uh = (v >> 8) & 0x00FF00FFu;
+  }
+  template <typename Acc> __device__ __forceinline__ void next(Acc (&t)[4]) {
+    unsigned ul, uh;
+    next_digits(ul, uh);
+    t[0] = Digits4::trit_at<Acc>(ul, 0);
+    t[1] = Digits4::trit_at<Acc>(uh, 0);
+    t[2] = Digits4::trit_at<Acc>(ul, 2);
+    t[3] = Digits4::trit_at<Acc>(uh, 2);
+  }
+};
+
+// int8-resident trits (K, N), R = ceil(K / 5) groups; zero past K and N
+struct TritsW {
+  const int8_t* __restrict__ t;
+  int K, R, N;
+  bool vec;                                    // N % 4 == 0 and a 4-byte aligned base
+  using Word = TritWord;
+  using Digits = Digits5;
+  static constexpr int kTileRows = kWinLanes;  // a window's lanes
+
+  // lane l, columns c..c+3, as one little-endian word
+  __device__ __forceinline__ unsigned lane_word(int l, int c) const {
+    if (l >= K || c >= N) return 0u;
+    const int8_t* q = t + (size_t)l * N + c;
+    if (vec) return __ldg(reinterpret_cast<const unsigned*>(q));
+    unsigned w = 0u;
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+      if (c + b < N) w |= (unsigned)(uint8_t)__ldg(q + b) << (8 * b);
+    return w;
+  }
+  __device__ __forceinline__ Word word(int r, int c) const {
+    Word o;
+#pragma unroll
+    for (int d = 0; d < 5; ++d) o.w[d] = lane_word(5 * r + d, c);
+    return o;
+  }
+  __device__ __forceinline__ unsigned group(int r, int col) const {
+    int v[5];
+#pragma unroll
+    for (int d = 0; d < 5; ++d) {
+      const int l = 5 * r + d;
+      v[d] = l < K && col < N ? (int)__ldg(t + (size_t)l * N + col) : 0;
+    }
+    return (unsigned)(v[0] + 1 + 3 * (v[1] + 1) + 9 * (v[2] + 1) + 27 * (v[3] + 1) +
+                      81 * (v[4] + 1));
+  }
+  // lanes s*160.., columns n0..n0+63: 2560 words, 20 a thread (N % 4 == 0);
+  // lanes past K are zero-filled, zero trits
+  template <int NT>
+  __device__ __forceinline__ void issue_tile(uint8_t* tile, int s, int n0) const {
+#pragma unroll
+    for (int k = 0; k < kTileRows * kMmaCols / 4 / NT; ++k) {
+      const int i = threadIdx.x + k * NT;
+      const int r = i / (kMmaCols / 4), c = i % (kMmaCols / 4) * 4;
+      const int lane = s * kWinLanes + r, col = n0 + c;
+      const bool ok = lane < K && col < N;
+      cp_async(tile + r * kPStride + c, ok ? t + (size_t)lane * N + col : t, 4, ok ? 4 : 0);
+    }
+  }
+  __device__ __forceinline__ void digits40(const uint8_t* tile, int, int c, int q,
+                                           unsigned (&u)[40]) const {
+#pragma unroll
+    for (int i = 0; i < 40; ++i) u[i] = ((unsigned)tile[(40 * q + i) * kPStride + c] + 1u) & 0xFFu;
+  }
+};
 
 // A decode block of a cluster arrives at the cluster barrier when it starts
 // and waits on it before its first store to another block's shared memory,
@@ -249,10 +428,9 @@ constexpr int kDecThreads = 256;
 constexpr int kDecWarps = kDecThreads / 32;
 constexpr int kRowsPerWarp = kWinRows / kDecWarps;
 
-template <typename Acc, int kSubs, class Rows, class Epi>
+template <typename Acc, int kSubs, class Rows, class W, class Epi>
 __global__ void __launch_bounds__(kDecThreads)
-decode_kernel(Rows rows, const uint8_t* __restrict__ packed, int R, int N, bool vec, Epi epi,
-              float* __restrict__ out) {
+decode_kernel(Rows rows, W wt, Epi epi, float* __restrict__ out) {
   constexpr int kLanes = kSubs * kWinLanes;
   epi.load();
   __shared__ __align__(16) Acc sx[kLanes][kDecRows];
@@ -263,13 +441,12 @@ decode_kernel(Rows rows, const uint8_t* __restrict__ packed, int R, int N, bool 
   const int c0 = blockIdx.x * kDecCols;
   const int wr = warp * kRowsPerWarp;            // the warp's first row in a window
   cluster_arrive_relaxed();
-  unsigned w[kSubs][kRowsPerWarp];
+  typename W::Word w[kSubs][kRowsPerWarp];
 #pragma unroll
   for (int u = 0; u < kSubs; ++u)
 #pragma unroll
     for (int i = 0; i < kRowsPerWarp; ++i)
-      w[u][i] = packed_word(packed, (s * kSubs + u) * kWinRows + wr + i, c0 + lane * 4, R, N,
-                            vec);
+      w[u][i] = wt.word((s * kSubs + u) * kWinRows + wr + i, c0 + lane * 4);
   if (Rows::kScatter) {
     for (int i = threadIdx.x; i < kLanes * kDecRows; i += kDecThreads)
       (&sx[0][0])[i] = zero_acc<Acc>();
@@ -288,7 +465,7 @@ decode_kernel(Rows rows, const uint8_t* __restrict__ packed, int R, int N, bool 
   for (int u = 0; u < kSubs; ++u)
 #pragma unroll
     for (int i = 0; i < kRowsPerWarp; ++i) {
-      Digits4 dg(w[u][i]);
+      typename W::Digits dg(w[u][i]);
 #pragma unroll
       for (int d = 0; d < 5; ++d) {
         const Acc* x = sx[(kWinRows * u + wr + i) * 5 + d];
@@ -315,7 +492,7 @@ decode_kernel(Rows rows, const uint8_t* __restrict__ packed, int R, int N, bool 
     bsum[o] = v;
   }
   __syncthreads();
-  finish_windows<Acc, kDecThreads>(bsum, rows.M, N, c0, epi, out);
+  finish_windows<Acc, kDecThreads>(bsum, rows.M, wt.N, c0, epi, out);
 }
 
 // Tensor-core route (bf16 activations): a block takes kSubs windows of 32
@@ -349,10 +526,9 @@ __host__ __device__ __forceinline__ int dec_lane(int L) {
   return 80 * (r / kHalfRows) + 16 * (L % 5) + 4 * (r % kHalfRows / 4) + r % 4;
 }
 
-template <int kSubs, class Rows, class Epi>
+template <int kSubs, class Rows, class W, class Epi>
 __global__ void __launch_bounds__(kDecMmaThreads)
-decode_mma_kernel(Rows rows, const uint8_t* __restrict__ packed, int R, int N, bool vec,
-                  Epi epi, float* __restrict__ out) {
+decode_mma_kernel(Rows rows, W wt, Epi epi, float* __restrict__ out) {
   epi.load();
   constexpr int kLanes = kSubs * kWinLanes;
   __shared__ __align__(16) __nv_bfloat16 at[kDecRows][kLanes];
@@ -366,11 +542,11 @@ decode_mma_kernel(Rows rows, const uint8_t* __restrict__ packed, int R, int N, b
   const int cw = c0 + 32 * grp + 4 * g;          // the thread's 4 columns
   const int r0 = s * kSubs * kWinRows + kHalfRows * h + 4 * q;
   cluster_arrive_relaxed();
-  unsigned w[kSubs][4];
+  typename W::Word w[kSubs][4];
 #pragma unroll
   for (int u = 0; u < kSubs; ++u)
 #pragma unroll
-    for (int i = 0; i < 4; ++i) w[u][i] = packed_word(packed, r0 + kWinRows * u + i, cw, R, N, vec);
+    for (int i = 0; i < 4; ++i) w[u][i] = wt.word(r0 + kWinRows * u + i, cw);
   if (Rows::kScatter) {
     for (int i = threadIdx.x; i < kDecRows * kLanes / 2; i += kDecMmaThreads)
       reinterpret_cast<unsigned*>(&at[0][0])[i] = 0u;
@@ -389,7 +565,8 @@ decode_mma_kernel(Rows rows, const uint8_t* __restrict__ packed, int R, int N, b
     for (int e = 0; e < 4; ++e) acc[t][e] = 0.f;
 #pragma unroll
   for (int u = 0; u < kSubs; ++u) {
-    Digits4 dg[4] = {Digits4(w[u][0]), Digits4(w[u][1]), Digits4(w[u][2]), Digits4(w[u][3])};
+    using Dg = typename W::Digits;
+    Dg dg[4] = {Dg(w[u][0]), Dg(w[u][1]), Dg(w[u][2]), Dg(w[u][3])};
 #pragma unroll
     for (int d = 0; d < 5; ++d) {
       unsigned ul[4], uh[4];
@@ -422,7 +599,7 @@ decode_mma_kernel(Rows rows, const uint8_t* __restrict__ packed, int R, int N, b
   for (int o = threadIdx.x; o < kDecRows * kDecCols; o += kDecMmaThreads)
     bsum[o] = red[0][o] + red[1][o];
   __syncthreads();
-  finish_windows<float, kDecMmaThreads>(bsum, rows.M, N, c0, epi, out);
+  finish_windows<float, kDecMmaThreads>(bsum, rows.M, wt.N, c0, epi, out);
 }
 
 // --- prefill class, FMA route (f32, int8, and what the bf16 route cannot take)
@@ -430,23 +607,18 @@ decode_mma_kernel(Rows rows, const uint8_t* __restrict__ packed, int R, int N, b
 constexpr int kFmaThreads = 128;               // one column a thread
 constexpr int kFmaRows = 8;
 
-template <typename Acc, class Rows, class Epi>
+template <typename Acc, class Rows, class W, class Epi>
 __global__ void __launch_bounds__(kFmaThreads)
-prefill_fma_kernel(Rows rows, const uint8_t* __restrict__ packed, int R, int N, Epi epi,
-                   float* __restrict__ out) {
+prefill_fma_kernel(Rows rows, W wt, Epi epi, float* __restrict__ out) {
   epi.load();
   __shared__ __align__(16) Acc sx[kWinLanes][kFmaRows];
-  const int M = rows.M, S = windows(R);
+  const int M = rows.M, N = wt.N, S = windows(wt.R);
   const int col = blockIdx.x * kFmaThreads + threadIdx.x;
   const int m0 = blockIdx.y * kFmaRows;
-  const uint8_t* p = packed + (col < N ? col : 0);
   unsigned b[kWinRows];
   auto load = [&](int s) {
 #pragma unroll
-    for (int i = 0; i < kWinRows; ++i) {
-      const int r = s * kWinRows + i;
-      b[i] = r < R && col < N ? (unsigned)__ldg(p + (size_t)r * N) : kZeroByte;
-    }
+    for (int i = 0; i < kWinRows; ++i) b[i] = wt.group(s * kWinRows + i, col);
   };
   Acc acc[kFmaRows];
 #pragma unroll
@@ -486,57 +658,24 @@ prefill_fma_kernel(Rows rows, const uint8_t* __restrict__ packed, int R, int N, 
 
 // --- prefill class, tensor-core route (bf16) -----------------------------------
 
-constexpr int kMmaThreads = 128;               // 4 warps, each 64 rows x 16 columns
-constexpr int kMmaRows = 64;
-constexpr int kMmaCols = 64;
-constexpr int kAStride = 176;                  // bf16 of a staged row: 160 + 16 (conflict-free)
-constexpr int kPStride = kMmaCols + 4;         // bytes of a staged packed row (+4: no conflicts)
-
-// Where lane l of a window sits in a staged activation row.  Thread q of a
-// quad decodes packed rows 8q..8q+7 of its column (lanes 40q..40q+39) and
-// feeds them to k-steps 0..9 four lanes at a time; its A fragment of k-step
-// j is then lanes 40q+4j..40q+4j+3, stored contiguously at 16j + 4q.
-__host__ __device__ __forceinline__ int mma_lane(int l) {
-  return (l % 40) / 4 * 16 + l / 40 * 4 + l % 4;
-}
-
-__device__ __forceinline__ void cp_async(void* smem, const void* gmem, int bytes, int src_bytes) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  if (bytes == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
-                 "r"(src_bytes));
-  else if (bytes == 8)
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s), "l"(gmem),
-                 "r"(src_bytes));
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(gmem),
-                 "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-
 // Dynamic shared memory of the tensor-core route: a ring of Rows::kStages
 // staging buffers of the row source, its extra tile, then as many packed
 // tiles of 32 rows x 64 columns.
-template <class Rows>
+template <class Rows, class W>
 __host__ __forceinline__ size_t mma_smem(const Rows& rows) {
-  return Rows::kStages * (rows.mma_stage_bytes() + kWinRows * kPStride) +
+  return Rows::kStages * (rows.mma_stage_bytes() + W::kTileRows * kPStride) +
          rows.mma_extra_bytes();
 }
 
-template <class Rows, class Epi>
+template <class Rows, class W, class Epi>
 __global__ void __launch_bounds__(kMmaThreads)
-prefill_mma_kernel(Rows rows, const uint8_t* __restrict__ packed, int R, int N, Epi epi,
-                   float* __restrict__ out) {
+prefill_mma_kernel(Rows rows, W wt, Epi epi, float* __restrict__ out) {
   epi.load();
   extern __shared__ __align__(16) unsigned char smem[];
   // this block's windows: part blockIdx.z of gridDim.z (mma_parts)
-  const int M = rows.M, P = gridDim.z, p = blockIdx.z;
-  const int per = (windows(R) + P - 1) / P;
-  const int w0 = p * per, w1 = min(windows(R), w0 + per);
+  const int M = rows.M, N = wt.N, P = gridDim.z, p = blockIdx.z;
+  const int per = (windows(wt.R) + P - 1) / P;
+  const int w0 = p * per, w1 = min(windows(wt.R), w0 + per);
   const int m0 = blockIdx.y * kMmaRows, n0 = blockIdx.x * kMmaCols;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, q = lane % 4;
@@ -545,21 +684,12 @@ prefill_mma_kernel(Rows rows, const uint8_t* __restrict__ packed, int R, int N, 
   unsigned char* extra = smem + kStages * stage_bytes;
   auto stage = [&](int buf) { return smem + buf * stage_bytes; };
   auto ptile = [&](int buf) {
-    return extra + rows.mma_extra_bytes() + buf * kWinRows * kPStride;
+    return extra + rows.mma_extra_bytes() + buf * W::kTileRows * kPStride;
   };
 
   auto issue = [&](int s, int buf) {
     rows.mma_issue(stage(buf), m0, s);
-    // packed rows s*32.., columns n0..n0+63: 512 words, 4 a thread (N % 4 == 0)
-#pragma unroll
-    for (int k = 0; k < kWinRows * kMmaCols / 4 / kMmaThreads; ++k) {
-      const int i = threadIdx.x + k * kMmaThreads;
-      const int r = i / (kMmaCols / 4), c = i % (kMmaCols / 4) * 4;
-      const int row = s * kWinRows + r, col = n0 + c;
-      const bool ok = row < R && col < N;
-      cp_async(ptile(buf) + r * kPStride + c, ok ? packed + (size_t)row * N + col : packed, 4,
-               ok ? 4 : 0);
-    }
+    wt.template issue_tile<kMmaThreads>(ptile(buf), s, n0);
     cp_async_commit();
   };
 
@@ -590,20 +720,13 @@ prefill_mma_kernel(Rows rows, const uint8_t* __restrict__ packed, int R, int N, 
     __syncthreads();
     const __nv_bfloat16* at = rows.mma_tile(stage(buf), extra, s);   // [64][kAStride]
 
-    // B fragments: column n0 + 16 warp + 8 nt + g, packed rows 8q..8q+7 of
-    // the window -> 40 trits, k-step j taking trits 4j..4j+3
+    // B fragments: column n0 + 16 warp + 8 nt + g, lanes 40q..40q+39 of
+    // the window -> 40 digits, k-step j taking lanes 4j..4j+3
     unsigned bfrag[2][20];
 #pragma unroll
     for (int nt = 0; nt < 2; ++nt) {
-      const uint8_t* pc = ptile(buf) + warp * 16 + nt * 8 + g;
       unsigned u[40];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int r = 8 * q + i;
-        unsigned v = s * kWinRows + r < R ? (unsigned)pc[r * kPStride] : kZeroByte;
-#pragma unroll
-        for (int d = 0; d < 5; ++d) u[5 * i + d] = next_digit(v);
-      }
+      wt.digits40(ptile(buf), s, warp * 16 + nt * 8 + g, q, u);
 #pragma unroll
       for (int h = 0; h < 20; ++h) bfrag[nt][h] = trit_pair_bf16(u[2 * h] | u[2 * h + 1] << 8);
     }
@@ -676,14 +799,14 @@ __host__ __forceinline__ int mma_parts(int R) {
 }
 
 // launch the tensor-core prefill, its K parts as one cluster
-template <class Rows, class Epi>
-static cudaError_t launch_prefill_mma(const Rows& rows, const uint8_t* packed, int R, int N,
-                                      Epi epi, float* out, cudaStream_t stream) {
-  auto kernel = prefill_mma_kernel<Rows, Epi>;
-  const size_t smem = mma_smem(rows);
+template <class Rows, class W, class Epi>
+static cudaError_t launch_prefill_mma(const Rows& rows, const W& wt, Epi epi, float* out,
+                                      cudaStream_t stream) {
+  auto kernel = prefill_mma_kernel<Rows, W, Epi>;
+  const size_t smem = mma_smem<Rows, W>(rows);
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  const int P = mma_parts(R);
+  const int P = mma_parts(wt.R), N = wt.N;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = 1;
@@ -696,23 +819,23 @@ static cudaError_t launch_prefill_mma(const Rows& rows, const uint8_t* packed, i
   cfg.stream = stream;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, kernel, rows, packed, R, N, epi, out);
+  return cudaLaunchKernelEx(&cfg, kernel, rows, wt, epi, out);
 }
 
 // The decode class: bf16 activations on the tensor-core route, f32 and
 // int8 on the FMA route; the S blocks of a column tile are one cluster.
-template <typename Acc, bool kMma, int kSubs, class Rows, class Epi>
-static cudaError_t launch_decode_subs(const Rows& rows, const uint8_t* packed, int R, int N,
-                                     Epi epi, float* out, cudaStream_t stream) {
-  const dim3 grid((N + kDecCols - 1) / kDecCols, (windows(R) + kSubs - 1) / kSubs);
+template <typename Acc, bool kMma, int kSubs, class Rows, class W, class Epi>
+static cudaError_t launch_decode_subs(const Rows& rows, const W& wt, Epi epi, float* out,
+                                     cudaStream_t stream) {
+  const dim3 grid((wt.N + kDecCols - 1) / kDecCols, (windows(wt.R) + kSubs - 1) / kSubs);
   if (grid.y > (unsigned)kMaxCluster) return cudaErrorInvalidValue;
-  void (*kernel)(Rows, const uint8_t*, int, int, bool, Epi, float*);
+  void (*kernel)(Rows, W, Epi, float*);
   int threads;
   if constexpr (kMma) {
-    kernel = decode_mma_kernel<kSubs, Rows, Epi>;
+    kernel = decode_mma_kernel<kSubs, Rows, W, Epi>;
     threads = kDecMmaThreads;
   } else {
-    kernel = decode_kernel<Acc, kSubs, Rows, Epi>;
+    kernel = decode_kernel<Acc, kSubs, Rows, W, Epi>;
     threads = kDecThreads;
   }
   if (grid.y > 8) {
@@ -732,26 +855,31 @@ static cudaError_t launch_decode_subs(const Rows& rows, const uint8_t* packed, i
   cfg.stream = stream;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, kernel, rows, packed, R, N, N % 4 == 0, epi, out);
+  return cudaLaunchKernelEx(&cfg, kernel, rows, wt, epi, out);
 }
 
-template <typename Acc, bool kMma, class Rows, class Epi>
-static cudaError_t launch_decode(const Rows& rows, const uint8_t* packed, int R, int N,
-                                 Epi epi, float* out, cudaStream_t stream) {
-  switch (dec_subs(R, N)) {
+template <typename Acc, bool kMma, class Rows, class W, class Epi>
+static cudaError_t launch_decode(const Rows& rows, const W& wt, Epi epi, float* out,
+                                 cudaStream_t stream) {
+  switch (dec_subs(wt.R, wt.N)) {
     case 1:
-      return launch_decode_subs<Acc, kMma, 1>(rows, packed, R, N, epi, out, stream);
+      return launch_decode_subs<Acc, kMma, 1>(rows, wt, epi, out, stream);
     case 2:
-      return launch_decode_subs<Acc, kMma, 2>(rows, packed, R, N, epi, out, stream);
+      return launch_decode_subs<Acc, kMma, 2>(rows, wt, epi, out, stream);
     case 4:
-      return launch_decode_subs<Acc, kMma, 4>(rows, packed, R, N, epi, out, stream);
+      return launch_decode_subs<Acc, kMma, 4>(rows, wt, epi, out, stream);
     default:
-      return launch_decode_subs<Acc, kMma, 8>(rows, packed, R, N, epi, out, stream);
+      return launch_decode_subs<Acc, kMma, 8>(rows, wt, epi, out, stream);
   }
 }
 
-__host__ __forceinline__ dim3 fma_grid(int M, int N) {
-  return dim3((N + kFmaThreads - 1) / kFmaThreads, (M + kFmaRows - 1) / kFmaRows);
+// the FMA prefill: one column a thread, 8 rows a block
+template <typename Acc, class Rows, class W, class Epi>
+static cudaError_t launch_prefill_fma(const Rows& rows, const W& wt, Epi epi, float* out,
+                                      cudaStream_t stream) {
+  const dim3 grid((wt.N + kFmaThreads - 1) / kFmaThreads, (rows.M + kFmaRows - 1) / kFmaRows);
+  prefill_fma_kernel<Acc><<<grid, kFmaThreads, 0, stream>>>(rows, wt, epi, out);
+  return cudaGetLastError();
 }
 
 // opt a kernel into `smem` bytes of dynamic shared memory

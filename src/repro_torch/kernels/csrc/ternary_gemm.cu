@@ -16,62 +16,9 @@
 // in registers: at decode split over 32-row K windows so that the whole card
 // has loads in flight, with an ordered reduction of the windows in the same
 // launch; at prefill on the tensor cores for bf16, on FMAs for f32 and int8.
-#include "common.cuh"
+#include "rows.cuh"
 
 namespace tenet {
-
-// lane l of row m is x[m, l] (zero past K and M)
-template <typename T>
-struct DenseRows {
-  const T* __restrict__ x;
-  int M, K;
-  static constexpr bool kScatter = false;
-  static constexpr int kStages = 3;  // tensor-core route: windows in flight
-
-  // put(mi, li, v) for rows m0..m0+ROWS-1, lanes lane0..lane0+LANES-1;
-  // every load is issued before the first put
-  template <int ROWS, int NT, typename Acc, int LANES = kWinLanes, class Put>
-  __device__ __forceinline__ void stage(int m0, int lane0, Put put) const {
-    constexpr int kN = ROWS * LANES, kPer = (kN + NT - 1) / NT;
-    Acc v[kPer];
-#pragma unroll
-    for (int k = 0; k < kPer; ++k) {
-      const int i = threadIdx.x + k * NT, mi = i / LANES, li = i % LANES;
-      const int row = m0 + mi, lane = lane0 + li;
-      v[k] = i < kN && row < M && lane < K ? convert<Acc>(x[(size_t)row * K + lane])
-                                           : zero_acc<Acc>();
-    }
-#pragma unroll
-    for (int k = 0; k < kPer; ++k) {
-      const int i = threadIdx.x + k * NT;
-      if (kN % NT == 0 || i < kN) put(i / LANES, i % LANES, v[k]);
-    }
-  }
-
-  // tensor-core route (T = bf16, K % 4 == 0): the window's activations go
-  // by cp.async straight into their mma_lane places, 4 lanes a copy
-  __host__ __device__ size_t mma_stage_bytes() const {
-    return (size_t)kMmaRows * kAStride * sizeof(__nv_bfloat16);
-  }
-  __host__ __device__ size_t mma_extra_bytes() const { return 0; }
-  __device__ __forceinline__ void mma_issue(unsigned char* buf, int m0, int s) const {
-    __nv_bfloat16* at = reinterpret_cast<__nv_bfloat16*>(buf);
-    constexpr int kGroups = kWinLanes / 4;
-#pragma unroll
-    for (int k = 0; k < kMmaRows * kGroups / kMmaThreads; ++k) {
-      const int i = threadIdx.x + k * kMmaThreads;
-      const int mi = i / kGroups, l = i % kGroups * 4;
-      const int row = m0 + mi, lane = s * kWinLanes + l;
-      const bool ok = row < M && lane < K;
-      cp_async(at + mi * kAStride + mma_lane(l), ok ? x + (size_t)row * K + lane : x, 8,
-               ok ? 8 : 0);
-    }
-  }
-  __device__ __forceinline__ const __nv_bfloat16* mma_tile(unsigned char* buf, unsigned char*,
-                                                           int) const {
-    return reinterpret_cast<const __nv_bfloat16*>(buf);
-  }
-};
 
 struct Scale {
   const float* w_scale;
@@ -89,18 +36,15 @@ template <typename T, typename Acc>
 static cudaError_t launch(const void* x, const uint8_t* packed, Scale epi, float* out, int M,
                           int K, int R, int N, cudaStream_t stream) {
   const DenseRows<T> rows{static_cast<const T*>(x), M, K};
+  const PackedW wt{packed, R, N, N % 4 == 0};
   if (M <= kDecRows) {
-    return launch_decode<Acc, std::is_same<T, __nv_bfloat16>::value>(rows, packed, R, N, epi,
-                                                                     out, stream);
+    return launch_decode<Acc, std::is_same<T, __nv_bfloat16>::value>(rows, wt, epi, out,
+                                                                     stream);
   }
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    if (K % 4 == 0 && N % 4 == 0) {
-      return launch_prefill_mma(rows, packed, R, N, epi, out, stream);
-    }
+    if (K % 4 == 0 && N % 4 == 0) return launch_prefill_mma(rows, wt, epi, out, stream);
   }
-  prefill_fma_kernel<Acc><<<fma_grid(M, N), kFmaThreads, 0, stream>>>(rows, packed, R, N, epi,
-                                                                      out);
-  return cudaGetLastError();
+  return launch_prefill_fma<Acc>(rows, wt, epi, out, stream);
 }
 
 }  // namespace tenet

@@ -14,7 +14,7 @@ import torch
 
 from . import ref
 from .das_gemm import compacted_lanes, das_ternary_gemm_cuda
-from .das_gemv import das_gemv_cuda
+from .das_gemv import das_gemv_cuda, gemv_compaction
 from .ref import DasTopK
 from .sparse_attn import sparse_attention_cuda
 from .ternary_gemm import ternary_gemm_cuda
@@ -116,12 +116,16 @@ def twd_decode(packed: torch.Tensor, k: int) -> torch.Tensor:
 
 
 def das_gemv(values: torch.Tensor, indices: torch.Tensor | None,
-             trits: torch.Tensor, w_scale) -> torch.Tensor:
+             trits: torch.Tensor, w_scale, *, keep: int = 16,
+             block: int = 32) -> torch.Tensor:
     """(M, Kc) values at absolute lanes ``indices`` (None: dense rows, Kc ==
-    K) x int8 trits (K, N) -> (M, N) float32."""
+    K) x int8 trits (K, N) -> (M, N) float32; compacted rows must be
+    ``keep`` of every ``block`` lanes, Kc == K / block * keep."""
     w_scale = _scale(w_scale, trits)
     if not _on_cuda(values, indices, trits):
+        if indices is not None:
+            gemv_compaction(values.shape[-1], trits.shape[0], keep, block)
         return ref.das_gemv_ref(values, indices, trits, w_scale)
-    out = das_gemv_cuda(values, indices, trits, w_scale)
+    out = das_gemv_cuda(values, indices, trits, w_scale, keep=keep, block=block)
     launches["das_gemv"] += 1
     return out

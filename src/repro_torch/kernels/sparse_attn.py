@@ -3,9 +3,11 @@
 Replaces the JAX package's ``kernels/sparse_attn.py::sparse_attention``
 (Pallas ``_attn_kernel``): LPSA sink + window attention with an online
 softmax in float32, GQA, optional tanh soft-cap, empty slots at position -1.
-One kernel serves the ring-cache decode (Lq = 1), the prefill packs
-(``[sink | window | pack]`` keys) and full-cache serving (sink = 2**30).
-Bounded on the H100 by the K/V bytes at decode.
+It serves the ring-cache decode (Lq = 1), the prefill packs (``[sink |
+window | pack]`` keys) and full-cache serving (sink = 2**30); at Lq = 1 the
+keys of each (q head, batch row) are split over a thread-block cluster and
+merged in block order in the same launch.  Bounded on the H100 by the K/V
+bytes at decode.
 """
 
 from __future__ import annotations

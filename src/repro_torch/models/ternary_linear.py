@@ -124,7 +124,8 @@ def tlin_apply(lin: TernaryLinear, x: torch.Tensor,
         if ca is None:
             y = ops.das_gemv(x.reshape(-1, k).contiguous(), None, lin.trits, scale)
         elif ca.values is not None:
-            y = ops.das_gemv(ca.values, ca.indices, lin.trits, scale)
+            y = ops.das_gemv(ca.values, ca.indices, lin.trits, scale,
+                             keep=lin.tc.das.keep, block=lin.tc.das.block)
         else:
             y = ops.das_gemv(ca.dense, None, lin.trits, scale)
     return y.reshape(*lead, y.shape[-1]).to(x.dtype)

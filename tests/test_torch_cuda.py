@@ -99,21 +99,31 @@ def test_cuda_ternary_gemm(cuda, rng, m, k, n, dtype):
                                ref.ternary_gemm_ref(x, p, SCALE), rtol=tol, atol=tol)
 
 
-@pytest.mark.parametrize("kernel", ["ternary_gemm", "das_ternary_gemm"])
+@pytest.mark.parametrize("kernel", ["ternary_gemm", "das_ternary_gemm", "das_gemv",
+                                    "das_gemv_dense"])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_cuda_packed_gemm_batch_invariance(cuda, rng, kernel, dtype):
     """A row's output does not depend on the other rows of the call: the rows
     of an M = 4 call equal M = 1, 2, 3 calls bit for bit (the decode class),
     and rows of an M = 256 call equal calls of other M > 4 on slices of them
-    (the prefill class)."""
-    k, n = 2048, 5460
+    (the prefill class).  das_gemv runs on the same core with int8 trits:
+    compacted rows (K = 2048) and DAS-masked dense rows with a tail (K =
+    5460)."""
+    k, n = (5460, 2048) if kernel == "das_gemv_dense" else (2048, 5460)
     p = _packed(rng, k, n, cuda)
+    w = torch.from_numpy(rng.integers(-1, 2, size=(k, n)).astype(np.int8)).to(cuda)
     x = torch.from_numpy(rng.standard_normal((256, k)).astype(np.float32)).to(cuda, dtype)
 
     def run(rows):
+        rows = rows.contiguous()
         if kernel == "ternary_gemm":
-            return ops.ternary_gemm(rows.contiguous(), p, SCALE)
-        ca = das.das_compact(rows.contiguous(), keep=16)
+            return ops.ternary_gemm(rows, p, SCALE)
+        if kernel == "das_gemv_dense":
+            return ops.das_gemv(das.das_apply(rows, das.das_mask(rows, keep=16)), None, w,
+                                SCALE)
+        ca = das.das_compact(rows, keep=16)
+        if kernel == "das_gemv":
+            return ops.das_gemv(ca.values, ca.indices, w, SCALE, keep=16)
         return ops.das_ternary_gemm(ca.values, ca.indices, p, SCALE, keep=16)
 
     dec = run(x[:4])
@@ -139,6 +149,37 @@ def test_cuda_sparse_attention(cuda, rng, hq, hkv, d, cap):
         ops.sparse_attention(q, k, v, qp, kp, sink=4, window=16, softcap=cap),
         ref.sparse_attention_ref(q, k, v, qp, kp, sink=4, window=16, softcap=cap),
         rtol=3e-4, atol=3e-4)
+
+
+def _ring_positions(t, sink=128, window=896):
+    """The positions in a (sink + window)-slot ring after token t (-1: empty)."""
+    pos = torch.full((sink + window,), -1, dtype=torch.int32)
+    for p in range(t + 1):
+        pos[p if p < sink else sink + (p - sink) % window] = p
+    return pos
+
+
+def test_cuda_sparse_attention_decode_batch_invariance(cuda, rng):
+    """The decode class splits each row's keys over a cluster by Lk alone: a
+    full 1024-slot ring at B = 4 gives every row the bits of a B = 1 call on
+    it.  One row has every chunk masked (all slots empty) and gives 0; one is
+    young enough that most chunks hold no allowed key."""
+    b, lk, h, d = 4, 1024, 32, 64
+    mk = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(  # noqa: E731
+        cuda, torch.bfloat16)
+    q, k, v = mk(b, 1, h, d), mk(b, lk, h, d), mk(b, lk, h, d)
+    qp = torch.tensor([[1500], [700], [5], [1023]], dtype=torch.int32, device=cuda)
+    kp = torch.stack([_ring_positions(t) for t in (1500, 700, 5, 1023)]).to(cuda)
+    kp[1] = -1
+    full = ops.sparse_attention(q, k, v, qp, kp, sink=128, window=896)
+    torch.testing.assert_close(
+        full, ref.sparse_attention_ref(q, k, v, qp, kp, sink=128, window=896),
+        rtol=2e-2, atol=2e-2)
+    assert not full[1].any()
+    for i in range(b):
+        one = ops.sparse_attention(q[i:i + 1], k[i:i + 1], v[i:i + 1], qp[i:i + 1],
+                                   kp[i:i + 1], sink=128, window=896)
+        assert torch.equal(one, full[i:i + 1]), i
 
 
 @pytest.mark.parametrize("d", [64, 80])
@@ -223,11 +264,17 @@ def test_cuda_twd_decode(cuda, rng, k, n, row_align):
 @pytest.mark.parametrize("m,k,n,dtype,form", [
     (4, 2048, 2048, torch.bfloat16, "compact"), (9, 2048, 130, torch.float32, "compact"),
     (4, 5460, 256, torch.bfloat16, "dense"), (9, 5460, 64, torch.float32, "dense"),
-    (37, 640, 96, torch.float32, "off")])
+    (37, 640, 96, torch.float32, "off"),
+    (4, 2048, 5460, torch.bfloat16, "compact"), (3, 5460, 2048, torch.float32, "dense"),
+    (2, 2048, 130, torch.bfloat16, "compact"), (4, 5460, 130, torch.bfloat16, "off"),
+    (4, 9216, 256, torch.bfloat16, "compact"), (1, 9216, 64, torch.float32, "off"),
+    (256, 5460, 2048, torch.bfloat16, "dense"), (70, 9216, 130, torch.bfloat16, "compact")])
 def test_cuda_das_gemv(cuda, rng, m, k, n, dtype, form):
     """Compacted rows, DAS-masked dense rows with a tail (K = 5460) and raw
-    dense rows; decode (M <= 4), 8-row and 4-row tiles; N not a multiple of
-    4 (byte loads)."""
+    dense rows on the GEMM core: decode (M <= 4) on the tensor cores (bf16)
+    and on FMAs (f32), prefill on either; K = 2048 and 5460 end in a partial
+    160-lane window; K = 9216 (the zoo's largest) takes 4 windows a decode
+    block; N not a multiple of 4 (byte loads, the FMA prefill)."""
     w = torch.from_numpy(rng.integers(-1, 2, size=(k, n)).astype(np.int8)).to(cuda)
     x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32)).to(cuda, dtype)
     if form == "compact":
@@ -237,7 +284,7 @@ def test_cuda_das_gemv(cuda, rng, m, k, n, dtype, form):
         vals = das.das_apply(x, das.das_mask(x, keep=16)) if form == "dense" else x
         idx = None
     tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
-    torch.testing.assert_close(ops.das_gemv(vals, idx, w, SCALE),
+    torch.testing.assert_close(ops.das_gemv(vals, idx, w, SCALE, keep=16),
                                ref.das_gemv_ref(vals, idx, w, SCALE), rtol=tol, atol=tol)
 
 
@@ -245,6 +292,12 @@ def test_cuda_trits_kernels_refuse_what_they_cannot_take(cuda):
     x = torch.zeros((2, 64), device=cuda)
     with pytest.raises(ValueError):
         ops.das_gemv(x, None, torch.zeros((32, 8), dtype=torch.int8, device=cuda), SCALE)
+    with pytest.raises(ValueError):                   # Kc != K / block * keep
+        ops.das_gemv(x, torch.zeros((2, 64), dtype=torch.int32, device=cuda),
+                     torch.zeros((64, 8), dtype=torch.int8, device=cuda), SCALE, keep=12)
+    with pytest.raises(ValueError):                   # decode: K > 20480 lanes
+        ops.das_gemv(torch.zeros((4, 20485), device=cuda), None,
+                     torch.zeros((20485, 8), dtype=torch.int8, device=cuda), SCALE)
     with pytest.raises(ValueError):
         ops.twd_decode(torch.zeros((4, 8), dtype=torch.uint8, device=cuda), 21)
 

@@ -215,6 +215,39 @@ def test_das_gemv_matches_jax_kernel(rng, k, n):
     np.testing.assert_allclose(got[0], want, rtol=1e-5, atol=1e-4)
 
 
+@pytest.mark.parametrize("keep", [8, 24])
+def test_das_gemv_keep_matches_jax_kernel(rng, keep):
+    """The compacted form with another keep, passed to both ops as the JAX
+    op takes it."""
+    k, n = 1024, 256
+    _, vals, idx = _compact_rows(rng, 2, k, keep)
+    w = rng.integers(-1, 2, size=(k, n)).astype(np.int8)
+    got = ops.das_gemv(torch.from_numpy(vals), torch.from_numpy(idx),
+                       torch.from_numpy(w), SCALE, keep=keep, block=32).numpy()
+    for i in range(2):
+        want = np.asarray(jops.das_gemv(jnp.asarray(vals[i]), jnp.asarray(idx[i]),
+                                        jnp.asarray(w), SCALE, keep=keep, mode="interpret"))
+        np.testing.assert_allclose(got[i], want, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("kc,k,keep,block", [
+    (500, 1024, 16, 32),   # Kc is not K / block * keep
+    (512, 1024, 8, 32),    # keep 16's entries called keep 8
+    (48, 100, 16, 32),     # K is not whole blocks
+    (32, 128, 16, 64),     # a 64-lane block does not divide a 160-lane window
+    (64, 64, 33, 32)])     # keep > block
+def test_das_gemv_refuses_mismatched_compaction(kc, k, keep, block):
+    """Compacted rows must be das_compact's: Kc == K / block * keep, as the
+    JAX op checks (Kc * BLOCK == K * keep).  The check holds on the CPU as on
+    the card."""
+    with pytest.raises(ValueError):
+        ops.das_gemv(torch.zeros((2, kc)), torch.zeros((2, kc), dtype=torch.int32),
+                     torch.zeros((k, 8), dtype=torch.int8), SCALE, keep=keep, block=block)
+    with pytest.raises(ValueError):
+        jops.das_gemv(jnp.zeros((kc,)), jnp.zeros((kc,), jnp.int32),
+                      jnp.zeros((k, 8), jnp.int8), SCALE, keep=keep, mode="interpret")
+
+
 def test_das_gemv_rows_match_vmapped_jax_kernel(rng):
     """M = 4 rows against the JAX op vmapped over the rows, as its caller
     batches it."""
