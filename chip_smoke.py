@@ -8,7 +8,11 @@ Phases:
   build    build the six CUDA kernels from src/repro_torch/kernels/csrc
   kernels  hold each kernel against its plain PyTorch version on the card, at
            the serving paths' shapes and a few small GQA / soft-cap /
-           empty-slot / int8 cases, each max error beside its tolerance
+           empty-slot / int8 cases, each max error beside its tolerance;
+           sparse_attention's bf16 prefill class also at LPSA packs of three
+           stream offsets, full causal attention over partial tiles, head
+           sizes 16 and 80, and bitwise invariance to the batch and to the
+           other queries of a tile
   serve    full-width bitnet-1.3b (seeded random weights) on three paths, each
            driven with the launch counts at 0 and read after it:
              packed    base-3 packed weights: a ServeEngine with 4 slots
@@ -21,15 +25,19 @@ Phases:
            each checks token counts, the kernels' launch counts, finite
            logits and bitwise batch invariance; packed and int8w also a
            reduced-size model on the card against the CPU; then the decode
-           step of packed and int8w under torch.profiler, in turns
+           step of packed and int8w under torch.profiler, in turns, and the
+           device time of admitting the 1100-token prompt (4 packs)
   times    each kernel at its decode shape: CUDA-event median beside its
            bound, its plain version and one PyTorch call of the same function;
            the packed GEMMs and das_gemv also at their other decode shapes
-           and one 256-row prefill pack, sparse_attention at a prefill pack,
-           beside their bounds and library calls
+           and one 256-row prefill pack, sparse_attention's prefill classes
+           at packs of three stream offsets and at full causal attention,
+           beside their bounds, plain versions and library calls
 
-  python3 chip_smoke.py --parent DIR   # then both trees' times phases in
-                                       # turns: DIR, this, this, DIR
+  python3 chip_smoke.py --parent DIR   # then the times phase on DIR's kernels
+                                       # and on this tree's in turns: DIR,
+                                       # this, this, DIR
+  python3 chip_smoke.py --src DIR/src  # the phases on another tree's package
 
 The line before the last is a JSON object {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}.  Any failure exits non-zero without them.
@@ -73,6 +81,21 @@ KERNEL_INFO = {
 }
 
 TOL_F32_GEMM, TOL_BF16, TOL_F32_ATTN = 1e-4, 2e-2, 3e-4
+FULL_SINK = 1 << 30                     # the full-cache prefill's sink: every key
+
+
+def pack_positions(torch, t0, sink=128, window=896, chunk=256):
+    """(q_pos (chunk,), k_pos (sink + window + chunk,)) int32 of the LPSA
+    streaming prefill's pack at t0, keys [sink | window | pack], -1 for an
+    empty slot: core/lpsa.py::pack_positions, copied because the times phase
+    also runs on trees whose package predates it (--parent)."""
+    slot = torch.arange(sink)
+    win = t0 - window + torch.arange(window)
+    pack = t0 + torch.arange(chunk)
+    k_pos = torch.cat([torch.where(slot < t0, slot, -1),
+                       torch.where((win >= sink) & (win >= 0), win, -1), pack])
+    return pack.to(torch.int32), k_pos.to(torch.int32)
+
 
 
 def log(msg: str) -> None:
@@ -310,6 +333,92 @@ class Smoke:
             kp = torch.arange(32, dtype=i32, device=self.dev)[None]
             attn_case(f"head_dim {d} f32", 1, 1, 32, 4, 2, d, f32, qp, kp, 8, 24,
                       tol=TOL_F32_ATTN)
+        self._prefill_cases(g)
+
+    def _prefill_cases(self, g):
+        """sparse_attention's bf16 prefill class (Lq > 1, tensor cores)
+        against its plain version: LPSA packs at three stream offsets (most
+        sink and window slots empty at t0 = 0 and 512), full causal
+        attention over partial tiles, GQA 32/8, head sizes 16 and 80,
+        round_scores with soft-cap, an empty batch row (exact 0); then
+        bitwise invariance to the batch and to the other queries of a tile."""
+        torch = self.torch
+        from repro_torch.kernels import ref
+        from repro_torch.kernels.sparse_attn import sparse_attention_cuda
+        dev, bf16 = self.dev, torch.bfloat16
+
+        def rand(*shape):
+            return torch.randn(shape, generator=g, device=dev).to(bf16)
+
+        def attend(q, k, v, qp, kp, sink, window, cap=None, rs=False):
+            return sparse_attention_cuda(q, k, v, qp, kp, sink=sink, window=window,
+                                         softcap=cap, round_scores=rs)
+
+        def case(label, q, k, v, qp, kp, sink, window, cap=None, rs=False):
+            got = attend(q, k, v, qp, kp, sink, window, cap, rs)
+            want = ref.sparse_attention_ref(q, k, v, qp, kp, sink=sink, window=window,
+                                            softcap=cap, round_scores=rs)
+            self.check(f"sparse_attention prefill {label}", got, want, TOL_BF16)
+            if not rs:   # a diagnostic: the distance from the exact result, in bf16 steps
+                exact = ref.sparse_attention_ref(q.float(), k.float(), v.float(), qp, kp,
+                                                 sink=sink, window=window, softcap=cap)
+                step = torch.exp2(torch.floor(torch.log2(exact.abs().clamp_min(2 ** -6))) - 7)
+                ulps = float(((got.float() - exact).abs() / step).max())
+                log(f"[kernels]   {label}: max {ulps:.3f} bf16 steps (of |out| >= 2^-6) from "
+                    f"the float32 result (0.5: correctly rounded)")
+            return got
+
+        def pack(t0, b=1):
+            qp, kp = pack_positions(torch, t0)
+            return qp[None].repeat(b, 1).to(dev), kp[None].repeat(b, 1).to(dev)
+
+        h, d = 32, 64
+        for t0 in (0, 512, 2000):
+            qp, kp = pack(t0)
+            case(f"pack t0={t0} bf16 Lq=256 Lk=1280 round_scores", rand(1, 256, h, d),
+                 rand(1, 1280, h, d), rand(1, 1280, h, d), qp, kp, 128, 896, rs=True)
+        qp, kp = pack(2000)
+        case("pack t0=2000 bf16 Lq=256 Lk=1280", rand(1, 256, h, d), rand(1, 1280, h, d),
+             rand(1, 1280, h, d), qp, kp, 128, 896)
+        pos = torch.arange(300, dtype=torch.int32, device=dev)[None]
+        case("full causal Lq=Lk=300 (partial tiles)", rand(1, 300, h, d), rand(1, 300, h, d),
+             rand(1, 300, h, d), pos, pos, FULL_SINK, 0)
+        qp, kp = pack(512)
+        case("pack t0=512 GQA 32/8", rand(1, 256, 32, d), rand(1, 1280, 8, d),
+             rand(1, 1280, 8, d), qp, kp, 128, 896, rs=True)
+        for dd in (16, 80):
+            qp = (100 + torch.arange(100, dtype=torch.int32, device=dev))[None].repeat(2, 1)
+            kp = torch.arange(200, dtype=torch.int32, device=dev)[None].repeat(2, 1)
+            kp[1, 150:] = -1
+            case(f"head_dim {dd} B=2 Lq=100 Lk=200 GQA 8/4", rand(2, 100, 8, dd),
+                 rand(2, 200, 4, dd), rand(2, 200, 4, dd), qp, kp, 16, 64)
+        qp, kp = pack(512)
+        case("pack t0=512 H=8 round_scores + softcap 30", rand(1, 256, 8, d),
+             rand(1, 1280, 8, d), rand(1, 1280, 8, d), qp, kp, 128, 896, cap=30.0, rs=True)
+        qp, kp = pack(512, 2)
+        kp[1] = -1
+        out = case("pack t0=512 B=2, row 1 all keys empty", rand(2, 256, h, d),
+                   rand(2, 1280, h, d), rand(2, 1280, h, d), qp, kp, 128, 896, rs=True)
+        if out[1].any():
+            raise AssertionError("a batch row with no allowed key must give exact 0")
+        log("[kernels] sparse_attention prefill empty row: exact 0")
+
+        # batch invariance: row 1 of a B = 2 call (rows at t0 = 2000 and 512)
+        # is a B = 1 call on it; queries [64, 128) and [37, 101) of a pack are
+        # a call on those queries alone
+        q, k, v = rand(2, 256, h, d), rand(2, 1280, h, d), rand(2, 1280, h, d)
+        qa, ka = pack(2000)
+        qb, kb = pack(512)
+        qp, kp = torch.cat([qa, qb]), torch.cat([ka, kb])
+        full = attend(q, k, v, qp, kp, 128, 896, rs=True)
+        one = attend(q[1:], k[1:], v[1:], qp[1:], kp[1:], 128, 896, rs=True)
+        checks = [("row 1 of B=2 vs B=1", one, full[1:])]
+        for lo, hi in ((64, 128), (37, 101)):
+            sub = attend(q[1:, lo:hi].contiguous(), k[1:], v[1:],
+                         qp[1:, lo:hi].contiguous(), kp[1:], 128, 896, rs=True)
+            checks.append((f"queries [{lo},{hi}) alone vs in the pack", sub, full[1:, lo:hi]))
+        for label, got, want in checks:
+            self.check(f"sparse_attention prefill invariance, {label}", got, want, 0, True)
 
     def phase_serve(self):
         torch = self.torch
@@ -351,6 +460,7 @@ class Smoke:
         lg_packed = self._finite_logits("packed", model, prompts[2][:chunk], sc.max_len)
         self._batch_invariance("packed", eng, trace, res, (0, 3))
         del eng
+        self._profile_admission(model, prompts[0], sc.max_len)
         self._reduced_parity("packed", cfg, prompts[0])
 
         # path "int8w": the trits come from twd_decode of the packed weights
@@ -553,15 +663,7 @@ class Smoke:
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         steps = eng.stats.decode_steps - steps1        # the profiled run's steps
-        by_name = {}   # device kernels only: a CPU op's device time repeats its kernels'
-        for e in prof.key_averages():
-            if "CUDA" not in str(getattr(e, "device_type", "")):
-                continue
-            dt = getattr(e, "self_device_time_total", None)
-            if dt is None:
-                dt = getattr(e, "self_cuda_time_total", 0.0)
-            if dt > 0:
-                by_name[e.key] = by_name.get(e.key, 0.0) + dt
+        by_name = _device_times(prof)
         busy_us = sum(by_name.values())
         if not busy_us:
             log(f"[profile] {label}: the profiler recorded no device time: not measured")
@@ -578,10 +680,46 @@ class Smoke:
             log(f"[profile]   {dt / 1e3 / steps:8.4f} ms/step {count / steps:7.1f}  {name[:80]}")
         return {"ms_step": ms_step, "busy_ms_step": busy_us / 1e3 / steps}
 
+    def _profile_admission(self, model, prompt, max_len):
+        """The device time of admitting ``prompt``: the streaming prefill of
+        its whole packs (4 for 1100 tokens), CUDA events around one
+        prefill, then its kernels under torch.profiler, with
+        sparse_attention's share."""
+        torch = self.torch
+        from torch.profiler import ProfilerActivity, profile
+
+        from repro_torch.models import model as MD
+        n = len(prompt) // model.cfg.lpsa.chunk * model.cfg.lpsa.chunk
+        tok = torch.as_tensor(prompt[:n], dtype=torch.long, device=self.dev)[None]
+        MD.prefill(model, tok, max_len=max_len)         # warm the allocator
+        ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        ev0.record()
+        MD.prefill(model, tok, max_len=max_len)
+        ev1.record()
+        torch.cuda.synchronize()
+        ms = ev0.elapsed_time(ev1)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            MD.prefill(model, tok, max_len=max_len)
+            torch.cuda.synchronize()
+        by_name = _device_times(prof)
+        busy_us = sum(by_name.values())
+        if not busy_us:
+            log("[profile] admission: the profiler recorded no device time: not measured")
+            return
+        attn_us = sum(dt for name, dt in by_name.items() if _is_attention(name))
+        log(f"[profile] admission of a {len(prompt)}-token prompt ({n // model.cfg.lpsa.chunk} "
+            f"packs of {model.cfg.lpsa.chunk}): {ms:.3f} ms (CUDA events), device busy "
+            f"{busy_us / 1e3:.3f} ms under torch.profiler, sparse_attention "
+            f"{attn_us / 1e3:.3f} ms of it (share {attn_us / busy_us:.3f})")
+        for name, dt in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+            log(f"[profile]   {dt / 1e3:8.4f} ms  {name[:90]}")
+
     def phase_times(self):
         torch = self.torch
         from repro_torch.core import das as das_lib
         from repro_torch.core import twd
+        from repro_torch.core.lpsa import lpsa_allowed
         from repro_torch.kernels import ref
         from repro_torch.kernels.das_gemm import das_ternary_gemm_cuda
         from repro_torch.kernels.das_gemv import das_gemv_cuda
@@ -767,24 +905,60 @@ class Smoke:
             4 * n_keys * h * d, "bfloat16",
             f"decode q ({b},1,{h},{d}) over a {s}-slot ring bf16")
 
-        # a prefill pack: 256 queries over [sink | window | pack] = 1280 keys
-        t0 = 2000
-        kp1 = torch.cat([torch.arange(128), t0 - 896 + torch.arange(896),
-                         t0 + torch.arange(256)]).to(torch.int32).to(self.dev)[None]
-        qp1 = (t0 + torch.arange(256, device=self.dev)).to(torch.int32)[None]
-        q1 = torch.randn((1, 256, h, d), generator=g, device=self.dev).to(bf16)
-        k1 = torch.randn((1, 1280, h, d), generator=g, device=self.dev).to(bf16)
-        v1 = torch.randn((1, 1280, h, d), generator=g, device=self.dev).to(bf16)
-        allowed1 = ((kp1[:, None, :] <= qp1[:, :, None])
-                    & ((kp1[:, None, :] < 128) | (qp1[:, :, None] - kp1[:, None, :] < 896)))
-        pairs = int(allowed1.sum())
-        extra("prefill sparse_attention q (1,256,32,64) over 1280 keys bf16",
-              lambda: sparse_attention_cuda(q1, k1, v1, qp1, kp1, sink=128, window=896),
-              lambda: torch.nn.functional.scaled_dot_product_attention(
-                  q1.transpose(1, 2), k1.transpose(1, 2), v1.transpose(1, 2),
-                  attn_mask=allowed1[:, None]),
-              (256 + 2 * 1280) * h * d * 2 + 256 * h * d * 2 + (256 + 1280) * 4,
-              4 * pairs * h * d)
+        # the prefill classes: a pack of 256 queries over [sink | window |
+        # pack] = 1280 keys at three stream offsets (the streaming prefill's
+        # round_scores), and full causal attention over 1024 tokens; bytes
+        # count the keys some query attends, operations the allowed pairs;
+        # the library call is SDPA with the same boolean mask
+        def prefill_row(label, lq, lk, dt, qp, kp, sink, window, rs):
+            qp, kp = qp[None].to(self.dev), kp[None].to(self.dev)
+            q1 = torch.randn((1, lq, h, d), generator=g, device=self.dev).to(dt)
+            k1 = torch.randn((1, lk, h, d), generator=g, device=self.dev).to(dt)
+            v1 = torch.randn((1, lk, h, d), generator=g, device=self.dev).to(dt)
+            allowed = lpsa_allowed(qp[:, :, None], kp[:, None, :], sink, window) & (
+                kp >= 0)[:, None, :]              # ref.sparse_attention_ref's mask
+            pairs, keys = int(allowed.sum()), int(allowed.any(1).sum())
+            es = q1.element_size()
+            kw = dict(sink=sink, window=window, round_scores=rs)
+            row(f"sparse_attention prefill {label}",
+                lambda: sparse_attention_cuda(q1, k1, v1, qp, kp, **kw),
+                lambda: ref.sparse_attention_ref(q1, k1, v1, qp, kp, **kw),
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    q1.transpose(1, 2), k1.transpose(1, 2), v1.transpose(1, 2),
+                    attn_mask=allowed[:, None]),
+                2 * lq * h * d * es + 2 * keys * h * d * es + (lq + lk) * 4,
+                4 * pairs * h * d, "bfloat16" if dt == bf16 else "float32",
+                f"q (1,{lq},{h},{d}) over {lk} keys ({keys} attended, {pairs} pairs) {dt}")
+
+        for t0 in (0, 512, 2000):
+            qp1, kp1 = pack_positions(torch, t0)
+            prefill_row(f"t0={t0}", 256, 1280, bf16, qp1, kp1, 128, 896, True)
+        pos = torch.arange(1024, dtype=torch.int32)
+        prefill_row("full causal", 1024, 1024, bf16, pos, pos, FULL_SINK, 0, False)
+        qp1, kp1 = pack_positions(torch, 2000)
+        prefill_row("f32 t0=2000", 256, 1280, torch.float32, qp1, kp1, 128, 896, False)
+
+
+def _device_times(prof) -> dict:
+    """Device time (us) by kernel name from a torch.profiler run: device
+    kernels only, since a CPU op's device time repeats its kernels'."""
+    by_name = {}
+    for e in prof.key_averages():
+        if "CUDA" not in str(getattr(e, "device_type", "")):
+            continue
+        dt = getattr(e, "self_device_time_total", None)
+        if dt is None:
+            dt = getattr(e, "self_cuda_time_total", 0.0)
+        if dt > 0:
+            by_name[e.key] = by_name.get(e.key, 0.0) + dt
+    return by_name
+
+
+def _is_attention(kernel_name: str) -> bool:
+    """Whether a device kernel is one of sparse_attention's classes (or the
+    single class of trees before them)."""
+    return any(k in kernel_name for k in ("attn_prefill", "split_decode_kernel",
+                                          "sparse_attn_kernel"))
 
 
 def _nvidia_smi() -> str:
@@ -797,15 +971,18 @@ def _nvidia_smi() -> str:
 
 
 def turns(parent: Path, seed: int) -> None:
-    """The times phase of ``parent`` and of this tree in turns on this card
-    (parent, this, this, parent), each a process of its own tree's script
-    with its own kernel build; prints each run's [times] lines."""
+    """This script's times phase on the kernels of ``parent`` and of this
+    tree in turns on this card (parent, this, this, parent): each turn a
+    process of its own on its tree's package (``--src``) and that tree's
+    kernel build, so both run the same shapes; prints each run's [times]
+    lines."""
     for i, tree in enumerate((parent, ROOT, ROOT, parent), 1):
         label = "parent" if tree == parent else "this"
         t0 = time.perf_counter()
-        res = subprocess.run([sys.executable, str(tree / "chip_smoke.py"), "--phases",
-                              "device,build,times", "--seed", str(seed)],
-                             cwd=tree, capture_output=True, text=True, timeout=900)
+        res = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--phases",
+                              "device,build,times", "--seed", str(seed),
+                              "--src", str(tree / "src")],
+                             cwd=ROOT, capture_output=True, text=True, timeout=900)
         if res.returncode:
             raise RuntimeError(f"turn {i} ({label}) failed:\n{res.stdout[-3000:]}"
                                f"{res.stderr[-3000:]}")
@@ -823,6 +1000,9 @@ def main(argv=None) -> int:
     ap.add_argument("--parent", type=Path, default=None,
                     help="a checkout of another tree (the parent commit): after the "
                          "phases, time both trees' kernels in turns")
+    ap.add_argument("--src", type=Path, default=ROOT / "src",
+                    help="the directory that holds the repro_torch package to drive "
+                         "(default: this tree's src)")
     args = ap.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(PHASES)
@@ -834,7 +1014,7 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)",
               file=sys.stderr)
         return 2
-    src = ROOT / "src"
+    src = args.src.resolve()
     if not (src / "repro_torch" / "kernels" / "csrc").is_dir():
         print(f"chip_smoke: the port's sources are not under {src}", file=sys.stderr)
         return 2

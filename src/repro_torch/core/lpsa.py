@@ -18,7 +18,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
-__all__ = ["LpsaSpec", "lpsa_allowed", "decode_slot", "lpsa_prefill"]
+__all__ = ["LpsaSpec", "lpsa_allowed", "decode_slot", "pack_positions", "lpsa_prefill"]
 
 
 class LpsaSpec(NamedTuple):
@@ -37,6 +37,19 @@ def decode_slot(pos: torch.Tensor, sink: int, window: int) -> torch.Tensor:
     """Ring-cache slot of an absolute position: sink slots are pinned, the
     window is a ring.  Slot layout: [0, sink) sink, [sink, sink+window) ring."""
     return torch.where(pos < sink, pos, sink + (pos - sink) % window)
+
+
+def pack_positions(t0: int, spec: LpsaSpec, device=None):
+    """The positions of the pack starting at t0: the pack's own (C,) and its
+    keys ``[sink | window | pack]`` (S + W + C,), -1 for a sink slot not yet
+    reached or a window slot before position ``sink`` or before 0."""
+    s, w, c = spec.sink, spec.window, spec.chunk
+    sink_slot = torch.arange(s, device=device)
+    win_pos = t0 - w + torch.arange(w, device=device)
+    pos = torch.arange(t0, t0 + c, device=device)
+    k_pos = torch.cat([torch.where(sink_slot < t0, sink_slot, -1),
+                       torch.where((win_pos >= s) & (win_pos >= 0), win_pos, -1), pos])
+    return pos, k_pos
 
 
 def lpsa_prefill(x: torch.Tensor, qkv_proj: Callable, *, spec: LpsaSpec,
@@ -60,12 +73,10 @@ def lpsa_prefill(x: torch.Tensor, qkv_proj: Callable, *, spec: LpsaSpec,
     kv = lambda n: torch.zeros((b, n, num_kv_heads, head_dim), dtype=dt,  # noqa: E731
                                device=dev)
     k_sink, v_sink, k_win, v_win = kv(s), kv(s), kv(w), kv(w)
-    sink_slot = torch.arange(s, device=dev)
-    win_off = torch.arange(w, device=dev)
     outs = []
     for t0 in range(0, tl, c):
         q, k, v = qkv_proj(x[:, t0:t0 + c])
-        pos = torch.arange(t0, t0 + c, device=dev)
+        pos, k_pos = pack_positions(t0, spec, dev)
         if rope is not None:
             q, k = rope(q, pos), rope(k, pos)
         # sink slots [t0, min(s, t0 + c)) take this pack's leading tokens
@@ -73,11 +84,6 @@ def lpsa_prefill(x: torch.Tensor, qkv_proj: Callable, *, spec: LpsaSpec,
         if t0 < hi:
             k_sink[:, t0:hi] = k[:, :hi - t0]
             v_sink[:, t0:hi] = v[:, :hi - t0]
-        win_pos = t0 - w + win_off
-        k_pos = torch.cat([
-            torch.where(sink_slot < t0, sink_slot, -1),
-            torch.where((win_pos >= s) & (win_pos >= 0), win_pos, -1),
-            pos])
         o = attend(q, torch.cat([k_sink, k_win, k], 1),
                    torch.cat([v_sink, v_win, v], 1),
                    pos.to(torch.int32)[None].expand(b, c).contiguous(),

@@ -12,38 +12,72 @@
 // `scale` (1/sqrt(D)), soft-capped by tanh when softcap > 0, and a row with
 // no allowed key outputs 0.  out: (B, Lq, Hq, D) in q's dtype.
 //
-// The prefill class: one block per (query, q head, batch row); its threads
-// stride over the keys (thread t takes keys t, t + blockDim, ...), each
-// keeping a running max, denominator and D-wide accumulator in float32
-// registers; the block then merges them in a fixed order (xor butterflies
-// inside a warp, warps in index order), so the result does not depend on
-// the other rows.  The decode class is below.
+// Three classes, chosen by Lq and the dtype alone (launch, at the end):
 //
-// What bounds it on the H100: bytes.  At decode (Lq = 1 over the 1024-slot
-// ring) every allowed key's K and V rows are read once per q head: 1024 x 32
-// x 64 x 2 x 2 B = 8.4 MB per layer per slot in bf16, the largest traffic of
-// a decode step.  Scores and softmax state never leave the chip.
-//
-// Two classes:
 //  * decode (Lq == 1): split_decode_kernel, flash-decoding in one launch.
-//    The keys are split over the S blocks of a thread-block cluster, one
-//    cluster per (q head, batch row); S and each block's key range are a
-//    function of Lk alone (split_keys: 256 keys a block, at most 16 blocks,
-//    beyond that the chunks grow; 4 blocks at Lk = 1024, so that all of a
-//    decode step's 512 blocks are resident at once).  A block walks its
-//    chunk in tiles of 64 keys (32 for rows over 160 bytes): it reads a
-//    tile's k_pos, then copies only the allowed rows' K and V into shared
-//    memory with 16-byte cp.async (neighbouring threads on neighbouring
-//    bytes of a row, K and V both in flight before the first score; a tile
-//    with no allowed key loads nothing), two tiles in flight.  Each group of
-//    8 lanes takes every 16th key of a tile, scores it (lanes on
-//    neighbouring 16 bytes of the row) and folds it into the group's own
-//    running (max, denominator, accumulator), one exp a key, with no
-//    barrier between keys; the 16 groups merge in order at the end.  The
-//    blocks merge their states in block order through distributed shared
-//    memory: no atomics, no second pass, and the order depends on Lk, D and
-//    the dtype only.
-//  * prefill (Lq > 1): sparse_attn_kernel, as above.
+//    Bound on the H100 by bytes: every allowed key's K and V rows are read
+//    once per q head (1024 x 32 x 64 x 2 x 2 B = 8.4 MB per layer per slot
+//    over the full ring in bf16), and the rows are 128 bytes at a 4 KB
+//    stride.  The keys are split over the S blocks of a thread-block
+//    cluster, one cluster per (q head, batch row); S and each block's key
+//    range are a function of Lk alone (split_keys: 256 keys a block, at
+//    most 16 blocks, beyond that the chunks grow; 4 blocks at Lk = 1024, so
+//    that all of a decode step's 512 blocks are resident at once).  A block
+//    walks its chunk in tiles of 64 keys (32 for rows over 160 bytes): it
+//    reads a tile's k_pos, then copies only the allowed rows' K and V into
+//    shared memory with 16-byte cp.async, two tiles in flight; a tile with
+//    no allowed key loads nothing.  Each group of 8 lanes takes every 16th
+//    key of a tile and folds it into the group's own running (max,
+//    denominator, accumulator), one exp a key; the groups merge in order,
+//    then the blocks in block order through distributed shared memory: no
+//    atomics, no second pass.
+//
+//  * bf16 prefill (Lq > 1): attn_prefill_kernel, flash attention on the
+//    tensor cores.  A prefill pack (256 queries x 32 heads over 1280 keys)
+//    reads 12.6 MB and does 2.1 GFLOP of allowed products: 3.8 us by bytes,
+//    2.2 by operations at the bf16 peak.  One block per query (8192 blocks
+//    on FMAs, every K and V row read once per query) is two orders of
+//    magnitude off that; what bounds this class on the H100 is instruction
+//    issue and latency in its tile loop, not bytes or the tensor cores.
+//    - A block takes 64 queries of one q head, 4 warps of 16 rows.  S = Q K^T
+//      and O += P V run on mma.sync m16n8k16 with float32 accumulators; Q
+//      and K fragments by ldmatrix, V by ldmatrix.trans, from tiles of 64
+//      keys staged by 16-byte cp.async (rows padded by 16 bytes: no bank
+//      conflicts), three stages and one barrier a tile, each tile's k_pos
+//      loaded a tile ahead.  Each K and V row is read once per query tile.
+//    - A tile in which no (query, key) pair of the block's position range
+//      can be allowed loads and computes nothing (most sink and window slots
+//      of a young stream are empty, and a pack's own keys are causal); a
+//      tile in which every pair is allowed skips the mask.
+//    - Per element the scalar work is what costs: scores are rounded to
+//      bf16 (round_scores) on the integer pipe, the scale is folded into a
+//      base-2 exponent, and P goes to the tensor cores as hi + lo bf16
+//      halves cut by truncation and paired by byte permutes, which keeps p
+//      to 2^-15 of itself (a single bf16 P keeps it to 2^-8, visibly off the
+//      float32 softmax of the plain version at short rows).
+//    - A pack gives only 4 x 32 query tiles, so the keys of each (query
+//      tile, head) are split over a cluster (split_prefill: blocks of at
+//      least 9 tiles, 2 of 640 keys at Lk = 1280, none below 1152).  Each
+//      block pushes its rows' states into the block that owns them
+//      (distributed shared memory, stores only), and each owner merges its
+//      share of the rows over the S states in block order.
+//
+//  * float32 prefill (Lq > 1): attn_prefill_f32_kernel, one block per
+//    (query, q head, batch row), its threads striding over the
+//    keys on FMAs with a float32 state each, merged in a fixed order.
+//    mma.sync takes no float32 operands and TF32 would miss the 3e-4
+//    attention tolerance; float32 serves the reduced models' parity checks,
+//    not the full-width bf16 serving path.
+//
+// Batch invariance, in every class: the order in which a query's terms are
+// summed depends on (Lk, D, dtype, class) only -- never on B, on Lq, on the
+// other queries of a tile, or on timing.  Each row keeps its own max,
+// denominator and accumulator; the key split is a function of Lk; a skipped
+// tile leaves a row's state bit for bit as computing it would (its scores
+// are all -inf there: the max stays, the rescale is exactly 1, P is exact
+// zeros), so whether another query of the tile needed it does not matter.
+#include <climits>
+
 #include "common.cuh"
 
 namespace tenet {
@@ -78,9 +112,11 @@ template <> struct Vec<__nv_bfloat16> {
   }
 };
 
+// --- float32 prefill class: a block per (query, q head, batch row) ----------
+
 template <int D, typename T>
 __global__ void __launch_bounds__(kAttnThreads)
-sparse_attn_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+attn_prefill_f32_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                    const int* __restrict__ q_pos, const int* __restrict__ k_pos,
                    T* __restrict__ out, int Lq, int Lk, int Hq, int Hkv, int sink, int window,
                    float softcap, float scale, bool round_scores) {
@@ -391,7 +427,396 @@ static cudaError_t launch_split(const T* q, const T* k, const T* v, const int* q
                             window, softcap, scale, round_scores);
 }
 
-// Lq == 1: the split-key decode class; Lq > 1: a block per query
+// --- bf16 prefill class: query tiles on the tensor cores ------------------------
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kPfWarps = 4;                    // 16 query rows a warp
+constexpr int kPfKeys = 64;                    // keys of a tile
+constexpr int kPfStages = 3;                   // key tiles in flight
+constexpr int kPfMinKeys = 9 * kPfKeys;       // keys of a block of the cluster, at least
+constexpr float kLog2e = 1.4426950408889634f;
+
+// the blocks of a (query tile, head)'s cluster for Lk keys and the keys of
+// each, whole tiles: a function of Lk alone.  Each block takes at least 9
+// tiles, so that its fixed cost (the Q tile, the cluster merge) stays a
+// small part of its work: 2 blocks of 640 keys at Lk = 1280, one block up
+// to Lk = 1151
+__host__ __forceinline__ void split_prefill(int Lk, int& S, int& chunk) {
+  S = Lk / kPfMinKeys;
+  S = S < 1 ? 1 : S > kMaxCluster ? kMaxCluster : S;
+  chunk = ((Lk + S - 1) / S + kPfKeys - 1) / kPfKeys * kPfKeys;
+  S = (Lk + chunk - 1) / chunk;
+}
+
+__device__ __forceinline__ float ex2(float x) {  // 2^x; 2^-inf == 0
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// a block's dynamic shared memory: the Q tile, kPfStages stages of K and V
+// tiles with their k_pos and flags; after the last tile the stages take the
+// cluster's row states (S blocks x the block's share of rows)
+template <int D, int NW> struct PfSmem {
+  static constexpr int kRow = D + 8;           // bf16 of a staged row: +16 B, no bank conflicts
+  static constexpr int kRows = 16 * NW;        // queries of a tile
+  static constexpr int kQ = kRows * kRow * 2;
+  static constexpr int kKV = kPfKeys * kRow * 2;
+  static constexpr int kStages = kPfStages * 2 * kKV;
+  static constexpr int kBytes = kQ + kStages + (kPfStages + 1) * (kPfKeys + 2) * 4;
+  static_assert((kRows + kMaxCluster) * (D + 2) * 4 <= kStages, "row states fit the stages");
+};
+
+template <int D, int NW>
+__global__ void __launch_bounds__(NW * 32)
+attn_prefill_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, const int* __restrict__ q_pos,
+                    const int* __restrict__ k_pos, bf16* __restrict__ out, int Lq, int Lk,
+                    int Hq, int Hkv, int S, int chunk, int sink, int window, float softcap,
+                    float scale, bool round_scores) {
+  using Sm = PfSmem<D, NW>;
+  constexpr int NT = NW * 32, BQ = Sm::kRows, BK = kPfKeys, RS = Sm::kRow, NS = kPfStages;
+  constexpr int NP = NS + 1;                   // k_pos slots: one more than the stages
+  constexpr int CPR = D / 8;                   // 16-byte chunks of a row
+  constexpr int KS = D / 16;                   // k-steps of q.k
+  constexpr int ND = D / 8;                    // 8-column tiles of the output
+  constexpr int ST = D + 2;                    // floats of a row's state: acc, m, l
+  constexpr int CPT = 2 * BK * CPR / NT;       // 16-byte copies of a thread per tile
+  static_assert(BK == 64 && NT >= BK && D % 16 == 0 && 2 * BK * CPR % NT == 0,
+                "two warps a tile's keys; whole k-steps and copies");
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int s_qlo, s_qhi;
+  bf16* sq = reinterpret_cast<bf16*>(smem);
+  bf16* skv = reinterpret_cast<bf16*>(smem + Sm::kQ);          // [stage][K | V][BK][RS]
+  int* skp = reinterpret_cast<int*>(smem + Sm::kQ + Sm::kStages);   // [slot][BK]
+  int* sfl = skp + NP * BK;                                         // [slot][2 warps]
+
+  const int s = blockIdx.x % S, q0 = blockIdx.x / S * BQ, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, tg = lane % 4;       // the fragments' row and column lanes
+  const int hk = h / (Hq / Hkv);
+  const size_t krow = (size_t)Hkv * D, qrow = (size_t)Hq * D;
+  const bf16* kb = k + (size_t)b * Lk * krow + (size_t)hk * D;
+  const bf16* vb = v + (size_t)b * Lk * krow + (size_t)hk * D;
+  const bf16* qb = q + ((size_t)b * Lq + q0) * qrow + (size_t)h * D;
+  const int j0 = s * chunk, j1 = min(Lk, j0 + chunk);
+  const int tiles = j1 > j0 ? (j1 - j0 + BK - 1) / BK : 0;
+  // scores to base-2 logits: exp(x * scale - m) == 2^(x * c - m'), c = scale * log2(e),
+  // with x rounded to bf16 first under round_scores; the soft-cap applies its
+  // tanh to x * scale, so with it c = log2(e)
+  const bool cap = softcap > 0.f;
+  const float c2 = (cap ? 1.f : scale) * kLog2e;
+
+  // the Q tile (rows past Lq as zeros) and the range of its positions
+  for (int i = tid; i < BQ * CPR; i += NT) {
+    const int r = i / CPR, c = i % CPR;
+    const bool in = q0 + r < Lq;
+    cp_async(sq + r * RS + c * 8, in ? qb + (size_t)r * qrow + c * 8 : qb, 16, in ? 16 : 0);
+  }
+  if (tid == 0) {
+    s_qlo = INT_MAX;
+    s_qhi = INT_MIN;
+  }
+  __syncthreads();
+  if (tid < BQ && q0 + tid < Lq) {
+    const int p = q_pos[(size_t)b * Lq + q0 + tid];
+    atomicMin(&s_qlo, p);
+    atomicMax(&s_qhi, p);
+  }
+  int qp[2];                                   // rows r0 and r0 + 8; -1 past Lq: nothing allowed
+  const int r0 = warp * 16 + g;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = q0 + r0 + 8 * i;
+    qp[i] = r < Lq ? q_pos[(size_t)b * Lq + r] : -1;
+  }
+  __syncthreads();
+  const int qlo = s_qlo, qhi = s_qhi;
+
+  // this thread's key of tile t (-1 past the chunk)
+  auto key_pos = [&](int t) {
+    const int j = j0 + t * BK + tid;
+    return tid < BK && t < tiles && j < j1 ? k_pos[(size_t)b * Lk + j] : -1;
+  };
+  // tile t's positions into slot t % NP with its flags: bit 0, some query
+  // of the block may attend some key (a superset of the allowed pairs); bit
+  // 1, every query may attend every key (no mask)
+  auto publish = [&](int t, int kp) {
+    if (tid < BK) {
+      skp[t % NP * BK + tid] = kp;
+      const bool some = kp >= 0 && kp <= qhi && (kp < sink || qlo - kp < window);
+      const bool all = kp >= 0 && kp <= qlo && (kp < sink || qhi - kp < window);
+      const unsigned bs = __ballot_sync(0xffffffffu, some), ba = __ballot_sync(0xffffffffu, all);
+      if (lane == 0) sfl[t % NP * 2 + warp] = (bs != 0u) | (ba == 0xffffffffu) << 1;
+    }
+  };
+  auto flags = [&](int t) {
+    const int a = sfl[t % NP * 2], c = sfl[t % NP * 2 + 1];
+    return ((a | c) & 1) | (a & c & 2);
+  };
+  auto stage_k = [&](int t) { return skv + (size_t)(2 * (t % NS)) * BK * RS; };
+  auto stage_v = [&](int t) { return skv + (size_t)(2 * (t % NS) + 1) * BK * RS; };
+  // tile t's K and V rows into its stage when some query may attend it, 16
+  // bytes a copy, neighbouring threads on neighbouring bytes of a row;
+  // empty slots and keys past the chunk as zeros
+  auto issue = [&](int t) {
+    if (t >= tiles || !(flags(t) & 1)) return;
+    const int t0 = j0 + t * BK;
+    const int* kpt = skp + t % NP * BK;
+    bf16* ks = stage_k(t);
+#pragma unroll
+    for (int u = 0; u < CPT; ++u) {
+      const int i = tid + u * NT;
+      const int which = i / (BK * CPR), r = i / CPR % BK, c = i % CPR;
+      const bool live = kpt[r] >= 0;
+      const bf16* src = (which ? vb : kb) + (live ? (size_t)(t0 + r) * krow + c * 8 : 0);
+      cp_async(ks + which * BK * RS + r * RS + c * 8, src, 16, live ? 16 : 0);
+    }
+  };
+
+  float acc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  // per row: running max of the base-2 logits, denominator
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
+  // NS - 1 tiles in flight while one is used; one barrier a tile: tile t + NS
+  // - 1 goes into the stage that tile t - 1 used, and tile t + NS's
+  // positions (loaded a tile ahead) into the slot of tile t - 1
+#pragma unroll
+  for (int t = 0; t < NS; ++t) publish(t, key_pos(t));
+  int kp = key_pos(NS);
+  __syncthreads();
+#pragma unroll
+  for (int t = 0; t < NS - 1; ++t) {
+    issue(t);
+    cp_async_commit();                         // the first with the Q tile
+  }
+  for (int t = 0; t < tiles; ++t) {
+    cp_async_wait<NS - 2>();                   // tile t (and the Q tile) have landed
+    __syncthreads();
+    issue(t + NS - 1);
+    cp_async_commit();
+    publish(t + NS, kp);
+    kp = key_pos(t + NS + 1);
+    const int fl = flags(t);
+    if (!(fl & 1)) continue;
+    const bf16* kt = stage_k(t);
+    const bf16* vt = stage_v(t);
+    const int* kpt = skp + t % NP * BK;
+    // S = Q K^T: 16 rows x 64 keys a warp, 8 tiles of 8 keys
+    float sc[8][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n) sc[n][0] = sc[n][1] = sc[n][2] = sc[n][3] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      unsigned qf[4];                          // the warp's 16 rows of Q, k-step ks
+      ldmatrix_x4(qf, sq + (warp * 16 + lane % 16) * RS + ks * 16 + lane / 16 * 8);
+#pragma unroll
+      for (int p = 0; p < 4; ++p) {
+        unsigned bm[4];
+        ldmatrix_x4(bm, kt + (p * 16 + lane % 8 + lane / 16 * 8) * RS + ks * 16 +
+                            (lane / 8 % 2) * 8);
+        mma_bf16(sc[2 * p], qf, bm[0], bm[1]);
+        mma_bf16(sc[2 * p + 1], qf, bm[2], bm[3]);
+      }
+    }
+    // element e of tile n: row r0 + 8 (e / 2), key 8n + 2 tg + e % 2.
+    // round_scores: to bf16, nearest even, on the integer pipe
+    if (round_scores) {
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const unsigned u = __float_as_uint(sc[n][e]);
+          sc[n][e] = __uint_as_float((u + 0x7fffu + (u >> 16 & 1u)) & 0xffff0000u);
+        }
+      }
+    }
+    if (cap) {
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[n][e] = tanhf(sc[n][e] * scale / softcap) * softcap;
+      }
+    }
+    if (!(fl & 2)) {
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const int2 kp2 = *reinterpret_cast<const int2*>(kpt + n * 8 + 2 * tg);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kj = e & 1 ? kp2.y : kp2.x, qi = qp[e >> 1];
+          if (!(kj >= 0 && kj <= qi && (kj < sink || qi - kj < window))) sc[n][e] = -INFINITY;
+        }
+      }
+    }
+    // online softmax per row in base 2: a row with no allowed key so far
+    // keeps a zero state; a tile that does not raise the max rescales by
+    // exactly 1 (and skips the multiply)
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], sc[n][e]);
+    }
+    float mu[2], alpha[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      const float mn = fmaxf(m[i], mx[i] * c2);
+      mu[i] = mn == -INFINITY ? 0.f : mn;
+      alpha[i] = mn == m[i] ? 1.f : ex2(m[i] - mu[i]);
+      m[i] = mn;
+      l[i] *= alpha[i];
+    }
+    if (alpha[0] != 1.f || alpha[1] != 1.f) {
+#pragma unroll
+      for (int n = 0; n < ND; ++n) {
+        acc[n][0] *= alpha[0];
+        acc[n][1] *= alpha[0];
+        acc[n][2] *= alpha[1];
+        acc[n][3] *= alpha[1];
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        sc[n][e] = ex2(sc[n][e] * c2 - mu[e >> 1]);
+        l[e >> 1] += sc[n][e];
+      }
+    }
+    // O += P V, 16 keys a k-step: P's accumulator layout is the A
+    // fragment's, split as p = hi + lo with hi the top 8 bits of p's
+    // significand (exact remainder) and lo the top 8 of the rest, both
+    // paired by a byte permute: p to about 2^-15 of itself
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      unsigned ph[4], pl[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float* pv = &sc[2 * kk + i / 2][(i % 2) * 2];
+        const unsigned u0 = __float_as_uint(pv[0]), u1 = __float_as_uint(pv[1]);
+        ph[i] = __byte_perm(u0, u1, 0x7632);
+        const float r0f = pv[0] - __uint_as_float(u0 & 0xffff0000u);
+        const float r1f = pv[1] - __uint_as_float(u1 & 0xffff0000u);
+        pl[i] = __byte_perm(__float_as_uint(r0f), __float_as_uint(r1f), 0x7632);
+      }
+#pragma unroll
+      for (int dp = 0; dp < ND / 2; ++dp) {
+        unsigned bm[4];
+        ldmatrix_x4_trans(bm, vt + (kk * 16 + lane % 8 + (lane / 8 % 2) * 8) * RS + dp * 16 +
+                                  lane / 16 * 8);
+        mma_bf16(acc[2 * dp], ph, bm[0], bm[1]);
+        mma_bf16(acc[2 * dp + 1], ph, bm[2], bm[3]);
+        mma_bf16(acc[2 * dp], pl, bm[0], bm[1]);
+        mma_bf16(acc[2 * dp + 1], pl, bm[2], bm[3]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+  }
+  auto store = [&](int row, int col, float a0, float a1, float lr) {
+    if (q0 + row >= Lq) return;
+    const float o0 = lr == 0.f ? 0.f : a0 / lr, o1 = lr == 0.f ? 0.f : a1 / lr;
+    *reinterpret_cast<__nv_bfloat162*>(out + ((size_t)b * Lq + q0 + row) * qrow +
+                                       (size_t)h * D + col) = __floats2bfloat162_rn(o0, o1);
+  };
+  if (S == 1) {                                // the block's own rows: out = acc / l
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        store(r0 + 8 * i, n * 8 + 2 * tg, acc[n][2 * i], acc[n][2 * i + 1], l[i]);
+    }
+    return;
+  }
+
+  // the cluster's merge: block s owns rows [s * share, (s + 1) * share) of
+  // the tile; every block pushes its state of each row into the owner's
+  // slots [S][share][acc | m | l] (remote stores), and each owner merges
+  // its rows over the S states in block order
+  cg::cluster_group cluster = cg::this_cluster();
+  const int share = (BQ + S - 1) / S;
+  float* slots = reinterpret_cast<float*>(skv);
+  cluster.sync();                              // every block is done with its stages
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = r0 + 8 * i, owner = row / share;
+    float* dst = cluster.map_shared_rank(slots, owner) + (s * share + row % share) * ST;
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+      *reinterpret_cast<float2*>(dst + n * 8 + 2 * tg) = make_float2(acc[n][2 * i], acc[n][2 * i + 1]);
+    if (tg == 0) *reinterpret_cast<float2*>(dst + D) = make_float2(m[i], l[i]);
+  }
+  cluster.sync();
+  const int ra = s * share, rows = max(0, min(BQ, ra + share) - ra);
+  float* sf = reinterpret_cast<float*>(sq);    // [share][S factors | denominator]
+  for (int r = tid; r < rows; r += NT) {
+    float mo = -INFINITY;
+    for (int i = 0; i < S; ++i) mo = fmaxf(mo, slots[(i * share + r) * ST + D]);
+    float lb = 0.f;
+    for (int i = 0; i < S; ++i) {
+      const float* si = slots + (i * share + r) * ST;
+      const float f = si[D] == -INFINITY ? 0.f : ex2(si[D] - mo);
+      sf[r * (S + 1) + i] = f;
+      lb += si[D + 1] * f;
+    }
+    sf[r * (S + 1) + S] = lb;
+  }
+  __syncthreads();
+  for (int i = tid; i < rows * (D / 2); i += NT) {
+    const int r = i / (D / 2), c = i % (D / 2) * 2;
+    const float* f = sf + r * (S + 1);
+    float a0 = 0.f, a1 = 0.f;
+    for (int j = 0; j < S; ++j) {
+      const float2 a = *reinterpret_cast<const float2*>(slots + (j * share + r) * ST + c);
+      a0 += a.x * f[j];
+      a1 += a.y * f[j];
+    }
+    store(ra + r, c, a0, a1, f[S]);
+  }
+}
+
+template <int D>
+static cudaError_t launch_prefill(const bf16* q, const bf16* k, const bf16* v, const int* q_pos,
+                                  const int* k_pos, bf16* out, int B, int Lq, int Lk, int Hq,
+                                  int Hkv, int sink, int window, float softcap, float scale,
+                                  bool round_scores, cudaStream_t stream) {
+  constexpr int NW = kPfWarps, smem = PfSmem<D, NW>::kBytes;
+  int S, chunk;
+  split_prefill(Lk, S, chunk);
+  auto kernel = attn_prefill_kernel<D, NW>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess && S > 8)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = S;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(S * ((Lq + 16 * NW - 1) / (16 * NW)), Hq, B);
+  cfg.blockDim = dim3(NW * 32);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, q, k, v, q_pos, k_pos, out, Lq, Lk, Hq, Hkv, S, chunk,
+                            sink, window, softcap, scale, round_scores);
+}
+
+// the class by Lq and the dtype: Lq == 1 the split-key decode; Lq > 1 the
+// tensor-core prefill in bf16, a block per query in float32
 template <int D, typename T>
 static cudaError_t launch(const void* q, const void* k, const void* v, const int* q_pos,
                           const int* k_pos, void* out, int B, int Lq, int Lk, int Hq, int Hkv,
@@ -405,11 +830,15 @@ static cudaError_t launch(const void* q, const void* k, const void* v, const int
     return launch_split<D, T>(qt, kt, vt, q_pos, k_pos, ot, B, Lk, Hq, Hkv, sink, window,
                               softcap, scale, round_scores, stream);
   }
-  dim3 grid(Lq, Hq, B);
-  sparse_attn_kernel<D, T><<<grid, kAttnThreads, 0, stream>>>(
-      qt, kt, vt, q_pos, k_pos, ot, Lq, Lk, Hq, Hkv, sink, window, softcap, scale,
-      round_scores);
-  return cudaGetLastError();
+  if constexpr (std::is_same<T, bf16>::value) {
+    return launch_prefill<D>(qt, kt, vt, q_pos, k_pos, ot, B, Lq, Lk, Hq, Hkv, sink, window,
+                             softcap, scale, round_scores, stream);
+  } else {
+    attn_prefill_f32_kernel<D, T><<<dim3(Lq, Hq, B), kAttnThreads, 0, stream>>>(
+        qt, kt, vt, q_pos, k_pos, ot, Lq, Lk, Hq, Hkv, sink, window, softcap, scale,
+        round_scores);
+    return cudaGetLastError();
+  }
 }
 
 template <typename T>

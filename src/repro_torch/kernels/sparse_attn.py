@@ -4,10 +4,14 @@ Replaces the JAX package's ``kernels/sparse_attn.py::sparse_attention``
 (Pallas ``_attn_kernel``): LPSA sink + window attention with an online
 softmax in float32, GQA, optional tanh soft-cap, empty slots at position -1.
 It serves the ring-cache decode (Lq = 1), the prefill packs (``[sink |
-window | pack]`` keys) and full-cache serving (sink = 2**30); at Lq = 1 the
-keys of each (q head, batch row) are split over a thread-block cluster and
-merged in block order in the same launch.  Bounded on the H100 by the K/V
-bytes at decode.
+window | pack]`` keys) and full-cache serving (sink = 2**30).  The class
+follows from Lq and the dtype alone: at Lq = 1 the keys of each (q head,
+batch row) are split over a thread-block cluster and merged in block order
+in the same launch; at Lq > 1 in bfloat16 a block takes 64 queries of one
+head on the tensor cores (mma.sync) over tiles of 64 keys, skips the key
+tiles that no query of it may attend, and splits the keys over a cluster
+the same way; at Lq > 1 in float32 a block takes one query on FMAs.  A
+query's output bits do not depend on the batch or on the other queries.
 """
 
 from __future__ import annotations

@@ -17,7 +17,7 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config, reduced
-from repro_torch.core import das, twd
+from repro_torch.core import das, lpsa, twd
 from repro_torch.kernels import ops, ref
 from repro_torch.models import model as MD
 from repro_torch.serve import Request, ServeConfig, ServeEngine
@@ -196,6 +196,81 @@ def test_cuda_sparse_attention_round_scores(cuda, rng, d):
         ops.sparse_attention(q, k, v, qp, kp, sink=4, window=16, round_scores=True),
         ref.sparse_attention_ref(q, k, v, qp, kp, sink=4, window=16, round_scores=True),
         rtol=2e-2, atol=2e-2)
+
+
+def _pack_positions(t0):
+    """q_pos, k_pos (int32) of bitnet-1.3b's streaming prefill pack at t0."""
+    return tuple(p.to(torch.int32) for p in lpsa.pack_positions(t0, lpsa.LpsaSpec()))
+
+
+FULL_SINK = 1 << 30
+
+# the bf16 prefill class (Lq > 1 on the tensor cores): (label, B, Lq, Lk, Hq,
+# Hkv, D, positions, sink, window, softcap, round_scores); "pack t0" takes
+# _pack_positions(t0), "causal" q_pos = k_pos = arange(Lq)
+PREFILL_CASES = [
+    ("pack t0=0", 1, 256, 1280, 32, 32, 64, 0, 128, 896, None, True),
+    ("pack t0=512", 1, 256, 1280, 32, 32, 64, 512, 128, 896, None, True),
+    ("pack t0=2000", 1, 256, 1280, 32, 32, 64, 2000, 128, 896, None, True),
+    ("full causal 300, partial tiles", 1, 300, 300, 8, 8, 64, "causal", FULL_SINK, 0,
+     None, False),
+    ("GQA 32/8", 1, 256, 1280, 32, 8, 64, 512, 128, 896, None, True),
+    ("head_dim 16", 2, 100, 100, 8, 4, 16, "causal", 16, 32, None, False),
+    ("head_dim 80", 2, 100, 100, 8, 4, 80, "causal", 16, 32, None, False),
+    ("round_scores + softcap", 1, 256, 1280, 8, 8, 64, 512, 128, 896, 30.0, True),
+    ("empty batch row", 2, 256, 1280, 8, 8, 64, 512, 128, 896, None, True),
+]
+
+
+def _prefill_inputs(rng, b, lq, lk, hq, hkv, d, where, device):
+    mk = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(  # noqa: E731
+        device, torch.bfloat16)
+    if where == "causal":
+        qp = kp = torch.arange(lq, dtype=torch.int32)
+    else:
+        qp, kp = _pack_positions(where)
+    qp = qp[None].repeat(b, 1).to(device)
+    kp = kp[None].repeat(b, 1).to(device)
+    return mk(b, lq, hq, d), mk(b, lk, hkv, d), mk(b, lk, hkv, d), qp, kp
+
+
+@pytest.mark.parametrize("case", PREFILL_CASES, ids=[c[0] for c in PREFILL_CASES])
+def test_cuda_sparse_attention_prefill_class(cuda, rng, case):
+    """The bf16 prefill class against the plain version at 2e-2: LPSA packs
+    (most sink and window slots empty at t0 = 0 and 512, so whole key tiles
+    are skipped), partial tiles, GQA, the head sizes 16 and 80, soft-cap
+    with rounded scores, and a batch row with every key empty (exact 0)."""
+    label, b, lq, lk, hq, hkv, d, where, sink, window, cap, rs = case
+    q, k, v, qp, kp = _prefill_inputs(rng, b, lq, lk, hq, hkv, d, where, cuda)
+    if label == "empty batch row":
+        kp[1] = -1
+    kw = dict(sink=sink, window=window, softcap=cap, round_scores=rs)
+    ops.reset_launches()
+    got = ops.sparse_attention(q, k, v, qp, kp, **kw)
+    assert ops.launches["sparse_attention"] == 1
+    want = ref.sparse_attention_ref(q, k, v, qp, kp, **kw)
+    print(f"{label}: max abs err {(got.float() - want.float()).abs().max().item():.3e}")
+    torch.testing.assert_close(got, want, rtol=2e-2, atol=2e-2)
+    if label == "empty batch row":
+        assert not got[1].any()
+
+
+def test_cuda_sparse_attention_prefill_batch_invariance(cuda, rng):
+    """A query's output bits depend on neither the batch nor the other
+    queries of its tile (which decide whether a key tile is skipped): row 1
+    of a B = 2 call (rows at t0 = 2000 and 512) equals a B = 1 call on it,
+    and queries [64, 128) and [37, 101) of a pack equal a call on them alone."""
+    q, k, v, qp, kp = _prefill_inputs(rng, 2, 256, 1280, 32, 32, 64, 512, cuda)
+    qp0, kp0 = _pack_positions(2000)
+    qp[0], kp[0] = qp0.to(cuda), kp0.to(cuda)
+    kw = dict(sink=128, window=896, round_scores=True)
+    full = ops.sparse_attention(q, k, v, qp, kp, **kw)
+    assert torch.equal(ops.sparse_attention(q[1:], k[1:], v[1:], qp[1:], kp[1:], **kw),
+                       full[1:])
+    for lo, hi in ((64, 128), (37, 101)):
+        sub = ops.sparse_attention(q[1:, lo:hi].contiguous(), k[1:], v[1:],
+                                   qp[1:, lo:hi].contiguous(), kp[1:], **kw)
+        assert torch.equal(sub, full[1:, lo:hi]), (lo, hi)
 
 
 def test_cuda_kernel_refuses_what_it_cannot_take(cuda):

@@ -21,7 +21,7 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.models import ternary_linear as jtlin
 from repro_torch.configs import base as tbase
-from repro_torch.core import das
+from repro_torch.core import das, lpsa
 from repro_torch.kernels import ops
 from repro_torch.models.ternary_linear import TernaryLinear
 
@@ -156,6 +156,29 @@ def test_sparse_attention_matches_jax_kernel(rng, hq, hkv, lq, lk, cap):
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a.swapaxes(1, 2)))  # noqa: E731
     got = ops.sparse_attention(t(q), t(k), t(v), torch.from_numpy(qp),
                                torch.from_numpy(kp), sink=8, window=24, softcap=cap)
+    np.testing.assert_allclose(got.numpy().swapaxes(1, 2), want, rtol=3e-4, atol=3e-4)
+
+
+@pytest.mark.parametrize("pack", [0, 1, 2])
+def test_sparse_attention_streaming_packs_match_jax_kernel(rng, pack):
+    """The streaming prefill's key layouts (core/lpsa.py::lpsa_prefill):
+    sink 8, window 24, packs of 16, keys [sink | window | pack] with -1 for
+    the slots the stream has not filled yet, at packs 0, 1 and 2 (the
+    traffic the CUDA prefill class skips key tiles on)."""
+    sink, window, chunk, b, hq, hkv, d = 8, 24, 16, 2, 4, 2, 16
+    pos, k_pos = lpsa.pack_positions(pack * chunk, lpsa.LpsaSpec(sink, window, chunk))
+    qp = np.broadcast_to(pos.numpy(), (b, chunk)).astype(np.int32)
+    kp = np.broadcast_to(k_pos.numpy(), (b, k_pos.numel())).astype(np.int32)
+    lk = kp.shape[1]
+    q = rng.standard_normal((b, hq, chunk, d)).astype(np.float32)
+    k = rng.standard_normal((b, hkv, lk, d)).astype(np.float32)
+    v = rng.standard_normal((b, hkv, lk, d)).astype(np.float32)
+    want = np.asarray(jops.sparse_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(qp), jnp.asarray(kp),
+        sink=sink, window=window, mode="interpret"))
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a.swapaxes(1, 2)))  # noqa: E731
+    got = ops.sparse_attention(t(q), t(k), t(v), torch.from_numpy(qp),
+                               torch.from_numpy(kp), sink=sink, window=window)
     np.testing.assert_allclose(got.numpy().swapaxes(1, 2), want, rtol=3e-4, atol=3e-4)
 
 
