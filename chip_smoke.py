@@ -9,10 +9,12 @@ Phases:
   kernels  hold each kernel against its plain PyTorch version on the card, at
            the serving paths' shapes and a few small GQA / soft-cap /
            empty-slot / int8 cases, each max error beside its tolerance;
-           sparse_attention's bf16 prefill class also at LPSA packs of three
-           stream offsets, full causal attention over partial tiles, head
-           sizes 16 and 80, and bitwise invariance to the batch and to the
-           other queries of a tile
+           das_topk also with the mask null, on unaligned rows, with its
+           rmsnorm prologue (normed rows within a step, the DAS step exact)
+           and bitwise invariant to M; sparse_attention's bf16 prefill class
+           also at LPSA packs of three stream offsets, full causal attention
+           over partial tiles, head sizes 16 and 80, and bitwise invariance
+           to the batch and to the other queries of a tile
   serve    full-width bitnet-1.3b (seeded random weights) on three paths, each
            driven with the launch counts at 0 and read after it:
              packed    base-3 packed weights: a ServeEngine with 4 slots
@@ -25,18 +27,22 @@ Phases:
            each checks token counts, the kernels' launch counts, finite
            logits and bitwise batch invariance; packed and int8w also a
            reduced-size model on the card against the CPU; then the decode
-           step of packed and int8w under torch.profiler, in turns, and the
-           device time of admitting the 1100-token prompt (4 packs)
+           step of packed and int8w under torch.profiler, in turns, the
+           device time of admitting the 1100-token prompt (4 packs) and of
+           the int8w model load's twd_decode launches
   times    each kernel at its decode shape: CUDA-event median beside its
            bound, its plain version and one PyTorch call of the same function;
            the packed GEMMs and das_gemv also at their other decode shapes
            and one 256-row prefill pack, sparse_attention's prefill classes
            at packs of three stream offsets and at full causal attention,
-           beside their bounds, plain versions and library calls
+           beside their bounds, plain versions and library calls; das_topk's
+           serving calls (mask null, norm-fused) at decode and at a pack
+  profile  (only when named) the packed decode step and the admission under
+           torch.profiler, as the serve phase profiles them
 
-  python3 chip_smoke.py --parent DIR   # then the times phase on DIR's kernels
-                                       # and on this tree's in turns: DIR,
-                                       # this, this, DIR
+  python3 chip_smoke.py --parent DIR   # then the times and profile phases on
+                                       # DIR's package and on this tree's in
+                                       # turns: DIR, this, this, DIR
   python3 chip_smoke.py --src DIR/src  # the phases on another tree's package
 
 The line before the last is a JSON object {"kernels": [...]}; the last is
@@ -59,6 +65,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 PHASES = ("device", "build", "kernels", "serve", "times")
+OPTIONAL_PHASES = ("profile",)     # run only when named (--parent's turns)
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, bf16 and f32 FLOP/s
 HBM_BYTES_PER_S = 3.35e12
@@ -165,22 +172,7 @@ class Smoke:
         bf16, f32 = torch.bfloat16, torch.float32
         scale = torch.tensor(0.37, device=self.dev)
 
-        # das_topk: the DAS step before every projection (exact)
-        for m, k, dt in ((4, 2048, bf16), (256, 2048, bf16), (4, 5460, bf16),
-                         (256, 5460, bf16), (3, 96, f32)):
-            x = torch.randn((m, k), generator=g, device=self.dev).to(dt)
-            if dt == f32:   # tie-heavy integers exercise the lower-lane rule
-                x = torch.randint(-3, 4, (m, k), generator=g, device=self.dev).to(dt)
-            got, want = das_topk_cuda(x, keep=16, block=32), ref.das_topk_ref(
-                x, keep=16, block=32)
-            err = self.check(f"das_topk mask {dt} ({m},{k})", got.mask, want.mask, 0, True)
-            if k % 32 == 0:
-                self.check(f"das_topk values ({m},{k})", got.values, want.values, 0, True)
-                self.check(f"das_topk indices ({m},{k})", got.indices, want.indices, 0, True)
-            else:
-                self.check(f"das_topk dense ({m},{k})", got.dense, want.dense, 0, True)
-            if (m, k, dt) == (4, 2048, bf16):
-                self.errs["das_topk"] = err
+        self._topk_cases(g)
 
         # das_ternary_gemm: q/k/v/o (N=2048) and gate/up (N=5460), padded rows
         for m, k, n, dt in ((4, 2048, 2048, bf16), (4, 2048, 5460, bf16),
@@ -217,8 +209,10 @@ class Smoke:
             if (m, k, n, dt) == (4, 5460, 2048, bf16):
                 self.errs["ternary_gemm"] = err
 
-        # twd_decode: every projection shape's packed rows -> trits (exact)
-        for k, n in ((2048, 2048), (2048, 5460), (5460, 2048)):
+        # twd_decode: every projection shape's packed rows -> trits (exact),
+        # N = 2048 (16-byte vectors), 5460 (4-byte) and odd (bytes), the
+        # export's padding rows past K
+        for k, n in ((2048, 2048), (2048, 5460), (5460, 2048), (77, 1001)):
             packed = self._packed(g, k, n)
             err = self.check(f"twd_decode ({packed.shape[0]},{n}) -> ({k},{n})",
                              twd_decode_cuda(packed, k), ref.twd_decode_ref(packed, k),
@@ -335,6 +329,83 @@ class Smoke:
                       tol=TOL_F32_ATTN)
         self._prefill_cases(g)
 
+    def _topk_cases(self, g):
+        """das_topk against its plain version, exactly: bitnet-1.3b's widths
+        at decode and at a pack (K = 5460: 8-byte vectors, odd rows 8 bytes
+        past a 16-byte boundary, a 20-lane partial block), tie-heavy float32
+        rows, rows from row 1 of a larger tensor, the mask requested and
+        not; the rmsnorm prologue (its normed rows within one bf16 step of
+        rmsnorm(scale, x), the DAS step of those rows exact); bitwise
+        invariance to M (a row alone, among 4, among 256)."""
+        torch = self.torch
+        from repro_torch.kernels import ref
+        from repro_torch.kernels.topk_mask import das_topk_cuda
+        from repro_torch.models.layers import rmsnorm
+        bf16, f32 = torch.bfloat16, torch.float32
+
+        def rows(m, k, dt):
+            if dt == f32:   # tie-heavy integers exercise the lower-lane rule
+                return torch.randint(-3, 4, (m, k), generator=g, device=self.dev).to(dt)
+            return torch.randn((m, k), generator=g, device=self.dev).to(dt)
+
+        def same(label, got, want):
+            err = 0.0
+            for name, a, b in zip(ref.DasTopK._fields, got, want):
+                if (a is None) != (b is None):
+                    raise AssertionError(f"das_topk {label}: {name} is {a is None} vs "
+                                         f"{b is None} None")
+                if a is not None:
+                    err = max(err, self.check(f"das_topk {label} {name}", a, b, 0, True))
+            return err
+
+        for m, k, dt in ((4, 2048, bf16), (256, 2048, bf16), (4, 5460, bf16),
+                         (256, 5460, bf16), (3, 96, f32)):
+            x = rows(m, k, dt)
+            err = same(f"{dt} ({m},{k})", das_topk_cuda(x, keep=16, block=32),
+                       ref.das_topk_ref(x, keep=16, block=32))
+            if (m, k, dt) == (4, 2048, bf16):
+                self.errs["das_topk"] = err
+            same(f"{dt} ({m},{k}) mask null", das_topk_cuda(x, keep=16, block=32,
+                                                           with_mask=False),
+                 ref.das_topk_ref(x, keep=16, block=32, with_mask=False))
+        x = rows(5, 5460, bf16)[1:]     # starts 8 bytes past a 16-byte boundary
+        same("bf16 (4,5460) from row 1", das_topk_cuda(x, keep=16, block=32),
+             ref.das_topk_ref(x, keep=16, block=32))
+
+        for m, k, dt in ((4, 2048, bf16), (256, 2048, bf16), (4, 5460, bf16),
+                         (256, 5460, bf16), (3, 96, f32)):
+            x = torch.randn((m, k), generator=g, device=self.dev).to(dt)
+            scale = (0.5 * torch.randn((k,), generator=g, device=self.dev)).to(dt)
+            got = das_topk_cuda(x, keep=16, block=32, norm_scale=scale, with_normed=True)
+            want = rmsnorm(scale, x)
+            mant = 7 if dt == bf16 else 23
+            step = torch.exp2(torch.floor(torch.log2(want.float().abs().clamp_min(2.0 ** -100)))
+                              - mant)
+            steps = float(((got.normed.float() - want.float()).abs() / step).max())
+            tol = 1 if dt == bf16 else 8    # another order of the sum of squares
+            log(f"[kernels] das_topk norm {dt} ({m},{k}) normed vs rmsnorm(scale, x): "
+                f"{int((got.normed != want).sum())} of {want.numel()} differ, max {steps:.2f} "
+                f"steps of {str(dt)[6:]} (tol {tol}) {'ok' if steps <= tol else 'FAIL'}")
+            if steps > tol:
+                raise AssertionError("das_topk's norm prologue disagrees with rmsnorm")
+            same(f"norm {dt} ({m},{k}) vs das_topk_ref(normed)", got[:4],
+                 ref.das_topk_ref(got.normed, keep=16, block=32)[:4])
+
+        for k in (2048, 5460):          # batch invariance, bitwise
+            x = torch.randn((256, k), generator=g, device=self.dev).to(bf16)
+            scale = (0.5 * torch.randn((k,), generator=g, device=self.dev)).to(bf16)
+            for sc in (None, scale):
+                kw = dict(keep=16, block=32, norm_scale=sc, with_normed=sc is not None)
+                full, four = das_topk_cuda(x, **kw), das_topk_cuda(x[:4], **kw)
+                for i in (0, 3):
+                    one = das_topk_cuda(x[i:i + 1], **kw)
+                    for a, b, c in zip(one, four, full):
+                        if a is not None and not (torch.equal(a[0], b[i])
+                                                  and torch.equal(a[0], c[i])):
+                            raise AssertionError(f"das_topk row {i} depends on M")
+                log(f"[kernels] das_topk invariance K={k} norm={sc is not None}: rows 0 and 3 "
+                    f"alone, among 4 and among 256: bitwise identical")
+
     def _prefill_cases(self, g):
         """sparse_attention's bf16 prefill class (Lq > 1, tensor cores)
         against its plain version: LPSA packs at three stream offsets (most
@@ -420,11 +491,16 @@ class Smoke:
         for label, got, want in checks:
             self.check(f"sparse_attention prefill invariance, {label}", got, want, 0, True)
 
-    def phase_serve(self):
+    PROMPT_LENS, GEN_LEN = (1100, 300, 256, 40, 700), 32
+
+    def _packed_model(self):
+        """Full-width bitnet-1.3b, seeded random weights, base-3 packed, with
+        the trace's prompts and serve config: (cfg, master params, model,
+        prompts, ServeConfig)."""
         torch = self.torch
         from repro_torch.configs import get_config
         from repro_torch.models import model as MD
-        from repro_torch.serve import Request, ServeConfig
+        from repro_torch.serve import ServeConfig
 
         cfg = get_config("bitnet-1.3b")
         t0 = time.perf_counter()
@@ -435,14 +511,31 @@ class Smoke:
             f"{cfg.d_ff}, packed rows {model.layers[0].attn.wq.packed.shape[0]}/"
             f"{model.layers[0].ffn.w_out.packed.shape[0]}; init+export "
             f"{time.perf_counter() - t0:.1f} s")
-        gen_len, chunk, n_l = 32, cfg.lpsa.chunk, cfg.n_layers
-        prompt_lens = (1100, 300, 256, 40, 700)
         rng = torch.Generator().manual_seed(self.seed)
         prompts = [torch.randint(0, cfg.vocab, (p,), generator=rng).numpy()
-                   for p in prompt_lens]
+                   for p in self.PROMPT_LENS]
+        sc = ServeConfig(max_slots=4, max_len=max(self.PROMPT_LENS) + self.GEN_LEN,
+                         seed=self.seed)
+        return cfg, params, model, prompts, sc
+
+    def phase_profile(self):
+        """The packed model's decode step and the admission of the
+        1100-token prompt under torch.profiler, as the serve phase profiles
+        them: what --parent's turns compare."""
+        _, _, model, prompts, sc = self._packed_model()
+        self._profile_decode("packed", model, sc, prompts)
+        self._profile_admission(model, prompts[0], sc.max_len)
+
+    def phase_serve(self):
+        torch = self.torch
+        from repro_torch.models import model as MD
+        from repro_torch.serve import Request, ServeConfig
+
+        cfg, params, model, prompts, sc = self._packed_model()
+        gen_len, chunk, n_l = self.GEN_LEN, cfg.lpsa.chunk, cfg.n_layers
+        prompt_lens = self.PROMPT_LENS
         trace = [Request(uid=i, prompt=p, max_new_tokens=gen_len, arrival=2 * i)
                  for i, p in enumerate(prompts)]
-        sc = ServeConfig(max_slots=4, max_len=max(prompt_lens) + gen_len, seed=self.seed)
         packs = [p // chunk for p in prompt_lens if p >= chunk]
         zero = {name: 0 for name in KERNEL_INFO}
 
@@ -492,6 +585,7 @@ class Smoke:
         self._batch_invariance("int8w", eng, trace, res, (0, 3))
         del eng
         self._reduced_parity("int8w", cfg8, prompts[0])
+        self._profile_load(model, cfg8)
 
         # path "baseline": int8 trits, DAS off, full attention (no LPSA): a
         # whole prompt prefills at admission; per decode step 7 das_gemv and
@@ -673,12 +767,40 @@ class Smoke:
             f"ms/step, idle share {1 - busy_us / 1e6 / wall:.3f}")
         for name, dt in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
             log(f"[profile]   {dt / 1e3 / steps:8.4f} ms/step  {name[:90]}")
+        glue = {cat: sum(dt for name, dt in by_name.items() if _glue_class(name) == cat)
+                for cat in GLUE_CLASSES}
+        log(f"[profile] {label} device ms/step by class: " + ", ".join(
+            f"{cat} {us / 1e3 / steps:.4f}" for cat, us in glue.items()))
         host = sorted(((e.self_cpu_time_total, e.count, e.key) for e in prof.key_averages()),
                       reverse=True)[:12]
         log("[profile] host: self CPU time per step, calls per step")
         for dt, count, name in host:
             log(f"[profile]   {dt / 1e3 / steps:8.4f} ms/step {count / steps:7.1f}  {name[:80]}")
+        calls = {e.key: e.count / steps for e in prof.key_averages()
+                 if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC")}
+        log(f"[profile] {label} host launches per step: " + ", ".join(
+            f"{name} {n:.1f}" for name, n in sorted(calls.items())))
         return {"ms_step": ms_step, "busy_ms_step": busy_us / 1e3 / steps}
+
+    def _profile_load(self, model, cfg8):
+        """The device time of loading the packed model into the int8-resident
+        form: twd_decode's launches (7 a layer) under torch.profiler."""
+        torch = self.torch
+        from torch.profiler import ProfilerActivity, profile
+
+        from repro_torch.models import model as MD
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            loaded = MD.trits_from_packed(model, cfg8)
+            torch.cuda.synchronize()
+        del loaded
+        us = sum(dt for name, dt in _device_times(prof).items() if "twd_decode" in name)
+        if not us:
+            log("[profile] int8w model load: the profiler recorded no twd_decode: not measured")
+            return
+        n = sum(e.count for e in prof.key_averages() if "twd_decode_kernel" in e.key
+                and "CUDA" in str(getattr(e, "device_type", "")))
+        log(f"[profile] int8w model load: {n} twd_decode launches, {us / 1e3:.3f} ms of "
+            f"device time")
 
     def _profile_admission(self, model, prompt, max_len):
         """The device time of admitting ``prompt``: the streaming prefill of
@@ -708,10 +830,12 @@ class Smoke:
             log("[profile] admission: the profiler recorded no device time: not measured")
             return
         attn_us = sum(dt for name, dt in by_name.items() if _is_attention(name))
+        topk_us = sum(dt for name, dt in by_name.items() if "das_topk" in name)
         log(f"[profile] admission of a {len(prompt)}-token prompt ({n // model.cfg.lpsa.chunk} "
             f"packs of {model.cfg.lpsa.chunk}): {ms:.3f} ms (CUDA events), device busy "
             f"{busy_us / 1e3:.3f} ms under torch.profiler, sparse_attention "
-            f"{attn_us / 1e3:.3f} ms of it (share {attn_us / busy_us:.3f})")
+            f"{attn_us / 1e3:.3f} ms of it (share {attn_us / busy_us:.3f}), das_topk "
+            f"{topk_us / 1e3:.3f} ms")
         for name, dt in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
             log(f"[profile]   {dt / 1e3:8.4f} ms  {name[:90]}")
 
@@ -765,6 +889,8 @@ class Smoke:
                 f" us ({self.timed[name]['bound_by']}), plain {plain_ms * 1e3:.1f} us, "
                 f"library {'n/a' if lib_ms is None else f'{lib_ms * 1e3:.1f} us'}")
 
+        log(f"[times] an empty launch (torch.cuda._sleep(0)), the floor of this method: "
+            f"{t_ms(lambda: torch.cuda._sleep(0)) * 1e3:.1f} us")
         m, k, n, f = 4, 2048, 2048, 5460
         x = torch.randn((m, k), generator=g, device=self.dev).to(bf16)
         kc = k // 2
@@ -881,9 +1007,16 @@ class Smoke:
               lambda: das_gemv_cuda(xpd, None, trits_dn, scale),
               lambda: torch.matmul(xpd, trits_dn_bf16),
               256 * f * 2 + trits_dn.numel() + 256 * n * 4, 2 * 256 * f * n)
-        ms = t_ms(lambda: das_topk_cuda(xp, keep=16, block=32))
-        log(f"[times] prefill das_topk (256,{k}): {ms * 1e3:.1f} us, bound "
-            f"{256 * k * 9 / HBM_BYTES_PER_S * 1e6:.2f} us")
+        self._topk_times(t_ms, g, k)
+
+        # twd_decode at the other projections' shapes (q/k/v/o, down)
+        for kk, nn in ((k, n), (f, n)):
+            pk = twd.pack_ternary(torch.randint(-1, 2, (kk, nn), generator=g,
+                                                device=self.dev), row_align=16)
+            ms = t_ms(lambda: twd_decode_cuda(pk, kk))
+            bound = (pk.numel() + kk * nn) / HBM_BYTES_PER_S
+            log(f"[times] twd_decode packed {tuple(pk.shape)} -> trits ({kk},{nn}): "
+                f"{ms * 1e3:.1f} us, bound {bound * 1e6:.2f} us")
 
         b, h, d, s = 4, 32, 64, 1024
         q = torch.randn((b, 1, h, d), generator=g, device=self.dev).to(bf16)
@@ -938,6 +1071,45 @@ class Smoke:
         qp1, kp1 = pack_positions(torch, 2000)
         prefill_row("f32 t0=2000", 256, 1280, torch.float32, qp1, kp1, 128, 896, False)
 
+    def _topk_times(self, t_ms, g, k):
+        """das_topk's other rows, each beside its bound (x, the norm scale
+        and the outputs, once): with the mask at a 256-row pack; the serving
+        call (mask null) and the norm-fused serving call at decode and at a
+        pack.  A tree whose das_topk has neither option (the parent, under
+        --parent) times what its serving path runs instead: das_topk with
+        the mask, and rmsnorm followed by das_topk."""
+        import inspect
+        torch = self.torch
+        from repro_torch.kernels.topk_mask import das_topk_cuda
+        from repro_torch.models.layers import rmsnorm
+        fused = "norm_scale" in inspect.signature(das_topk_cuda).parameters
+        scale = (0.5 * torch.randn((k,), generator=g, device=self.dev)).to(torch.bfloat16)
+
+        def timed(label, fn, nbytes):
+            ms = t_ms(fn)
+            log(f"[times] {label}: {ms * 1e3:.1f} us, bound "
+                f"{nbytes / HBM_BYTES_PER_S * 1e6:.3f} us")
+
+        for m in (4, 256):
+            x = torch.randn((m, k), generator=g, device=self.dev).to(torch.bfloat16)
+            out = m * (k // 2) * (2 + 4)              # values and indices
+            if m == 256:
+                timed(f"prefill das_topk ({m},{k}) with the mask",
+                      lambda: das_topk_cuda(x, keep=16, block=32), m * k * 3 + out)
+            if fused:
+                timed(f"das_topk serving, mask null ({m},{k})",
+                      lambda: das_topk_cuda(x, keep=16, block=32, with_mask=False),
+                      m * k * 2 + out)
+                timed(f"das_topk norm-fused serving ({m},{k})",
+                      lambda: das_topk_cuda(x, keep=16, block=32, norm_scale=scale,
+                                            with_mask=False), m * k * 2 + k * 2 + out)
+            else:
+                timed(f"das_topk serving, mask null ({m},{k}) [mask written]",
+                      lambda: das_topk_cuda(x, keep=16, block=32), m * k * 2 + out)
+                timed(f"das_topk norm-fused serving ({m},{k}) [rmsnorm, then das_topk]",
+                      lambda: das_topk_cuda(rmsnorm(scale, x), keep=16, block=32),
+                      m * k * 2 + k * 2 + out)
+
 
 def _device_times(prof) -> dict:
     """Device time (us) by kernel name from a torch.profiler run: device
@@ -952,6 +1124,20 @@ def _device_times(prof) -> dict:
         if dt > 0:
             by_name[e.key] = by_name.get(e.key, 0.0) + dt
     return by_name
+
+
+# device kernels by class: the port's own (namespace tenet) and PyTorch's glue
+GLUE_CLASSES = ("tenet kernels", "elementwise", "copy", "index", "reduce", "other")
+
+
+def _glue_class(kernel_name: str) -> str:
+    if "tenet::" in kernel_name:
+        return "tenet kernels"
+    for cat, keys in (("copy", ("copy",)), ("index", ("index", "gather", "scatter")),
+                      ("reduce", ("reduce", "norm")), ("elementwise", ("elementwise",))):
+        if any(key in kernel_name for key in keys):
+            return cat
+    return "other"
 
 
 def _is_attention(kernel_name: str) -> bool:
@@ -971,24 +1157,24 @@ def _nvidia_smi() -> str:
 
 
 def turns(parent: Path, seed: int) -> None:
-    """This script's times phase on the kernels of ``parent`` and of this
-    tree in turns on this card (parent, this, this, parent): each turn a
-    process of its own on its tree's package (``--src``) and that tree's
-    kernel build, so both run the same shapes; prints each run's [times]
-    lines."""
+    """This script's times and profile phases on the package of ``parent``
+    and of this tree in turns on this card (parent, this, this, parent):
+    each turn a process of its own on its tree's package (``--src``) and
+    that tree's kernel build, so both run the same shapes; prints each run's
+    [times] and [profile] lines."""
     for i, tree in enumerate((parent, ROOT, ROOT, parent), 1):
         label = "parent" if tree == parent else "this"
         t0 = time.perf_counter()
         res = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--phases",
-                              "device,build,times", "--seed", str(seed),
+                              "device,build,times,profile", "--seed", str(seed),
                               "--src", str(tree / "src")],
                              cwd=ROOT, capture_output=True, text=True, timeout=900)
         if res.returncode:
             raise RuntimeError(f"turn {i} ({label}) failed:\n{res.stdout[-3000:]}"
                                f"{res.stderr[-3000:]}")
         for line in res.stdout.splitlines():
-            if line.startswith("[times]"):
-                log(f"[turns] {i} {label}: {line[len('[times] '):]}")
+            if line.startswith(("[times]", "[profile]")):
+                log(f"[turns] {i} {label}: {line}")
         log(f"[turns] {i} {label} took {time.perf_counter() - t0:.1f} s")
 
 
@@ -1005,7 +1191,7 @@ def main(argv=None) -> int:
                          "(default: this tree's src)")
     args = ap.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
-    unknown = set(phases) - set(PHASES)
+    unknown = set(phases) - set(PHASES) - set(OPTIONAL_PHASES)
     if unknown:
         ap.error(f"unknown phases {sorted(unknown)}")
 

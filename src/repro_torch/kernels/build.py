@@ -36,8 +36,9 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # every launcher returns cudaGetLastError() after its launch
 _SIGNATURES = {
-    # x, dtype, M, K, keep, mask, values, indices, dense, stream
-    "tenet_das_topk": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    # x, dtype, M, K, keep, norm scale, eps, mask, values, indices, dense,
+    # normed, stream
+    "tenet_das_topk": [_P, _I, _I, _I, _I, _P, _F, _P, _P, _P, _P, _P, _P],
     # values, dtype, indices, packed, w_scale, out, M, Kc, keep, block, R, N,
     # stream
     "tenet_das_ternary_gemm": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

@@ -53,12 +53,20 @@ def _scale(s, like: torch.Tensor) -> torch.Tensor:
     return torch.as_tensor(s, dtype=torch.float32, device=like.device)
 
 
-def das_topk(x: torch.Tensor, *, keep: int, block: int = 32) -> DasTopK:
-    """(..., K) -> DasTopK over the flattened rows (M, K)."""
+def das_topk(x: torch.Tensor, *, keep: int, block: int = 32,
+             norm_scale: torch.Tensor | None = None, eps: float = 1e-6,
+             with_mask: bool = True, with_normed: bool = False) -> DasTopK:
+    """(..., K) -> DasTopK over the flattened rows (M, K) of x, or of
+    ``rmsnorm(norm_scale, x, eps)`` (models/layers.py) when a norm scale
+    (K,) is given; the mask (M, K) and the normed rows only on request."""
+    if with_normed and norm_scale is None:
+        raise ValueError("normed rows need a norm scale")
     x2 = x.reshape(-1, x.shape[-1])
-    if not _on_cuda(x2):
-        return ref.das_topk_ref(x2, keep=keep, block=block)
-    out = das_topk_cuda(x2.contiguous(), keep=keep, block=block)
+    kw = dict(keep=keep, block=block, norm_scale=norm_scale, eps=eps,
+              with_mask=with_mask, with_normed=with_normed)
+    if not _on_cuda(x2, norm_scale):
+        return ref.das_topk_ref(x2, **kw)
+    out = das_topk_cuda(x2.contiguous(), **kw)
     launches["das_topk"] += 1
     return out
 

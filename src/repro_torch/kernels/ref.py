@@ -15,6 +15,7 @@ import torch
 from repro_torch.core import das as das_lib
 from repro_torch.core import twd
 from repro_torch.core.lpsa import lpsa_allowed
+from repro_torch.models.layers import rmsnorm
 
 __all__ = ["DasTopK", "das_topk_ref", "ternary_gemm_ref",
            "das_ternary_gemm_ref", "sparse_attention_ref", "twd_decode_ref",
@@ -24,23 +25,34 @@ NEG_INF = -1e30
 
 
 class DasTopK(NamedTuple):
-    """What the DAS step hands the projections: the int8 mask (M, K) and
-    either the compaction (values, indices) when the block divides K, or the
-    masked dense activations (tail lanes kept) when it does not."""
-    mask: torch.Tensor
+    """What the DAS step hands the projections: either the compaction
+    (values, indices) when the block divides K, or the masked dense
+    activations (tail lanes kept) when it does not; on request the int8 mask
+    (M, K) and, after a norm, the normed rows (M, K) it ranked."""
+    mask: torch.Tensor | None
     values: torch.Tensor | None
     indices: torch.Tensor | None
     dense: torch.Tensor | None
+    normed: torch.Tensor | None = None
 
 
-def das_topk_ref(x: torch.Tensor, *, keep: int, block: int) -> DasTopK:
-    """x (M, K) -> DasTopK, the semantics of core.das on one flat batch."""
+def das_topk_ref(x: torch.Tensor, *, keep: int, block: int,
+                 norm_scale: torch.Tensor | None = None, eps: float = 1e-6,
+                 with_mask: bool = True, with_normed: bool = False) -> DasTopK:
+    """x (M, K) -> DasTopK, the semantics of core.das on one flat batch; with
+    ``norm_scale``, of ``rmsnorm(norm_scale, x, eps)`` (models/layers.py)."""
+    normed = None
+    if norm_scale is not None:
+        x = normed = rmsnorm(norm_scale, x, eps)
     mask = das_lib.das_mask(x, block_size=block, keep=keep)
+    values = indices = dense = None
     if x.shape[-1] % block == 0:
         ca = das_lib.das_compact(x, block_size=block, keep=keep)
-        return DasTopK(mask.to(torch.int8), ca.values, ca.indices, None)
-    return DasTopK(mask.to(torch.int8), None, None,
-                   das_lib.das_apply(x, mask))
+        values, indices = ca.values, ca.indices
+    else:
+        dense = das_lib.das_apply(x, mask)
+    return DasTopK(mask.to(torch.int8) if with_mask else None, values, indices, dense,
+                   normed if with_normed else None)
 
 
 def _decoded(packed: torch.Tensor) -> torch.Tensor:

@@ -2,7 +2,8 @@
 
 Replaces the JAX package's ``kernels/ternary_gemm.py::twd_decode`` (Pallas
 ``_twd_decode_kernel``): the TWD decompressor, base-3 packed bytes to int8
-trits, five a byte.  It loads a packed model's weights into the
+trits, five a byte, through a 256-entry table in shared memory with
+vector loads and stores.  It loads a packed model's weights into the
 int8-resident serving form (``models.model.trits_from_packed``).  Bounded
 on the H100 by the bytes it reads and writes; see the source.
 """
@@ -27,6 +28,7 @@ def twd_decode_cuda(packed: torch.Tensor, k: int) -> torch.Tensor:
                          f"N={n}, k={k}")
     if not packed.is_contiguous():
         raise ValueError("twd_decode needs contiguous packed weights")
+    packed = build.aligned(packed)
     out = torch.empty((k, n), dtype=torch.int8, device=packed.device)
     err = build.library().tenet_twd_decode(packed.data_ptr(), out.data_ptr(), r, k, n,
                                            build.stream_of(packed))

@@ -19,7 +19,7 @@ from repro_torch.core import lpsa as lpsa_lib
 from repro_torch.kernels import ops
 from repro_torch.models import kvcache as KV
 from repro_torch.models import layers as L
-from repro_torch.models.ternary_linear import TernaryLinear, tlin_compact
+from repro_torch.models.ternary_linear import TernaryLinear, tlin_norm_input
 
 __all__ = ["FULL_SINK", "Attention", "kind_sink_window", "qkv_project",
            "attn_prefill_streaming", "attn_prefill_full", "DecodeStep",
@@ -47,15 +47,17 @@ def kind_sink_window(cfg: ModelConfig, kind: str, serve_sparse: bool) -> tuple[i
     return FULL_SINK, 0
 
 
-def qkv_project(p: Attention, cfg: ModelConfig, x: torch.Tensor):
-    """(B, L, D) -> q (B, L, Hq, Dh), k/v (B, L, Hkv, Dh); one DAS step of x
-    feeds all three projections."""
+def qkv_project(p: Attention, cfg: ModelConfig, x: torch.Tensor,
+                norm_scale: torch.Tensor):
+    """Residual (B, L, D) -> q (B, L, Hq, Dh), k/v (B, L, Hkv, Dh) of
+    ``rmsnorm(norm_scale, x)``; one DAS step, with the norm inside it, feeds
+    all three projections."""
     b, l, _ = x.shape
-    ca = tlin_compact(x, cfg.ternary)
+    xin, ca = tlin_norm_input(x, norm_scale, cfg.ternary)
     hd = cfg.head_dim_
-    return (p.wq(x, ca).reshape(b, l, cfg.n_heads, hd),
-            p.wk(x, ca).reshape(b, l, cfg.n_kv_heads, hd),
-            p.wv(x, ca).reshape(b, l, cfg.n_kv_heads, hd))
+    return (p.wq(xin, ca).reshape(b, l, cfg.n_heads, hd),
+            p.wk(xin, ca).reshape(b, l, cfg.n_kv_heads, hd),
+            p.wv(xin, ca).reshape(b, l, cfg.n_kv_heads, hd))
 
 
 def _rope_fn(cfg: ModelConfig):
@@ -66,8 +68,10 @@ def _rope_fn(cfg: ModelConfig):
 
 
 def attn_prefill_streaming(p: Attention, cfg: ModelConfig, x: torch.Tensor,
-                           kind: str):
-    """LPSA Algorithm-1 prefill -> (y (B, L, D), stream state for the ring).
+                           norm_scale: torch.Tensor, kind: str):
+    """LPSA Algorithm-1 prefill of the residual x normed by ``norm_scale``
+    -> (y (B, L, D), stream state for the ring).  Each pack is normed with
+    its projections' DAS step.
 
     The packs attend with their scores rounded to x's dtype before the
     scale, as the JAX package's streaming prefill always attends
@@ -80,7 +84,7 @@ def attn_prefill_streaming(p: Attention, cfg: ModelConfig, x: torch.Tensor,
     spec = lpsa_lib.LpsaSpec(sink=sink, window=window,
                              chunk=cfg.lpsa.chunk if cfg.lpsa else 256)
     o, state = lpsa_lib.lpsa_prefill(
-        x, lambda pack: qkv_project(p, cfg, pack), spec=spec,
+        x, lambda pack: qkv_project(p, cfg, pack, norm_scale), spec=spec,
         num_q_heads=cfg.n_heads, num_kv_heads=cfg.n_kv_heads,
         head_dim=cfg.head_dim_, rope=_rope_fn(cfg), softcap=cfg.attn_softcap,
         attend=functools.partial(ops.sparse_attention, round_scores=True))
@@ -89,10 +93,11 @@ def attn_prefill_streaming(p: Attention, cfg: ModelConfig, x: torch.Tensor,
 
 
 def attn_prefill_full(p: Attention, cfg: ModelConfig, x: torch.Tensor,
-                      max_len: int):
-    """Full causal prefill -> (y (B, L, D), a full cache of max_len slots)."""
+                      norm_scale: torch.Tensor, max_len: int):
+    """Full causal prefill of the residual x normed by ``norm_scale`` -> (y
+    (B, L, D), a full cache of max_len slots)."""
     b, l, _ = x.shape
-    q, k, v = qkv_project(p, cfg, x)
+    q, k, v = qkv_project(p, cfg, x, norm_scale)
     pos = torch.arange(l, device=x.device)
     rp = _rope_fn(cfg)
     q, k = rp(q, pos), rp(k, pos)
@@ -131,13 +136,15 @@ def decode_step_inputs(cfg: ModelConfig, t: torch.Tensor, kinds,
                       L.rope(t[:, None], cfg.head_dim_, cfg.rope_theta), slots)
 
 
-def attn_decode(p: Attention, cfg: ModelConfig, x: torch.Tensor, cache: dict,
-                step: DecodeStep, kind: str, *, serve_sparse: bool = True):
-    """One-token decode.  x (B, 1, D) at the positions of ``step``; the cache
-    is updated in place.  Returns y (B, 1, D)."""
+def attn_decode(p: Attention, cfg: ModelConfig, x: torch.Tensor,
+                norm_scale: torch.Tensor, cache: dict, step: DecodeStep, kind: str, *,
+                serve_sparse: bool = True):
+    """One-token decode of the residual x (B, 1, D) normed by ``norm_scale``,
+    at the positions of ``step``; the cache is updated in place.  Returns y
+    (B, 1, D)."""
     b = x.shape[0]
     sink, window = kind_sink_window(cfg, kind, serve_sparse)
-    q, k, v = qkv_project(p, cfg, x)
+    q, k, v = qkv_project(p, cfg, x, norm_scale)
     q, k = L.apply_rope(q, *step.rope_cs), L.apply_rope(k, *step.rope_cs)
     KV.attn_write(cache, k, v, step.q_pos[:, 0], step.slots[kind], step.rows)
     k_all, v_all, k_pos = KV.attn_read(cache)

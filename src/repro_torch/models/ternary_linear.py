@@ -24,10 +24,12 @@ Serving dispatch (``tlin_apply``), with DAS on:
 
 and the same GEMMs on the raw activations with DAS off.  ``tlin_compact``
 runs the DAS step once for projections that share an input (q/k/v,
-gate/up).  The output is cast back to x's dtype.  The trits form applies
-the scale rounded to x's dtype, as the JAX package multiplies
-``trits.astype(x.dtype) * scale.astype(x.dtype)``; the packed form keeps
-the float32 scale, as the JAX package's packed path does.
+gate/up); ``tlin_norm_input`` does it for projections fed by an rmsnorm,
+with the norm run inside the ``das_topk`` kernel.  The output is cast back
+to x's dtype.  The trits form applies the scale rounded to x's dtype, as
+the JAX package multiplies ``trits.astype(x.dtype) * scale.astype(x.dtype)``;
+the packed form keeps the float32 scale, as the JAX package's packed path
+does.
 """
 
 from __future__ import annotations
@@ -39,9 +41,10 @@ from repro_torch.configs.base import TernaryConfig
 from repro_torch.core import ternary as tq
 from repro_torch.core import twd
 from repro_torch.kernels import ops
+from repro_torch.models.layers import rmsnorm
 
 __all__ = ["ROW_ALIGN", "TRITS_FORMATS", "TernaryLinear", "tlin_init",
-           "export_tlin", "tlin_compact", "tlin_apply"]
+           "export_tlin", "tlin_compact", "tlin_norm_input", "tlin_apply"]
 
 ROW_ALIGN = 16   # packed rows of an export are a multiple of this
 TRITS_FORMATS = ("int8", "bf16")   # serve formats that hold int8 trits
@@ -97,16 +100,30 @@ def export_tlin(p: dict, tc: TernaryConfig) -> dict:
     return {"trits": tw.values, "scale": tw.scale}
 
 
-def tlin_compact(x: torch.Tensor, tc: TernaryConfig) -> ops.DasTopK | None:
-    """The DAS step of x's flattened rows, or None with DAS off."""
+def tlin_compact(x: torch.Tensor, tc: TernaryConfig,
+                 norm_scale: torch.Tensor | None = None) -> ops.DasTopK | None:
+    """The DAS step of x's flattened rows, of ``rmsnorm(norm_scale, x)``
+    when a norm scale is given, or None with DAS off."""
     if tc.das is None:
         return None
-    return ops.das_topk(x, keep=tc.das.keep, block=tc.das.block)
+    return ops.das_topk(x, keep=tc.das.keep, block=tc.das.block,
+                        norm_scale=norm_scale, with_mask=False)
+
+
+def tlin_norm_input(x: torch.Tensor, norm_scale: torch.Tensor, tc: TernaryConfig):
+    """What projections fed by ``rmsnorm(norm_scale, x)`` take, as (input,
+    shared DAS step): with DAS on, x itself (``tlin_apply`` reads only its
+    shape and dtype) and the DAS step with the norm inside it; with DAS off,
+    the normed x and None."""
+    if tc.das is None:
+        return rmsnorm(norm_scale, x), None
+    return x, tlin_compact(x, tc, norm_scale)
 
 
 def tlin_apply(lin: TernaryLinear, x: torch.Tensor,
                ca: ops.DasTopK | None = None) -> torch.Tensor:
-    """x (..., K) -> (..., N) in x's dtype; ``ca`` is a shared DAS step of x."""
+    """x (..., K) -> (..., N) in x's dtype; ``ca`` is a shared DAS step of x
+    (given one, x is read for its shape and dtype only)."""
     k = x.shape[-1]
     lead = x.shape[:-1]
     if lin.tc.das is not None and ca is None:

@@ -1,9 +1,11 @@
 """Decoder blocks and the layer-stack loops for the dense attention kinds.
 
 A ``Block`` is rmsnorm -> attention -> residual -> rmsnorm -> gated FFN ->
-residual.  The JAX package scans stacked layer groups; here the stack is a
-loop over the model's ``ModuleList``.  Layer kinds "attn" and "local" are
-served; mamba, rwkv, gla and MoE wait for later slices (ROADMAP).
+residual; with DAS on, each rmsnorm runs inside the DAS step of the
+projections it feeds (``tlin_norm_input``).  The JAX package scans stacked
+layer groups; here the stack is a loop over the model's ``ModuleList``.
+Layer kinds "attn" and "local" are served; mamba, rwkv, gla and MoE wait for
+later slices (ROADMAP).
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as A
 from repro_torch.models import kvcache as KV
 from repro_torch.models.layers import RMSNorm
-from repro_torch.models.ternary_linear import TernaryLinear, tlin_compact
+from repro_torch.models.ternary_linear import TernaryLinear, tlin_norm_input
 
 __all__ = ["FFN", "Block", "silu", "ffn_apply", "block_prefill", "block_decode",
            "layer_cache_spec", "stack_prefill", "stack_decode"]
@@ -59,34 +61,35 @@ def silu(g: torch.Tensor) -> torch.Tensor:
     return g * torch.reciprocal(1 + torch.exp(-g))
 
 
-def ffn_apply(p: FFN, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    """gate and up share one DAS step of x."""
-    ca = tlin_compact(x, cfg.ternary)
-    h = silu(p.w_gate(x, ca)) * p.w_in(x, ca)
+def ffn_apply(p: FFN, cfg: ModelConfig, x: torch.Tensor,
+              norm_scale: torch.Tensor) -> torch.Tensor:
+    """The FFN of the residual x normed by ``norm_scale``: gate and up share
+    one DAS step, with the norm inside it."""
+    xin, ca = tlin_norm_input(x, norm_scale, cfg.ternary)
+    h = silu(p.w_gate(xin, ca)) * p.w_in(xin, ca)
     return p.w_out(h)
 
 
 def block_prefill(bp: Block, cfg: ModelConfig, x: torch.Tensor, *,
                   serve_sparse: bool, max_len: int):
     """-> (x, cache) with the cache ready for decode at position L."""
-    xin = bp.norm1(x)
     sink, window = A.kind_sink_window(cfg, bp.kind, serve_sparse)
     if sink < A.FULL_SINK:
-        y, state = A.attn_prefill_streaming(bp.attn, cfg, xin, bp.kind)
+        y, state = A.attn_prefill_streaming(bp.attn, cfg, x, bp.norm1.scale, bp.kind)
         cache = KV.ring_from_stream(cfg, state, sink=sink, window=window)
     else:
-        y, cache = A.attn_prefill_full(bp.attn, cfg, xin, max_len)
+        y, cache = A.attn_prefill_full(bp.attn, cfg, x, bp.norm1.scale, max_len)
     x = x + y
-    return x + ffn_apply(bp.ffn, cfg, bp.norm2(x)), cache
+    return x + ffn_apply(bp.ffn, cfg, x, bp.norm2.scale), cache
 
 
 def block_decode(bp: Block, cfg: ModelConfig, x: torch.Tensor, cache: dict,
                  step: A.DecodeStep, *, serve_sparse: bool) -> torch.Tensor:
     """One token per sequence at the positions of ``step``; the cache
     updates in place."""
-    x = x + A.attn_decode(bp.attn, cfg, bp.norm1(x), cache, step, bp.kind,
+    x = x + A.attn_decode(bp.attn, cfg, x, bp.norm1.scale, cache, step, bp.kind,
                           serve_sparse=serve_sparse)
-    return x + ffn_apply(bp.ffn, cfg, bp.norm2(x))
+    return x + ffn_apply(bp.ffn, cfg, x, bp.norm2.scale)
 
 
 def layer_cache_spec(cfg: ModelConfig, kind: str, batch: int, max_len: int,

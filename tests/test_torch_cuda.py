@@ -20,6 +20,7 @@ from repro_torch.configs import get_config, reduced
 from repro_torch.core import das, lpsa, twd
 from repro_torch.kernels import ops, ref
 from repro_torch.models import model as MD
+from repro_torch.models.layers import rmsnorm
 from repro_torch.serve import Request, ServeConfig, ServeEngine
 
 pytestmark = pytest.mark.cuda
@@ -42,15 +43,89 @@ def _packed(rng, k, n, device):
     return twd.pack_ternary(trits, row_align=16).to(device)
 
 
-@pytest.mark.parametrize("m,k", [(4, 2048), (64, 5460), (3, 96)])
-def test_cuda_das_topk(cuda, rng, m, k):
-    x = torch.from_numpy(rng.integers(-3, 4, size=(m, k)).astype(np.float32)).to(cuda)
-    got = ops.das_topk(x, keep=16)
-    want = ref.das_topk_ref(x, keep=16, block=32)
+def _assert_same(got, want):
     for a, b in zip(got, want):
         assert (a is None) == (b is None)
         if a is not None:
             assert torch.equal(a, b)
+
+
+def _rows(rng, m, k, dtype, ties, device):
+    x = rng.integers(-3, 4, size=(m, k)) if ties else rng.standard_normal((m, k)) * 3
+    return torch.from_numpy(x.astype(np.float32)).to(device, dtype)
+
+
+# (M, K, dtype, tie-heavy rows, keep): bitnet-1.3b's widths at decode and at a
+# pack (K = 5460: 8-byte vectors, odd rows 8 bytes past a 16-byte boundary,
+# a 20-lane partial block), an odd K (byte vectors), compacted rows whose
+# length is not whole 16-byte chunks (keep 1 and 24)
+DAS_TOPK_CASES = [(4, 2048, torch.bfloat16, False, 16), (256, 2048, torch.bfloat16, False, 16),
+                  (4, 5460, torch.bfloat16, False, 16), (64, 5460, torch.bfloat16, False, 16),
+                  (5, 5460, torch.float32, True, 16), (3, 96, torch.float32, True, 16),
+                  (7, 101, torch.bfloat16, True, 24), (3, 4160, torch.bfloat16, False, 1),
+                  (4, 96, torch.float32, False, 24), (2, 64, torch.bfloat16, True, 32)]
+
+
+@pytest.mark.parametrize("m,k,dtype,ties,keep", DAS_TOPK_CASES)
+def test_cuda_das_topk(cuda, rng, m, k, dtype, ties, keep):
+    """The vector design against its plain version, exactly: with the mask
+    requested and not, and on rows that start at an odd row of a larger
+    tensor (not 16-byte aligned at K = 5460)."""
+    big = _rows(rng, m + 1, k, dtype, ties, cuda)
+    for x in (big[:m], big[1:]):
+        _assert_same(ops.das_topk(x, keep=keep), ref.das_topk_ref(x, keep=keep, block=32))
+        got = ops.das_topk(x, keep=keep, with_mask=False)
+        assert got.mask is None
+        _assert_same(got, ref.das_topk_ref(x, keep=keep, block=32, with_mask=False))
+
+
+def _steps(got, want):
+    """|got - want| in steps of want's dtype at want's magnitude."""
+    mant = 7 if want.dtype == torch.bfloat16 else 23
+    w = want.float()
+    step = torch.exp2(torch.floor(torch.log2(w.abs().clamp_min(2.0 ** -100))) - mant)
+    return (got.float() - w).abs() / step
+
+
+@pytest.mark.parametrize("m,k,dtype", [(4, 2048, torch.bfloat16), (256, 2048, torch.bfloat16),
+                                       (4, 5460, torch.bfloat16), (256, 5460, torch.bfloat16),
+                                       (3, 96, torch.float32), (4, 2048, torch.float32)])
+def test_cuda_das_topk_norm(cuda, rng, m, k, dtype):
+    """The rmsnorm prologue: the normed rows within one step of
+    rmsnorm(scale, x) in bfloat16 and within 8 steps (1e-6 relative) in
+    float32, since the kernel sums the squares in another order than
+    F.rms_norm and rounds its rsqrt correctly; the DAS step of those rows
+    exact against its plain version."""
+    x = _rows(rng, m, k, dtype, False, cuda)
+    scale = torch.from_numpy((rng.standard_normal(k) * 0.5).astype(np.float32)).to(cuda, dtype)
+    got = ops.das_topk(x, keep=16, norm_scale=scale, with_normed=True)
+    want = rmsnorm(scale, x)
+    steps = _steps(got.normed, want)
+    print(f"normed: {int((got.normed != want).sum())} of {want.numel()} differ, "
+          f"max {float(steps.max()):.2f} steps")
+    assert float(steps.max()) <= (1 if dtype == torch.bfloat16 else 8)
+    plain = ref.das_topk_ref(got.normed, keep=16, block=32)
+    _assert_same(got[:4], plain[:4])
+
+
+@pytest.mark.parametrize("k", [2048, 5460])
+@pytest.mark.parametrize("norm", [False, True])
+def test_cuda_das_topk_batch_invariance(cuda, rng, k, norm):
+    """A row's outputs do not depend on M: rows alone, among 4 and among 256
+    give the same bits, with and without the norm."""
+    x = _rows(rng, 256, k, torch.bfloat16, False, cuda)
+    scale = (torch.from_numpy((rng.standard_normal(k) * 0.5).astype(np.float32))
+             .to(cuda, torch.bfloat16) if norm else None)
+
+    def run(rows):
+        return ops.das_topk(rows, keep=16, norm_scale=scale, with_normed=norm)
+
+    full, four = run(x), run(x[:4])
+    for i in (0, 3):
+        one = run(x[i:i + 1])
+        for a, b, c in zip(one, four, full):
+            if a is not None:
+                assert torch.equal(a[0], b[i]) and torch.equal(a[0], c[i]), i
 
 
 # (M, K, N, dtype): decode (M <= 4: K windows with the ordered reduction)
@@ -327,7 +402,10 @@ def test_cuda_engine_batch_invariance(cuda):
     assert eng.run()[9].tokens.tolist() == batched[2].tokens.tolist()
 
 
-@pytest.mark.parametrize("k,n,row_align", [(2048, 64, 16), (5460, 40, 16), (300, 7, 1)])
+# (K, N, row_align): bitnet-1.3b's columns (N = 5460: 4-byte vectors; 2048:
+# 16-byte) with the export's padding rows past K (5R > K), odd N (bytes)
+@pytest.mark.parametrize("k,n,row_align", [(2048, 5460, 16), (5460, 2048, 16), (2048, 64, 16),
+                                           (5460, 40, 16), (300, 7, 1), (77, 1001, 16)])
 def test_cuda_twd_decode(cuda, rng, k, n, row_align):
     trits = torch.from_numpy(rng.integers(-1, 2, size=(k, n)).astype(np.int8))
     packed = twd.pack_ternary(trits, row_align=row_align).to(cuda)

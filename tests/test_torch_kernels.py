@@ -19,6 +19,7 @@ from repro.core import das as jdas
 from repro.core import twd as jtwd
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro.models import layers as jlayers
 from repro.models import ternary_linear as jtlin
 from repro_torch.configs import base as tbase
 from repro_torch.core import das, lpsa
@@ -119,25 +120,70 @@ def test_das_ternary_gemm_refuses_mismatched_compaction(kc, keep, block, rows):
                              SCALE, keep=keep, block=block)
 
 
-@pytest.mark.parametrize("m,k,keep,ties", [(64, 512, 16, False), (32, 2048, 24, False),
-                                           (8, 256, 16, True), (4, 5460, 16, False)])
-def test_das_topk_matches_jax_kernel(rng, m, k, keep, ties):
+F32_STEPS = 3 * 2.0 ** -23
+
+# (M, K, keep, tie-heavy rows, dtype, norm): the plain DAS step, then the
+# step with the rmsnorm before it (ops.das_topk norm_scale) in float32 and
+# bfloat16, tie-heavy rows (a constant scale keeps their ties), a partial last
+# block (340 = 10 * 32 + 20)
+DAS_TOPK_CASES = [(64, 512, 16, False, "float32", False),
+                  (32, 2048, 24, False, "float32", False),
+                  (8, 256, 16, True, "float32", False),
+                  (4, 5460, 16, False, "float32", False),
+                  (16, 1024, 16, False, "float32", True),
+                  (8, 256, 16, True, "float32", True),
+                  (16, 2048, 16, False, "bfloat16", True),
+                  (8, 256, 16, True, "bfloat16", True),
+                  (4, 340, 16, False, "bfloat16", True)]
+
+
+def _topk_id(case):
+    m, k, keep, ties, dtype, norm = case
+    return f"{m}-{k}-{keep}-{ties}" + (f"-{dtype}-norm" if norm else "")
+
+
+@pytest.mark.parametrize("m,k,keep,ties,dtype,norm", DAS_TOPK_CASES,
+                         ids=[_topk_id(c) for c in DAS_TOPK_CASES])
+def test_das_topk_matches_jax_kernel(rng, m, k, keep, ties, dtype, norm):
+    """The DAS step against the Pallas kernel (interpret mode) and das_compact;
+    with a norm scale, of the JAX package's rmsnorm (models/layers.py), its
+    normed rows bitwise in bfloat16 and within 3 float32 steps (2^-23
+    relative each) in float32: the two frameworks sum the squares in
+    different orders, which moves the rsqrt by a step, and two roundings
+    follow."""
     x = (rng.integers(-3, 4, size=(m, k)) if ties
          else rng.standard_normal((m, k))).astype(np.float32)
-    got = ops.das_topk(torch.from_numpy(x), keep=keep)
-    if k % 32:   # the Pallas kernel tiles K by 512: the tail against das_mask
-        want = np.asarray(jdas.das_mask(jnp.asarray(x), block_size=32, keep=keep))
+    jx, tx = jnp.asarray(x, dtype), torch.from_numpy(x).to(getattr(torch, dtype))
+    if norm:
+        s = (np.full(k, 0.25) if ties else rng.standard_normal(k) * 0.5).astype(np.float32)
+        jx = jlayers.rmsnorm({"scale": jnp.asarray(s, dtype)}, jx)
+        got = ops.das_topk(tx, keep=keep, norm_scale=torch.from_numpy(s).to(tx.dtype),
+                           with_normed=True)
+        want_y = np.asarray(jx.astype(jnp.float32))
+        if dtype == "bfloat16":
+            np.testing.assert_array_equal(got.normed.float().numpy(), want_y)
+        else:
+            np.testing.assert_allclose(got.normed.numpy(), want_y, rtol=F32_STEPS, atol=0)
     else:
-        want = np.asarray(jops.topk_mask(jnp.asarray(x), keep=keep, mode="interpret"))
+        got = ops.das_topk(tx, keep=keep)
+        assert got.normed is None
+    y = np.asarray(jx.astype(jnp.float32))
+    if k % 32:   # the Pallas kernel tiles K by 512: the tail against das_mask
+        want = np.asarray(jdas.das_mask(jx, block_size=32, keep=keep))
+    else:
+        want = np.asarray(jops.topk_mask(jx, keep=keep, mode="interpret"))
     np.testing.assert_array_equal(got.mask.numpy(), want)
+    tol = dict(rtol=F32_STEPS if norm and dtype == "float32" else 0, atol=0)
     if k % 32:
         assert got.mask.numpy()[:, k - k % 32:].all()          # dense tail
-        np.testing.assert_array_equal(got.dense.numpy(), x * got.mask.numpy())
+        np.testing.assert_allclose(got.dense.float().numpy(), y * got.mask.numpy(), **tol)
         assert got.values is None
     else:
-        ca = jdas.das_compact(jnp.asarray(x), block_size=32, keep=keep)
-        np.testing.assert_array_equal(got.values.numpy(), np.asarray(ca.values))
+        ca = jdas.das_compact(jx, block_size=32, keep=keep)
+        np.testing.assert_allclose(got.values.float().numpy(),
+                                   np.asarray(ca.values.astype(jnp.float32)), **tol)
         np.testing.assert_array_equal(got.indices.numpy(), np.asarray(ca.indices))
+    assert ops.das_topk(tx, keep=keep, with_mask=False).mask is None
 
 
 @pytest.mark.parametrize("hq,hkv,lq,lk,cap", [(4, 2, 64, 64, None), (4, 4, 32, 64, 30.0),

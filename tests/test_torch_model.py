@@ -90,8 +90,24 @@ def _bf16_das(base, get):
                   dtype="bfloat16")
 
 
+def _bf16_packed(base, get):
+    """The main path's own format (base-3 packed) in bfloat16, DAS on."""
+    return dataclasses.replace(base.reduced(get("bitnet-1.3b")), dtype="bfloat16")
+
+
+def _local_softcap(base, get):
+    """A local layer before a global one, with attention and logit soft-caps
+    (the gemma pattern on bitnet's widths)."""
+    return dataclasses.replace(base.reduced(get("bitnet-1.3b")), layer_pattern=("local", "attn"),
+                               window=24, attn_softcap=50.0, logit_softcap=30.0)
+
+
 ALL_CONFIGS = {**CONFIGS, **TRITS_CONFIGS, "bitnet-reduced-int8-bfloat16": (
-    lambda: _bf16_das(jbase, jget_config), lambda: _bf16_das(tbase, get_config), "ref")}
+    lambda: _bf16_das(jbase, jget_config), lambda: _bf16_das(tbase, get_config), "ref"),
+    "bitnet-reduced-packed-bfloat16": (lambda: _bf16_packed(jbase, jget_config),
+                                       lambda: _bf16_packed(tbase, get_config), "ref"),
+    "bitnet-reduced-local-softcap": (lambda: _local_softcap(jbase, jget_config),
+                                     lambda: _local_softcap(tbase, get_config), "ref")}
 
 
 def jax_and_port(name: str, seed: int = 0):
@@ -261,19 +277,41 @@ def test_silu_matches_jax_bf16():
     assert not np.array_equal(torch.nn.functional.silu(tx).float().numpy(), want)
 
 
-@pytest.mark.parametrize("serve_sparse", [True, False])
-def test_bf16_das_model_matches_eager_jax(pairs, serve_sparse):
-    """Reduced bitnet-1.3b in bfloat16 with DAS on (int8 trits) against the
-    JAX package run op by op (jax.disable_jit): prefill + 8 teacher-forced
-    decode steps give bitwise equal logits, on the LPSA path (streaming
-    prefill, ring decode) and the full-cache path.  It rests on the port
-    rounding where the reference rounds: SiLU step by step
-    (models/transformer.py::silu) and the streaming prefill's scores to
-    bfloat16 before the scale (ops.sparse_attention round_scores)."""
-    jcfg, sparams, _, model, mode = pairs("bitnet-reduced-int8-bfloat16")
+@pytest.mark.parametrize("fmt,serve_sparse", [
+    pytest.param("int8", True, id="True"), pytest.param("int8", False, id="False"),
+    pytest.param("packed", True, id="packed-True"),
+    pytest.param("packed", False, id="packed-False")])
+def test_bf16_das_model_matches_eager_jax(pairs, fmt, serve_sparse):
+    """Reduced bitnet-1.3b in bfloat16 with DAS on, on int8 trits and on the
+    main path's base-3 packed weights, against the JAX package run op by op
+    (jax.disable_jit): prefill + 8 teacher-forced decode steps give bitwise
+    equal logits, on the LPSA path (streaming prefill, ring decode) and the
+    full-cache path.  It rests on the port rounding where the reference
+    rounds: SiLU step by step (models/transformer.py::silu), the streaming
+    prefill's scores to bfloat16 before the scale (ops.sparse_attention
+    round_scores) and the rmsnorm before q/k/v and gate/up, which runs
+    inside the DAS step (ops.das_topk norm_scale)."""
+    jcfg, sparams, _, model, mode = pairs(f"bitnet-reduced-{fmt}-bfloat16")
     prompt = np.random.default_rng(1).integers(0, jcfg.vocab, 48).astype(np.int32)
     logits, _ = _teacher_forced(jcfg, sparams, model, mode, prompt,
                                 serve_sparse=serve_sparse, eager=True)
     for step, (want, got) in enumerate(logits):
         np.testing.assert_array_equal(got, want.astype(np.float32),
                                       err_msg=f"logits of step {step}")
+
+
+@pytest.mark.parametrize("serve_sparse", [True, False])
+def test_local_softcap_model_matches_jax(pairs, serve_sparse):
+    """A local (sliding-window) layer and a global one, with the attention
+    and logit soft-caps, in float32: prefill + 8 teacher-forced decode steps
+    within 2e-4 of the JAX package and equal greedy tokens, with LPSA on the
+    global layer and without."""
+    jcfg, sparams, _, model, mode = pairs("bitnet-reduced-local-softcap")
+    assert [bp.kind for bp in model.layers] == ["local", "attn"]
+    prompt = np.random.default_rng(1).integers(0, jcfg.vocab, 48).astype(np.int32)
+    logits, _ = _teacher_forced(jcfg, sparams, model, mode, prompt,
+                                serve_sparse=serve_sparse)
+    for step, (want, got) in enumerate(logits):
+        np.testing.assert_allclose(got, want, rtol=0, atol=2e-4,
+                                   err_msg=f"logits of step {step}")
+        assert int(np.argmax(got)) == int(np.argmax(want)), f"greedy token {step}"
