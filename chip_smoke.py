@@ -15,19 +15,30 @@ Phases:
            also at LPSA packs of three stream offsets, full causal attention
            over partial tiles, head sizes 16 and 80, and bitwise invariance
            to the batch and to the other queries of a tile
-  serve    full-width bitnet-1.3b (seeded random weights) on three paths, each
-           driven with the launch counts at 0 and read after it:
-             packed    base-3 packed weights: a ServeEngine with 4 slots
-                       serves 5 staggered greedy requests (one prompt wraps
-                       the 1024-slot ring);
-             int8w     serve_format "int8": the trits are twd_decode of the
-                       packed weights (checked equal to the int8 export), then
-                       the same trace through das_gemv;
-             baseline  int8 trits, no DAS, no LPSA (full caches): 2 requests;
-           each checks token counts, the kernels' launch counts, finite
-           logits and bitwise batch invariance; packed and int8w also a
-           reduced-size model on the card against the CPU; then the decode
-           step of packed and int8w under torch.profiler, in turns, the
+  serve    full-width bitnet-1.3b (seeded random weights) on five paths, each
+           driven with the launch counts at 0 and read after it; every
+           engine captures its decode step into a CUDA graph after one
+           warm-up step and every decode step must be a replay of it:
+             packed      base-3 packed weights: a ServeEngine with 4 slots
+                         serves 5 staggered greedy requests (one prompt wraps
+                         the 1024-slot ring);
+             paged-lpsa  the packed model under layout="paged": 5 prompts on
+                         one 512-token stem, ring states shared through the
+                         trie (prefix hits, fewer prefill tokens, the dense
+                         engine's tokens);
+             paged-full  the packed model with full caches, every layer a
+                         page arena: whole-page donors, a partial boundary
+                         page and copy-on-write, tokens equal to a dense
+                         full-cache run of the same schedule;
+             int8w       serve_format "int8": the trits are twd_decode of the
+                         packed weights (checked equal to the int8 export),
+                         then the packed path's trace through das_gemv;
+             baseline    int8 trits, no DAS, no LPSA (full caches): 2 requests;
+           each checks token counts, the kernels' launch counts (a replay
+           adds the launches its capture recorded), finite logits and
+           bitwise batch invariance; packed and int8w also a reduced-size
+           model on the card against the CPU; then the decode step of packed
+           and int8w under torch.profiler, replayed and eager in turns, the
            device time of admitting the 1100-token prompt (4 packs) and of
            the int8w model load's twd_decode launches
   times    each kernel at its decode shape: CUDA-event median beside its
@@ -36,9 +47,10 @@ Phases:
            and one 256-row prefill pack, sparse_attention's prefill classes
            at packs of three stream offsets and at full causal attention,
            beside their bounds, plain versions and library calls; das_topk's
-           serving calls (mask null, norm-fused) at decode and at a pack
-  profile  (only when named) the packed decode step and the admission under
-           torch.profiler, as the serve phase profiles them
+           serving calls (mask null, norm-fused) at decode and at a pack;
+           sparse_attention's decode over a paged-full view, and the gather
+  profile  (only when named) the packed and int8w decode steps and the
+           admission under torch.profiler, as the serve phase profiles them
 
   python3 chip_smoke.py --parent DIR   # then the times and profile phases on
                                        # DIR's package and on this tree's in
@@ -519,11 +531,15 @@ class Smoke:
         return cfg, params, model, prompts, sc
 
     def phase_profile(self):
-        """The packed model's decode step and the admission of the
-        1100-token prompt under torch.profiler, as the serve phase profiles
-        them: what --parent's turns compare."""
-        _, _, model, prompts, sc = self._packed_model()
+        """The decode step of the packed and the int8w model and the
+        admission of the 1100-token prompt under torch.profiler, as the serve
+        phase profiles them: what --parent's turns compare."""
+        from repro_torch.models import model as MD
+        cfg, _, model, prompts, sc = self._packed_model()
         self._profile_decode("packed", model, sc, prompts)
+        cfg8 = dataclasses.replace(cfg, ternary=dataclasses.replace(
+            cfg.ternary, serve_format="int8"))
+        self._profile_decode("int8w", MD.trits_from_packed(model, cfg8), sc, prompts)
         self._profile_admission(model, prompts[0], sc.max_len)
 
     def phase_serve(self):
@@ -539,15 +555,11 @@ class Smoke:
         packs = [p // chunk for p in prompt_lens if p >= chunk]
         zero = {name: 0 for name in KERNEL_INFO}
 
-        # path "packed": per decode step 4/6/1/1 launches per layer; per
-        # prefill of n packs, per layer n+3 / 3n+3 / 1 / n (q/k/v per pack;
-        # o, gate/up, down once)
-        def want_packed(steps):
-            return {**zero,
-                    "das_topk": n_l * (4 * steps + sum(n + 3 for n in packs)),
-                    "das_ternary_gemm": n_l * (6 * steps + sum(3 * n + 3 for n in packs)),
-                    "ternary_gemm": n_l * (steps + len(packs)),
-                    "sparse_attention": n_l * (steps + sum(packs))}
+        # path "packed": per decode step (the warm-up before the capture and
+        # every replay) 4/6/1/1 launches per layer; per prefill of n packs,
+        # per layer n+3 / 3n+3 / 1 / n (q/k/v per pack; o, gate/up, down once)
+        def want_packed(st):
+            return _packed_counts(n_l, st.decode_steps + st.warmup_steps, packs)
 
         _, eng, res = self._serve_path("packed", lambda: model, trace, sc, want_packed)
         lg_packed = self._finite_logits("packed", model, prompts[2][:chunk], sc.max_len)
@@ -555,6 +567,8 @@ class Smoke:
         del eng
         self._profile_admission(model, prompts[0], sc.max_len)
         self._reduced_parity("packed", cfg, prompts[0])
+        self._paged_lpsa(cfg, model)
+        self._paged_full(cfg, model)
 
         # path "int8w": the trits come from twd_decode of the packed weights
         # (7 per layer, in the path's count); per decode step 4/7/1 launches
@@ -563,7 +577,8 @@ class Smoke:
         cfg8 = dataclasses.replace(cfg, ternary=dataclasses.replace(
             cfg.ternary, serve_format="int8"))
 
-        def want_int8(steps):
+        def want_int8(st):
+            steps = st.decode_steps + st.warmup_steps
             return {**zero, "twd_decode": 7 * n_l,
                     "das_topk": n_l * (4 * steps + sum(n + 3 for n in packs)),
                     "das_gemv": n_l * (7 * steps + sum(3 * n + 4 for n in packs)),
@@ -596,7 +611,8 @@ class Smoke:
                    for i in range(2)]
         sc_b = ServeConfig(max_slots=4, max_len=32, seed=self.seed)
 
-        def want_base(steps):
+        def want_base(st):
+            steps = st.decode_steps + st.warmup_steps
             return {**zero, "twd_decode": 7 * n_l,
                     "das_gemv": n_l * 7 * (steps + len(trace_b)),
                     "sparse_attention": n_l * (steps + len(trace_b))}
@@ -607,21 +623,176 @@ class Smoke:
         self._batch_invariance("baseline", eng, trace_b, res, (1,))
         del eng, model_b
 
-        # where a decode step's time goes: packed and int8w in turns
+        # where a decode step's time goes: packed and int8w, each replayed
+        # from its captured graph and stepped eagerly, in turns
         turns = []
-        for label, m in (("packed", model), ("int8w", model8), ("int8w", model8),
-                         ("packed", model)):
-            turns.append((label, self._profile_decode(label, m, sc, prompts)))
-        log("[profile] turns (decode ms/step by CUDA events, device busy ms/step): " + ", ".join(
-            f"{label} {r['ms_step']:.3f} / {r['busy_ms_step']}" for label, r in turns))
+        for label, m in (("packed", model), ("int8w", model8)):
+            runs = []
+            for graph in (True, False, False, True):
+                name = f"{label} {'graph' if graph else 'eager'}"
+                runs.append(self._profile_decode(name, m, sc, prompts, graph))
+                turns.append((name, runs[-1]))
+            # the replayed step against the eager one: the same tokens bit for
+            # bit, and a replay counts one eager step's kernel launches
+            if any(r["tokens"] != runs[1]["tokens"] or r["per_step"] != runs[1]["per_step"]
+                   for r in runs):
+                raise AssertionError(f"{label}: the replayed decode step differs from the "
+                                     f"eager one in tokens or launches a step")
+            log(f"[profile] {label}: replayed and eager decode steps give the same tokens "
+                f"bitwise and the same launches a step {runs[1]['per_step']}")
+        log("[profile] turns (decode ms/step by CUDA events, device busy ms/step under "
+            "the profiler, idle share of the former, host launches per step): " + ", ".join(
+                f"{name} {r['ms_step']:.3f} / {r['busy_ms_step']} / {r['idle']} / "
+                f"{r['launches']}" for name, r in turns))
         del model, model8
         torch.cuda.empty_cache()
 
-    def _serve_path(self, label, load, trace, sc, want_fn):
-        """Load a model and serve ``trace`` with the launch counts set to 0
-        just before and read just after; check the counts against
-        ``want_fn(decode steps)`` and every request's token count.
-        Returns (model, engine, results)."""
+    def _paged_lpsa(self, cfg, model):
+        """Path "paged-lpsa": the packed model with LPSA under layout="paged",
+        so the ring states are shared through the trie with no page arena.
+        Prompts of 700, 600, 540, 760 and 512 tokens share one 512-token stem
+        (2 packs): the first prefills it and registers it, every later one
+        restores it from an exact entry and prefills nothing, so the path's
+        prefills are the fresh admissions' and its tokens equal the dense
+        engine's on the same trace."""
+        from repro_torch.serve import Request, ServeConfig
+        torch, stem_len, n_l = self.torch, 512, cfg.n_layers
+        rng = torch.Generator().manual_seed(self.seed + 7)
+        stem = torch.randint(0, cfg.vocab, (stem_len,), generator=rng)
+        prompts = [torch.cat([stem, torch.randint(0, cfg.vocab, (p - stem_len,),
+                                                  generator=rng)]).numpy()
+                   for p in (700, 600, 540, 760, 512)]
+        trace = [Request(uid=i, prompt=p, max_new_tokens=self.GEN_LEN, arrival=2 * i)
+                 for i, p in enumerate(prompts)]
+        sc = ServeConfig(max_slots=4, max_len=1024, layout="paged", seed=self.seed)
+
+        def want(st):
+            fresh = len(trace) - st.prefix_hits
+            if st.prefill_tokens != stem_len * fresh:
+                raise AssertionError(f"paged-lpsa: {st.prefill_tokens} prefill tokens, "
+                                     f"want the stem once per fresh admission")
+            return _packed_counts(n_l, st.decode_steps + st.warmup_steps,
+                                  [stem_len // cfg.lpsa.chunk] * fresh)
+
+        _, eng, res = self._serve_path("paged-lpsa", lambda: model, trace, sc, want)
+        st = eng.stats
+        dense, dense_st = self._dense_tokens(model, trace, 1024, True)
+        log(f"[serve] paged-lpsa: prefix_hits {st.prefix_hits} (want >= 3), "
+            f"prompt_tokens_reused {st.prompt_tokens_reused}, prefill_tokens "
+            f"{st.prefill_tokens} against the dense engine's {dense_st.prefill_tokens} "
+            f"(fell by {dense_st.prefill_tokens - st.prefill_tokens}: the reused stem "
+            f"packs), pool {eng.pool_stats()}")
+        if st.prefix_hits < 3 or dense_st.prefill_tokens - st.prefill_tokens \
+                != st.prompt_tokens_reused:
+            raise AssertionError("paged-lpsa: the stem was not reused as the trace asks")
+        self._same_tokens("paged-lpsa", res, dense, range(len(trace)))
+        self._batch_invariance("paged-lpsa", eng, trace, res, (0, 3))
+
+    def _paged_full(self, cfg, model):
+        """Path "paged-full": the packed model with full caches
+        (serve_sparse=False) under layout="paged", max_len 1024 and pages of
+        16, so every layer is a page arena (64 pages a sequence).  Prompts
+        share a 300-token stem: the first (360 tokens) prefills and registers
+        its whole prompt; a sibling (340) and another (390) take the stem's
+        18 whole pages from it as donor and feed the rest through decode; a
+        duplicate of the first (360) and an extension of it (410) take its
+        entry, whose last page is partial, and copy that page on their first
+        write.  Tokens: equal, for every request, to a dense full-cache run
+        of the same schedule (the shared head prefilled at batch 1, the rest
+        decoded), and to the dense engine's where that schedule is the dense
+        engine's own (the first and its duplicate)."""
+        from repro_torch.serve import Request, ServeConfig
+        torch, n_l, ps = self.torch, cfg.n_layers, 16
+        rng = torch.Generator().manual_seed(self.seed + 8)
+        tail = lambda n: torch.randint(0, cfg.vocab, (n,), generator=rng)  # noqa: E731
+        stem = tail(300)
+        first = torch.cat([stem, tail(60)])
+        prompts = [first, torch.cat([stem, tail(40)]), first.clone(),
+                   torch.cat([first, tail(50)]), torch.cat([stem, tail(90)])]
+        absorbed = [360, 288, 360, 360, 288]          # the schedule the trie gives
+        trace = [Request(uid=i, prompt=p.numpy(), max_new_tokens=self.GEN_LEN,
+                         arrival=2 * i) for i, p in enumerate(prompts)]
+        sc = ServeConfig(max_slots=4, max_len=1024, layout="paged", page_size=ps,
+                         seed=self.seed)
+        zero = {name: 0 for name in KERNEL_INFO}
+
+        # a decode step and a whole-prompt prefill both launch 4/6/1/1 a layer
+        def want(st):
+            runs = st.decode_steps + st.warmup_steps + len(trace) - st.prefix_hits
+            return {**zero, "das_topk": 4 * n_l * runs, "das_ternary_gemm": 6 * n_l * runs,
+                    "ternary_gemm": n_l * runs, "sparse_attention": n_l * runs}
+
+        _, eng, res = self._serve_path("paged-full", lambda: model, trace, sc, want,
+                                       serve_sparse=False)
+        st, pool = eng.stats, eng.pool_stats()
+        log(f"[serve] paged-full: prefix_hits {st.prefix_hits}, prompt_tokens_reused "
+            f"{st.prompt_tokens_reused}, cow_copies {st.cow_copies} (want >= 1), "
+            f"prefill_tokens {st.prefill_tokens}, pool {pool}")
+        if (st.prefix_hits, st.prompt_tokens_reused, st.prefill_tokens) != (
+                4, sum(absorbed[1:]), 360) or st.cow_copies < 1:
+            raise AssertionError("paged-full: the trie did not give the trace's schedule")
+        # a page over every layer: K and V rows in the model's dtype, int32
+        # positions
+        es = getattr(torch, cfg.dtype).itemsize
+        if pool["page_bytes"] != n_l * ps * (2 * cfg.n_kv_heads * cfg.head_dim_ * es + 4):
+            raise AssertionError(f"paged-full: {pool['page_bytes']} bytes a page")
+        want_tokens = {i: self._scheduled_tokens(model, r.prompt, absorbed[i], 1024)
+                       for i, r in enumerate(trace)}
+        self._same_tokens("paged-full (dense full cache, same schedule)", res, want_tokens,
+                          range(len(trace)))
+        dense, _ = self._dense_tokens(model, trace, 1024, False)
+        self._same_tokens("paged-full (dense engine)", res, dense,
+                          [i for i, r in enumerate(trace) if absorbed[i] == r.prompt_len])
+        other = [i for i, r in enumerate(trace) if absorbed[i] < r.prompt_len]
+        log(f"[serve] paged-full requests {other} (a tail decoded where the dense engine "
+            f"prefills it): tokens equal to the dense engine's: "
+            f"{[res[i].tokens.tolist() == dense[i].tolist() for i in other]} "
+            f"(a diagnostic: the decode and prefill kernels sum in other orders)")
+        self._batch_invariance("paged-full", eng, trace, res, (1, 3))
+
+    def _dense_tokens(self, model, trace, max_len, serve_sparse):
+        """The dense (per-slot cache) engine's tokens on ``trace`` and its
+        stats."""
+        from repro_torch.serve import ServeConfig, ServeEngine
+        eng = ServeEngine(model, ServeConfig(max_slots=4, max_len=max_len, seed=self.seed),
+                          device=self.dev, serve_sparse=serve_sparse)
+        for r in trace:
+            eng.submit(r)
+        return {uid: r.tokens for uid, r in eng.run().items()}, eng.stats
+
+    def _scheduled_tokens(self, model, prompt, absorbed, max_len):
+        """One request's greedy tokens on a paged engine's schedule, without
+        the engine: its first ``absorbed`` prompt tokens prefilled at batch 1
+        into full caches, the rest fed one a step, then greedy decode."""
+        torch = self.torch
+        from repro_torch.models import model as MD
+        ids = lambda x: torch.tensor([int(x)], device=self.dev)  # noqa: E731
+        tok = torch.as_tensor(prompt[:absorbed], dtype=torch.long, device=self.dev)[None]
+        logits, caches = MD.prefill(model, tok, max_len=max_len, serve_sparse=False)
+        for pos in range(absorbed, len(prompt)):
+            logits, _ = MD.decode_step(model, caches, ids(prompt[pos]), ids(pos),
+                                       serve_sparse=False)
+        out = [int(logits.argmax(-1)[0])]
+        while len(out) < self.GEN_LEN:
+            logits, _ = MD.decode_step(model, caches, ids(out[-1]),
+                                       ids(len(prompt) + len(out) - 1), serve_sparse=False)
+            out.append(int(logits.argmax(-1)[0]))
+        return out
+
+    @staticmethod
+    def _same_tokens(label, res, want, uids):
+        """Each request's tokens equal ``want[uid]``, bit for bit."""
+        for uid in uids:
+            if res[uid].tokens.tolist() != list(want[uid]):
+                raise AssertionError(f"{label}: request {uid}'s tokens differ")
+        log(f"[serve] {label}: tokens of requests {list(uids)} equal")
+
+    def _serve_path(self, label, load, trace, sc, want_fn, serve_sparse=True):
+        """Load a model, build its engine (which captures its decode step)
+        and serve ``trace`` with the launch counts set to 0 just before and
+        read just after; check the counts against ``want_fn(engine stats)``,
+        that every decode step was a graph replay, and every request's token
+        count.  Returns (model, engine, results)."""
         torch = self.torch
         from repro_torch.kernels import ops
         from repro_torch.serve import ServeEngine
@@ -629,7 +800,7 @@ class Smoke:
         torch.cuda.reset_peak_memory_stats()
         ops.reset_launches()                   # the path starts here
         model = load()
-        eng = ServeEngine(model, sc, device="cuda")
+        eng = ServeEngine(model, sc, device="cuda", serve_sparse=serve_sparse)
         for r in trace:
             eng.submit(r)
         ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -654,7 +825,12 @@ class Smoke:
                                      f"want {r.max_new_tokens}")
             log(f"[serve] {label} req {r.uid}: prompt {r.prompt_len}, ttft "
                 f"{results[r.uid].ttft_steps} steps, ids {got[:8].tolist()}...")
-        want = want_fn(st.decode_steps)
+        log(f"[serve] {label}: {st.graph_replays} of {st.decode_steps} decode steps "
+            f"replayed from the captured graph after {st.warmup_steps} warm-up step; "
+            f"launches a replay {eng.launches_per_replay}")
+        if st.graph_replays != st.decode_steps or st.warmup_steps != 1:
+            raise AssertionError(f"{label}: decode did not run as graph replays")
+        want = want_fn(st)
         log(f"[serve] {label} launches on the path: {counts} (expected {want})")
         if counts != want:
             raise AssertionError(f"{label}: launch counts differ from the path's structure")
@@ -723,15 +899,19 @@ class Smoke:
         if err > 2e-4 or toks_c != toks_g:
             raise AssertionError(f"{label}: the card's reduced model disagrees with the CPU's")
 
-    def _profile_decode(self, label, model, sc, prompts):
+    def _profile_decode(self, label, model, sc, prompts, graph=True):
         """A decode-only trace (40-token prompts fed through the decode step):
-        CUDA-event ms/step without the profiler, then the device busy time
-        per step under torch.profiler (None: not measured)."""
+        CUDA-event ms/step without the profiler, with that run's tokens and
+        kernel launches a step, then the device busy time per step, the idle
+        share and the host launches per step under torch.profiler (None:
+        not measured).  ``graph=False`` steps eagerly (a tree without the
+        captured step always does)."""
         torch = self.torch
         from torch.profiler import ProfilerActivity, profile
 
+        from repro_torch.kernels import ops
         from repro_torch.serve import Request, ServeEngine
-        eng = ServeEngine(model, sc, device="cuda")
+        eng = ServeEngine(model, sc, device="cuda", **({} if graph else {"cuda_graph": False}))
 
         def submit():
             for i in range(4):
@@ -741,12 +921,16 @@ class Smoke:
         eng.run()                                   # warm the allocator
         submit()
         steps0 = eng.stats.decode_steps
+        ops.reset_launches()
         ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         ev0.record()
-        eng.run()                                   # no prefill: decode steps only
+        res = eng.run()                             # no prefill: decode steps only
         ev1.record()
         torch.cuda.synchronize()
-        ms_step = ev0.elapsed_time(ev1) / (eng.stats.decode_steps - steps0)
+        n_steps = eng.stats.decode_steps - steps0
+        ms_step = ev0.elapsed_time(ev1) / n_steps
+        tokens = {uid: r.tokens.tolist() for uid, r in res.items()}
+        per_step = {k: n / n_steps for k, n in ops.launches.items()}
         log(f"[profile] {label} decode-only trace without the profiler: {ms_step:.3f} "
             f"ms/step (CUDA events around the run), 4 active slots")
         submit()
@@ -759,12 +943,18 @@ class Smoke:
         steps = eng.stats.decode_steps - steps1        # the profiled run's steps
         by_name = _device_times(prof)
         busy_us = sum(by_name.values())
+        calls = {e.key: e.count / steps for e in prof.key_averages()
+                 if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC", "cudaGraphLaunch")}
+        n_launch = sum(calls.values())
         if not busy_us:
             log(f"[profile] {label}: the profiler recorded no device time: not measured")
-            return {"ms_step": ms_step, "busy_ms_step": None}
+            return {"ms_step": ms_step, "busy_ms_step": None, "idle": None,
+                    "launches": n_launch, "tokens": tokens, "per_step": per_step}
+        busy_ms = busy_us / 1e3 / steps
         log(f"[profile] {label} decode-only trace, {steps} steps under torch.profiler: wall "
-            f"{1e3 * wall / steps:.3f} ms/step, device busy {busy_us / 1e3 / steps:.3f} "
-            f"ms/step, idle share {1 - busy_us / 1e6 / wall:.3f}")
+            f"{1e3 * wall / steps:.3f} ms/step, device busy {busy_ms:.3f} ms/step, idle "
+            f"share {1 - busy_us / 1e6 / wall:.3f} (against the unprofiled "
+            f"{ms_step:.3f} ms/step: {1 - busy_ms / ms_step:.3f})")
         for name, dt in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
             log(f"[profile]   {dt / 1e3 / steps:8.4f} ms/step  {name[:90]}")
         glue = {cat: sum(dt for name, dt in by_name.items() if _glue_class(name) == cat)
@@ -776,11 +966,11 @@ class Smoke:
         log("[profile] host: self CPU time per step, calls per step")
         for dt, count, name in host:
             log(f"[profile]   {dt / 1e3 / steps:8.4f} ms/step {count / steps:7.1f}  {name[:80]}")
-        calls = {e.key: e.count / steps for e in prof.key_averages()
-                 if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC")}
         log(f"[profile] {label} host launches per step: " + ", ".join(
             f"{name} {n:.1f}" for name, n in sorted(calls.items())))
-        return {"ms_step": ms_step, "busy_ms_step": busy_us / 1e3 / steps}
+        return {"ms_step": ms_step, "busy_ms_step": busy_ms,
+                "idle": 1 - busy_ms / ms_step, "launches": n_launch, "tokens": tokens,
+                "per_step": per_step}
 
     def _profile_load(self, model, cfg8):
         """The device time of loading the packed model into the int8-resident
@@ -1038,6 +1228,54 @@ class Smoke:
             4 * n_keys * h * d, "bfloat16",
             f"decode q ({b},1,{h},{d}) over a {s}-slot ring bf16")
 
+        # the paged-full decode: 4 rows over the view gathered through their
+        # page tables (64 pages of 16 out of a 257-page arena, Lk 1024, full
+        # attention), 360 / 340 / 410 / 390 tokens live; built here, not by
+        # the package, so a tree without the paged layout times it too
+        ps, n_seq = 16, 64
+        depth = torch.tensor([360, 340, 410, 390])
+        n_live = (depth + ps - 1) // ps
+        order = torch.randperm(4 * n_seq, generator=torch.Generator().manual_seed(3)) + 1
+        pt = torch.zeros((b, n_seq), dtype=torch.long)
+        pos_pages = torch.full((4 * n_seq + 1, ps), -1, dtype=torch.int32)
+        for i in range(b):
+            pages = order[i * n_seq:i * n_seq + int(n_live[i])]
+            pt[i, :len(pages)] = pages
+            live = torch.arange(int(depth[i]), dtype=torch.int32)
+            pos_pages.view(-1).index_copy_(
+                0, (pages[:, None] * ps + torch.arange(ps)).flatten()[:len(live)], live)
+        pt, pos_pages = pt.to(self.dev), pos_pages.to(self.dev)
+        k_pages = torch.randn((4 * n_seq + 1, ps, h, d), generator=g, device=self.dev).to(bf16)
+        v_pages = torch.randn((4 * n_seq + 1, ps, h, d), generator=g, device=self.dev).to(bf16)
+
+        def gather():
+            return (k_pages[pt].reshape(b, s, h, d), v_pages[pt].reshape(b, s, h, d),
+                    pos_pages[pt].reshape(b, s))
+
+        kg, vg, kpg = gather()
+        qpg = depth.to(torch.int32).to(self.dev)[:, None]
+        live = (kpg >= 0) & (kpg <= qpg)
+        n_keys = int(live.sum())
+        row("sparse_attention paged decode",
+            lambda: sparse_attention_cuda(q, kg, vg, qpg, kpg, sink=FULL_SINK, window=0),
+            lambda: ref.sparse_attention_ref(q, kg, vg, qpg, kpg, sink=FULL_SINK, window=0),
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kg.transpose(1, 2), vg.transpose(1, 2), attn_mask=live[:, None, None, :]),
+            2 * n_keys * h * d * 2 + b * h * d * 2 * 2 + b * s * 4 + b * 4,
+            4 * n_keys * h * d, "bfloat16",
+            f"decode q ({b},1,{h},{d}) over the gathered view of {n_seq} pages of {ps} "
+            f"({n_keys} live keys) bf16")
+
+        def gathered_attention():
+            kg2, vg2, kp2 = gather()
+            return sparse_attention_cuda(q, kg2, vg2, qpg, kp2, sink=FULL_SINK, window=0)
+
+        ms_gather, ms_both = t_ms(gather), t_ms(gathered_attention)
+        view_bytes = b * s * (2 * h * d * 2 + 4)
+        log(f"[times] paged decode, one layer: the gather of the view {ms_gather * 1e3:.1f} us "
+            f"({view_bytes / 1e6:.1f} MB written, bound {2 * view_bytes / HBM_BYTES_PER_S * 1e6:.2f}"
+            f" us), gather + sparse_attention {ms_both * 1e3:.1f} us")
+
         # the prefill classes: a pack of 256 queries over [sink | window |
         # pack] = 1280 keys at three stream offsets (the streaming prefill's
         # round_scores), and full causal attention over 1024 tokens; bytes
@@ -1109,6 +1347,18 @@ class Smoke:
                 timed(f"das_topk norm-fused serving ({m},{k}) [rmsnorm, then das_topk]",
                       lambda: das_topk_cuda(rmsnorm(scale, x), keep=16, block=32),
                       m * k * 2 + k * 2 + out)
+
+
+def _packed_counts(n_l: int, steps: int, packs) -> dict:
+    """The packed model's launches for ``steps`` decode steps and streaming
+    prefills of ``packs`` packs each: per decode step 4/6/1/1 a layer, per
+    prefill of n packs n+3 / 3n+3 / 1 / n (q/k/v per pack; o, gate/up, down
+    once)."""
+    return {**{name: 0 for name in KERNEL_INFO},
+            "das_topk": n_l * (4 * steps + sum(n + 3 for n in packs)),
+            "das_ternary_gemm": n_l * (6 * steps + sum(3 * n + 3 for n in packs)),
+            "ternary_gemm": n_l * (steps + len(packs)),
+            "sparse_attention": n_l * (steps + sum(packs))}
 
 
 def _device_times(prof) -> dict:

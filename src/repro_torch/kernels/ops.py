@@ -5,10 +5,14 @@ A CUDA tensor launches the hand-written kernel or raises — there is no
 fallback from a kernel that fails to build, refuses a shape or fails to
 launch.  ``launches`` counts each kernel's launches (plain ints, bumped once
 per successful launch) so a run can show that it went through the kernels;
-``reset_launches`` zeroes them.
+``reset_launches`` zeroes them.  A CUDA graph capture records launches
+without running them: ``launches_recorded`` takes what a capture counted out
+of ``launches``, and ``add_launches`` counts them once for each replay.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -21,7 +25,8 @@ from .ternary_gemm import ternary_gemm_cuda
 from .topk_mask import das_topk_cuda
 from .twd_decode import twd_decode_cuda
 
-__all__ = ["KERNELS", "launches", "reset_launches", "DasTopK", "das_topk",
+__all__ = ["KERNELS", "launches", "reset_launches", "launches_recorded",
+           "add_launches", "DasTopK", "das_topk",
            "das_ternary_gemm", "ternary_gemm", "sparse_attention",
            "twd_decode", "das_gemv"]
 
@@ -34,6 +39,27 @@ launches: dict[str, int] = {name: 0 for name in KERNELS}
 def reset_launches() -> None:
     for name in KERNELS:
         launches[name] = 0
+
+
+@contextlib.contextmanager
+def launches_recorded():
+    """Yield a dict that, after the block, holds the launches the block
+    counted, which are taken back out of ``launches``: a graph capture
+    launches nothing, its replays do (``add_launches``)."""
+    before = dict(launches)
+    rec: dict[str, int] = {}
+    try:
+        yield rec
+    finally:
+        for name in KERNELS:
+            rec[name] = launches[name] - before[name]
+            launches[name] = before[name]
+
+
+def add_launches(counts: dict[str, int]) -> None:
+    """Count ``counts`` launches, e.g. one replay of a captured graph."""
+    for name, n in counts.items():
+        launches[name] += n
 
 
 def _on_cuda(*tensors: torch.Tensor) -> bool:

@@ -119,12 +119,16 @@ class DecodeStep(NamedTuple):
     rows: torch.Tensor     # (B,) int64 batch rows
     rope_cs: tuple         # RoPE cos, sin (B, 1, Dh/2)
     slots: dict            # layer kind -> (B,) cache slot of position t
+    page_table: torch.Tensor | None = None   # (B, pages_per_seq) int32 of
+                                             # the paged arenas
 
 
 def decode_step_inputs(cfg: ModelConfig, t: torch.Tensor, kinds,
-                       serve_sparse: bool) -> DecodeStep:
+                       serve_sparse: bool,
+                       page_table: torch.Tensor | None = None) -> DecodeStep:
     """Positions, RoPE tables and cache slots of one decode step at positions
-    t (B,), computed once for all layers of ``kinds``."""
+    t (B,), computed once for all layers of ``kinds``; ``page_table``
+    addresses the paged arenas (ignored by the other layouts)."""
     t = t.to(torch.int64)
     slots = {}
     for kind in set(kinds):
@@ -133,21 +137,24 @@ def decode_step_inputs(cfg: ModelConfig, t: torch.Tensor, kinds,
                                     ring=sink < FULL_SINK)
     return DecodeStep(t, t.to(torch.int32)[:, None],
                       torch.arange(t.shape[0], device=t.device),
-                      L.rope(t[:, None], cfg.head_dim_, cfg.rope_theta), slots)
+                      L.rope(t[:, None], cfg.head_dim_, cfg.rope_theta), slots,
+                      page_table)
 
 
 def attn_decode(p: Attention, cfg: ModelConfig, x: torch.Tensor,
                 norm_scale: torch.Tensor, cache: dict, step: DecodeStep, kind: str, *,
                 serve_sparse: bool = True):
     """One-token decode of the residual x (B, 1, D) normed by ``norm_scale``,
-    at the positions of ``step``; the cache is updated in place.  Returns y
-    (B, 1, D)."""
+    at the positions of ``step``; the cache is updated in place.  A paged
+    arena is written and read through ``step.page_table``; its inactive rows
+    carry t = -1.  Returns y (B, 1, D)."""
     b = x.shape[0]
     sink, window = kind_sink_window(cfg, kind, serve_sparse)
     q, k, v = qkv_project(p, cfg, x, norm_scale)
     q, k = L.apply_rope(q, *step.rope_cs), L.apply_rope(k, *step.rope_cs)
-    KV.attn_write(cache, k, v, step.q_pos[:, 0], step.slots[kind], step.rows)
-    k_all, v_all, k_pos = KV.attn_read(cache)
+    KV.attn_write(cache, k, v, step.q_pos[:, 0], step.slots[kind], step.rows,
+                  step.page_table)
+    k_all, v_all, k_pos = KV.attn_read(cache, step.page_table)
     o = ops.sparse_attention(q, k_all, v_all, step.q_pos, k_pos, sink=sink,
                              window=window, softcap=cfg.attn_softcap)
     return p.wo(o.reshape(b, 1, cfg.q_dim))

@@ -1,14 +1,19 @@
-"""KV caches for serving behind a tagged ``CacheSpec``: the full and ring layouts.
+"""KV caches for serving behind a tagged ``CacheSpec``: full, ring and paged.
 
   * full — (B, max_len, Hkv, Dh) K/V + (B, max_len) positions: the
     conventional cache, used when a global layer serves without LPSA.
   * ring — (B, sink+window, Hkv, Dh) + a slot->position map: O(TL_SA)
     memory at any context length (core.lpsa.decode_slot).
+  * paged — one (num_pages, page_size, Hkv, Dh) K/V arena + a
+    (num_pages, page_size) position map, shared by every sequence and
+    addressed through per-sequence int32 page tables (B, pages_per_seq).
+    Page 0 is the null page: unmapped table entries point at it and its
+    positions stay -1, so reads through them are masked.
 
-A cache is a dict {"k", "v", "pos"} of tensors; position -1 marks an empty
-slot.  ``attn_write`` updates the cache in place (the JAX package returns a
-new one) — the caches are the engine's largest state and are never shared.
-The paged layout and prefix sharing wait for a later slice (ROADMAP).
+A per-sequence cache is a dict {"k", "v", "pos"} of tensors, an arena
+{"k_pages", "v_pages", "pos_pages"}; position -1 marks an empty slot.
+``attn_write`` updates a cache in place (the JAX package returns a new one):
+the engine's CUDA graph holds the caches' storage, so nothing rebinds them.
 """
 
 from __future__ import annotations
@@ -20,27 +25,35 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.lpsa import decode_slot
 
-__all__ = ["CacheSpec", "CACHE_LAYOUTS", "init_cache", "write_slot",
+__all__ = ["CacheSpec", "CACHE_LAYOUTS", "init_cache", "is_paged", "write_slot",
            "attn_write", "attn_read", "ring_from_stream"]
 
-CACHE_LAYOUTS = ("full", "ring")
+CACHE_LAYOUTS = ("full", "ring", "paged")
 
 
 @dataclass(frozen=True)
 class CacheSpec:
     """One layer's serving cache: ``layout`` plus the fields it reads (full:
-    max_len; ring: sink + window)."""
+    max_len; ring: sink + window; paged: page_size + num_pages, the arena
+    itself batch-free)."""
     layout: str
     batch: int
     max_len: int = 0
     sink: int = 0
     window: int = 0
+    page_size: int = 0
+    num_pages: int = 0
     dtype: torch.dtype = torch.bfloat16
 
     def __post_init__(self):
         if self.layout not in CACHE_LAYOUTS:
             raise ValueError(f"unknown cache layout {self.layout!r}: the port "
                              f"has {', '.join(CACHE_LAYOUTS)}")
+        if self.layout == "paged" and (self.page_size < 1 or self.num_pages < 2):
+            raise ValueError(
+                "paged cache needs page_size >= 1 and num_pages >= 2 "
+                f"(page 0 is the reserved null page); got page_size="
+                f"{self.page_size}, num_pages={self.num_pages}")
 
     @property
     def slots(self) -> int:
@@ -49,11 +62,20 @@ class CacheSpec:
 
 def init_cache(cfg: ModelConfig, spec: CacheSpec, device=None) -> dict:
     """An empty cache (zeros, every position -1) for one layer."""
-    shp = (spec.batch, spec.slots, cfg.n_kv_heads, cfg.head_dim_)
-    return {"k": torch.zeros(shp, dtype=spec.dtype, device=device),
-            "v": torch.zeros(shp, dtype=spec.dtype, device=device),
-            "pos": torch.full((spec.batch, spec.slots), -1, dtype=torch.int32,
-                              device=device)}
+    kv = (cfg.n_kv_heads, cfg.head_dim_)
+    if spec.layout == "paged":
+        shp = (spec.num_pages, spec.page_size)
+        return {"k_pages": torch.zeros(shp + kv, dtype=spec.dtype, device=device),
+                "v_pages": torch.zeros(shp + kv, dtype=spec.dtype, device=device),
+                "pos_pages": torch.full(shp, -1, dtype=torch.int32, device=device)}
+    shp = (spec.batch, spec.slots)
+    return {"k": torch.zeros(shp + kv, dtype=spec.dtype, device=device),
+            "v": torch.zeros(shp + kv, dtype=spec.dtype, device=device),
+            "pos": torch.full(shp, -1, dtype=torch.int32, device=device)}
+
+
+def is_paged(cache: dict) -> bool:
+    return "k_pages" in cache
 
 
 def write_slot(t: torch.Tensor, *, sink: int, window: int, ring: bool) -> torch.Tensor:
@@ -63,20 +85,58 @@ def write_slot(t: torch.Tensor, *, sink: int, window: int, ring: bool) -> torch.
 
 
 def attn_write(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor,
-               t: torch.Tensor, slot: torch.Tensor, rows: torch.Tensor) -> dict:
+               t: torch.Tensor, slot: torch.Tensor, rows: torch.Tensor,
+               page_table: torch.Tensor | None = None) -> dict:
     """Write one token's K/V (B, 1, Hkv, Dh) per sequence in place: row
     rows[b] (int64), slot slot[b] (write_slot), position t[b].  A full cache
     needs t < max_len (the engine checks prompt + generation against max_len
-    at submission)."""
+    at submission).  An arena takes ``page_table`` (B, pages_per_seq) int32
+    instead of rows and slots (``_paged_write``)."""
+    if is_paged(cache):
+        return _paged_write(cache, k_new, v_new, t, rows, page_table)
     cache["k"][rows, slot] = k_new[:, 0].to(cache["k"].dtype)
     cache["v"][rows, slot] = v_new[:, 0].to(cache["v"].dtype)
     cache["pos"][rows, slot] = t.to(torch.int32)
     return cache
 
 
-def attn_read(cache: dict):
-    """-> (k (B, S, Hkv, Dh), v, k_pos (B, S)); empty slots have pos -1."""
-    return cache["k"], cache["v"], cache["pos"]
+def _paged_write(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor,
+                 t: torch.Tensor, rows: torch.Tensor,
+                 page_table: torch.Tensor | None) -> dict:
+    """Position t[b] of row rows[b] lands in page ``page_table[b, t //
+    page_size]`` at offset ``t % page_size``; rows with t < 0 (inactive) go
+    to the null page 0 with position -1, so they never touch a page in use."""
+    if page_table is None:
+        raise ValueError("paged cache write requires a page_table")
+    ps = cache["k_pages"].shape[1]
+    t = t.to(torch.int64)
+    valid = t >= 0
+    tv = torch.where(valid, t, 0)
+    phys = torch.where(valid, page_table[rows, tv // ps].to(torch.int64), 0)
+    off = tv % ps
+    cache["k_pages"][phys, off] = k_new[:, 0].to(cache["k_pages"].dtype)
+    cache["v_pages"][phys, off] = v_new[:, 0].to(cache["v_pages"].dtype)
+    cache["pos_pages"][phys, off] = torch.where(valid, t, -1).to(torch.int32)
+    return cache
+
+
+def attn_read(cache: dict, page_table: torch.Tensor | None = None):
+    """-> (k (B, S, Hkv, Dh), v, k_pos (B, S)); empty slots have pos -1.
+
+    An arena is gathered through ``page_table``: S = pages_per_seq *
+    page_size and gathered index i is absolute position i (logical page j
+    holds positions [j * page_size, (j + 1) * page_size)), so the view is
+    laid out as a full cache and the attention is the same."""
+    if not is_paged(cache):
+        return cache["k"], cache["v"], cache["pos"]
+    if page_table is None:
+        raise ValueError("paged cache read requires a page_table")
+    b, n = page_table.shape
+    pt = page_table.to(torch.int64)
+    kp, vp, pp = cache["k_pages"], cache["v_pages"], cache["pos_pages"]
+    s = n * kp.shape[1]
+    return (kp[pt].reshape(b, s, *kp.shape[2:]), vp[pt].reshape(b, s, *vp.shape[2:]),
+            pp[pt].reshape(b, s))
 
 
 def ring_from_stream(cfg: ModelConfig, state, *, sink: int, window: int) -> dict:

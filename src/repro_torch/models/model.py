@@ -208,19 +208,26 @@ def prefill(model: TernaryLM, tokens: torch.Tensor, *, max_len: int | None = Non
 
 
 def decode_step(model: TernaryLM, caches: list, tokens: torch.Tensor,
-                t: torch.Tensor, *, serve_sparse: bool = True):
+                t: torch.Tensor, *, serve_sparse: bool = True,
+                page_table: torch.Tensor | None = None):
     """One token per sequence: tokens (B,), positions t (B,).  The caches
-    are updated in place and returned with the logits (B, V) float32."""
+    are updated in place and returned with the logits (B, V) float32.
+    Paged arenas take ``page_table`` (B, pages_per_seq) int32, and rows
+    with t = -1 are inactive."""
     x = model.embed[tokens][:, None]
     x = T.stack_decode(model.layers, model.cfg, x, caches, t,
-                       serve_sparse=serve_sparse)
+                       serve_sparse=serve_sparse, page_table=page_table)
     return _logits(model, x)[:, 0], caches
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, *, device=None,
-                dtype: torch.dtype | None = None, serve_sparse: bool = True) -> list:
-    """Empty decode caches, one dict per layer."""
+                dtype: torch.dtype | None = None, serve_sparse: bool = True,
+                page_size: int = 0, num_pages: int = 0) -> list:
+    """Empty decode caches, one dict per layer; ``page_size > 0`` makes each
+    would-be full cache a paged arena of ``num_pages`` pages."""
     dt = dtype if dtype is not None else L.torch_dtype(cfg.dtype)
     return [KV.init_cache(cfg, T.layer_cache_spec(cfg, kind, batch, max_len, dt,
-                                                  serve_sparse=serve_sparse), device)
+                                                  serve_sparse=serve_sparse,
+                                                  page_size=page_size,
+                                                  num_pages=num_pages), device)
             for kind in cfg.layer_kinds()]

@@ -93,10 +93,16 @@ def block_decode(bp: Block, cfg: ModelConfig, x: torch.Tensor, cache: dict,
 
 
 def layer_cache_spec(cfg: ModelConfig, kind: str, batch: int, max_len: int,
-                     dtype: torch.dtype, *, serve_sparse: bool) -> KV.CacheSpec:
+                     dtype: torch.dtype, *, serve_sparse: bool, page_size: int = 0,
+                     num_pages: int = 0) -> KV.CacheSpec:
+    """A layer kind's serving cache; ``page_size > 0`` turns a would-be full
+    cache into a paged arena (ring caches are already O(1) a slot)."""
     sink, window = A.kind_sink_window(cfg, kind, serve_sparse)
     if sink < A.FULL_SINK:
         return KV.CacheSpec("ring", batch, sink=sink, window=window, dtype=dtype)
+    if page_size > 0:
+        return KV.CacheSpec("paged", batch, max_len=max_len, page_size=page_size,
+                            num_pages=num_pages, dtype=dtype)
     return KV.CacheSpec("full", batch, max_len=max_len, dtype=dtype)
 
 
@@ -111,8 +117,10 @@ def stack_prefill(layers: nn.ModuleList, cfg: ModelConfig, x: torch.Tensor, *,
 
 
 def stack_decode(layers: nn.ModuleList, cfg: ModelConfig, x: torch.Tensor,
-                 caches: list, t: torch.Tensor, *, serve_sparse: bool) -> torch.Tensor:
-    step = A.decode_step_inputs(cfg, t, [bp.kind for bp in layers], serve_sparse)
+                 caches: list, t: torch.Tensor, *, serve_sparse: bool,
+                 page_table: torch.Tensor | None = None) -> torch.Tensor:
+    step = A.decode_step_inputs(cfg, t, [bp.kind for bp in layers], serve_sparse,
+                                page_table)
     for bp, c in zip(layers, caches):
         x = block_decode(bp, cfg, x, c, step, serve_sparse=serve_sparse)
     return x

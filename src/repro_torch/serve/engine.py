@@ -1,8 +1,9 @@
 """ServeEngine: slot-based continuous batching over per-sequence KV caches.
 
-The dense/ring branch of the JAX package's engine.  The engine owns one set
-of decode caches sized for ``max_slots`` sequences and runs ONE batched
-decode step for the whole batch every tick, with static shapes.  Per slot:
+The dense/ring and paged branches of the JAX package's engine.  The engine
+owns one set of decode caches sized for ``max_slots`` sequences and runs ONE
+batched decode step for the whole batch every tick, with static shapes.  Per
+slot:
 
   FREE --admit--> PREFILL --tail consumed--> DECODE --eos/max--> FREE
 
@@ -16,8 +17,28 @@ step; requests carry arrival times in those units.  A request's tokens do
 not depend on its batch-mates: every kernel sums each row in a fixed order
 and sampling is greedy per row (batch invariance).
 
+The decode step reads static buffers (token ids, positions, the page table)
+that each tick fills in place.  On CUDA the engine captures the step, greedy
+sampling included, into one ``torch.cuda.CUDAGraph`` at construction, after
+a warm-up step on a side stream, and every tick replays it; a capture that
+fails raises.  On the CPU the step runs eagerly.  The caches are allocated
+before the capture and only ever written in place, since the graph holds
+their storage.  A replay bumps no counter in ``kernels.ops``: the engine
+adds the launches of one capture (``launches_per_replay``) per replay.
+
+``ServeConfig(layout="paged")`` swaps the per-slot full caches for a
+block-paged KV pool: one refcounted page arena per full-attention layer,
+per-slot int32 page tables in a static buffer, pages allocated lazily as a
+slot crosses a page boundary, and a radix-trie prefix index
+(serve.kvpool.RadixIndex) through which admission reuses the pages and ring
+states of the longest cached pack-aligned prompt prefix instead of
+prefilling it again.  Shared pages are copy-on-write; retiring a slot
+releases its references and scrubs the pages that fall free.  A config
+without full-attention layers (the LPSA path) gets no pages and still
+shares exact prefix states through the trie.
+
 Sampling is greedy: a request with ``temperature > 0`` raises
-NotImplementedError (ROADMAP).  The caches are updated in place.
+NotImplementedError (ROADMAP).
 """
 
 from __future__ import annotations
@@ -29,10 +50,13 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.kernels import ops
 from repro_torch.models import attention as A
+from repro_torch.models import kvcache as KV
 from repro_torch.models import model as MD
 from repro_torch.models.model import TernaryLM
 from repro_torch.serve.config import ServeConfig
+from repro_torch.serve.kvpool import PagePool, PrefixEntry, RadixIndex
 from repro_torch.serve.sampler import greedy
 from repro_torch.serve.scheduler import FifoScheduler, Request
 
@@ -70,6 +94,14 @@ class EngineStats:
     wall_seconds: float = 0.0
     decode_seconds: float = 0.0   # host clock over decode steps (each ends
                                   # in a device sync: the sampled ids)
+    warmup_steps: int = 0         # eager steps run before the graph capture
+    graph_replays: int = 0        # decode steps run as CUDA graph replays
+    # paged-pool accounting (zero under the per-slot layout)
+    prefix_hits: int = 0          # admissions that reused a cached prefix
+    prompt_tokens_reused: int = 0  # prompt tokens absorbed via prefix reuse
+    cow_copies: int = 0           # copy-on-write page copies
+    prefix_evictions: int = 0     # trie entries evicted to free pages
+    pool_peak_pages: int = 0      # peak pages in use during this run
 
     @property
     def slot_utilization(self) -> float:
@@ -79,22 +111,26 @@ class EngineStats:
 
 class _Slot:
     __slots__ = ("state", "req", "input_tok", "input_pos", "tail", "tail_idx",
-                 "out", "admit_vtime", "first_tok_vtime")
+                 "out", "admit_vtime", "first_tok_vtime", "pages", "page_budget")
 
     def __init__(self):
         self.state = FREE
         self.req = None
+        self.pages = None          # paged layout: logical -> physical page ids
+        self.page_budget = 0       # pages this slot may still allocate
 
 
 class ServeEngine:
     """Continuous-batching engine over a ``TernaryLM``.
 
     ``device`` must be the model's device, CUDA unless ``device="cpu"`` is
-    passed; ``serve_sparse=False`` serves global layers with full caches.
+    passed; ``serve_sparse=False`` serves global layers with full caches;
+    ``cuda_graph=False`` steps eagerly on CUDA too, the baseline that the
+    card-only tests and chip_smoke.py hold the captured step against.
     """
 
     def __init__(self, model: TernaryLM, config: ServeConfig | None = None, *,
-                 device=None, serve_sparse: bool = True):
+                 device=None, serve_sparse: bool = True, cuda_graph: bool = True):
         dev = resolve_device(device)
         if model.device.type != dev.type:
             raise ValueError(f"model lies on {model.device}, engine asked for {dev}")
@@ -112,13 +148,104 @@ class ServeEngine:
         has_stream = any(s < A.FULL_SINK for s, _ in sw)
         # streaming prefill consumes whole packs; the prompt tail decodes
         self._chunk = (cfg.lpsa.chunk if cfg.lpsa else 256) if has_stream else 1
+
+        # ---- paged pool (layout="paged") --------------------------------
+        self._paged = config.layout == "paged"
+        self._share = self._paged and config.prefix_sharing
+        self._page_size = config.page_size
+        # only full-attention layers become arenas; a pure ring config still
+        # shares exact prefix states through the trie, with zero pages
+        self._pages_per_seq = config.pages_per_seq if self._has_full else 0
+        n_seq = self._pages_per_seq
+        num_pages = config.resolved_num_pages() if n_seq else 0
+        self._pool = PagePool(num_pages, self._page_size) if n_seq else None
+        self._radix = RadixIndex() if self._share else None
+
         self.caches = MD.init_caches(cfg, self.max_slots, self.max_len,
-                                     device=self.device, serve_sparse=serve_sparse)
+                                     device=self.device, serve_sparse=serve_sparse,
+                                     page_size=self._page_size if n_seq else 0,
+                                     num_pages=num_pages)
         self._empty1 = MD.init_caches(cfg, 1, self.max_len, device=self.device,
                                       serve_sparse=serve_sparse)
+        self._paged_layers = [KV.is_paged(c) for c in self.caches]
+        self._rest_is_empty = self._paged and all(self._paged_layers)
+        self._page_bytes = sum(leaf.nbytes // leaf.shape[0]
+                               for c, p in zip(self.caches, self._paged_layers) if p
+                               for leaf in c.values())
         self._slots = [_Slot() for _ in range(self.max_slots)]
         self._results: dict[int, RequestResult] = {}
         self._pending_uids: set[int] = set()
+
+        # ---- the decode step's static inputs ----------------------------
+        # host arrays (pinned on CUDA) that each tick fills, and the device
+        # buffers the step reads; the page table only when a layer is paged
+        b, pin = self.max_slots, self.device.type == "cuda"
+
+        def buffers(shape, dtype):
+            host = torch.zeros(shape, dtype=dtype, pin_memory=pin)
+            return host, host.numpy(), torch.zeros(shape, dtype=dtype, device=self.device)
+
+        self._tok_host, self._tok_np, self._tok = buffers((b,), torch.int64)
+        self._t_host, self._t_np, self._t = buffers((b,), torch.int64)
+        self._pt_host = self._pt_np = self._pt = None
+        if n_seq:
+            self._pt_host, self._pt_np, self._pt = buffers((b, n_seq), torch.int32)
+        self._graph = None
+        self._next = None
+        self.launches_per_replay: dict[str, int] = {}
+        if self.device.type == "cuda" and cuda_graph:
+            self._capture()
+
+    # -- the captured step ------------------------------------------------
+
+    def _step_fn(self) -> torch.Tensor:
+        """The decode step over the static buffers -> greedy ids (B,)."""
+        logits, _ = MD.decode_step(self.model, self.caches, self._tok, self._t,
+                                   serve_sparse=self.serve_sparse,
+                                   page_table=self._pt)
+        return greedy(logits)
+
+    def _capture(self) -> None:
+        """Warm the step up on a side stream (kernels built, allocator and
+        libraries settled), capture it into one CUDA graph, then empty the
+        caches again, since the warm-up wrote them."""
+        self._t_np[:] = -1 if self._paged else 0
+        self._t.copy_(self._t_host)
+        main = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            self._step_fn()
+        main.wait_stream(side)
+        self.stats.warmup_steps += 1
+        graph = torch.cuda.CUDAGraph()
+        with ops.launches_recorded() as per_replay:
+            with torch.cuda.graph(graph):
+                self._next = self._step_fn()
+        self._graph = graph
+        self.launches_per_replay = per_replay
+        for c in self.caches:
+            for key, buf in c.items():
+                if key.startswith("pos"):
+                    buf.fill_(-1)
+                else:
+                    buf.zero_()
+
+    def _run_step(self) -> np.ndarray:
+        """Copy the host inputs to the static buffers, run the step (a graph
+        replay on CUDA) and return the sampled ids: the step's one sync."""
+        self._tok.copy_(self._tok_host, non_blocking=True)
+        self._t.copy_(self._t_host, non_blocking=True)
+        if self._pt is not None:
+            self._pt.copy_(self._pt_host, non_blocking=True)
+        if self._graph is None:
+            next_tok = self._step_fn()
+        else:
+            self._graph.replay()
+            ops.add_launches(self.launches_per_replay)
+            self.stats.graph_replays += 1
+            next_tok = self._next
+        return next_tok.cpu().numpy()
 
     # -- public API -------------------------------------------------------
 
@@ -142,6 +269,13 @@ class ServeEngine:
                 f"request {req.uid}: prompt {req.prompt_len} + gen "
                 f"{req.max_new_tokens} exceeds max_len {self.max_len} "
                 f"(a full-cache layer is active)")
+        if self._pages_per_seq:
+            worst = -(-(req.prompt_len + req.max_new_tokens) // self._page_size)
+            usable = self._pool.num_pages - 1
+            if worst > usable:
+                raise ValueError(
+                    f"request {req.uid}: needs up to {worst} KV pages but "
+                    f"the pool holds {usable} (raise num_pages or page_size)")
 
     def submit(self, req: Request) -> None:
         self.validate(req)
@@ -190,65 +324,300 @@ class ServeEngine:
             req = self.scheduler.pop_ready(self.vtime)
             if req is None:
                 return
-            self._admit(i, req)
+            if not self._admit(i, req):
+                # pool too tight right now: requeue and retry next tick
+                # (retirements and evictions free pages; with no active slot
+                # every page outside a slot is evictable, so the submit-time
+                # capacity check guarantees progress)
+                self._pending_uids.add(req.uid)
+                self.scheduler.add(req)
+                return
 
-    def _admit(self, idx: int, req: Request) -> None:
+    def _admit(self, idx: int, req: Request) -> bool:
+        """Claim slot ``idx`` for ``req``; False defers admission (paged
+        layout only: the pool cannot cover the request's worst case yet)."""
         slot = self._slots[idx]
-        p = req.prompt_len
-        prefix = (p // self._chunk) * self._chunk
+        prefix = (req.prompt_len // self._chunk) * self._chunk
         self._pending_uids.discard(req.uid)
         slot.req = req
         slot.admit_vtime = self.vtime
         slot.out = []
         slot.first_tok_vtime = None
+        if self._paged:
+            ok = self._admit_paged(idx, slot, req, prefix)
+            if not ok:
+                slot.req = None     # back off: the slot stays FREE
+            return ok
         logits = None
         if prefix > 0:
-            tokens = torch.as_tensor(np.asarray(req.prompt[:prefix]), dtype=torch.long,
-                                     device=self.device)[None]
-            logits, small = MD.prefill(self.model, tokens, max_len=self.max_len,
-                                       serve_sparse=self.serve_sparse)
-            self.stats.prefill_tokens += prefix
+            logits, small = self._prefill(req, prefix)
             self._insert(idx, small)
         else:
             self._insert(idx, self._empty1)
-        if prefix == p:
-            tok = int(greedy(logits[0]))
+        self._start_slot(idx, slot, req, prefix, logits)
+        return True
+
+    def _prefill(self, req: Request, prefix: int):
+        """Batch-1 prefill of the prompt's first ``prefix`` tokens ->
+        (logits (V,), batch-1 caches)."""
+        tokens = torch.as_tensor(np.asarray(req.prompt[:prefix]), dtype=torch.long,
+                                 device=self.device)[None]
+        logits, small = MD.prefill(self.model, tokens, max_len=self.max_len,
+                                   serve_sparse=self.serve_sparse)
+        self.stats.prefill_tokens += prefix
+        return logits[0], small
+
+    def _start_slot(self, idx: int, slot: _Slot, req: Request, absorbed: int,
+                    logits: torch.Tensor | None) -> None:
+        """First token from the prefill's (or a stored entry's) logits when
+        the whole prompt is absorbed, else feed the tail from ``absorbed``
+        one token a tick."""
+        p = req.prompt_len
+        if absorbed == p:
             slot.state = DECODE
             slot.first_tok_vtime = self.vtime
             slot.input_pos = p
-            self._deliver(idx, tok)
+            self._deliver(idx, int(greedy(logits)))
         else:
             slot.state = PREFILL
-            slot.tail = [int(x) for x in np.asarray(req.prompt[prefix:])]
+            slot.tail = [int(x) for x in np.asarray(req.prompt[absorbed:])]
             slot.tail_idx = 1
-            slot.input_pos = prefix
+            slot.input_pos = absorbed
             slot.input_tok = slot.tail[0]
 
     def _insert(self, idx: int, small: list) -> None:
-        """Overwrite slot ``idx``'s rows of every layer with a batch-1 cache."""
-        for big, sm in zip(self.caches, small):
+        """Overwrite slot ``idx``'s rows of every per-slot layer with a
+        batch-1 cache (``small`` holds None for a layer it skips)."""
+        for big, sm, paged in zip(self.caches, small, self._paged_layers):
+            if paged or sm is None:
+                continue
             for key, buf in big.items():
                 buf[idx].copy_(sm[key][0])
+
+    # -- the paged layout's device pieces, all in place -------------------
+
+    def _page_ids(self, pages) -> torch.Tensor:
+        return torch.as_tensor(list(pages), dtype=torch.long, device=self.device)
+
+    def _insert_paged(self, idx: int, small: list, fresh: list) -> None:
+        """A fresh batch-1 prefill into the slot: each paged layer's dense
+        rows [0, len(fresh) * page_size) go page by page into the arena
+        pages ``fresh``; the per-slot layers copy rows."""
+        self._insert(idx, small)
+        if not fresh:
+            return
+        ps, ids = self._page_size, self._page_ids(fresh)
+        n = len(fresh) * ps
+        for big, sm, paged in zip(self.caches, small, self._paged_layers):
+            if paged:
+                for key in ("k", "v", "pos"):
+                    dense = sm[key][0, :n]
+                    big[f"{key}_pages"][ids] = dense.reshape(
+                        len(fresh), ps, *dense.shape[1:]).to(big[f"{key}_pages"].dtype)
+
+    def _snapshot_rest(self, small: list) -> list | None:
+        """A copy of the per-slot layers of a batch-1 cache, None for the
+        paged ones; None when every layer is paged."""
+        if self._rest_is_empty:
+            return None
+        return [None if paged else {k: v.clone() for k, v in sm.items()}
+                for sm, paged in zip(small, self._paged_layers)]
+
+    def _copy_page(self, src: int, dst: int) -> None:
+        """Copy-on-write: arena page ``src`` into ``dst`` in every paged layer."""
+        for c, paged in zip(self.caches, self._paged_layers):
+            if paged:
+                for buf in c.values():
+                    buf[dst].copy_(buf[src])
+
+    def _scrub_pages(self, freed: list) -> None:
+        """Positions of freed pages back to -1, so a reuse starts masked."""
+        if not freed or not self._pages_per_seq:
+            return
+        ids = self._page_ids(freed)
+        for c, paged in zip(self.caches, self._paged_layers):
+            if paged:
+                c["pos_pages"][ids] = -1
+
+    # -- paged admission --------------------------------------------------
+
+    def _admit_paged(self, idx: int, slot: _Slot, req: Request, prefix: int) -> bool:
+        p, g, ps = req.prompt_len, req.max_new_tokens, self._page_size
+        n_seq = self._pages_per_seq
+        tokens = tuple(int(x) for x in np.asarray(req.prompt)) if self._share else None
+
+        # -- the best cached prefix: an exact entry (pages, per-slot states
+        # and logits, bitwise a fresh prefill of that prefix), or whole pages
+        # inside the longest common prefix with any stored prompt, reusable
+        # alone only when every layer is paged
+        shared_len, kind, entry = 0, None, None
+        if tokens is not None:
+            best, donor, common = self._radix.lookup(tokens)
+            if best is not None and best.length >= 1:
+                shared_len, kind, entry = best.length, "exact", best
+            if self._rest_is_empty and donor is not None and n_seq:
+                l_pages = (min(common, p - 1) // ps) * ps  # keep >= 1 to feed
+                if l_pages > shared_len:
+                    shared_len, kind, entry = l_pages, "pages", donor
+
+        total = -(-(p + g) // ps) if n_seq else 0
+        register = tokens is not None and prefix > 0
+        while True:
+            if kind == "exact":
+                n_cov = -(-shared_len // ps) if n_seq else 0
+                shared_pages = tuple(entry.pages[:n_cov])
+                # +1: a partial boundary page pinned by the trie gets copied
+                # on this slot's first write into it
+                budget = (total - n_cov + (1 if shared_len % ps else 0)) if n_seq else 0
+                immediate = 0
+            elif kind == "pages":
+                n_cov = shared_len // ps
+                shared_pages = tuple(entry.pages[:n_cov])
+                budget = total - n_cov
+                immediate = 0
+            else:
+                shared_pages = ()
+                immediate = -(-prefix // ps) if n_seq else 0
+                budget = total + (1 if n_seq and register and prefix % ps else 0)
+            if not n_seq or self._paged_room(budget, shared_pages):
+                break
+            # headroom short for this plan: shared reuse -> fresh with
+            # registration -> fresh without -> defer.  The bare fresh plan
+            # needs exactly ``total`` pages, which the submit-time check
+            # bounds, so with no active slot admission always succeeds.
+            if kind is not None:
+                kind, entry, shared_len = None, None, 0
+            elif register and prefix % ps:
+                register = False
+            else:
+                return False
+
+        # -- the slot's page table ----------------------------------------
+        pages = [0] * max(n_seq, 1)
+        if kind is not None:
+            if shared_pages:
+                self._pool.retain(shared_pages)
+            pages[:len(shared_pages)] = [int(x) for x in shared_pages]
+            entry.last_used = self.vtime
+            entry.hits += 1
+            self.stats.prefix_hits += 1
+            self.stats.prompt_tokens_reused += shared_len
+            if kind == "exact" and entry.state is not None:
+                self._insert(idx, entry.state)
+            logits = entry.logits if (kind == "exact" and shared_len == p) else None
+            absorbed = shared_len
+        else:
+            if prefix > 0:
+                lg, small = self._prefill(req, prefix)
+            else:
+                lg, small = None, self._empty1
+            fresh = [self._alloc_page() for _ in range(immediate)]
+            pages[:len(fresh)] = fresh
+            self._insert_paged(idx, small, fresh)
+            if register:
+                ent = PrefixEntry(length=prefix, pages=tuple(fresh),
+                                  state=self._snapshot_rest(small), logits=lg.clone(),
+                                  last_used=self.vtime)
+                if self._radix.insert(tokens[:prefix], ent) and fresh:
+                    self._pool.retain(fresh)
+            logits = lg if prefix == p else None
+            absorbed = prefix
+            budget -= immediate
+
+        slot.pages = pages
+        slot.page_budget = budget
+        if n_seq:
+            self._pt_np[idx, :] = pages
+            self.stats.pool_peak_pages = max(self.stats.pool_peak_pages,
+                                             self._pool.pages_in_use)
+        self._start_slot(idx, slot, req, absorbed, logits)
+        return True
+
+    def _paged_room(self, need_new: int, reserve_exclude=()) -> bool:
+        """Best-effort admission control: can the pool cover ``need_new``
+        future allocations on top of every active slot's outstanding budget?
+        Free pages plus trie-only (evictable) pages count; pages the request
+        is about to retain are excluded.  Conservative against generation
+        worst cases but not a hard guarantee — an exhausted pool raises at
+        allocation time."""
+        free = self._pool.free_count
+        hold: dict[int, int] = {}
+        for _, e in self._radix.items() if self._radix is not None else ():
+            for pg in e.pages:
+                hold[pg] = hold.get(pg, 0) + 1
+        excl = {int(x) for x in reserve_exclude}
+        evictable = sum(1 for pg, c in hold.items()
+                        if pg not in excl and self._pool.refs[pg] == c)
+        outstanding = sum(s.page_budget for s in self._slots if s.state != FREE)
+        return need_new + outstanding <= free + evictable
+
+    def _alloc_page(self) -> int:
+        pg = self._pool.alloc()
+        while pg is None:
+            if not self._evict_one():
+                raise RuntimeError(
+                    "kv page pool exhausted: every page is pinned by an "
+                    "active slot (raise num_pages)")
+            pg = self._pool.alloc()
+        return pg
+
+    def _evict_one(self) -> bool:
+        """Drop the least-recently-used prefix entry, freeing its pages
+        (those not also held by active slots)."""
+        if self._radix is None or not len(self._radix):
+            return False
+        lru_toks, lru_used = None, None
+        for toks, e in self._radix.items():
+            if lru_used is None or e.last_used < lru_used:
+                lru_toks, lru_used = toks, e.last_used
+        entry = self._radix.remove(lru_toks)
+        self._scrub_pages(self._pool.release(entry.pages))
+        self.stats.prefix_evictions += 1
+        return True
+
+    def _ensure_writable_pages(self) -> None:
+        """Pre-tick page-fault pass: every active slot's write position this
+        tick must map a page this slot owns alone.  A null mapping is
+        allocated; a shared one (refcount > 1) is copied on write."""
+        ps = self._page_size
+        for i, s in enumerate(self._slots):
+            if s.state == FREE:
+                continue
+            pi = s.input_pos // ps
+            phys = s.pages[pi]
+            if phys == 0:
+                new = self._alloc_page()
+            elif self._pool.refs[phys] > 1:
+                new = self._alloc_page()
+                self._copy_page(phys, new)
+                self._pool.release([phys])   # others still hold it: no free
+                self.stats.cow_copies += 1
+            else:
+                continue
+            s.pages[pi] = new
+            self._pt_np[i, pi] = new
+            s.page_budget = max(s.page_budget - 1, 0)
+        self.stats.pool_peak_pages = max(self.stats.pool_peak_pages,
+                                         self._pool.pages_in_use)
 
     # -- the decode tick --------------------------------------------------
 
     def step_decode(self) -> None:
         t0 = time.perf_counter()
-        b = self.max_slots
-        tok = np.zeros((b,), np.int64)
-        t = np.zeros((b,), np.int64)     # free rows: position 0, a don't-care
+        # free rows: token 0 at position 0 (a don't-care), or t = -1 under
+        # the paged layout, which sends their writes to the null page
+        self._tok_np[:] = 0
+        self._t_np[:] = -1 if self._paged else 0
         active = 0
         for i, s in enumerate(self._slots):
             if s.state == FREE:
                 continue
             active += 1
-            tok[i] = s.input_tok
-            t[i] = s.input_pos
-        logits, _ = MD.decode_step(self.model, self.caches,
-                                   torch.from_numpy(tok).to(self.device),
-                                   torch.from_numpy(t).to(self.device),
-                                   serve_sparse=self.serve_sparse)
-        next_tok = greedy(logits).cpu().numpy()
+            self._tok_np[i] = s.input_tok
+            self._t_np[i] = s.input_pos
+        if self._pages_per_seq:
+            self._ensure_writable_pages()
+        next_tok = self._run_step()
         self.stats.decode_seconds += time.perf_counter() - t0
         self.stats.decode_steps += 1
         self.stats.active_slot_steps += active
@@ -288,8 +657,44 @@ class ServeEngine:
             uid=r.uid, tokens=np.asarray(s.out, np.int32), prompt_len=r.prompt_len,
             arrival=r.arrival, admit_vtime=s.admit_vtime,
             first_token_vtime=s.first_tok_vtime, finish_vtime=self.vtime)
+        if self._paged and s.pages is not None:
+            held = [pg for pg in s.pages if pg]
+            if held:
+                self._scrub_pages(self._pool.release(held))
+            if self._pt_np is not None:
+                self._pt_np[idx, :] = 0
+            s.pages = None
+            s.page_budget = 0
         # a finished request's KV does not outlive it
         self._insert(idx, self._empty1)
         s.state = FREE
         s.req = None
         s.tail = None
+
+    # -- pool introspection -----------------------------------------------
+
+    def pool_stats(self) -> dict:
+        """Paged-pool occupancy snapshot (zeros for dense layouts).
+
+        ``page_bytes`` is the per-page footprint summed across every paged
+        layer arena; ``dense_equiv_bytes`` is what the same layers would pin
+        under the per-slot full layout (max_slots x max_len rows)."""
+        if not self._paged or self._pool is None:
+            return {"layout": "dense", "page_size": 0, "num_pages": 0,
+                    "pages_in_use": 0, "pages_peak": 0, "page_bytes": 0,
+                    "bytes_in_use": 0, "bytes_peak": 0,
+                    "dense_equiv_bytes": 0, "prefix_entries": 0}
+        peak = max(self.stats.pool_peak_pages, self._pool.pages_in_use)
+        return {
+            "layout": "paged",
+            "page_size": self._page_size,
+            "num_pages": self._pool.num_pages,
+            "pages_in_use": self._pool.pages_in_use,
+            "pages_peak": peak,
+            "page_bytes": self._page_bytes,
+            "bytes_in_use": self._pool.pages_in_use * self._page_bytes,
+            "bytes_peak": peak * self._page_bytes,
+            "dense_equiv_bytes": (self.max_slots * self._pages_per_seq
+                                  * self._page_bytes),
+            "prefix_entries": len(self._radix) if self._radix else 0,
+        }

@@ -483,3 +483,80 @@ def test_cuda_trits_model_matches_cpu(cuda):
         assert int(lg_g.argmax()) == int(lg_c.argmax())
         tok = int(lg_c.argmax())
     assert ops.launches["das_gemv"] > 0 and ops.launches["das_ternary_gemm"] == 0
+
+
+# the engine's captured decode step: (layout, serve_sparse, serve format) on
+# reduced bitnet-1.3b; "paged" with LPSA shares ring states through the trie,
+# without LPSA every layer is a page arena
+GRAPH_CASES = [("auto", True, "packed"), ("auto", True, "int8"), ("auto", False, "packed"),
+               ("paged", True, "packed"), ("paged", False, "packed")]
+
+
+def _graph_model(cuda, fmt):
+    cfg = reduced(get_config("bitnet-1.3b"))
+    cfg = dataclasses.replace(cfg, ternary=dataclasses.replace(cfg.ternary,
+                                                               serve_format=fmt))
+    return MD.export_serving(MD.init_params(cfg, seed=5, device=cuda), cfg)
+
+
+def _stem_requests(cfg, gen=6):
+    """A shared 35-token stem: fresh, a sibling tail, a duplicate, an
+    extension, and a prompt shorter than a pack; 1 step apart."""
+    rng = np.random.default_rng(5)
+    stem = rng.integers(0, cfg.vocab, 35)
+    first = np.concatenate([stem, rng.integers(0, cfg.vocab, 9)])
+    prompts = [first, np.concatenate([stem, rng.integers(0, cfg.vocab, 5)]), first.copy(),
+               np.concatenate([first, rng.integers(0, cfg.vocab, 6)]), stem[:7]]
+    return [Request(uid=i, prompt=p, max_new_tokens=gen, arrival=i)
+            for i, p in enumerate(prompts)]
+
+
+@pytest.mark.parametrize("layout,sparse,fmt", GRAPH_CASES)
+def test_cuda_graph_engine_matches_eager(cuda, layout, sparse, fmt):
+    """Every decode step a replay of the captured step, with the eager
+    step's tokens bit for bit; re-served alone, a request keeps them."""
+    model = _graph_model(cuda, fmt)
+    sc = ServeConfig(max_slots=2, max_len=64, layout=layout, page_size=8)
+    graph = ServeEngine(model, sc, device="cuda", serve_sparse=sparse)
+    eager = ServeEngine(model, sc, device="cuda", serve_sparse=sparse, cuda_graph=False)
+    assert (graph.stats.warmup_steps, eager.stats.warmup_steps) == (1, 0)
+    results = []
+    for eng in (graph, eager):
+        for r in _stem_requests(model.cfg):
+            eng.submit(r)
+        results.append(eng.run())
+    assert graph.stats.graph_replays == graph.stats.decode_steps > 0
+    assert eager.stats.graph_replays == 0
+    for uid, res in results[1].items():
+        assert results[0][uid].tokens.tolist() == res.tokens.tolist(), uid
+    if layout == "paged":
+        assert graph.stats.prefix_hits == eager.stats.prefix_hits > 0
+    graph.submit(Request(uid=9, prompt=_stem_requests(model.cfg)[1].prompt, max_new_tokens=6))
+    assert graph.run()[9].tokens.tolist() == results[0][1].tokens.tolist()
+
+
+@pytest.mark.parametrize("layout,sparse,fmt", GRAPH_CASES)
+def test_cuda_graph_launches_per_replay(cuda, layout, sparse, fmt):
+    """A replay counts the launches of one eager step, and a run counts the
+    warm-up, the replays and the prefills, nothing else."""
+    model = _graph_model(cuda, fmt)
+    sc = ServeConfig(max_slots=2, max_len=64, layout=layout, page_size=8)
+    ops.reset_launches()
+    graph = ServeEngine(model, sc, device="cuda", serve_sparse=sparse)
+    warm = dict(ops.launches)               # the warm-up step, run eagerly
+    assert warm == graph.launches_per_replay and sum(warm.values()) > 0
+    eager = ServeEngine(model, sc, device="cuda", serve_sparse=sparse, cuda_graph=False)
+    eager.submit(Request(uid=0, prompt=np.arange(3), max_new_tokens=4))
+    eager._admit_ready()
+    ops.reset_launches()
+    eager.step_decode()
+    assert dict(ops.launches) == graph.launches_per_replay
+    # 3 prompt tokens: fed through decode under LPSA (pack 16); without it
+    # one whole-prompt prefill, whose launches are one step's
+    graph.submit(Request(uid=0, prompt=np.arange(3), max_new_tokens=4))
+    ops.reset_launches()
+    graph.run()
+    steps, prefills = graph.stats.decode_steps, 0 if sparse else 1
+    assert steps == graph.stats.graph_replays == (6 if sparse else 3)
+    assert dict(ops.launches) == {k: n * (steps + prefills)
+                                  for k, n in graph.launches_per_replay.items()}
