@@ -14,7 +14,12 @@ Phases:
            and bitwise invariant to M; sparse_attention's bf16 prefill class
            also at LPSA packs of three stream offsets, full causal attention
            over partial tiles, head sizes 16 and 80, and bitwise invariance
-           to the batch and to the other queries of a tile
+           to the batch and to the other queries of a tile; the zoo's shapes:
+           sparse_attention at head sizes 100 and 256 in every class (full
+           rings of 1024 and 4096, an LPSA pack, local packs of 4352 and 768
+           keys, float32), each bitwise batch invariant, and das_topk and the
+           packed GEMMs at every K of the zoo and gemma2-2b's and bitnet-3b's
+           projections
   serve    full-width bitnet-1.3b (seeded random weights) on five paths, each
            driven with the launch counts at 0 and read after it; every
            engine captures its decode step into a CUDA graph after one
@@ -40,7 +45,23 @@ Phases:
            model on the card against the CPU; then the decode step of packed
            and int8w under torch.profiler, replayed and eager in turns, the
            device time of admitting the 1100-token prompt (4 packs) and of
-           the int8w model load's twd_decode launches
+           the int8w model load's twd_decode launches; then the zoo, each
+           path a model of its own (seeded random weights, packed, bf16):
+             gemma2-2b   full width and depth (26 layers, 8 heads of 256
+                         over 4, d_ff 9216, vocab 256000, local window 4096,
+                         soft-caps, gelu): 4 slots, 5 requests of 32 new
+                         tokens, prompts 4400 (wraps both rings), 1100, 300,
+                         40, 700;
+             bitnet-3b   full width and depth (26 layers, 32 heads of 100,
+                         d_ff 8640): bitnet-1.3b's packed trace;
+             gemma3-1b, minicpm-2b, stablelm-1.6b  full width, depth cut to
+                         one period of the layer pattern (6, 2, 2 layers): 2
+                         requests (prompts 700 and 40) of 16 new tokens;
+           each with the packed path's checks; gemma2-2b and bitnet-3b also
+           the admission of their first prompt and their decode step under
+           the profiler, replayed and eager (the same tokens and launches a
+           step), and a 2-layer model at their widths on the card against
+           the CPU
   times    each kernel at its decode shape: CUDA-event median beside its
            bound, its plain version and one PyTorch call of the same function;
            the packed GEMMs and das_gemv also at their other decode shapes
@@ -48,7 +69,9 @@ Phases:
            at packs of three stream offsets and at full causal attention,
            beside their bounds, plain versions and library calls; das_topk's
            serving calls (mask null, norm-fused) at decode and at a pack;
-           sparse_attention's decode over a paged-full view, and the gather
+           sparse_attention's decode over a paged-full view, and the gather;
+           sparse_attention at head sizes 100 and 256 in every class, and
+           das_topk and das_ternary_gemm at gemma2-2b's decode shapes
   profile  (only when named) the packed and int8w decode steps and the
            admission under torch.profiler, as the serve phase profiles them
 
@@ -115,6 +138,18 @@ def pack_positions(torch, t0, sink=128, window=896, chunk=256):
                        torch.where((win >= sink) & (win >= 0), win, -1), pack])
     return pack.to(torch.int32), k_pos.to(torch.int32)
 
+
+
+def ring_positions(torch, t, sink, window):
+    """(sink + window,) int32 positions held by a ring cache after token t
+    (the sink slots, then slot sink + (p - sink) % window for p >= sink; -1:
+    an empty slot)."""
+    slot = torch.arange(sink)
+    j = torch.arange(window)
+    back = t - sink - j
+    win = torch.where(back >= 0, sink + j + window * torch.div(back, window, rounding_mode="floor"),
+                      -1)
+    return torch.cat([torch.where(slot <= t, slot, -1), win]).to(torch.int32)
 
 
 def log(msg: str) -> None:
@@ -340,6 +375,8 @@ class Smoke:
             attn_case(f"head_dim {d} f32", 1, 1, 32, 4, 2, d, f32, qp, kp, 8, 24,
                       tol=TOL_F32_ATTN)
         self._prefill_cases(g)
+        self._zoo_attention_cases(g)
+        self._zoo_gemm_cases(g)
 
     def _topk_cases(self, g):
         """das_topk against its plain version, exactly: bitnet-1.3b's widths
@@ -503,6 +540,163 @@ class Smoke:
         for label, got, want in checks:
             self.check(f"sparse_attention prefill invariance, {label}", got, want, 0, True)
 
+    def _zoo_attention_cases(self, g):
+        """sparse_attention at the zoo's head sizes against its plain version:
+        100 (bitnet-3b, 32/32 heads; bf16 rows of 200 bytes) and 256 (gemma2-2b
+        8/4 with soft-cap 50, gemma3-1b 4/1).  The decode class over full
+        rings of 1024 (LPSA 128 + 896) and 4096 (gemma2's local window, 16
+        blocks a cluster) in bf16, and in float32; the bf16 prefill class at
+        an LPSA pack, at a local pack (sink 0, window 4096: 4352 keys) and at
+        gemma3's local pack (window 512); the float32 prefill class; then
+        each class bitwise invariant to the batch, and the prefill class to
+        the other queries of a tile."""
+        torch = self.torch
+        from repro_torch.kernels import ref
+        from repro_torch.kernels.sparse_attn import sparse_attention_cuda
+        dev, bf16, f32, i32 = self.dev, torch.bfloat16, torch.float32, torch.int32
+
+        def rand(shape, dt):
+            return torch.randn(shape, generator=g, device=dev).to(dt)
+
+        def attend(q, k, v, qp, kp, kw):
+            return sparse_attention_cuda(q, k, v, qp, kp, **kw)
+
+        def case(label, hq, hkv, d, dt, qp, kp, kw):
+            b, lq, lk = qp.shape[0], qp.shape[1], kp.shape[1]
+            q, k, v = rand((b, lq, hq, d), dt), rand((b, lk, hkv, d), dt), rand((b, lk, hkv, d), dt)
+            got = attend(q, k, v, qp, kp, kw)
+            tol = TOL_BF16 if dt == bf16 else TOL_F32_ATTN
+            self.check(f"sparse_attention {label}", got,
+                       ref.sparse_attention_ref(q, k, v, qp, kp, **kw), tol)
+            return q, k, v, got
+
+        decode_rows = (5000, 4095, 700, 5)
+        for label, hq, hkv, d, dt, sink, window, cap in (
+                ("D=256 GQA 8/4 softcap 50 ring 1024", 8, 4, 256, bf16, 128, 896, 50.0),
+                ("D=256 GQA 8/4 softcap 50 local ring 4096", 8, 4, 256, bf16, 0, 4096, 50.0),
+                ("D=256 GQA 4/1 ring 1024", 4, 1, 256, bf16, 128, 896, None),
+                ("D=100 32/32 ring 1024", 32, 32, 100, bf16, 128, 896, None),
+                ("D=100 f32 ring 1024", 8, 8, 100, f32, 128, 896, None),
+                ("D=256 f32 GQA 8/4 softcap 50 ring 1024", 8, 4, 256, f32, 128, 896, 50.0)):
+            qp = torch.tensor(decode_rows, dtype=i32, device=dev)[:, None]
+            kp = torch.stack([ring_positions(torch, t, sink, window)
+                              for t in decode_rows]).to(dev)
+            kw = dict(sink=sink, window=window, softcap=cap)
+            q, k, v, full = case(f"decode {label}", hq, hkv, d, dt, qp, kp, kw)
+            for i in (0, 3):
+                one = attend(q[i:i + 1], k[i:i + 1], v[i:i + 1], qp[i:i + 1], kp[i:i + 1], kw)
+                self.check(f"sparse_attention decode invariance {label}, row {i} alone vs "
+                           f"among 4", one, full[i:i + 1], 0, True)
+
+        def pack(t0, sink, window, b=1):
+            qp, kp = pack_positions(torch, t0, sink, window)
+            return qp[None].repeat(b, 1).to(dev), kp[None].repeat(b, 1).to(dev)
+
+        for label, hq, hkv, d, t0, sink, window, cap in (
+                ("D=256 GQA 8/4 softcap 50 LPSA pack t0=2000", 8, 4, 256, 2000, 128, 896, 50.0),
+                ("D=256 GQA 8/4 softcap 50 local pack t0=4400 (4352 keys)", 8, 4, 256, 4400, 0,
+                 4096, 50.0),
+                ("D=256 GQA 4/1 local pack t0=700 window 512", 4, 1, 256, 700, 0, 512, None),
+                ("D=100 32/32 LPSA pack t0=2000", 32, 32, 100, 2000, 128, 896, None),
+                ("D=100 32/32 LPSA pack t0=0", 32, 32, 100, 0, 128, 896, None)):
+            qp, kp = pack(t0, sink, window)
+            case(f"prefill bf16 {label} round_scores", hq, hkv, d, bf16, qp, kp,
+                 dict(sink=sink, window=window, softcap=cap, round_scores=True))
+        for d, hq, hkv in ((100, 8, 8), (256, 8, 4)):
+            qp = (40 + torch.arange(16, dtype=i32, device=dev))[None].repeat(2, 1)
+            kp = torch.arange(64, dtype=i32, device=dev)[None].repeat(2, 1)
+            kp[1, 30:] = -1
+            case(f"prefill f32 D={d} B=2 Lq=16 Lk=64 GQA {hq}/{hkv} softcap 50", hq, hkv, d, f32,
+                 qp, kp, dict(sink=8, window=24, softcap=50.0))
+
+        # prefill invariance at each new head size: row 1 of a B = 2 call
+        # (rows at t0 = 2000 and 512) is a B = 1 call; queries [37, 101) of
+        # a pack are a call on them alone
+        for d, hq, hkv, cap in ((100, 32, 32, None), (256, 8, 4, 50.0)):
+            kw = dict(sink=128, window=896, softcap=cap, round_scores=True)
+            qa, ka = pack(2000, 128, 896)
+            qb, kb = pack(512, 128, 896)
+            qp, kp = torch.cat([qa, qb]), torch.cat([ka, kb])
+            q, k, v = rand((2, 256, hq, d), bf16), rand((2, 1280, hkv, d), bf16), rand(
+                (2, 1280, hkv, d), bf16)
+            full = attend(q, k, v, qp, kp, kw)
+            self.check(f"sparse_attention prefill invariance D={d}, row 1 of B=2 vs B=1",
+                       attend(q[1:], k[1:], v[1:], qp[1:], kp[1:], kw), full[1:], 0, True)
+            sub = attend(q[1:, 37:101].contiguous(), k[1:], v[1:],
+                         qp[1:, 37:101].contiguous(), kp[1:], kw)
+            self.check(f"sparse_attention prefill invariance D={d}, queries [37,101) alone",
+                       sub, full[1:, 37:101], 0, True)
+
+    # (label, M, K, N) of the zoo's projections: gemma2-2b at decode (q, k/v,
+    # o, gate/up, down) and a 256-row gate/up pack; bitnet-3b at decode
+    # (q/k/v/o, gate/up, down) and a 256-row down pack
+    ZOO_GEMMS = (("gemma2-2b q", 4, 2304, 2048), ("gemma2-2b k/v", 4, 2304, 1024),
+                 ("gemma2-2b o", 4, 2048, 2304), ("gemma2-2b gate/up", 4, 2304, 9216),
+                 ("gemma2-2b down", 4, 9216, 2304), ("gemma2-2b pack gate/up", 256, 2304, 9216),
+                 ("bitnet-3b q/k/v/o", 4, 3200, 3200), ("bitnet-3b gate/up", 4, 3200, 8640),
+                 ("bitnet-3b down", 4, 8640, 3200), ("bitnet-3b pack down", 256, 8640, 3200))
+    # every K of the zoo's DAS steps (d_model, q_dim, d_ff): 1152, 2304 and
+    # 3200 end in a partial 1024-lane block of das_topk
+    ZOO_TOPK_K = (1152, 1024, 6912, 2304, 2048, 9216, 5760, 3200, 8640, 5632)
+
+    def _zoo_gemm_cases(self, g):
+        """das_topk (exact, with and without the rmsnorm before it) at every
+        K of the zoo, at decode and at a 256-row pack, bitwise invariant to
+        M; das_ternary_gemm at gemma2-2b's and bitnet-3b's shapes; and
+        ternary_gemm at gemma2-2b's down (no zoo model takes it: every zoo
+        down has 32 | K, so DAS compacts it)."""
+        torch = self.torch
+        from repro_torch.core import das as das_lib
+        from repro_torch.kernels import ref
+        from repro_torch.kernels.das_gemm import das_ternary_gemm_cuda
+        from repro_torch.kernels.ternary_gemm import ternary_gemm_cuda
+        from repro_torch.kernels.topk_mask import das_topk_cuda
+        dev, bf16 = self.dev, torch.bfloat16
+        scale = torch.tensor(0.37, device=dev)
+        for k in self.ZOO_TOPK_K:
+            x = torch.randn((256, k), generator=g, device=dev).to(bf16)
+            nscale = (0.5 * torch.randn((k,), generator=g, device=dev)).to(bf16)
+            for m in (4, 256):
+                got = das_topk_cuda(x[:m], keep=16, block=32)
+                want = ref.das_topk_ref(x[:m], keep=16, block=32)
+                err = max(self.check(f"das_topk bf16 ({m},{k}) {name}", a, b, 0, True)
+                          for name, a, b in zip(ref.DasTopK._fields[:4], got, want)
+                          if a is not None)
+                fused = das_topk_cuda(x[:m], keep=16, block=32, norm_scale=nscale,
+                                      with_normed=True)
+                for name, a, b in zip(ref.DasTopK._fields[:4], fused,
+                                      ref.das_topk_ref(fused.normed, keep=16, block=32)):
+                    if a is not None:
+                        err = max(err, self.check(f"das_topk norm-fused ({m},{k}) {name} vs "
+                                                  f"das_topk_ref(normed)", a, b, 0, True))
+            one = das_topk_cuda(x[3:4], keep=16, block=32, norm_scale=nscale, with_mask=False)
+            full = das_topk_cuda(x, keep=16, block=32, norm_scale=nscale, with_mask=False)
+            if not (torch.equal(one.values[0], full.values[3])
+                    and torch.equal(one.indices[0], full.indices[3])):
+                raise AssertionError(f"das_topk K={k}: row 3 depends on M")
+        log(f"[kernels] das_topk at K = {self.ZOO_TOPK_K}: a row alone and among 256 "
+            f"bitwise identical (norm-fused)")
+        for label, m, k, n in self.ZOO_GEMMS:
+            x = torch.randn((m, k), generator=g, device=dev).to(bf16)
+            ca = das_lib.das_compact(x, block_size=32, keep=16)
+            packed = self._packed(g, k, n)
+            got = das_ternary_gemm_cuda(ca.values, ca.indices, packed, scale, keep=16)
+            self.check(f"das_ternary_gemm {label} ({m},{k // 2} of {k})x"
+                       f"({packed.shape[0]},{n})", got,
+                       ref.das_ternary_gemm_ref(ca.values, ca.indices, packed, scale), TOL_BF16)
+            if m == 256:                 # the prefill class: rows independent of M
+                sub = das_ternary_gemm_cuda(ca.values[:200].contiguous(),
+                                            ca.indices[:200].contiguous(), packed, scale,
+                                            keep=16)
+                self.check(f"das_ternary_gemm {label} invariance, 200 rows vs among 256",
+                           sub, got[:200], 0, True)
+        x = torch.randn((4, 9216), generator=g, device=dev).to(bf16)
+        xd = das_lib.das_apply(x, das_lib.das_mask(x, keep=16))
+        packed = self._packed(g, 9216, 2304)
+        self.check("ternary_gemm gemma2-2b down shape (4,9216)x(1856,2304) dense rows",
+                   ternary_gemm_cuda(xd, packed, scale), ref.ternary_gemm_ref(xd, packed, scale),
+                   TOL_BF16)
+
     PROMPT_LENS, GEN_LEN = (1100, 300, 256, 40, 700), 32
 
     def _packed_model(self):
@@ -561,14 +755,18 @@ class Smoke:
         def want_packed(st):
             return _packed_counts(n_l, st.decode_steps + st.warmup_steps, packs)
 
+        t0 = time.perf_counter()
         _, eng, res = self._serve_path("packed", lambda: model, trace, sc, want_packed)
         lg_packed = self._finite_logits("packed", model, prompts[2][:chunk], sc.max_len)
         self._batch_invariance("packed", eng, trace, res, (0, 3))
         del eng
         self._profile_admission(model, prompts[0], sc.max_len)
         self._reduced_parity("packed", cfg, prompts[0])
+        t0 = _took("packed", t0)
         self._paged_lpsa(cfg, model)
+        t0 = _took("paged-lpsa", t0)
         self._paged_full(cfg, model)
+        t0 = _took("paged-full", t0)
 
         # path "int8w": the trits come from twd_decode of the packed weights
         # (7 per layer, in the path's count); per decode step 4/7/1 launches
@@ -601,6 +799,7 @@ class Smoke:
         del eng
         self._reduced_parity("int8w", cfg8, prompts[0])
         self._profile_load(model, cfg8)
+        t0 = _took("int8w", t0)
 
         # path "baseline": int8 trits, DAS off, full attention (no LPSA): a
         # whole prompt prefills at admission; per decode step 7 das_gemv and
@@ -622,6 +821,7 @@ class Smoke:
         self._finite_logits("baseline", model_b, prompts[2][:16], sc_b.max_len)
         self._batch_invariance("baseline", eng, trace_b, res, (1,))
         del eng, model_b
+        t0 = _took("baseline", t0)
 
         # where a decode step's time goes: packed and int8w, each replayed
         # from its captured graph and stepped eagerly, in turns
@@ -644,8 +844,134 @@ class Smoke:
             "the profiler, idle share of the former, host launches per step): " + ", ".join(
                 f"{name} {r['ms_step']:.3f} / {r['busy_ms_step']} / {r['idle']} / "
                 f"{r['launches']}" for name, r in turns))
+        _took("profile turns", t0)
         del model, model8
         torch.cuda.empty_cache()
+        for arch, (lens, gen, depth) in self.ZOO_PATHS.items():
+            self._serve_zoo(arch, lens, gen, depth)
+
+    # the zoo's serve paths: arch -> (prompt lengths, new tokens, depth; None:
+    # the arch's own).  gemma2-2b's 4400-token prompt wraps both its 4096-slot
+    # local ring and its 1024-slot global ring; the depth-cut models keep one
+    # period of their layer pattern and serve 2 requests, so every width of
+    # theirs launches on the card (gemma3-1b's 700 wraps its 512-slot ring)
+    ZOO_PATHS = {"gemma2-2b": ((4400, 1100, 300, 40, 700), 32, None),
+                 "bitnet-3b": (PROMPT_LENS, 32, None),
+                 "gemma3-1b": ((700, 40), 16, 6),
+                 "minicpm-2b": ((700, 40), 16, 2),
+                 "stablelm-1.6b": ((700, 40), 16, 2)}
+
+    def _serve_zoo(self, arch, prompt_lens, gen_len, depth):
+        """Path ``arch``: the model at full width (depth cut to ``depth``
+        layers where given), seeded random weights, base-3 packed, bf16,
+        served from a CUDA graph: 4 slots, greedy requests 2 steps apart,
+        with the packed path's checks (token counts, exact launch counts,
+        finite logits, bitwise batch invariance).  At full depth also the
+        admission of the first prompt and the decode step under the
+        profiler, replayed and eager (the same tokens and launches a step),
+        and a 2-layer model at the real widths on the card against the CPU."""
+        torch = self.torch
+        from repro_torch.configs import get_config
+        from repro_torch.models import model as MD
+        from repro_torch.serve import Request, ServeConfig
+        t_path = time.perf_counter()
+        cfg = get_config(arch)
+        if depth is not None:
+            cfg = dataclasses.replace(cfg, n_layers=depth)
+        t0 = time.perf_counter()
+        params = MD.init_params(cfg, seed=self.seed, device=self.dev)
+        model = MD.export_serving(params, cfg)
+        del params
+        torch.cuda.synchronize()
+        lin = model.layers[0]
+        cut = "" if depth is None else (f" (cut from {get_config(arch).n_layers}: one period "
+                                        f"of the pattern)")
+        log(f"[serve] {arch}: {cfg.n_layers} layers{cut}, "
+            f"kinds {''.join(k[0] for k in cfg.layer_kinds())}, d_model {cfg.d_model}, "
+            f"{cfg.n_heads} heads of {cfg.head_dim_} over {cfg.n_kv_heads}, d_ff {cfg.d_ff}, "
+            f"vocab {cfg.vocab}, act {cfg.act}, window {cfg.window}, softcaps "
+            f"{cfg.attn_softcap}/{cfg.logit_softcap}, {'tied' if cfg.tie_embeddings else 'untied'}"
+            f", embedding scale {model.embed_scale}; packed rows q {lin.attn.wq.packed.shape}, "
+            f"down {lin.ffn.w_out.packed.shape}; init+export {time.perf_counter() - t0:.1f} s")
+        chunk, n_l = cfg.lpsa.chunk, cfg.n_layers
+        rng = torch.Generator().manual_seed(self.seed + 11)
+        prompts = [torch.randint(0, cfg.vocab, (p,), generator=rng).numpy() for p in prompt_lens]
+        trace = [Request(uid=i, prompt=p, max_new_tokens=gen_len, arrival=2 * i)
+                 for i, p in enumerate(prompts)]
+        sc = ServeConfig(max_slots=4, max_len=max(prompt_lens) + gen_len, seed=self.seed)
+        packs = [p // chunk for p in prompt_lens if p >= chunk]
+        dense_down = cfg.d_ff % cfg.ternary.das.block != 0
+
+        def want(st):
+            return _packed_counts(n_l, st.decode_steps + st.warmup_steps, packs, dense_down)
+
+        _, eng, res = self._serve_path(arch, lambda: model, trace, sc, want)
+        route = ("ternary_gemm on masked dense rows" if dense_down
+                 else "das_ternary_gemm on compacted rows")
+        log(f"[serve] {arch}: the down projection (K = {cfg.d_ff}) takes {route}")
+        self._finite_logits(arch, model, prompts[0][:chunk], sc.max_len)
+        self._batch_invariance(arch, eng, trace, res, (0, 3) if len(trace) > 3 else (0, 1))
+        del eng
+        if depth is None:
+            self._profile_admission(model, prompts[0], sc.max_len)
+            # the eager step only for its tokens and launches (its profile
+            # would take ~1 min of the run to aggregate)
+            runs = [self._profile_decode(f"{arch} {'graph' if graph else 'eager'}", model, sc,
+                                         prompts, graph, profiled=graph)
+                    for graph in (True, False)]
+            if runs[0]["tokens"] != runs[1]["tokens"] or runs[0]["per_step"] != runs[1]["per_step"]:
+                raise AssertionError(f"{arch}: the replayed decode step differs from the eager "
+                                     f"one in tokens or launches a step")
+            log(f"[profile] {arch}: replayed and eager decode steps give the same tokens bitwise "
+                f"and the same launches a step {runs[0]['per_step']}; ms/step "
+                f"{runs[0]['ms_step']:.3f} / {runs[1]['ms_step']:.3f} (graph / eager), device "
+                f"busy {runs[0]['busy_ms_step']} ms/step, idle share {runs[0]['idle']} (graph)")
+            self._width_parity(arch, cfg, prompts[0])
+        del model
+        torch.cuda.empty_cache()
+        _took(arch, t_path)
+
+    def _width_parity(self, label, cfg, prompt_ids):
+        """A model of ``cfg``'s widths (d_model, heads and head size, d_ff,
+        vocab, pattern, soft-caps, activation) at 2 layers (one period of its
+        pattern) in float32 with DAS off, on the card (kernels) against the
+        same weights on the CPU (plain versions): a 2-pack prompt's prefill +
+        8 teacher-forced decode steps within 2e-4, equal greedy tokens.  DAS
+        is off because at these widths a float32 sum order that differs in
+        the last bit flips near-ties of the top-16-of-32 (tens of thousands
+        of blocks a run): DAS at these widths is held exactly in the kernels
+        phase."""
+        torch = self.torch
+        from repro_torch.models import model as MD
+        small = dataclasses.replace(
+            cfg, n_layers=max(2, len(cfg.layer_pattern)), dtype="float32",
+            ternary=dataclasses.replace(cfg.ternary, das=None))
+        t0 = time.perf_counter()
+        params = MD.init_params(small, seed=self.seed, device="cpu")
+        m_cpu = MD.export_serving(params, small)
+        del params
+        m_gpu = copy.deepcopy(m_cpu).to(self.dev)
+        n = 2 * cfg.lpsa.chunk
+        prompt = torch.as_tensor(prompt_ids[:n], dtype=torch.long)[None]
+        lg_c, c_c = MD.prefill(m_cpu, prompt, max_len=n + 9)
+        lg_g, c_g = MD.prefill(m_gpu, prompt.to(self.dev), max_len=n + 9)
+        err = (lg_g.cpu() - lg_c).abs().max().item()
+        toks_c, toks_g = [int(lg_c.argmax())], [int(lg_g.argmax())]
+        for i in range(8):
+            t = torch.tensor([n + i])
+            lg_c, _ = MD.decode_step(m_cpu, c_c, torch.tensor([toks_c[-1]]), t)
+            lg_g, _ = MD.decode_step(m_gpu, c_g, torch.tensor([toks_c[-1]], device=self.dev),
+                                     t.to(self.dev))
+            err = max(err, (lg_g.cpu() - lg_c).abs().max().item())
+            toks_c.append(int(lg_c.argmax()))
+            toks_g.append(int(lg_g.argmax()))
+        log(f"[serve] {label} at its widths, {small.n_layers} layers, f32, DAS off, card vs CPU: "
+            f"{n}-token prefill + 8 teacher-forced steps, max logit err {err:.2e} (tol 2e-4), "
+            f"greedy tokens {'equal' if toks_c == toks_g else 'DIFFERENT'} "
+            f"({time.perf_counter() - t0:.1f} s)")
+        if err > 2e-4 or toks_c != toks_g:
+            raise AssertionError(f"{label}: the card's model at its widths disagrees with the "
+                                 f"CPU's")
 
     def _paged_lpsa(self, cfg, model):
         """Path "paged-lpsa": the packed model with LPSA under layout="paged",
@@ -899,13 +1225,13 @@ class Smoke:
         if err > 2e-4 or toks_c != toks_g:
             raise AssertionError(f"{label}: the card's reduced model disagrees with the CPU's")
 
-    def _profile_decode(self, label, model, sc, prompts, graph=True):
+    def _profile_decode(self, label, model, sc, prompts, graph=True, profiled=True):
         """A decode-only trace (40-token prompts fed through the decode step):
         CUDA-event ms/step without the profiler, with that run's tokens and
         kernel launches a step, then the device busy time per step, the idle
         share and the host launches per step under torch.profiler (None:
-        not measured).  ``graph=False`` steps eagerly (a tree without the
-        captured step always does)."""
+        not measured; ``profiled=False`` skips that run).  ``graph=False``
+        steps eagerly (a tree without the captured step always does)."""
         torch = self.torch
         from torch.profiler import ProfilerActivity, profile
 
@@ -933,6 +1259,9 @@ class Smoke:
         per_step = {k: n / n_steps for k, n in ops.launches.items()}
         log(f"[profile] {label} decode-only trace without the profiler: {ms_step:.3f} "
             f"ms/step (CUDA events around the run), 4 active slots")
+        if not profiled:
+            return {"ms_step": ms_step, "busy_ms_step": None, "idle": None, "launches": None,
+                    "tokens": tokens, "per_step": per_step}
         submit()
         steps1 = eng.stats.decode_steps
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -941,9 +1270,10 @@ class Smoke:
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         steps = eng.stats.decode_steps - steps1        # the profiled run's steps
-        by_name = _device_times(prof)
+        averages = prof.key_averages()             # once: it walks every event
+        by_name = _device_times(averages)
         busy_us = sum(by_name.values())
-        calls = {e.key: e.count / steps for e in prof.key_averages()
+        calls = {e.key: e.count / steps for e in averages
                  if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC", "cudaGraphLaunch")}
         n_launch = sum(calls.values())
         if not busy_us:
@@ -961,7 +1291,7 @@ class Smoke:
                 for cat in GLUE_CLASSES}
         log(f"[profile] {label} device ms/step by class: " + ", ".join(
             f"{cat} {us / 1e3 / steps:.4f}" for cat, us in glue.items()))
-        host = sorted(((e.self_cpu_time_total, e.count, e.key) for e in prof.key_averages()),
+        host = sorted(((e.self_cpu_time_total, e.count, e.key) for e in averages),
                       reverse=True)[:12]
         log("[profile] host: self CPU time per step, calls per step")
         for dt, count, name in host:
@@ -983,11 +1313,12 @@ class Smoke:
             loaded = MD.trits_from_packed(model, cfg8)
             torch.cuda.synchronize()
         del loaded
-        us = sum(dt for name, dt in _device_times(prof).items() if "twd_decode" in name)
+        averages = prof.key_averages()
+        us = sum(dt for name, dt in _device_times(averages).items() if "twd_decode" in name)
         if not us:
             log("[profile] int8w model load: the profiler recorded no twd_decode: not measured")
             return
-        n = sum(e.count for e in prof.key_averages() if "twd_decode_kernel" in e.key
+        n = sum(e.count for e in averages if "twd_decode_kernel" in e.key
                 and "CUDA" in str(getattr(e, "device_type", "")))
         log(f"[profile] int8w model load: {n} twd_decode launches, {us / 1e3:.3f} ms of "
             f"device time")
@@ -1014,7 +1345,7 @@ class Smoke:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             MD.prefill(model, tok, max_len=max_len)
             torch.cuda.synchronize()
-        by_name = _device_times(prof)
+        by_name = _device_times(prof.key_averages())
         busy_us = sum(by_name.values())
         if not busy_us:
             log("[profile] admission: the profiler recorded no device time: not measured")
@@ -1281,33 +1612,101 @@ class Smoke:
         # round_scores), and full causal attention over 1024 tokens; bytes
         # count the keys some query attends, operations the allowed pairs;
         # the library call is SDPA with the same boolean mask
-        def prefill_row(label, lq, lk, dt, qp, kp, sink, window, rs):
-            qp, kp = qp[None].to(self.dev), kp[None].to(self.dev)
-            q1 = torch.randn((1, lq, h, d), generator=g, device=self.dev).to(dt)
-            k1 = torch.randn((1, lk, h, d), generator=g, device=self.dev).to(dt)
-            v1 = torch.randn((1, lk, h, d), generator=g, device=self.dev).to(dt)
+        def attn_row(label, b, hq, hkv, d, dt, qp, kp, sink, window, cap, rs):
+            lq, lk = qp.shape[1], kp.shape[1]
+            q = torch.randn((b, lq, hq, d), generator=g, device=self.dev).to(dt)
+            k = torch.randn((b, lk, hkv, d), generator=g, device=self.dev).to(dt)
+            v = torch.randn((b, lk, hkv, d), generator=g, device=self.dev).to(dt)
             allowed = lpsa_allowed(qp[:, :, None], kp[:, None, :], sink, window) & (
                 kp >= 0)[:, None, :]              # ref.sparse_attention_ref's mask
             pairs, keys = int(allowed.sum()), int(allowed.any(1).sum())
-            es = q1.element_size()
-            kw = dict(sink=sink, window=window, round_scores=rs)
-            row(f"sparse_attention prefill {label}",
-                lambda: sparse_attention_cuda(q1, k1, v1, qp, kp, **kw),
-                lambda: ref.sparse_attention_ref(q1, k1, v1, qp, kp, **kw),
+            es = q.element_size()
+            kw = dict(sink=sink, window=window, softcap=cap, round_scores=rs)
+            qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+            row(f"sparse_attention {label}",
+                lambda: sparse_attention_cuda(q, k, v, qp, kp, **kw),
+                lambda: ref.sparse_attention_ref(q, k, v, qp, kp, **kw),
                 lambda: torch.nn.functional.scaled_dot_product_attention(
-                    q1.transpose(1, 2), k1.transpose(1, 2), v1.transpose(1, 2),
-                    attn_mask=allowed[:, None]),
-                2 * lq * h * d * es + 2 * keys * h * d * es + (lq + lk) * 4,
-                4 * pairs * h * d, "bfloat16" if dt == bf16 else "float32",
-                f"q (1,{lq},{h},{d}) over {lk} keys ({keys} attended, {pairs} pairs) {dt}")
+                    qt, kt, vt, attn_mask=allowed[:, None], enable_gqa=hq != hkv),
+                2 * b * lq * hq * d * es + 2 * keys * hkv * d * es + b * (lq + lk) * 4,
+                4 * pairs * hq * d, "bfloat16" if dt == bf16 else "float32",
+                f"q ({b},{lq},{hq},{d}) over {lk} keys of {hkv} heads ({keys} attended, "
+                f"{pairs} pairs) {dt}{'' if cap is None else f', softcap {cap:g}'}")
+
+        def prefill_row(label, dt, qp, kp, sink, window, rs):
+            attn_row(f"prefill {label}", 1, h, h, d, dt, qp[None].to(self.dev),
+                     kp[None].to(self.dev), sink, window, None, rs)
 
         for t0 in (0, 512, 2000):
             qp1, kp1 = pack_positions(torch, t0)
-            prefill_row(f"t0={t0}", 256, 1280, bf16, qp1, kp1, 128, 896, True)
+            prefill_row(f"t0={t0}", bf16, qp1, kp1, 128, 896, True)
         pos = torch.arange(1024, dtype=torch.int32)
-        prefill_row("full causal", 1024, 1024, bf16, pos, pos, FULL_SINK, 0, False)
+        prefill_row("full causal", bf16, pos, pos, FULL_SINK, 0, False)
         qp1, kp1 = pack_positions(torch, 2000)
-        prefill_row("f32 t0=2000", 256, 1280, torch.float32, qp1, kp1, 128, 896, False)
+        prefill_row("f32 t0=2000", torch.float32, qp1, kp1, 128, 896, False)
+        from repro_torch.kernels import sparse_attn
+        if 256 in sparse_attn.HEAD_DIMS:      # a tree before the zoo (--parent) has no D = 256
+            self._zoo_times(t_ms, attn_row, extra, g)
+
+    def _zoo_times(self, t_ms, attn_row, extra, g):
+        """The zoo's shapes beside their bounds: sparse_attention at the head
+        sizes 100 and 256 in the decode class (full rings of 1024 and 4096),
+        the bf16 prefill class (LPSA pack, local pack of 4352 keys) and the
+        float32 prefill class, each beside its plain version and SDPA with
+        the same mask (SDPA takes no soft-cap: its time is without one);
+        das_topk and das_ternary_gemm at gemma2-2b's decode shapes and a
+        256-row pack, beside the bound and the library call (bf16 matmul of
+        the densified rows with the bf16 weight)."""
+        torch = self.torch
+        from repro_torch.core import das as das_lib
+        from repro_torch.core import twd
+        from repro_torch.kernels.das_gemm import das_ternary_gemm_cuda
+        from repro_torch.kernels.topk_mask import das_topk_cuda
+        dev, bf16, f32 = self.dev, torch.bfloat16, torch.float32
+        rows = (5000, 4095, 700, 2000)
+        for label, hq, hkv, d, sink, window, cap in (
+                ("decode D=256 GQA 8/4 softcap 50 ring 1024", 8, 4, 256, 128, 896, 50.0),
+                ("decode D=256 GQA 8/4 softcap 50 local ring 4096", 8, 4, 256, 0, 4096, 50.0),
+                ("decode D=256 GQA 4/1 ring 1024", 4, 1, 256, 128, 896, None),
+                ("decode D=100 32/32 ring 1024", 32, 32, 100, 128, 896, None)):
+            qp = torch.tensor(rows, dtype=torch.int32, device=dev)[:, None]
+            kp = torch.stack([ring_positions(torch, t, sink, window) for t in rows]).to(dev)
+            attn_row(label, 4, hq, hkv, d, bf16, qp, kp, sink, window, cap, False)
+        for label, hq, hkv, d, dt, t0, sink, window, cap in (
+                ("prefill D=256 GQA 8/4 softcap 50 LPSA pack t0=2000", 8, 4, 256, bf16, 2000, 128,
+                 896, 50.0),
+                ("prefill D=256 GQA 8/4 softcap 50 local pack t0=4400", 8, 4, 256, bf16, 4400, 0,
+                 4096, 50.0),
+                ("prefill D=100 32/32 LPSA pack t0=2000", 32, 32, 100, bf16, 2000, 128, 896, None),
+                ("prefill f32 D=256 GQA 8/4 LPSA pack t0=2000", 8, 4, 256, f32, 2000, 128, 896,
+                 None),
+                ("prefill f32 D=100 32/32 LPSA pack t0=2000", 32, 32, 100, f32, 2000, 128, 896,
+                 None)):
+            qp, kp = pack_positions(torch, t0, sink, window)
+            attn_row(label, 1, hq, hkv, d, dt, qp[None].to(dev), kp[None].to(dev), sink, window,
+                     cap, dt == bf16)
+
+        scale = torch.tensor(0.37, device=dev)
+        for label, m, k, n in self.ZOO_GEMMS[:6]:
+            x = torch.randn((m, k), generator=g, device=dev).to(bf16)
+            ca = das_lib.das_compact(x, block_size=32, keep=16)
+            packed = twd.pack_ternary(torch.randint(-1, 2, (k, n), generator=g, device=dev),
+                                      row_align=16)
+            w = (twd.unpack_ternary_arith(packed, packed.shape[0] * 5).float() * 0.37).to(bf16)
+            dense = torch.zeros((m, w.shape[0]), dtype=bf16, device=dev)
+            dense.scatter_(1, ca.indices.long(), ca.values)
+            kc = k // 2
+            extra(f"das_ternary_gemm {label} ({m},{kc} of {k}) x packed {tuple(packed.shape)}",
+                  lambda: das_ternary_gemm_cuda(ca.values, ca.indices, packed, scale, keep=16),
+                  lambda: torch.matmul(dense, w),
+                  m * kc * 6 + packed.numel() + m * n * 4 + 4, 2 * m * kc * n)
+        for m, k in ((4, 2304), (4, 9216), (256, 2304)):
+            x = torch.randn((m, k), generator=g, device=dev).to(bf16)
+            nscale = (0.5 * torch.randn((k,), generator=g, device=dev)).to(bf16)
+            ms = t_ms(lambda: das_topk_cuda(x, keep=16, block=32, norm_scale=nscale,
+                                            with_mask=False))
+            log(f"[times] das_topk norm-fused serving gemma2-2b ({m},{k}): {ms * 1e3:.1f} us, "
+                f"bound {(m * k * 2 + k * 2 + m * (k // 2) * 6) / HBM_BYTES_PER_S * 1e6:.3f} us")
 
     def _topk_times(self, t_ms, g, k):
         """das_topk's other rows, each beside its bound (x, the norm scale
@@ -1349,23 +1748,34 @@ class Smoke:
                       m * k * 2 + k * 2 + out)
 
 
-def _packed_counts(n_l: int, steps: int, packs) -> dict:
+def _packed_counts(n_l: int, steps: int, packs, dense_down: bool = True) -> dict:
     """The packed model's launches for ``steps`` decode steps and streaming
     prefills of ``packs`` packs each: per decode step 4/6/1/1 a layer, per
     prefill of n packs n+3 / 3n+3 / 1 / n (q/k/v per pack; o, gate/up, down
-    once)."""
+    once).  ``dense_down=False`` (32 divides d_ff: the down projection's
+    rows are compacted) moves the down's launch from ternary_gemm to
+    das_ternary_gemm."""
+    down = 1 if dense_down else 0
     return {**{name: 0 for name in KERNEL_INFO},
             "das_topk": n_l * (4 * steps + sum(n + 3 for n in packs)),
-            "das_ternary_gemm": n_l * (6 * steps + sum(3 * n + 3 for n in packs)),
-            "ternary_gemm": n_l * (steps + len(packs)),
+            "das_ternary_gemm": n_l * ((7 - down) * steps + sum(3 * n + 4 - down for n in packs)),
+            "ternary_gemm": n_l * down * (steps + len(packs)),
             "sparse_attention": n_l * (steps + sum(packs))}
 
 
-def _device_times(prof) -> dict:
-    """Device time (us) by kernel name from a torch.profiler run: device
-    kernels only, since a CPU op's device time repeats its kernels'."""
+def _took(label: str, t0: float) -> float:
+    """Log the seconds since t0 that a path of the serve phase took; returns now."""
+    now = time.perf_counter()
+    log(f"[serve] {label} path done in {now - t0:.1f} s")
+    return now
+
+
+def _device_times(averages) -> dict:
+    """Device time (us) by kernel name from a torch.profiler run's
+    ``key_averages()``: device kernels only, since a CPU op's device time
+    repeats its kernels'."""
     by_name = {}
-    for e in prof.key_averages():
+    for e in averages:
         if "CUDA" not in str(getattr(e, "device_type", "")):
             continue
         dt = getattr(e, "self_device_time_total", None)

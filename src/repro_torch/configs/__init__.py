@@ -1,7 +1,8 @@
 """Architecture registry of the port: `get_config("<arch-id>")` / `--arch <id>`.
 
-Only the architectures the port serves are registered; the rest of the JAX
-package's zoo waits for later slices (ROADMAP queue 1, item 11).
+Only the architectures the port serves are registered: the paper's own
+bitnet models and the dense models of the JAX package's zoo.  The MoE, SSM,
+hybrid and frontend models wait for later slices (ROADMAP queue 1, item 3).
 """
 
 from __future__ import annotations
@@ -11,6 +12,11 @@ from importlib import import_module
 from .base import ModelConfig, reduced  # noqa: F401
 
 ARCH_MODULES = {
+    "gemma2-2b": "gemma2_2b",
+    "minicpm-2b": "minicpm_2b",
+    "gemma3-1b": "gemma3_1b",
+    "stablelm-1.6b": "stablelm_1p6b",
+    "bitnet-3b": "bitnet_3b",
     "bitnet-1.3b": "bitnet_1p3b",
 }
 

@@ -1,0 +1,8 @@
+"""StableLM-2-1.6B [hf:stabilityai/stablelm-2-1_6b]."""
+from .base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="stablelm-1.6b", family="dense",
+    n_layers=24, d_model=2048, n_heads=32, n_kv_heads=32, head_dim=64,
+    d_ff=5632, vocab=100_352, tie_embeddings=False,
+)

@@ -12,6 +12,10 @@
 // `scale` (1/sqrt(D)), soft-capped by tanh when softcap > 0, and a row with
 // no allowed key outputs 0.  out: (B, Lq, Hq, D) in q's dtype.
 //
+// Head sizes D = 16, 32, 64, 80, 100 and 256.  Rows move in vectors of 16
+// bytes where the row size allows, else 8 (a bf16 row of D = 100 is 200
+// bytes, so its heads start 8 bytes past a 16-byte boundary).
+//
 // Three classes, chosen by Lq and the dtype alone (launch, at the end):
 //
 //  * decode (Lq == 1): split_decode_kernel, flash-decoding in one launch.
@@ -23,9 +27,10 @@
 //    range are a function of Lk alone (split_keys: 256 keys a block, at
 //    most 16 blocks, beyond that the chunks grow; 4 blocks at Lk = 1024, so
 //    that all of a decode step's 512 blocks are resident at once).  A block
-//    walks its chunk in tiles of 64 keys (32 for rows over 160 bytes): it
-//    reads a tile's k_pos, then copies only the allowed rows' K and V into
-//    shared memory with 16-byte cp.async, two tiles in flight; a tile with
+//    walks its chunk in tiles of 64 keys (32 for rows over 160 bytes), held
+//    in dynamic shared memory (64 KB at D = 256 in bf16): it reads a tile's
+//    k_pos, then copies only the allowed rows' K and V into shared memory
+//    with cp.async of the row's vector size, two tiles in flight; a tile with
 //    no allowed key loads nothing.  Each group of 8 lanes takes every 16th
 //    key of a tile and folds it into the group's own running (max,
 //    denominator, accumulator), one exp a key; the groups merge in order,
@@ -39,6 +44,10 @@
 //    on FMAs, every K and V row read once per query) is two orders of
 //    magnitude off that; what bounds this class on the H100 is instruction
 //    issue and latency in its tile loop, not bytes or the tensor cores.
+//    - Rows are staged zero-padded to a multiple of 16 columns (D = 100 ->
+//      112: the zero columns add exact zeros to q.k, and the output's padding
+//      columns are not stored); three stages where they fit the card's 227
+//      KB, two at D = 256.
 //    - A block takes 64 queries of one q head, 4 warps of 16 rows.  S = Q K^T
 //      and O += P V run on mma.sync m16n8k16 with float32 accumulators; Q
 //      and K fragments by ldmatrix, V by ldmatrix.trans, from tiles of 64
@@ -85,30 +94,28 @@ namespace tenet {
 constexpr int kAttnThreads = 128;
 constexpr int kAttnWarps = kAttnThreads / 32;
 
-// 16 bytes of a row as float32: 4 floats or 8 bf16 values
-template <typename T> struct Vec;
-template <> struct Vec<float> {
-  static constexpr int n = 4;
-  static __device__ __forceinline__ void load(const float* __restrict__ p, float (&o)[4]) {
-    const float4 t = *reinterpret_cast<const float4*>(p);
-    o[0] = t.x;
-    o[1] = t.y;
-    o[2] = t.z;
-    o[3] = t.w;
-  }
-};
-template <> struct Vec<__nv_bfloat16> {
-  static constexpr int n = 8;
-  static __device__ __forceinline__ void load(const __nv_bfloat16* __restrict__ p,
-                                              float (&o)[8]) {
-    const uint4 t = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&t);
+// the bytes of a vector load of a row of D values of T: 16 where the row
+// size allows, else 8 or 4.  Every row of q, k, v starts at a multiple of
+// the row size (its head's offset, its token's, its batch row's), so this
+// is the alignment every row has: 16 at D = 64, 8 for a bf16 row of D = 100
+// (200 bytes), whose head rows start 8 bytes past a 16-byte boundary
+__host__ __device__ constexpr int imax(int a, int b) { return a > b ? a : b; }
+
+template <typename T, int D> __host__ __device__ constexpr int vec_bytes() {
+  return D * (int)sizeof(T) % 16 == 0 ? 16 : D * (int)sizeof(T) % 8 == 0 ? 8 : 4;
+}
+
+// NB bytes of a row as float32
+template <typename T, int NB> struct Vec {
+  static constexpr int n = NB / (int)sizeof(T);
+  using Raw = typename std::conditional<NB == 16, uint4,
+                                        typename std::conditional<NB == 8, uint2,
+                                                                  unsigned>::type>::type;
+  static __device__ __forceinline__ void load(const T* __restrict__ p, float (&o)[n]) {
+    const Raw raw = *reinterpret_cast<const Raw*>(p);
+    const T* v = reinterpret_cast<const T*>(&raw);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float2 f = __bfloat1622float2(h[j]);
-      o[2 * j] = f.x;
-      o[2 * j + 1] = f.y;
-    }
+    for (int e = 0; e < n; ++e) o[e] = to_f32(v[e]);
   }
 };
 
@@ -124,12 +131,13 @@ attn_prefill_f32_kernel(const T* __restrict__ q, const T* __restrict__ k, const 
   const int iq = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (Hq / Hkv);
   const size_t qoff = (((size_t)b * Lq + iq) * Hq + h) * D;
-  constexpr int V = Vec<T>::n;
+  using VL = Vec<T, vec_bytes<T, D>()>;
+  constexpr int V = VL::n;
   float t[V];
   float qv[D];
 #pragma unroll
   for (int i = 0; i < D / V; ++i) {
-    Vec<T>::load(q + qoff + i * V, t);
+    VL::load(q + qoff + i * V, t);
 #pragma unroll
     for (int e = 0; e < V; ++e) qv[i * V + e] = t[e];
   }
@@ -146,7 +154,7 @@ attn_prefill_f32_kernel(const T* __restrict__ q, const T* __restrict__ k, const 
     float s = 0.f;
 #pragma unroll
     for (int i = 0; i < D / V; ++i) {
-      Vec<T>::load(k + koff + i * V, t);
+      VL::load(k + koff + i * V, t);
 #pragma unroll
       for (int e = 0; e < V; ++e) s += qv[i * V + e] * t[e];
     }
@@ -159,7 +167,7 @@ attn_prefill_f32_kernel(const T* __restrict__ q, const T* __restrict__ k, const 
     l = l * alpha + p;
 #pragma unroll
     for (int i = 0; i < D / V; ++i) {
-      Vec<T>::load(v + koff + i * V, t);
+      VL::load(v + koff + i * V, t);
 #pragma unroll
       for (int e = 0; e < V; ++e) acc[i * V + e] = acc[i * V + e] * alpha + p * t[e];
     }
@@ -190,8 +198,7 @@ attn_prefill_f32_kernel(const T* __restrict__ q, const T* __restrict__ k, const 
     for (int d = 0; d < D; ++d) s_acc[warp][d] = acc[d];
   }
   __syncthreads();
-  if (threadIdx.x < D) {
-    const int d = threadIdx.x;
+  for (int d = threadIdx.x; d < D; d += kAttnThreads) {
     float mb = -INFINITY;
 #pragma unroll
     for (int w = 0; w < kAttnWarps; ++w) mb = fmaxf(mb, s_m[w]);
@@ -211,6 +218,15 @@ attn_prefill_f32_kernel(const T* __restrict__ q, const T* __restrict__ k, const 
 constexpr int kSplitThreads = 128;
 constexpr int kSplitKeys = 256;                // keys a block, up to 16 blocks
 
+// a cluster kernel's dynamic shared memory and clusters of up to 16 blocks
+template <typename K>
+static cudaError_t set_attributes(K kernel, int smem) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  return err;
+}
+
 // the blocks of a cluster for Lk keys, and the keys of each block
 __host__ __forceinline__ void split_keys(int Lk, int& S, int& chunk) {
   S = (Lk + kSplitKeys - 1) / kSplitKeys;
@@ -218,24 +234,37 @@ __host__ __forceinline__ void split_keys(int Lk, int& S, int& chunk) {
   chunk = (Lk + S - 1) / S;
 }
 
+// the split decode class's tiles and its dynamic shared memory: two stages
+// of K and V tiles; after the last tile stage 0 holds the key groups'
+// states and stage 1 the cluster's merge slots (block 0's)
+template <int D, typename T> struct SplitSmem {
+  static constexpr int kTile = D * (int)sizeof(T) <= 160 ? 64 : 32;   // keys of a tile
+  static constexpr int kTileBytes = kTile * D * (int)sizeof(T);
+  static constexpr int kGroups = kSplitThreads / 8;                  // key groups of 8 lanes
+  static constexpr int kStage =
+      (imax(2 * kTileBytes, imax(kGroups, kMaxCluster) * (D + 2) * 4) + 15) / 16 * 16;
+  static constexpr int kBytes = 2 * kStage;
+};
+
 template <int D, typename T>
 __global__ void __launch_bounds__(kSplitThreads)
 split_decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                     const int* __restrict__ q_pos, const int* __restrict__ k_pos,
                     T* __restrict__ out, int Lk, int Hq, int Hkv, int chunk, int sink,
                     int window, float softcap, float scale, bool round_scores) {
-  constexpr int VE = Vec<T>::n;                          // values in 16 bytes
-  constexpr int CPR = D / VE;                            // 16-byte chunks a row
-  constexpr int TILE = D * (int)sizeof(T) <= 160 ? 64 : 32;   // keys of a tile
-  constexpr int NGRP = kSplitThreads / 8;                // key groups of 8 lanes
-  constexpr int QC = (CPR + 7) / 8;                      // chunks of a lane
-  constexpr int kTileBytes = TILE * D * (int)sizeof(T);
-  // two stages of K and V tiles; after the last tile stage 0 holds the
-  // groups' states and stage 1 the cluster's merge slots (block 0's)
-  __shared__ __align__(16) unsigned char kv[2][2 * kTileBytes];
+  using Sm = SplitSmem<D, T>;
+  constexpr int VB = vec_bytes<T, D>();                  // bytes of a copy and a load
+  using VL = Vec<T, VB>;
+  constexpr int VE = VL::n;                              // values of a vector
+  constexpr int CPR = D / VE;                            // vectors a row
+  constexpr int TILE = Sm::kTile;
+  constexpr int NGRP = Sm::kGroups;
+  constexpr int QC = (CPR + 7) / 8;                      // vectors of a lane
+  constexpr int kTileBytes = Sm::kTileBytes;
+  constexpr int DPT = (D + kSplitThreads - 1) / kSplitThreads;   // output columns a thread
+  extern __shared__ __align__(16) unsigned char kv_smem[];
+  unsigned char* kv[2] = {kv_smem, kv_smem + Sm::kStage};
   __shared__ int sok[2][TILE];                           // allowed keys of a stage
-  static_assert(NGRP * (D + 2) * sizeof(float) <= sizeof(kv[0]), "group states fit");
-  static_assert(kMaxCluster * (D + 2) * sizeof(float) <= sizeof(kv[1]), "merge slots fit");
   static_assert(TILE <= kSplitThreads && TILE % NGRP == 0, "a thread a key's flag");
   const int S = gridDim.x, s = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, lane = tid % 32;
@@ -265,7 +294,7 @@ split_decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
       const int which = i / (TILE * CPR), r = i / CPR % TILE, c = i % CPR;
       if (sok[buf][r]) {
         const T* src = (which ? vb : kb) + (size_t)(t0 + r) * row + c * VE;
-        cp_async((which ? vs(buf) : ks(buf)) + r * D + c * VE, src, 16, 16);
+        cp_async((which ? vs(buf) : ks(buf)) + r * D + c * VE, src, VB, VB);
       }
     }
   };
@@ -278,7 +307,7 @@ split_decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   float qv[QC][VE], acc[QC][VE];
 #pragma unroll
   for (int c = 0; c < QC; ++c) {
-    if (li + 8 * c < CPR) Vec<T>::load(q + qoff + (li + 8 * c) * VE, qv[c]);
+    if (li + 8 * c < CPR) VL::load(q + qoff + (li + 8 * c) * VE, qv[c]);
 #pragma unroll
     for (int e = 0; e < VE; ++e) acc[c][e] = 0.f;
   }
@@ -312,7 +341,7 @@ split_decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
         for (int c = 0; c < QC; ++c) {
           if (li + 8 * c < CPR) {
             float x[VE];
-            Vec<T>::load(kt + r * D + (li + 8 * c) * VE, x);
+            VL::load(kt + r * D + (li + 8 * c) * VE, x);
 #pragma unroll
             for (int e = 0; e < VE; ++e) part += qv[c][e] * x[e];
           }
@@ -337,7 +366,7 @@ split_decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
         for (int c = 0; c < QC; ++c) {
           if (li + 8 * c < CPR) {
             float x[VE];
-            Vec<T>::load(vt + r * D + (li + 8 * c) * VE, x);
+            VL::load(vt + r * D + (li + 8 * c) * VE, x);
 #pragma unroll
             for (int e = 0; e < VE; ++e) acc[c][e] = acc[c][e] * alpha + p * x[e];
           }
@@ -376,10 +405,20 @@ split_decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
     lo = lb;
     return ab;
   };
-  float a = 0.f;
-  if (tid < D) a = merge(gst, NGRP, tid, m, l);
+  // thread tid takes columns tid, tid + kSplitThreads, ... (every thread
+  // merges column tid < D, so thread 0 holds the merged m and l)
+  float a[DPT];
+#pragma unroll
+  for (int i = 0; i < DPT; ++i) {
+    const int d = tid + i * kSplitThreads;
+    a[i] = d < D ? merge(gst, NGRP, d, m, l) : 0.f;
+  }
   if (S == 1) {
-    if (tid < D) out[qoff + tid] = from_f32<T>(l == 0.f ? 0.f : a / l);
+#pragma unroll
+    for (int i = 0; i < DPT; ++i) {
+      const int d = tid + i * kSplitThreads;
+      if (d < D) out[qoff + d] = from_f32<T>(l == 0.f ? 0.f : a[i] / l);
+    }
     return;
   }
   // merge the cluster's blocks in order into block 0's slots [S][D + 2]
@@ -387,15 +426,25 @@ split_decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   float* slots = reinterpret_cast<float*>(kv[1]);
   cluster.sync();                                        // block 0 is done with its tiles
   float* dst = cluster.map_shared_rank(slots + s * (D + 2), 0);
-  if (tid < D) dst[tid] = a;
+#pragma unroll
+  for (int i = 0; i < DPT; ++i) {
+    const int d = tid + i * kSplitThreads;
+    if (d < D) dst[d] = a[i];
+  }
   if (tid == 0) {
     dst[D] = m;
     dst[D + 1] = l;
   }
   cluster.sync();
-  if (s != 0 || tid >= D) return;
-  a = merge(slots, S, tid, m, l);
-  out[qoff + tid] = from_f32<T>(l == 0.f ? 0.f : a / l);
+  if (s != 0) return;
+#pragma unroll
+  for (int i = 0; i < DPT; ++i) {
+    const int d = tid + i * kSplitThreads;
+    if (d < D) {
+      const float ad = merge(slots, S, d, m, l);
+      out[qoff + d] = from_f32<T>(l == 0.f ? 0.f : ad / l);
+    }
+  }
 }
 
 template <int D, typename T>
@@ -405,12 +454,12 @@ static cudaError_t launch_split(const T* q, const T* k, const T* v, const int* q
                                 bool round_scores, cudaStream_t stream) {
   int S, chunk;
   split_keys(Lk, S, chunk);
+  constexpr int smem = SplitSmem<D, T>::kBytes;
   auto kernel = split_decode_kernel<D, T>;
-  if (S > 8) {
-    const cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (err != cudaSuccess) return err;
-  }
+  // the attributes once per instantiation (its first launch, before any
+  // graph capture of the engine, which warms up first)
+  static const cudaError_t attr_err = set_attributes(kernel, smem);
+  if (attr_err != cudaSuccess) return attr_err;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = S;
@@ -419,7 +468,7 @@ static cudaError_t launch_split(const T* q, const T* k, const T* v, const int* q
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(S, Hq, B);
   cfg.blockDim = dim3(kSplitThreads);
-  cfg.dynamicSmemBytes = 0;
+  cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
@@ -455,17 +504,27 @@ __device__ __forceinline__ float ex2(float x) {  // 2^x; 2^-inf == 0
   return y;
 }
 
-// a block's dynamic shared memory: the Q tile, kPfStages stages of K and V
-// tiles with their k_pos and flags; after the last tile the stages take the
-// cluster's row states (S blocks x the block's share of rows)
+// a block's dynamic shared memory: the Q tile, kNS stages of K and V tiles
+// with their k_pos and flags; after the last tile the stages take the
+// cluster's row states (S blocks x the block's share of rows).  Rows are
+// staged zero-padded to DP, a multiple of 16 (whole mma k-steps: D = 100
+// takes 112, whose 12 zero columns add exact zeros to q.k and give output
+// columns that are not stored).  Three stages where they fit the card's 227
+// KB, else two (D = 256: 3 would take 232 KB)
+constexpr int kSmemOptIn = 227 * 1024;
 template <int D, int NW> struct PfSmem {
-  static constexpr int kRow = D + 8;           // bf16 of a staged row: +16 B, no bank conflicts
+  static constexpr int kDP = (D + 15) / 16 * 16;
+  static constexpr int kRow = kDP + 8;         // bf16 of a staged row: +16 B, no bank conflicts
   static constexpr int kRows = 16 * NW;        // queries of a tile
   static constexpr int kQ = kRows * kRow * 2;
   static constexpr int kKV = kPfKeys * kRow * 2;
-  static constexpr int kStages = kPfStages * 2 * kKV;
-  static constexpr int kBytes = kQ + kStages + (kPfStages + 1) * (kPfKeys + 2) * 4;
-  static_assert((kRows + kMaxCluster) * (D + 2) * 4 <= kStages, "row states fit the stages");
+  static constexpr int kNS =
+      kQ + kPfStages * 2 * kKV + (kPfStages + 1) * (kPfKeys + 2) * 4 <= kSmemOptIn ? kPfStages
+                                                                                   : 2;
+  static constexpr int kStages = kNS * 2 * kKV;
+  static constexpr int kBytes = kQ + kStages + (kNS + 1) * (kPfKeys + 2) * 4;
+  static_assert(kBytes <= kSmemOptIn, "a block's shared memory fits the card");
+  static_assert((kRows + kMaxCluster) * (kDP + 2) * 4 <= kStages, "row states fit the stages");
 };
 
 template <int D, int NW>
@@ -476,15 +535,19 @@ attn_prefill_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     int Hq, int Hkv, int S, int chunk, int sink, int window, float softcap,
                     float scale, bool round_scores) {
   using Sm = PfSmem<D, NW>;
-  constexpr int NT = NW * 32, BQ = Sm::kRows, BK = kPfKeys, RS = Sm::kRow, NS = kPfStages;
+  constexpr int NT = NW * 32, BQ = Sm::kRows, BK = kPfKeys, RS = Sm::kRow, NS = Sm::kNS;
+  constexpr int DP = Sm::kDP;                  // staged columns: D, zero-padded to 16
   constexpr int NP = NS + 1;                   // k_pos slots: one more than the stages
-  constexpr int CPR = D / 8;                   // 16-byte chunks of a row
-  constexpr int KS = D / 16;                   // k-steps of q.k
-  constexpr int ND = D / 8;                    // 8-column tiles of the output
-  constexpr int ST = D + 2;                    // floats of a row's state: acc, m, l
-  constexpr int CPT = 2 * BK * CPR / NT;       // 16-byte copies of a thread per tile
-  static_assert(BK == 64 && NT >= BK && D % 16 == 0 && 2 * BK * CPR % NT == 0,
-                "two warps a tile's keys; whole k-steps and copies");
+  constexpr int VB = vec_bytes<bf16, D>();     // bytes of a copy
+  constexpr int VE = VB / 2;                   // values of a copy
+  constexpr int CPG = D / VE;                  // copies of a row in global memory
+  constexpr int CPR = DP / VE;                 // copies of a staged row (zeros past CPG)
+  constexpr int KS = DP / 16;                  // k-steps of q.k
+  constexpr int ND = DP / 8;                   // 8-column tiles of the output
+  constexpr int ST = DP + 2;                   // floats of a row's state: acc, m, l
+  constexpr int CPT = 2 * BK * CPR / NT;       // copies of a thread per tile
+  static_assert(BK == 64 && NT >= BK && 2 * BK * CPR % NT == 0 && D % 2 == 0,
+                "two warps a tile's keys; whole copies; column pairs");
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int s_qlo, s_qhi;
   bf16* sq = reinterpret_cast<bf16*>(smem);
@@ -508,11 +571,12 @@ attn_prefill_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bool cap = softcap > 0.f;
   const float c2 = (cap ? 1.f : scale) * kLog2e;
 
-  // the Q tile (rows past Lq as zeros) and the range of its positions
+  // the Q tile (rows past Lq and columns past D as zeros) and the range of
+  // its positions
   for (int i = tid; i < BQ * CPR; i += NT) {
     const int r = i / CPR, c = i % CPR;
-    const bool in = q0 + r < Lq;
-    cp_async(sq + r * RS + c * 8, in ? qb + (size_t)r * qrow + c * 8 : qb, 16, in ? 16 : 0);
+    const bool in = q0 + r < Lq && c < CPG;
+    cp_async(sq + r * RS + c * VE, in ? qb + (size_t)r * qrow + c * VE : qb, VB, in ? VB : 0);
   }
   if (tid == 0) {
     s_qlo = INT_MAX;
@@ -557,9 +621,9 @@ attn_prefill_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   };
   auto stage_k = [&](int t) { return skv + (size_t)(2 * (t % NS)) * BK * RS; };
   auto stage_v = [&](int t) { return skv + (size_t)(2 * (t % NS) + 1) * BK * RS; };
-  // tile t's K and V rows into its stage when some query may attend it, 16
+  // tile t's K and V rows into its stage when some query may attend it, VB
   // bytes a copy, neighbouring threads on neighbouring bytes of a row;
-  // empty slots and keys past the chunk as zeros
+  // empty slots, keys past the chunk and columns past D as zeros
   auto issue = [&](int t) {
     if (t >= tiles || !(flags(t) & 1)) return;
     const int t0 = j0 + t * BK;
@@ -569,9 +633,9 @@ attn_prefill_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int u = 0; u < CPT; ++u) {
       const int i = tid + u * NT;
       const int which = i / (BK * CPR), r = i / CPR % BK, c = i % CPR;
-      const bool live = kpt[r] >= 0;
-      const bf16* src = (which ? vb : kb) + (live ? (size_t)(t0 + r) * krow + c * 8 : 0);
-      cp_async(ks + which * BK * RS + r * RS + c * 8, src, 16, live ? 16 : 0);
+      const bool live = kpt[r] >= 0 && c < CPG;
+      const bf16* src = (which ? vb : kb) + (live ? (size_t)(t0 + r) * krow + c * VE : 0);
+      cp_async(ks + which * BK * RS + r * RS + c * VE, src, VB, live ? VB : 0);
     }
   };
 
@@ -724,7 +788,7 @@ attn_prefill_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
   }
   auto store = [&](int row, int col, float a0, float a1, float lr) {
-    if (q0 + row >= Lq) return;
+    if (q0 + row >= Lq || col >= D) return;    // padding columns are not stored
     const float o0 = lr == 0.f ? 0.f : a0 / lr, o1 = lr == 0.f ? 0.f : a1 / lr;
     *reinterpret_cast<__nv_bfloat162*>(out + ((size_t)b * Lq + q0 + row) * qrow +
                                        (size_t)h * D + col) = __floats2bfloat162_rn(o0, o1);
@@ -754,20 +818,20 @@ attn_prefill_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int n = 0; n < ND; ++n)
       *reinterpret_cast<float2*>(dst + n * 8 + 2 * tg) = make_float2(acc[n][2 * i], acc[n][2 * i + 1]);
-    if (tg == 0) *reinterpret_cast<float2*>(dst + D) = make_float2(m[i], l[i]);
+    if (tg == 0) *reinterpret_cast<float2*>(dst + DP) = make_float2(m[i], l[i]);
   }
   cluster.sync();
   const int ra = s * share, rows = max(0, min(BQ, ra + share) - ra);
   float* sf = reinterpret_cast<float*>(sq);    // [share][S factors | denominator]
   for (int r = tid; r < rows; r += NT) {
     float mo = -INFINITY;
-    for (int i = 0; i < S; ++i) mo = fmaxf(mo, slots[(i * share + r) * ST + D]);
+    for (int i = 0; i < S; ++i) mo = fmaxf(mo, slots[(i * share + r) * ST + DP]);
     float lb = 0.f;
     for (int i = 0; i < S; ++i) {
       const float* si = slots + (i * share + r) * ST;
-      const float f = si[D] == -INFINITY ? 0.f : ex2(si[D] - mo);
+      const float f = si[DP] == -INFINITY ? 0.f : ex2(si[DP] - mo);
       sf[r * (S + 1) + i] = f;
-      lb += si[D + 1] * f;
+      lb += si[DP + 1] * f;
     }
     sf[r * (S + 1) + S] = lb;
   }
@@ -794,11 +858,8 @@ static cudaError_t launch_prefill(const bf16* q, const bf16* k, const bf16* v, c
   int S, chunk;
   split_prefill(Lk, S, chunk);
   auto kernel = attn_prefill_kernel<D, NW>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err == cudaSuccess && S > 8)
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  if (err != cudaSuccess) return err;
+  static const cudaError_t attr_err = set_attributes(kernel, smem);
+  if (attr_err != cudaSuccess) return attr_err;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = S;
@@ -859,6 +920,12 @@ static cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v
     case 80:
       return launch<80, T>(q, k, v, q_pos, k_pos, out, B, Lq, Lk, Hq, Hkv, sink, window,
                            softcap, scale, rs, s);
+    case 100:
+      return launch<100, T>(q, k, v, q_pos, k_pos, out, B, Lq, Lk, Hq, Hkv, sink, window,
+                            softcap, scale, rs, s);
+    case 256:
+      return launch<256, T>(q, k, v, q_pos, k_pos, out, B, Lq, Lk, Hq, Hkv, sink, window,
+                            softcap, scale, rs, s);
     default:
       return cudaErrorInvalidValue;
   }

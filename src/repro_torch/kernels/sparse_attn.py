@@ -22,7 +22,7 @@ from . import build, ref
 
 __all__ = ["sparse_attention_cuda", "HEAD_DIMS"]
 
-HEAD_DIMS = (16, 32, 64, 80)   # head sizes the kernel is instantiated for
+HEAD_DIMS = (16, 32, 64, 80, 100, 256)   # head sizes the kernel is instantiated for
 
 
 def sparse_attention_cuda(q, k, v, q_pos, k_pos, *, sink: int, window: int,

@@ -1,17 +1,23 @@
-"""Shared model layers: RMSNorm, RoPE, tied-embedding logits, soft-cap.
+"""Shared model layers: RMSNorm, RoPE, activations, embeddings, logits,
+soft-cap.
 
 Plain functions on tensors, with ``RMSNorm`` as the module that holds a
 norm's ``scale`` buffer (zero-initialised: the norm scales by 1 + scale).
+The activations and the embedding scale round where the JAX package's do,
+step by step in x's dtype, so a bfloat16 model is bitwise the reference's.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 from torch import nn
 from torch.nn import functional as F
 
 __all__ = ["torch_dtype", "RMSNorm", "rmsnorm", "softcap", "rope",
-           "apply_rope", "logits_from_embed"]
+           "apply_rope", "silu", "gelu", "ACT", "take_embed",
+           "logits_from_embed"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -60,6 +66,46 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     x1, x2 = x[..., :half], x[..., half:]
     c, s = cos[..., None, :], sin[..., None, :]
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
+
+
+def _const(value: float, dtype: torch.dtype) -> float:
+    """``value`` rounded to ``dtype``, as a Python float: a bfloat16 tensor
+    times it rounds once, as the JAX package's product with a constant of
+    x's dtype does, and a CUDA graph capture copies nothing for it."""
+    return torch.tensor(value, dtype=dtype).item()
+
+
+def silu(g: torch.Tensor) -> torch.Tensor:
+    """g * (1 / (1 + exp(-g))) with every step rounded to g's dtype: the
+    formula that XLA lowers the JAX package's ``jax.nn.silu`` to, so a
+    bfloat16 model rounds where the reference rounds (``F.silu`` rounds
+    once, and differs from it in over a third of bfloat16 values)."""
+    return g * torch.reciprocal(1 + torch.exp(-g))
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """The tanh GELU in ``jax.nn.gelu(x, approximate=True)``'s operation
+    order, every step rounded to x's dtype, its constants first:
+    x * (0.5 * (1 + tanh(c * (x + 0.044715 * x^3)))), c = sqrt(2/pi).
+    ``F.gelu(approximate="tanh")`` differs from it in over a third of
+    bfloat16 values."""
+    c, a = _const((2 / math.pi) ** 0.5, x.dtype), _const(0.044715, x.dtype)
+    cube = x * (x * x)
+    return x * (0.5 * (1 + torch.tanh(c * (x + a * cube))))
+
+
+ACT = {"silu": silu, "gelu": gelu}
+
+
+def take_embed(embed: torch.Tensor, tokens: torch.Tensor, *,
+               scale: bool = False) -> torch.Tensor:
+    """Rows of ``embed`` for ``tokens``; ``scale`` multiplies them by
+    sqrt(d) rounded to their dtype (gemma's input scaling: 48.0 at d = 2304
+    and 34.0 at d = 1152 in bfloat16)."""
+    x = embed[tokens]
+    if scale:
+        x = x * _const(x.shape[-1] ** 0.5, x.dtype)
+    return x
 
 
 def logits_from_embed(embed: torch.Tensor, x: torch.Tensor,

@@ -2,7 +2,8 @@
 
 ``init_params`` draws master weights from a seeded ``torch.Generator`` into
 the JAX package's tree layout ({embed, final_norm, layers: {stacked, tail,
-shared}} with {"w"} leaves); ``export_serving`` quantizes them to the
+shared}} with {"w"} leaves, and a dense ``head`` when the embeddings are
+untied); ``export_serving`` quantizes them to the
 config's serve format (base-3 packed, or int8 trits) and loads the result
 into a ``TernaryLM``.  ``TernaryLM.from_tree`` loads any serving tree in
 that layout — the port's own export, or the JAX package's through
@@ -30,19 +31,25 @@ __all__ = ["TernaryLM", "init_params", "export_serving", "trits_from_packed",
 
 
 class TernaryLM(nn.Module):
-    """Serving weights of a dense ternary LM with tied embeddings, on the
-    CUDA device unless ``device="cpu"``."""
+    """Serving weights of a dense ternary LM, on the CUDA device unless
+    ``device="cpu"``: the embedding, the untied dense ``head`` (d_model,
+    vocab_padded) where the config has one, the blocks and the final norm."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
-        if not cfg.tie_embeddings or cfg.frontend != "none":
-            raise NotImplementedError("the port serves token-input models with "
-                                      "tied embeddings")
+        if cfg.frontend != "none":
+            raise NotImplementedError("the port serves token-input models; "
+                                      f"frontend {cfg.frontend!r} waits (ROADMAP)")
         dt = L.torch_dtype(cfg.dtype)
         device = resolve_device(device)
         self.cfg = cfg
+        # the JAX package scales a dense gemma model's input embeddings
+        self.embed_scale = cfg.family == "dense" and cfg.name.startswith("gemma")
         self.register_buffer("embed", torch.zeros((cfg.vocab_padded, cfg.d_model),
                                                   dtype=dt, device=device))
+        if not cfg.tie_embeddings:
+            self.register_buffer("head", torch.zeros((cfg.d_model, cfg.vocab_padded),
+                                                     dtype=dt, device=device))
         self.final_norm = L.RMSNorm(cfg.d_model, dt, device)
         self.layers = nn.ModuleList(T.Block(cfg, kind, dt, device)
                                     for kind in cfg.layer_kinds())
@@ -94,7 +101,10 @@ def flatten_tree(tree: dict, cfg: ModelConfig) -> dict:
         raise ValueError(f"tree holds {len(blocks)} layers, {cfg.name} has "
                          f"{cfg.n_layers}")
     out: dict = {}
-    _flatten({"embed": tree["embed"], "final_norm": tree["final_norm"]}, "", out)
+    top = {"embed": tree["embed"], "final_norm": tree["final_norm"]}
+    if "head" in tree:
+        top["head"] = tree["head"]
+    _flatten(top, "", out)
     for i, b in enumerate(blocks):
         _flatten(b, f"layers.{i}.", out)
     return out
@@ -145,10 +155,14 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None) -> dict:
         }
 
     embed = torch.randn((cfg.vocab_padded, d), generator=gen, device=dev) * 0.02
-    return {"embed": embed.to(dt), "final_norm": zeros(),
+    tree = {"embed": embed.to(dt), "final_norm": zeros(),
             "layers": {"stacked": None,
                        "tail": tuple(block() for _ in cfg.layer_kinds()),
                        "shared": None}}
+    if not cfg.tie_embeddings:
+        head = torch.randn((d, cfg.vocab_padded), generator=gen, device=dev) * 0.02
+        tree["head"] = head.to(dt)
+    return tree
 
 
 def export_serving(params: dict, cfg: ModelConfig) -> TernaryLM:
@@ -190,8 +204,14 @@ def trits_from_packed(packed: TernaryLM, cfg: ModelConfig) -> TernaryLM:
 
 
 def _logits(model: TernaryLM, x: torch.Tensor) -> torch.Tensor:
+    """The final norm, then the tied embedding's or the untied head's
+    product in x's dtype, float32, soft-capped, the padded vocab masked."""
     cfg = model.cfg
-    lg = L.logits_from_embed(model.embed, model.final_norm(x), cfg.logit_softcap)
+    x = model.final_norm(x)
+    if cfg.tie_embeddings:
+        lg = L.logits_from_embed(model.embed, x, cfg.logit_softcap)
+    else:
+        lg = L.softcap((x @ model.head.to(x.dtype)).float(), cfg.logit_softcap)
     if cfg.vocab_padded > cfg.vocab:
         lg = lg + model.vocab_bias
     return lg
@@ -201,7 +221,7 @@ def prefill(model: TernaryLM, tokens: torch.Tensor, *, max_len: int | None = Non
             serve_sparse: bool = True):
     """tokens (B, S) -> (last-position logits (B, V) float32, caches)."""
     s = tokens.shape[1]
-    x = model.embed[tokens]
+    x = L.take_embed(model.embed, tokens, scale=model.embed_scale)
     x, caches = T.stack_prefill(model.layers, model.cfg, x, serve_sparse=serve_sparse,
                                 max_len=max_len if max_len is not None else s + 1)
     return _logits(model, x[:, -1:])[:, 0], caches
@@ -214,7 +234,7 @@ def decode_step(model: TernaryLM, caches: list, tokens: torch.Tensor,
     are updated in place and returned with the logits (B, V) float32.
     Paged arenas take ``page_table`` (B, pages_per_seq) int32, and rows
     with t = -1 are inactive."""
-    x = model.embed[tokens][:, None]
+    x = L.take_embed(model.embed, tokens, scale=model.embed_scale)[:, None]
     x = T.stack_decode(model.layers, model.cfg, x, caches, t,
                        serve_sparse=serve_sparse, page_table=page_table)
     return _logits(model, x)[:, 0], caches

@@ -1,11 +1,12 @@
 """Decoder blocks and the layer-stack loops for the dense attention kinds.
 
-A ``Block`` is rmsnorm -> attention -> residual -> rmsnorm -> gated FFN ->
-residual; with DAS on, each rmsnorm runs inside the DAS step of the
-projections it feeds (``tlin_norm_input``).  The JAX package scans stacked
-layer groups; here the stack is a loop over the model's ``ModuleList``.
-Layer kinds "attn" and "local" are served; mamba, rwkv, gla and MoE wait for
-later slices (ROADMAP).
+A ``Block`` is rmsnorm -> attention -> residual -> rmsnorm -> gated FFN
+(silu or tanh-gelu, by ``cfg.act``) -> residual; with DAS on, each rmsnorm
+runs inside the DAS step of the projections it feeds (``tlin_norm_input``).
+The JAX package scans stacked layer groups; here the stack is a loop over
+the model's ``ModuleList``, whatever the pattern and its tail (gemma3's 26
+layers = 4 x 6 + 2).  Layer kinds "attn" and "local" are served; mamba,
+rwkv, gla, MoE and the 2-matrix MLP wait for later slices (ROADMAP).
 """
 
 from __future__ import annotations
@@ -16,22 +17,22 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as A
 from repro_torch.models import kvcache as KV
-from repro_torch.models.layers import RMSNorm
+from repro_torch.models.layers import ACT, RMSNorm
 from repro_torch.models.ternary_linear import TernaryLinear, tlin_norm_input
 
-__all__ = ["FFN", "Block", "silu", "ffn_apply", "block_prefill", "block_decode",
+__all__ = ["FFN", "Block", "ffn_apply", "block_prefill", "block_decode",
            "layer_cache_spec", "stack_prefill", "stack_decode"]
 
 
 class FFN(nn.Module):
-    """Gated FFN: w_out(silu(w_gate x) * w_in x)."""
+    """Gated FFN: w_out(act(w_gate x) * w_in x), act = silu or gelu."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
-        if cfg.ffn_kind != "gated" or cfg.act != "silu":
+        if cfg.ffn_kind != "gated" or cfg.act not in ACT:
             raise NotImplementedError(
                 f"ffn_kind {cfg.ffn_kind!r}, act {cfg.act!r}: the port serves "
-                f"the silu-gated FFN")
+                f"the gated FFN with {sorted(ACT)}")
         d, f, tc = cfg.d_model, cfg.d_ff, cfg.ternary
         self.w_gate = TernaryLinear(d, f, tc, device)
         self.w_in = TernaryLinear(d, f, tc, device)
@@ -53,20 +54,12 @@ class Block(nn.Module):
         self.ffn = FFN(cfg, device)
 
 
-def silu(g: torch.Tensor) -> torch.Tensor:
-    """g * (1 / (1 + exp(-g))) with every step rounded to g's dtype: the
-    formula that XLA lowers the JAX package's ``jax.nn.silu`` to, so a
-    bfloat16 model rounds where the reference rounds (``F.silu`` rounds
-    once, and differs from it in over a third of bfloat16 values)."""
-    return g * torch.reciprocal(1 + torch.exp(-g))
-
-
 def ffn_apply(p: FFN, cfg: ModelConfig, x: torch.Tensor,
               norm_scale: torch.Tensor) -> torch.Tensor:
     """The FFN of the residual x normed by ``norm_scale``: gate and up share
     one DAS step, with the norm inside it."""
     xin, ca = tlin_norm_input(x, norm_scale, cfg.ternary)
-    h = silu(p.w_gate(xin, ca)) * p.w_in(xin, ca)
+    h = ACT[cfg.act](p.w_gate(xin, ca)) * p.w_in(xin, ca)
     return p.w_out(h)
 
 

@@ -212,7 +212,8 @@ def test_cuda_packed_gemm_batch_invariance(cuda, rng, kernel, dtype):
 
 
 @pytest.mark.parametrize("hq,hkv,d,cap", [(8, 2, 64, None), (4, 4, 16, 30.0),
-                                          (4, 2, 80, None)])
+                                          (4, 2, 80, None), (4, 4, 100, None),
+                                          (8, 4, 256, 50.0), (4, 1, 256, None)])
 def test_cuda_sparse_attention(cuda, rng, hq, hkv, d, cap):
     b, lq, lk = 2, 3, 40
     mk = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(cuda)  # noqa: E731
@@ -292,6 +293,13 @@ PREFILL_CASES = [
     ("GQA 32/8", 1, 256, 1280, 32, 8, 64, 512, 128, 896, None, True),
     ("head_dim 16", 2, 100, 100, 8, 4, 16, "causal", 16, 32, None, False),
     ("head_dim 80", 2, 100, 100, 8, 4, 80, "causal", 16, 32, None, False),
+    ("head_dim 100 pack t0=512", 1, 256, 1280, 32, 32, 100, 512, 128, 896, None, True),
+    ("head_dim 100 causal", 2, 100, 100, 8, 8, 100, "causal", 16, 32, None, False),
+    ("head_dim 256 GQA 8/4 softcap 50", 1, 256, 1280, 8, 4, 256, 512, 128, 896, 50.0, True),
+    ("head_dim 256 GQA 4/1 causal 300", 1, 300, 300, 4, 1, 256, "causal", FULL_SINK, 0,
+     None, False),
+    ("head_dim 256 local window 4096", 1, 256, 4352, 8, 4, 256, "local 4400", 0, 4096, 50.0,
+     True),
     ("round_scores + softcap", 1, 256, 1280, 8, 8, 64, 512, 128, 896, 30.0, True),
     ("empty batch row", 2, 256, 1280, 8, 8, 64, 512, 128, 896, None, True),
 ]
@@ -302,6 +310,9 @@ def _prefill_inputs(rng, b, lq, lk, hq, hkv, d, where, device):
         device, torch.bfloat16)
     if where == "causal":
         qp = kp = torch.arange(lq, dtype=torch.int32)
+    elif where == "local 4400":            # gemma2's local pack: no sink, 4096 keys
+        qp, kp = (p.to(torch.int32) for p in lpsa.pack_positions(
+            4400, lpsa.LpsaSpec(sink=0, window=4096, chunk=256)))
     else:
         qp, kp = _pack_positions(where)
     qp = qp[None].repeat(b, 1).to(device)
@@ -346,6 +357,74 @@ def test_cuda_sparse_attention_prefill_batch_invariance(cuda, rng):
         sub = ops.sparse_attention(q[1:, lo:hi].contiguous(), k[1:], v[1:],
                                    qp[1:, lo:hi].contiguous(), kp[1:], **kw)
         assert torch.equal(sub, full[1:, lo:hi]), (lo, hi)
+
+
+def _ring(rows, lk, sink, window):
+    """Ring positions of the rows' query positions (-1: empty slot)."""
+    return torch.stack([_ring_positions(t, sink, window) for t in rows])
+
+
+# (label, Lq, Lk, Hq, Hkv, D, dtype, sink, window, softcap): the decode class
+# over full rings (LPSA 128 + 896; gemma2's 4096-slot local ring, 16 blocks a
+# cluster) and the prefill classes at the head sizes 100 and 256
+HEAD_SIZE_CASES = [
+    ("decode D=256 GQA 8/4 softcap 50 ring 1024", 1, 1024, 8, 4, 256, torch.bfloat16, 128,
+     896, 50.0),
+    ("decode D=256 GQA 8/4 local ring 4096", 1, 4096, 8, 4, 256, torch.bfloat16, 0, 4096,
+     50.0),
+    ("decode D=256 GQA 4/1", 1, 1024, 4, 1, 256, torch.bfloat16, 128, 896, None),
+    ("decode D=100 32/32", 1, 1024, 32, 32, 100, torch.bfloat16, 128, 896, None),
+    ("decode D=100 f32", 1, 1024, 8, 8, 100, torch.float32, 128, 896, None),
+    ("decode D=256 f32", 1, 1024, 8, 4, 256, torch.float32, 128, 896, 50.0),
+    ("prefill f32 D=100", 16, 64, 4, 4, 100, torch.float32, 8, 24, None),
+    ("prefill f32 D=256", 16, 64, 4, 2, 256, torch.float32, 8, 24, 50.0),
+]
+
+
+@pytest.mark.parametrize("case", HEAD_SIZE_CASES, ids=[c[0] for c in HEAD_SIZE_CASES])
+def test_cuda_sparse_attention_head_sizes(cuda, rng, case):
+    """The head sizes 100 (bitnet-3b: bf16 rows of 200 bytes, so 8-byte
+    copies) and 256 (the gemmas: tiles in dynamic shared memory) in the
+    decode class and the float32 prefill class, against the plain version
+    (2e-2 bf16, 3e-4 float32), and every row bitwise a B = 1 call on it."""
+    label, lq, lk, hq, hkv, d, dt, sink, window, cap = case
+    b = 4 if lq == 1 else 2
+    mk = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(  # noqa: E731
+        cuda, dt)
+    q, k, v = mk(b, lq, hq, d), mk(b, lk, hkv, d), mk(b, lk, hkv, d)
+    if lq == 1:
+        rows = [5000, 4095, 700, 5][:b]
+        qp = torch.tensor(rows, dtype=torch.int32, device=cuda)[:, None]
+        kp = _ring(rows, lk, sink, window).to(cuda)
+    else:
+        qp = (40 + torch.arange(lq, dtype=torch.int32, device=cuda))[None].repeat(b, 1)
+        kp = torch.arange(lk, dtype=torch.int32, device=cuda)[None].repeat(b, 1)
+        kp[1, 30:] = -1
+    kw = dict(sink=sink, window=window, softcap=cap)
+    got = ops.sparse_attention(q, k, v, qp, kp, **kw)
+    tol = 2e-2 if dt == torch.bfloat16 else 3e-4
+    torch.testing.assert_close(got, ref.sparse_attention_ref(q, k, v, qp, kp, **kw),
+                               rtol=tol, atol=tol)
+    for i in range(b):
+        one = ops.sparse_attention(q[i:i + 1], k[i:i + 1], v[i:i + 1], qp[i:i + 1],
+                                   kp[i:i + 1], **kw)
+        assert torch.equal(one, got[i:i + 1]), i
+
+
+@pytest.mark.parametrize("d,hq,hkv", [(100, 32, 32), (256, 8, 4)])
+def test_cuda_sparse_attention_prefill_head_size_invariance(cuda, rng, d, hq, hkv):
+    """The bf16 prefill class at the head sizes 100 and 256: row 1 of a B = 2
+    call equals a B = 1 call, a query sub-range equals a call on it alone."""
+    q, k, v, qp, kp = _prefill_inputs(rng, 2, 256, 1280, hq, hkv, d, 512, cuda)
+    qp0, kp0 = _pack_positions(2000)
+    qp[0], kp[0] = qp0.to(cuda), kp0.to(cuda)
+    kw = dict(sink=128, window=896, round_scores=True)
+    full = ops.sparse_attention(q, k, v, qp, kp, **kw)
+    assert torch.equal(ops.sparse_attention(q[1:], k[1:], v[1:], qp[1:], kp[1:], **kw),
+                       full[1:])
+    sub = ops.sparse_attention(q[1:, 37:101].contiguous(), k[1:], v[1:],
+                               qp[1:, 37:101].contiguous(), kp[1:], **kw)
+    assert torch.equal(sub, full[1:, 37:101])
 
 
 def test_cuda_kernel_refuses_what_it_cannot_take(cuda):

@@ -269,7 +269,7 @@ def test_bf16_das_model_tokens_match_jax(pairs):
 def test_silu_matches_jax_bf16():
     """The port's SiLU rounds like jax.nn.silu in bfloat16, bit for bit;
     F.silu (one rounding) does not."""
-    from repro_torch.models.transformer import silu
+    from repro_torch.models.layers import silu
     x = (np.random.default_rng(7).standard_normal(200_000) * 4).astype(np.float32)
     want = np.asarray(jax.nn.silu(jnp.asarray(x, jnp.bfloat16)).astype(jnp.float32))
     tx = torch.from_numpy(x).to(torch.bfloat16)
@@ -287,7 +287,7 @@ def test_bf16_das_model_matches_eager_jax(pairs, fmt, serve_sparse):
     (jax.disable_jit): prefill + 8 teacher-forced decode steps give bitwise
     equal logits, on the LPSA path (streaming prefill, ring decode) and the
     full-cache path.  It rests on the port rounding where the reference
-    rounds: SiLU step by step (models/transformer.py::silu), the streaming
+    rounds: SiLU step by step (models/layers.py::silu), the streaming
     prefill's scores to bfloat16 before the scale (ops.sparse_attention
     round_scores) and the rmsnorm before q/k/v and gate/up, which runs
     inside the DAS step (ops.das_topk norm_scale)."""
