@@ -19,7 +19,9 @@ Phases:
            rings of 1024 and 4096, an LPSA pack, local packs of 4352 and 768
            keys, float32), each bitwise batch invariant, and das_topk and the
            packed GEMMs at every K of the zoo and gemma2-2b's and bitnet-3b's
-           projections
+           projections; qwen3-moe-30b-a3b's: twd_decode over a whole
+           expert stack (exact), das_topk's MoE call (dense rows beside the
+           compaction), sparse_attention at 32 q heads over 4 kv heads of 64
   serve    full-width bitnet-1.3b (seeded random weights) on five paths, each
            driven with the launch counts at 0 and read after it; every
            engine captures its decode step into a CUDA graph after one
@@ -61,7 +63,20 @@ Phases:
            the admission of their first prompt and their decode step under
            the profiler, replayed and eager (the same tokens and launches a
            step), and a 2-layer model at their widths on the card against
-           the CPU
+           the CPU; last the MoE path:
+             qwen3-moe-30b-a3b  full width and all 48 layers (128 experts of
+                         768, top-8, 32 heads of 64 over 4, vocab 151936,
+                         untied head), exported layer by layer: the packed
+                         trace, each expert stack unpacked by one twd_decode
+                         launch a call (3 a layer per decode step and per
+                         prefill); the admission's dropped copies per layer,
+                         routed copies per expert of 3 layers, and profile,
+                         the decode step profiled replayed and eager with
+                         device time by MoE class, and a 2-layer model at
+                         its widths against the CPU (the same dropped
+                         copies), with the experts' fake-quant the identity
+                         (2e-4) and as served (2e-3, the int8 values and
+                         scales that differ counted)
   times    each kernel at its decode shape: CUDA-event median beside its
            bound, its plain version and one PyTorch call of the same function;
            the packed GEMMs and das_gemv also at their other decode shapes
@@ -71,7 +86,9 @@ Phases:
            serving calls (mask null, norm-fused) at decode and at a pack;
            sparse_attention's decode over a paged-full view, and the gather;
            sparse_attention at head sizes 100 and 256 in every class, and
-           das_topk and das_ternary_gemm at gemma2-2b's decode shapes
+           das_topk and das_ternary_gemm at gemma2-2b's decode shapes;
+           twd_decode over qwen3-moe's expert stacks, sparse_attention at its
+           32 over 4 heads of 64
   profile  (only when named) the packed and int8w decode steps and the
            admission under torch.profiler, as the serve phase profiles them
 
@@ -377,6 +394,7 @@ class Smoke:
         self._prefill_cases(g)
         self._zoo_attention_cases(g)
         self._zoo_gemm_cases(g)
+        self._moe_cases(g)
 
     def _topk_cases(self, g):
         """das_topk against its plain version, exactly: bitnet-1.3b's widths
@@ -697,6 +715,58 @@ class Smoke:
                    ternary_gemm_cuda(xd, packed, scale), ref.ternary_gemm_ref(xd, packed, scale),
                    TOL_BF16)
 
+    # qwen3-moe-30b-a3b's expert stacks (E, K, N): gate/up and down
+    MOE_STACKS = ((128, 2048, 768), (128, 768, 2048))
+
+    def _moe_cases(self, g):
+        """qwen3-moe-30b-a3b's shapes: twd_decode over a whole expert stack in
+        one launch (gate/up 128x416 x 768 packed -> 128x2080 x 768 trits,
+        down 128x160 x 2048 -> 128x800 x 2048), exactly its plain version,
+        which decodes each expert alone; das_topk's MoE call (norm-fused, the
+        normed rows and the masked dense rows beside the compaction) exactly
+        against das_topk_ref of its normed rows; sparse_attention at 32 q
+        heads over 4 kv heads of 64 (GQA 8:1), ring decode and an LPSA
+        prefill pack (scores rounded, as the streaming prefill asks)."""
+        torch = self.torch
+        from repro_torch.core import twd
+        from repro_torch.kernels import ops, ref
+        from repro_torch.kernels.sparse_attn import sparse_attention_cuda
+        from repro_torch.kernels.topk_mask import das_topk_cuda
+        dev, bf16, i32 = self.dev, torch.bfloat16, torch.int32
+        for e, k, n in self.MOE_STACKS:
+            r = twd.packed_rows(k, 16)
+            packed = torch.randint(0, 243, (e, r, n), generator=g, device=dev).to(torch.uint8)
+            self.check(f"twd_decode expert stack ({e}x{r},{n}) -> ({e}x{5 * r},{n}), the first "
+                       f"{k} rows of each", ops.twd_decode_stack(packed, k),
+                       ref.twd_decode_stack_ref(packed, k), 0, True)
+        for m in (4, 1024):
+            x = torch.randn((m, 2048), generator=g, device=dev).to(bf16)
+            nscale = (0.5 * torch.randn((2048,), generator=g, device=dev)).to(bf16)
+            got = das_topk_cuda(x, keep=16, block=32, norm_scale=nscale, with_mask=False,
+                                with_normed=True, with_dense=True)
+            want = ref.das_topk_ref(got.normed, keep=16, block=32, with_mask=False,
+                                    with_dense=True)
+            for name in ("values", "indices", "dense"):
+                self.check(f"das_topk MoE call ({m},2048) {name} vs das_topk_ref(normed)",
+                           getattr(got, name), getattr(want, name), 0, True)
+        rows = (1500, 1023, 300, 5)
+        qp = torch.tensor(rows, dtype=i32, device=dev)[:, None]
+        kp = torch.stack([ring_positions(torch, t, 128, 896) for t in rows]).to(dev)
+
+        def case(label, b, lq, lk, q_pos, k_pos, rs):
+            q = torch.randn((b, lq, 32, 64), generator=g, device=dev).to(bf16)
+            k_ = torch.randn((b, lk, 4, 64), generator=g, device=dev).to(bf16)
+            v = torch.randn((b, lk, 4, 64), generator=g, device=dev).to(bf16)
+            kw = dict(sink=128, window=896, round_scores=rs)
+            self.check(f"sparse_attention GQA 32/4 D=64 {label}",
+                       sparse_attention_cuda(q, k_, v, q_pos, k_pos, **kw),
+                       ref.sparse_attention_ref(q, k_, v, q_pos, k_pos, **kw), TOL_BF16)
+
+        case("decode bf16 B=4 ring 1024", 4, 1, 1024, qp, kp, False)
+        qp1, kp1 = pack_positions(torch, 512)
+        case("prefill bf16 LPSA pack t0=512 round_scores", 1, 256, 1280, qp1[None].to(dev),
+             kp1[None].to(dev), True)
+
     PROMPT_LENS, GEN_LEN = (1100, 300, 256, 40, 700), 32
 
     def _packed_model(self):
@@ -824,13 +894,15 @@ class Smoke:
         t0 = _took("baseline", t0)
 
         # where a decode step's time goes: packed and int8w, each replayed
-        # from its captured graph and stepped eagerly, in turns
+        # from its captured graph and stepped eagerly, in turns; the second
+        # eager turn is timed but not profiled (aggregating an eager trace's
+        # events takes ~1 min)
         turns = []
         for label, m in (("packed", model), ("int8w", model8)):
             runs = []
-            for graph in (True, False, False, True):
+            for graph, profiled in ((True, True), (False, True), (False, False), (True, True)):
                 name = f"{label} {'graph' if graph else 'eager'}"
-                runs.append(self._profile_decode(name, m, sc, prompts, graph))
+                runs.append(self._profile_decode(name, m, sc, prompts, graph, profiled))
                 turns.append((name, runs[-1]))
             # the replayed step against the eager one: the same tokens bit for
             # bit, and a replay counts one eager step's kernel launches
@@ -849,6 +921,7 @@ class Smoke:
         torch.cuda.empty_cache()
         for arch, (lens, gen, depth) in self.ZOO_PATHS.items():
             self._serve_zoo(arch, lens, gen, depth)
+        self._serve_moe()
 
     # the zoo's serve paths: arch -> (prompt lengths, new tokens, depth; None:
     # the arch's own).  gemma2-2b's 4400-token prompt wraps both its 4096-slot
@@ -931,31 +1004,181 @@ class Smoke:
         torch.cuda.empty_cache()
         _took(arch, t_path)
 
-    def _width_parity(self, label, cfg, prompt_ids):
-        """A model of ``cfg``'s widths (d_model, heads and head size, d_ff,
-        vocab, pattern, soft-caps, activation) at 2 layers (one period of its
-        pattern) in float32 with DAS off, on the card (kernels) against the
-        same weights on the CPU (plain versions): a 2-pack prompt's prefill +
-        8 teacher-forced decode steps within 2e-4, equal greedy tokens.  DAS
-        is off because at these widths a float32 sum order that differs in
-        the last bit flips near-ties of the top-16-of-32 (tens of thousands
-        of blocks a run): DAS at these widths is held exactly in the kernels
-        phase."""
+    MOE_ARCH = "qwen3-moe-30b-a3b"
+
+    def _serve_moe(self):
+        """Path "qwen3-moe-30b-a3b": the MoE model at full width and all 48
+        layers (128 experts of 768, top-8; 32 heads of 64 over 4; vocab
+        151936, untied head), seeded random weights exported layer by layer,
+        base-3 packed, bf16, DAS 16/32, LPSA 128 + 896, served from the CUDA
+        graph: bitnet-1.3b's packed trace (4 slots, 5 greedy requests of 32
+        new tokens, prompts 1100 / 300 / 256 / 40 / 700, 2 steps apart),
+        exact launch counts (twd_decode 3 a layer per decode step and per
+        prefill), finite logits, bitwise batch invariance; the dropped copies
+        per layer of the 1100-token admission, the routed copies per expert
+        of its first, middle and last layer, and its profile; the decode
+        step under the profiler, replayed and eager (the same tokens and
+        launches a step), with device time by class; a 2-layer model at
+        these widths on the card against the CPU (_moe_width_parity)."""
+        torch = self.torch
+        from repro_torch.configs import get_config
+        from repro_torch.models import model as MD
+        from repro_torch.models import moe as MOE
+        from repro_torch.serve import Request, ServeConfig
+        arch = self.MOE_ARCH
+        t_path = time.perf_counter()
+        cfg = get_config(arch)
+        e = cfg.moe
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = MD.init_serving(cfg, seed=self.seed, device=self.dev)
+        torch.cuda.synchronize()
+        nbytes = sum(b.numel() * b.element_size() for b in model.state_dict().values())
+        st = model.layers[0].moe
+        log(f"[serve] {arch}: {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} heads "
+            f"of {cfg.head_dim_} over {cfg.n_kv_heads}, {e.n_experts} experts of {e.d_expert}, "
+            f"top-{e.top_k}, {e.n_shared} shared, vocab {cfg.vocab}, "
+            f"{'tied' if cfg.tie_embeddings else 'untied'}; expert stacks packed "
+            f"{tuple(st.experts_gate.packed.shape)} / {tuple(st.experts_out.packed.shape)}; "
+            f"serving weights {nbytes / 1e9:.3f} GB; init+export layer by layer "
+            f"{time.perf_counter() - t0:.1f} s, peak memory "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+        chunk, n_l = cfg.lpsa.chunk, cfg.n_layers
+        rng = torch.Generator().manual_seed(self.seed + 13)
+        prompts = [torch.randint(0, cfg.vocab, (p,), generator=rng).numpy()
+                   for p in self.PROMPT_LENS]
+        trace = [Request(uid=i, prompt=p, max_new_tokens=self.GEN_LEN, arrival=2 * i)
+                 for i, p in enumerate(prompts)]
+        sc = ServeConfig(max_slots=4, max_len=max(self.PROMPT_LENS) + self.GEN_LEN,
+                         seed=self.seed)
+        packs = [p // chunk for p in self.PROMPT_LENS if p >= chunk]
+
+        def want(st):
+            return _moe_counts(n_l, st.decode_steps + st.warmup_steps, packs)
+
+        _, eng, res = self._serve_path(arch, lambda: model, trace, sc, want)
+        self._finite_logits(arch, model, prompts[0][:chunk], sc.max_len)
+        self._batch_invariance(arch, eng, trace, res, (0, 3))
+        del eng
+        n = len(prompts[0]) // chunk * chunk
+        MD.prefill(model, torch.as_tensor(prompts[0][:n], dtype=torch.long,
+                                          device=self.dev)[None], max_len=sc.max_len)
+        drops = [int(bp.moe.dropped) for bp in model.layers]
+        cap = MOE.prefill_capacity(cfg, n)
+        log(f"[serve] {arch} admission of the {len(prompts[0])}-token prompt: the MoE runs over "
+            f"the {n}-token prefix at once, capacity {cap} a expert against a mean load of "
+            f"{n * e.top_k / e.n_experts:g}; dropped copies per layer {drops}, {sum(drops)} of "
+            f"{n * e.top_k * n_l} in all ({sum(drops) / (n * e.top_k * n_l):.3f})")
+        for i in (0, n_l // 2, n_l - 1):
+            load = sorted(model.layers[i].moe.load.tolist(), reverse=True)
+            log(f"[serve] {arch} admission, layer {i}: routed copies per expert, largest "
+                f"first: {load[:16]} ...; experts over capacity {sum(v > cap for v in load)}, "
+                f"with no copy {load.count(0)}, the 8 largest hold "
+                f"{sum(load[:8]) / sum(load):.3f} of the copies")
+        self._profile_admission(model, prompts[0], sc.max_len, moe=True)
+        runs = [self._profile_decode(f"{arch} {'graph' if graph else 'eager'}", model, sc,
+                                     prompts, graph, profiled=graph, moe=True)
+                for graph in (True, False)]
+        if runs[0]["tokens"] != runs[1]["tokens"] or runs[0]["per_step"] != runs[1]["per_step"]:
+            raise AssertionError(f"{arch}: the replayed decode step differs from the eager "
+                                 f"one in tokens or launches a step")
+        log(f"[profile] {arch}: replayed and eager decode steps give the same tokens bitwise "
+            f"and the same launches a step {runs[0]['per_step']}; ms/step "
+            f"{runs[0]['ms_step']:.3f} / {runs[1]['ms_step']:.3f} (graph / eager), device "
+            f"busy {runs[0]['busy_ms_step']} ms/step, idle share {runs[0]['idle']} (graph)")
+        del model
+        torch.cuda.empty_cache()
+        self._moe_width_parity(arch, cfg, prompts[0])
+        _took(arch, t_path)
+
+    # the MoE's width parity (2 layers, f32, card vs CPU) with the experts'
+    # int8 fake-quant as it serves: 1.57e-3 read on an H100 at seed 0, where
+    # the same model with the fake-quant the identity on both sides reads
+    # 8.3e-6 (held to the dense models' 2e-4)
+    MOE_PARITY_TOL = 2e-3
+
+    def _moe_width_parity(self, arch, cfg, prompt_ids):
+        """_width_parity for the MoE, twice on the same weights: with the
+        experts' int8 fake-quant made the identity on both sides, within the
+        dense models' 2e-4; then as it serves, within MOE_PARITY_TOL, with
+        the fake-quant's outputs recorded on both sides and the quantized
+        values that differ card vs CPU counted (the grid turns a last-bit
+        difference of its input into a whole step)."""
+        from repro_torch.core import ternary as tq
+        quant = tq.int8_fake_quant
+        seen = {"cpu": [], "cuda": []}
+
+        def recording(x):
+            y = quant(x)
+            seen[x.device.type].append((x.cpu(), y.cpu()))
+            return y
+
+        try:
+            tq.int8_fake_quant = lambda x: x
+            self._width_parity(f"{arch} (the experts' fake-quant the identity)", cfg, prompt_ids)
+            tq.int8_fake_quant = recording
+            self._width_parity(arch, cfg, prompt_ids, tol=self.MOE_PARITY_TOL)
+        finally:
+            tq.int8_fake_quant = quant
+            if seen["cuda"]:
+                self._fake_quant_diff(arch, list(zip(seen["cpu"], seen["cuda"])))
+
+    def _fake_quant_diff(self, arch, pairs):
+        """How far the card's fake-quant is from the CPU's, call by call in
+        the same order: the int8 values and the row scales that differ
+        (int8_quantize of each side's recorded input: its ops are exact, so
+        these are the values each side computed), and on the first call
+        (layer 0's prefill) the inputs' and the outputs' largest
+        difference."""
+        from repro_torch.core import ternary as tq
+        n_el = n_q = n_rows = n_sc = 0
+        for (xc, _), (xg, _) in pairs:
+            qc, qg = tq.int8_quantize(xc), tq.int8_quantize(xg)
+            n_el, n_q = n_el + qc.values.numel(), n_q + int((qc.values != qg.values).sum())
+            n_rows, n_sc = n_rows + qc.scale.numel(), n_sc + int((qc.scale != qg.scale).sum())
+        (xc, yc), (xg, yg) = pairs[0]
+        qc, qg = tq.int8_quantize(xc), tq.int8_quantize(xg)
+        log(f"[serve] {arch} at its widths, the experts' fake-quant card vs CPU over "
+            f"{len(pairs)} calls: {n_q} of {n_el} int8 values and {n_sc} of {n_rows} row "
+            f"scales differ; layer 0's prefill: inputs differ by at most "
+            f"{(xg - xc).abs().max().item():.2e}, {int((qc.values != qg.values).sum())} int8 "
+            f"values differ (by at most "
+            f"{(qc.values.int() - qg.values.int()).abs().max().item()}) and "
+            f"{int((qc.scale != qg.scale).sum())} of {qc.scale.numel()} row scales, the "
+            f"outputs by at most {(yg - yc).abs().max().item():.2e}")
+
+    def _width_parity(self, label, cfg, prompt_ids, tol=2e-4):
+        """A model of ``cfg``'s widths (d_model, heads and head size, d_ff or
+        the experts, vocab, pattern, soft-caps, activation) at 2 layers (one
+        period of its pattern) in float32 with DAS off, on the card
+        (kernels) against the same weights on the CPU (plain versions): a
+        2-pack prompt's prefill + 8 teacher-forced decode steps within
+        ``tol``, equal greedy tokens.  DAS is off because at these widths a
+        float32 sum order that differs in the last bit flips near-ties of
+        the top-16-of-32 (tens of thousands of blocks a run): DAS at these
+        widths is held exactly in the kernels phase."""
         torch = self.torch
         from repro_torch.models import model as MD
         small = dataclasses.replace(
             cfg, n_layers=max(2, len(cfg.layer_pattern)), dtype="float32",
             ternary=dataclasses.replace(cfg.ternary, das=None))
         t0 = time.perf_counter()
-        params = MD.init_params(small, seed=self.seed, device="cpu")
-        m_cpu = MD.export_serving(params, small)
-        del params
+        m_cpu = MD.init_serving(small, seed=self.seed, device="cpu")
         m_gpu = copy.deepcopy(m_cpu).to(self.dev)
         n = 2 * cfg.lpsa.chunk
         prompt = torch.as_tensor(prompt_ids[:n], dtype=torch.long)[None]
         lg_c, c_c = MD.prefill(m_cpu, prompt, max_len=n + 9)
         lg_g, c_g = MD.prefill(m_gpu, prompt.to(self.dev), max_len=n + 9)
         err = (lg_g.cpu() - lg_c).abs().max().item()
+        if cfg.moe is not None:
+            drops = [[int(b.moe.dropped) for b in m.layers] for m in (m_cpu, m_gpu)]
+            loads = all(torch.equal(a.moe.load, b.moe.load.cpu())
+                        for a, b in zip(m_cpu.layers, m_gpu.layers))
+            log(f"[serve] {label} at its widths: the {n}-token prefill's dropped copies per "
+                f"layer {drops[0]} (CPU) / {drops[1]} (card), per-expert loads "
+                f"{'equal' if loads else 'DIFFERENT'}")
+            if drops[0] != drops[1]:
+                raise AssertionError(f"{label}: the card drops other copies than the CPU")
         toks_c, toks_g = [int(lg_c.argmax())], [int(lg_g.argmax())]
         for i in range(8):
             t = torch.tensor([n + i])
@@ -966,10 +1189,10 @@ class Smoke:
             toks_c.append(int(lg_c.argmax()))
             toks_g.append(int(lg_g.argmax()))
         log(f"[serve] {label} at its widths, {small.n_layers} layers, f32, DAS off, card vs CPU: "
-            f"{n}-token prefill + 8 teacher-forced steps, max logit err {err:.2e} (tol 2e-4), "
+            f"{n}-token prefill + 8 teacher-forced steps, max logit err {err:.2e} (tol {tol:g}), "
             f"greedy tokens {'equal' if toks_c == toks_g else 'DIFFERENT'} "
             f"({time.perf_counter() - t0:.1f} s)")
-        if err > 2e-4 or toks_c != toks_g:
+        if err > tol or toks_c != toks_g:
             raise AssertionError(f"{label}: the card's model at its widths disagrees with the "
                                  f"CPU's")
 
@@ -1225,13 +1448,16 @@ class Smoke:
         if err > 2e-4 or toks_c != toks_g:
             raise AssertionError(f"{label}: the card's reduced model disagrees with the CPU's")
 
-    def _profile_decode(self, label, model, sc, prompts, graph=True, profiled=True):
+    def _profile_decode(self, label, model, sc, prompts, graph=True, profiled=True,
+                        moe=False):
         """A decode-only trace (40-token prompts fed through the decode step):
         CUDA-event ms/step without the profiler, with that run's tokens and
         kernel launches a step, then the device busy time per step, the idle
         share and the host launches per step under torch.profiler (None:
         not measured; ``profiled=False`` skips that run).  ``graph=False``
-        steps eagerly (a tree without the captured step always does)."""
+        steps eagerly (a tree without the captured step always does);
+        ``moe`` gives the device time by MoE class (_moe_class) in place of
+        the glue classes."""
         torch = self.torch
         from torch.profiler import ProfilerActivity, profile
 
@@ -1287,10 +1513,9 @@ class Smoke:
             f"{ms_step:.3f} ms/step: {1 - busy_ms / ms_step:.3f})")
         for name, dt in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
             log(f"[profile]   {dt / 1e3 / steps:8.4f} ms/step  {name[:90]}")
-        glue = {cat: sum(dt for name, dt in by_name.items() if _glue_class(name) == cat)
-                for cat in GLUE_CLASSES}
-        log(f"[profile] {label} device ms/step by class: " + ", ".join(
-            f"{cat} {us / 1e3 / steps:.4f}" for cat, us in glue.items()))
+        classes = _by_class(by_name, moe)
+        log(f"[profile] {label} device ms/step by {'MoE ' if moe else ''}class: " + ", ".join(
+            f"{cat} {us / 1e3 / steps:.4f}" for cat, us in classes.items()))
         host = sorted(((e.self_cpu_time_total, e.count, e.key) for e in averages),
                       reverse=True)[:12]
         log("[profile] host: self CPU time per step, calls per step")
@@ -1323,11 +1548,11 @@ class Smoke:
         log(f"[profile] int8w model load: {n} twd_decode launches, {us / 1e3:.3f} ms of "
             f"device time")
 
-    def _profile_admission(self, model, prompt, max_len):
+    def _profile_admission(self, model, prompt, max_len, moe=False):
         """The device time of admitting ``prompt``: the streaming prefill of
         its whole packs (4 for 1100 tokens), CUDA events around one
         prefill, then its kernels under torch.profiler, with
-        sparse_attention's share."""
+        sparse_attention's share (and with ``moe`` the time by MoE class)."""
         torch = self.torch
         from torch.profiler import ProfilerActivity, profile
 
@@ -1357,6 +1582,9 @@ class Smoke:
             f"{busy_us / 1e3:.3f} ms under torch.profiler, sparse_attention "
             f"{attn_us / 1e3:.3f} ms of it (share {attn_us / busy_us:.3f}), das_topk "
             f"{topk_us / 1e3:.3f} ms")
+        if moe:
+            log("[profile] admission device ms by MoE class: " + ", ".join(
+                f"{cat} {us / 1e3:.4f}" for cat, us in _by_class(by_name, moe).items()))
         for name, dt in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
             log(f"[profile]   {dt / 1e3:8.4f} ms  {name[:90]}")
 
@@ -1644,9 +1872,48 @@ class Smoke:
         prefill_row("full causal", bf16, pos, pos, FULL_SINK, 0, False)
         qp1, kp1 = pack_positions(torch, 2000)
         prefill_row("f32 t0=2000", torch.float32, qp1, kp1, 128, 896, False)
+        from repro_torch.kernels import ops as kops
         from repro_torch.kernels import sparse_attn
         if 256 in sparse_attn.HEAD_DIMS:      # a tree before the zoo (--parent) has no D = 256
             self._zoo_times(t_ms, attn_row, extra, g)
+        if hasattr(kops, "twd_decode_stack"):  # nor one before the MoE a stack decode
+            self._moe_times(t_ms, attn_row, g)
+
+    def _moe_times(self, t_ms, attn_row, g):
+        """qwen3-moe-30b-a3b's shapes beside their bounds: twd_decode over each
+        expert stack (one launch; bytes: the ceil(k/5) packed rows of each
+        expert that its k returned trit rows need, read once, and those k
+        rows written) beside its plain version (no PyTorch call decodes
+        base-3); sparse_attention at 32 q heads over 4 kv heads of 64, ring
+        decode and an LPSA prefill pack, beside its plain version and SDPA
+        with the same mask."""
+        torch = self.torch
+        from repro_torch.core import twd
+        from repro_torch.kernels import ref
+        from repro_torch.kernels.twd_decode import twd_decode_cuda
+        dev = self.dev
+        for e, k, n in self.MOE_STACKS:
+            r = twd.packed_rows(k, 16)
+            packed = torch.randint(0, 243, (e, r, n), generator=g, device=dev).to(torch.uint8)
+            flat = packed.view(e * r, n)
+            ms = t_ms(lambda: twd_decode_cuda(flat, 5 * e * r))
+            plain_ms = t_ms(lambda: ref.twd_decode_stack_ref(packed, k))
+            nbytes = e * -(-k // 5) * n + e * k * n
+            bound = nbytes / HBM_BYTES_PER_S * 1e3
+            self.timed[f"twd_decode stack {e}x{r}x{n}"] = {
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "bytes",
+                "library_ms": None}
+            log(f"[times] twd_decode expert stack ({e}x{r},{n}) -> ({e}x{5 * r},{n}) (one "
+                f"launch): {ms * 1e3:.1f} us, bound {bound * 1e3:.2f} us (bytes, "
+                f"{nbytes / 1e6:.1f} MB), plain {plain_ms * 1e3:.1f} us, library n/a")
+        rows = (1500, 1023, 300, 5)
+        qp = torch.tensor(rows, dtype=torch.int32, device=dev)[:, None]
+        kp = torch.stack([ring_positions(torch, t, 128, 896) for t in rows]).to(dev)
+        attn_row("decode GQA 32/4 D=64 ring 1024", 4, 32, 4, 64, torch.bfloat16, qp, kp, 128,
+                 896, None, False)
+        qp1, kp1 = pack_positions(torch, 512)
+        attn_row("prefill GQA 32/4 D=64 LPSA pack t0=512", 1, 32, 4, 64, torch.bfloat16,
+                 qp1[None].to(dev), kp1[None].to(dev), 128, 896, None, True)
 
     def _zoo_times(self, t_ms, attn_row, extra, g):
         """The zoo's shapes beside their bounds: sparse_attention at the head
@@ -1763,6 +2030,20 @@ def _packed_counts(n_l: int, steps: int, packs, dense_down: bool = True) -> dict
             "sparse_attention": n_l * (steps + sum(packs))}
 
 
+def _moe_counts(n_l: int, steps: int, packs) -> dict:
+    """The MoE model's launches for ``steps`` decode steps and streaming
+    prefills of ``packs`` packs each: per decode step 3 / 4 / 1 / 3
+    das_topk / das_ternary_gemm / sparse_attention / twd_decode a layer
+    (das_topk for q/k/v, o and the MoE's input; q, k, v, o; the three expert
+    stacks); per prefill of n packs n+2 / 3n+1 / n / 3 (q/k/v per pack; o
+    and the MoE once over the whole prefix)."""
+    return {**{name: 0 for name in KERNEL_INFO},
+            "das_topk": n_l * (3 * steps + sum(n + 2 for n in packs)),
+            "das_ternary_gemm": n_l * (4 * steps + sum(3 * n + 1 for n in packs)),
+            "sparse_attention": n_l * (steps + sum(packs)),
+            "twd_decode": 3 * n_l * (steps + len(packs))}
+
+
 def _took(label: str, t0: float) -> float:
     """Log the seconds since t0 that a path of the serve phase took; returns now."""
     now = time.perf_counter()
@@ -1798,6 +2079,40 @@ def _glue_class(kernel_name: str) -> str:
         if any(key in kernel_name for key in keys):
             return cat
     return "other"
+
+
+# the MoE path's device kernels by class; cuBLAS's matmuls are named by their
+# tile configurations (sm90_xmma_gemm_*, nvjet_*, cutlass kernels)
+MOE_CLASSES = ("twd_decode", "copy+multiply (dequantising pass)", "cuBLAS matmuls",
+               "das_ternary_gemm", "attention", "das_topk", "other glue")
+
+
+def _moe_class(kernel_name: str) -> str:
+    """The class of a device kernel on the MoE path: the expert stacks'
+    twd_decode; the copies and multiplies, which are the dequantising pass
+    (trits to bf16, times the per-expert scale) but for a few us of glue;
+    cuBLAS's matmuls (the experts', the router's and the head's); the
+    port's packed GEMMs (q/k/v/o), attention and DAS step; the rest."""
+    if "twd_decode" in kernel_name:
+        return "twd_decode"
+    if _is_attention(kernel_name):
+        return "attention"
+    if "das_topk" in kernel_name:
+        return "das_topk"
+    if "tenet::" in kernel_name:
+        return "das_ternary_gemm"
+    if any(k in kernel_name for k in ("gemm", "gemv", "nvjet", "xmma", "cutlass", "splitK")):
+        return "cuBLAS matmuls"
+    if "copy" in kernel_name or "MulFunctor" in kernel_name:
+        return "copy+multiply (dequantising pass)"
+    return "other glue"
+
+
+def _by_class(by_name: dict, moe: bool) -> dict:
+    """Device time by class: the MoE path's classes (_moe_class) with
+    ``moe``, else the port's kernels and PyTorch's glue (_glue_class)."""
+    cls, cats = (_moe_class, MOE_CLASSES) if moe else (_glue_class, GLUE_CLASSES)
+    return {cat: sum(dt for name, dt in by_name.items() if cls(name) == cat) for cat in cats}
 
 
 def _is_attention(kernel_name: str) -> bool:

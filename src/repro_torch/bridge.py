@@ -4,7 +4,9 @@ The input is the tree that the JAX package's ``export_serving`` returns,
 with every leaf converted to a numpy array: dict/tuple nesting,
 ``{stacked, tail, shared}`` layers (stacked leaves carry a leading group
 axis), ternary linears as packed ``uint8`` or ``trits`` ``int8`` (the
-"int8" and "bf16" serve formats) + float32 ``scale``.  bfloat16
+"int8" and "bf16" serve formats) + float32 ``scale``, and a MoE block's
+``moe`` subtree: the ``router`` in the model's dtype and the expert stacks,
+packed (E, R, N) or trits (E, K, N) + per-expert ``scale`` (E, 1, 1).  bfloat16
 leaves (numpy dtype named "bfloat16") are reinterpreted bit for bit.  This
 is how the tests run both packages on the same weights; the port itself
 never imports the JAX package.

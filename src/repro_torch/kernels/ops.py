@@ -28,7 +28,7 @@ from .twd_decode import twd_decode_cuda
 __all__ = ["KERNELS", "launches", "reset_launches", "launches_recorded",
            "add_launches", "DasTopK", "das_topk",
            "das_ternary_gemm", "ternary_gemm", "sparse_attention",
-           "twd_decode", "das_gemv"]
+           "twd_decode", "twd_decode_stack", "das_gemv"]
 
 KERNELS = ("das_topk", "das_ternary_gemm", "ternary_gemm", "sparse_attention",
            "twd_decode", "das_gemv")
@@ -81,15 +81,17 @@ def _scale(s, like: torch.Tensor) -> torch.Tensor:
 
 def das_topk(x: torch.Tensor, *, keep: int, block: int = 32,
              norm_scale: torch.Tensor | None = None, eps: float = 1e-6,
-             with_mask: bool = True, with_normed: bool = False) -> DasTopK:
+             with_mask: bool = True, with_normed: bool = False,
+             with_dense: bool = False) -> DasTopK:
     """(..., K) -> DasTopK over the flattened rows (M, K) of x, or of
     ``rmsnorm(norm_scale, x, eps)`` (models/layers.py) when a norm scale
-    (K,) is given; the mask (M, K) and the normed rows only on request."""
+    (K,) is given; the mask (M, K), the normed rows and, when the block
+    divides K, the masked dense rows beside the compaction only on request."""
     if with_normed and norm_scale is None:
         raise ValueError("normed rows need a norm scale")
     x2 = x.reshape(-1, x.shape[-1])
     kw = dict(keep=keep, block=block, norm_scale=norm_scale, eps=eps,
-              with_mask=with_mask, with_normed=with_normed)
+              with_mask=with_mask, with_normed=with_normed, with_dense=with_dense)
     if not _on_cuda(x2, norm_scale):
         return ref.das_topk_ref(x2, **kw)
     out = das_topk_cuda(x2.contiguous(), **kw)
@@ -147,6 +149,25 @@ def twd_decode(packed: torch.Tensor, k: int) -> torch.Tensor:
     out = twd_decode_cuda(packed, k)
     launches["twd_decode"] += 1
     return out
+
+
+def twd_decode_stack(packed: torch.Tensor, k: int) -> torch.Tensor:
+    """A contiguous stack of base-3 packed weights (E, R, N) uint8 -> int8
+    trits (E, k, N), k <= 5R, in one launch of ``twd_decode``: the stack
+    viewed as (E*R, N) decodes to 5*E*R trit rows, expert e's at [5Re, 5R(e
+    + 1)), of which each expert's first k are returned (a view)."""
+    if packed.ndim != 3:
+        raise ValueError(f"want a packed stack (E, R, N); got {tuple(packed.shape)}")
+    e, r, n = packed.shape
+    if not 1 <= k <= 5 * r:
+        raise ValueError(f"twd_decode_stack needs 1 <= k <= 5R; got R={r}, k={k}")
+    if not _on_cuda(packed):
+        return ref.twd_decode_stack_ref(packed, k)
+    if not packed.is_contiguous():
+        raise ValueError("twd_decode_stack needs a contiguous packed stack")
+    out = twd_decode_cuda(packed.view(e * r, n), 5 * e * r)
+    launches["twd_decode"] += 1
+    return out.view(e, 5 * r, n)[:, :k]
 
 
 def das_gemv(values: torch.Tensor, indices: torch.Tensor | None,

@@ -19,16 +19,17 @@ from repro_torch.models.layers import rmsnorm
 
 __all__ = ["DasTopK", "das_topk_ref", "ternary_gemm_ref",
            "das_ternary_gemm_ref", "sparse_attention_ref", "twd_decode_ref",
-           "das_gemv_ref", "score_scale", "NEG_INF"]
+           "twd_decode_stack_ref", "das_gemv_ref", "score_scale", "NEG_INF"]
 
 NEG_INF = -1e30
 
 
 class DasTopK(NamedTuple):
-    """What the DAS step hands the projections: either the compaction
-    (values, indices) when the block divides K, or the masked dense
-    activations (tail lanes kept) when it does not; on request the int8 mask
-    (M, K) and, after a norm, the normed rows (M, K) it ranked."""
+    """What the DAS step hands the projections: the compaction (values,
+    indices) when the block divides K, or the masked dense activations (tail
+    lanes kept) when it does not; on request the int8 mask (M, K), after a
+    norm the normed rows (M, K) it ranked, and the masked dense rows beside
+    the compaction."""
     mask: torch.Tensor | None
     values: torch.Tensor | None
     indices: torch.Tensor | None
@@ -38,9 +39,11 @@ class DasTopK(NamedTuple):
 
 def das_topk_ref(x: torch.Tensor, *, keep: int, block: int,
                  norm_scale: torch.Tensor | None = None, eps: float = 1e-6,
-                 with_mask: bool = True, with_normed: bool = False) -> DasTopK:
+                 with_mask: bool = True, with_normed: bool = False,
+                 with_dense: bool = False) -> DasTopK:
     """x (M, K) -> DasTopK, the semantics of core.das on one flat batch; with
-    ``norm_scale``, of ``rmsnorm(norm_scale, x, eps)`` (models/layers.py)."""
+    ``norm_scale``, of ``rmsnorm(norm_scale, x, eps)`` (models/layers.py);
+    ``with_dense`` gives the masked dense rows beside the compaction."""
     normed = None
     if norm_scale is not None:
         x = normed = rmsnorm(norm_scale, x, eps)
@@ -49,7 +52,7 @@ def das_topk_ref(x: torch.Tensor, *, keep: int, block: int,
     if x.shape[-1] % block == 0:
         ca = das_lib.das_compact(x, block_size=block, keep=keep)
         values, indices = ca.values, ca.indices
-    else:
+    if x.shape[-1] % block or with_dense:
         dense = das_lib.das_apply(x, mask)
     return DasTopK(mask.to(torch.int8) if with_mask else None, values, indices, dense,
                    normed if with_normed else None)
@@ -93,6 +96,14 @@ def twd_decode_ref(packed: torch.Tensor, k: int) -> torch.Tensor:
     """uint8 base-3 packed (R, N) -> int8 trits (k, N), k <= 5R (the JAX
     oracle's LUT gather)."""
     return twd.unpack_ternary(packed, k)
+
+
+def twd_decode_stack_ref(packed: torch.Tensor, k: int) -> torch.Tensor:
+    """A stack of base-3 packed weights (E, R, N) uint8 -> int8 trits (E, k,
+    N), k <= 5R: each expert's (R, N) slab decoded alone (the JAX package
+    unpacks the stack expert by expert)."""
+    trits = twd.unpack_ternary(packed.movedim(0, 1), k)     # (k, E, N)
+    return trits.movedim(1, 0).contiguous()
 
 
 def das_gemv_ref(values: torch.Tensor, indices: torch.Tensor | None,

@@ -4,9 +4,10 @@ Replaces the JAX package's ``kernels/topk_mask.py::topk_mask`` (Pallas
 ``_topk_mask_kernel``) and the model's ``das_compact`` / ``das_mask`` steps,
 and with a norm scale also the ``rmsnorm`` before them: one block of
 threads a row, 8 lanes a thread, ranked by integer compares among the 4
-threads of a 32-lane block; it writes either the compaction (values,
-absolute lanes) or the masked dense activations, and on request the int8
-mask and the normed rows.  Bounded on the H100 by bytes.
+threads of a 32-lane block; it writes the compaction (values,
+absolute lanes) when 32 divides K, else the masked dense activations, and on
+request the int8 mask, the normed rows and the masked dense rows beside the
+compaction (the MoE's input).  Bounded on the H100 by bytes.
 """
 
 from __future__ import annotations
@@ -21,9 +22,11 @@ __all__ = ["das_topk_cuda"]
 
 def das_topk_cuda(x: torch.Tensor, *, keep: int, block: int,
                   norm_scale: torch.Tensor | None = None, eps: float = 1e-6,
-                  with_mask: bool = True, with_normed: bool = False) -> DasTopK:
+                  with_mask: bool = True, with_normed: bool = False,
+                  with_dense: bool = False) -> DasTopK:
     """x (M, K) -> DasTopK of x, or of rmsnorm(norm_scale, x, eps) when a
-    scale (K,) is given: compaction when 32 divides K, else masked dense."""
+    scale (K,) is given: compaction when 32 divides K, else masked dense;
+    ``with_dense`` writes the masked dense rows beside the compaction."""
     if block != 32:
         raise ValueError(f"the das_topk kernel ranks 32-lane blocks; got block={block}")
     if not 0 < keep <= block:
@@ -51,7 +54,7 @@ def das_topk_cuda(x: torch.Tensor, *, keep: int, block: int,
     if k % block == 0:
         kc = k // block * keep
         values, indices = new((m, kc), x.dtype), new((m, kc), torch.int32)
-    else:
+    if k % block or with_dense:
         dense = new((m, k), x.dtype)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     err = build.library().tenet_das_topk(

@@ -1,12 +1,14 @@
 """Serving CLI of the port: seeded weights, a staggered trace, the engine.
 
   python -m repro_torch.launch.serve --arch bitnet-1.3b [--reduced] \\
-      [--device cpu] --requests 4 --prompt-len 64 --gen 32 --slots 4 --stagger 4
+      [--device cpu] --requests 4 --prompt-len 64 --gen 32 --slots 4 --stagger 4 \\
+      [--moe-expert-capacity N]
 
 Runs on the CUDA device unless ``--device cpu``.  Master weights are drawn
-from ``--seed``, exported to base-3 packed ternary weights and served
-greedily; the summary line reports decode steps, tokens and tok/s, and each
-request's first token ids follow.
+from ``--seed`` and exported layer by layer to base-3 packed ternary
+weights (``models.model.init_serving``), then served greedily; the summary
+line reports decode steps, tokens and tok/s, and each request's first token
+ids follow.
 """
 
 from __future__ import annotations
@@ -21,15 +23,14 @@ from repro_torch.configs import get_config, reduced as reduced_cfg
 from repro_torch.kernels import ops
 from repro_torch.models import model as MD
 from repro_torch.serve import Request, ServeConfig, ServeEngine
+from repro_torch.serve.engine import check_serve_config
 
 __all__ = ["build_engine", "main"]
 
 
 def build_engine(cfg, config: ServeConfig, device) -> ServeEngine:
     """Seeded master weights -> TWD export -> a ServeEngine on ``device``."""
-    params = MD.init_params(cfg, seed=config.seed, device=device)
-    model = MD.export_serving(params, cfg)
-    del params
+    model = MD.init_serving(cfg, seed=config.seed, device=device)
     nbytes = sum(b.numel() * b.element_size() for b in model.state_dict().values())
     print(f"[serve] {cfg.name}: serving weights {nbytes / 1e6:.1f} MB on {model.device}")
     return ServeEngine(model, config, device=device)
@@ -49,6 +50,10 @@ def _build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--gen", type=int, default=32)
     ap.add_argument("--stagger", type=int, default=0,
                     help="virtual decode steps between request arrivals")
+    ap.add_argument("--moe-expert-capacity", type=int, default=d.moe_expert_capacity,
+                    help="bound the per-expert token load per decode tick by "
+                         "deferring admissions (MoE configs only; 0 = unbounded: "
+                         "decode itself never drops tokens)")
     return ap
 
 
@@ -64,7 +69,8 @@ def main(argv=None):
     try:
         device = resolve_device(args.device)
         sc = ServeConfig(max_slots=args.slots, max_len=args.prompt_len + args.gen,
-                         seed=args.seed)
+                         seed=args.seed, moe_expert_capacity=args.moe_expert_capacity)
+        check_serve_config(cfg, sc)
     except (RuntimeError, ValueError) as e:
         ap.error(str(e))
     eng = build_engine(cfg, sc, device)
@@ -82,6 +88,10 @@ def main(argv=None):
           f"{st.wall_seconds:.2f}s ({st.generated_tokens / max(st.wall_seconds, 1e-9):.1f}"
           f" tok/s, {device})")
     print(f"[serve] kernel launches: {dict(ops.launches)}")
+    if cfg.moe is not None:
+        print(f"[serve] moe: {cfg.moe.n_experts} experts, top-{cfg.moe.top_k}, "
+              f"{cfg.moe.n_shared} shared; admissions deferred by the expert-capacity "
+              f"bound: {st.moe_capacity_deferrals}")
     for uid in sorted(results):
         r = results[uid]
         print(f"[serve] req {uid}: ttft {r.ttft_steps} steps, latency "

@@ -2,10 +2,13 @@
 
 ``init_params`` draws master weights from a seeded ``torch.Generator`` into
 the JAX package's tree layout ({embed, final_norm, layers: {stacked, tail,
-shared}} with {"w"} leaves, and a dense ``head`` when the embeddings are
-untied); ``export_serving`` quantizes them to the
-config's serve format (base-3 packed, or int8 trits) and loads the result
-into a ``TernaryLM``.  ``TernaryLM.from_tree`` loads any serving tree in
+shared}} with {"w"} leaves, a block's FFN as ``ffn`` or, for a MoE config,
+``moe`` with its router and expert stacks, and a dense ``head`` when the
+embeddings are untied); ``export_serving`` quantizes them to the config's
+serve format (base-3 packed, or int8 trits) and loads the result into a
+``TernaryLM``.  ``init_serving`` gives the same model layer by layer, never
+holding more than one layer's master weights (qwen3-moe-30b-a3b's take
+~58 GB in bfloat16).  ``TernaryLM.from_tree`` loads any serving tree in
 that layout — the port's own export, or the JAX package's through
 ``repro_torch.bridge`` — leaf path by leaf path.  ``trits_from_packed``
 turns a packed model into the int8-resident form on its device, through the
@@ -22,18 +25,20 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import kvcache as KV
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.models import transformer as T
 from repro_torch.models.ternary_linear import (TRITS_FORMATS, TernaryLinear,
                                                export_tlin, tlin_init)
 
-__all__ = ["TernaryLM", "init_params", "export_serving", "trits_from_packed",
-           "flatten_tree", "prefill", "decode_step", "init_caches"]
+__all__ = ["TernaryLM", "init_params", "export_serving", "init_serving",
+           "trits_from_packed", "flatten_tree", "prefill", "decode_step", "init_caches"]
 
 
 class TernaryLM(nn.Module):
-    """Serving weights of a dense ternary LM, on the CUDA device unless
-    ``device="cpu"``: the embedding, the untied dense ``head`` (d_model,
-    vocab_padded) where the config has one, the blocks and the final norm."""
+    """Serving weights of a ternary LM, dense or MoE, on the CUDA device
+    unless ``device="cpu"``: the embedding, the untied dense ``head``
+    (d_model, vocab_padded) where the config has one, the blocks (each with
+    its gated FFN or its MoE) and the final norm."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
@@ -68,19 +73,23 @@ class TernaryLM(nn.Module):
         Every buffer must have a leaf of its shape and dtype at its path, and
         every leaf a buffer; anything else raises."""
         model = cls(cfg, device)
-        flat = flatten_tree(tree, cfg)
-        own = model.state_dict()
-        missing, extra = sorted(set(own) - set(flat)), sorted(set(flat) - set(own))
-        if missing or extra:
-            raise KeyError(f"serving tree does not match {cfg.name}: missing "
-                           f"{missing[:8]}, unexpected {extra[:8]}")
-        for name, buf in own.items():
-            src = flat[name]
-            if tuple(src.shape) != tuple(buf.shape) or src.dtype != buf.dtype:
-                raise ValueError(f"{name}: tree has {tuple(src.shape)} {src.dtype}, "
-                                 f"model wants {tuple(buf.shape)} {buf.dtype}")
-            buf.copy_(src)
+        _load(model.state_dict(), flatten_tree(tree, cfg), cfg)
         return model
+
+
+def _load(own: dict, flat: dict, cfg: ModelConfig) -> None:
+    """Copy each leaf of ``flat`` into the buffer of its name in ``own``;
+    the names must be the same, and each leaf's shape and dtype its buffer's."""
+    missing, extra = sorted(set(own) - set(flat)), sorted(set(flat) - set(own))
+    if missing or extra:
+        raise KeyError(f"serving tree does not match {cfg.name}: missing "
+                       f"{missing[:8]}, unexpected {extra[:8]}")
+    for name, buf in own.items():
+        src = flat[name]
+        if tuple(src.shape) != tuple(buf.shape) or src.dtype != buf.dtype:
+            raise ValueError(f"{name}: tree has {tuple(src.shape)} {src.dtype}, "
+                             f"model wants {tuple(buf.shape)} {buf.dtype}")
+        buf.copy_(src)
 
 
 def flatten_tree(tree: dict, cfg: ModelConfig) -> dict:
@@ -130,53 +139,95 @@ def _map(fn, tree):
     return fn(tree)
 
 
-def init_params(cfg: ModelConfig, *, seed: int = 0, device=None) -> dict:
-    """Seeded random master weights in cfg.dtype, one tree per layer."""
-    dev = resolve_device(device)
-    gen = torch.Generator(device=dev)
+def _generator(seed: int, device) -> torch.Generator:
+    gen = torch.Generator(device=resolve_device(device))
     gen.manual_seed(seed)
-    dt = L.torch_dtype(cfg.dtype)
+    return gen
+
+
+def _block_params(gen: torch.Generator, cfg: ModelConfig) -> dict:
+    """One block's master weights, drawn from ``gen`` in a fixed order."""
+    dt, dev = L.torch_dtype(cfg.dtype), gen.device
     d, qd, kvd, f = cfg.d_model, cfg.q_dim, cfg.kv_dim, cfg.d_ff
-    zeros = lambda: {"scale": torch.zeros(d, dtype=dt, device=dev)}  # noqa: E731
-
-    def block() -> dict:
-        return {
-            "norm1": zeros(),
-            "attn": {"wq": tlin_init(gen, d, qd, dt),
-                     "wk": tlin_init(gen, d, kvd, dt),
-                     "wv": tlin_init(gen, d, kvd, dt),
-                     "wo": tlin_init(gen, qd, d, dt,
-                                     scale=(qd * 2 * cfg.n_layers) ** -0.5)},
-            "norm2": zeros(),
-            "ffn": {"w_gate": tlin_init(gen, d, f, dt),
+    p = {"norm1": {"scale": torch.zeros(d, dtype=dt, device=dev)},
+         "attn": {"wq": tlin_init(gen, d, qd, dt),
+                  "wk": tlin_init(gen, d, kvd, dt),
+                  "wv": tlin_init(gen, d, kvd, dt),
+                  "wo": tlin_init(gen, qd, d, dt, scale=(qd * 2 * cfg.n_layers) ** -0.5)},
+         "norm2": {"scale": torch.zeros(d, dtype=dt, device=dev)}}
+    if cfg.moe is not None:
+        p["moe"] = MOE.moe_init(gen, cfg, dt)
+    else:
+        p["ffn"] = {"w_gate": tlin_init(gen, d, f, dt),
                     "w_in": tlin_init(gen, d, f, dt),
-                    "w_out": tlin_init(gen, f, d, dt,
-                                       scale=(f * 2 * cfg.n_layers) ** -0.5)},
-        }
+                    "w_out": tlin_init(gen, f, d, dt, scale=(f * 2 * cfg.n_layers) ** -0.5)}
+    return p
 
-    embed = torch.randn((cfg.vocab_padded, d), generator=gen, device=dev) * 0.02
-    tree = {"embed": embed.to(dt), "final_norm": zeros(),
-            "layers": {"stacked": None,
-                       "tail": tuple(block() for _ in cfg.layer_kinds()),
-                       "shared": None}}
+
+def _embed_param(gen: torch.Generator, cfg: ModelConfig) -> torch.Tensor:
+    """The embedding, drawn from ``gen`` before the blocks."""
+    embed = torch.randn((cfg.vocab_padded, cfg.d_model), generator=gen, device=gen.device)
+    return (embed * 0.02).to(L.torch_dtype(cfg.dtype))
+
+
+def _top_params(gen: torch.Generator, cfg: ModelConfig, embed: torch.Tensor) -> dict:
+    """``embed``, the final norm and the untied head, drawn from ``gen``
+    after the blocks."""
+    dt, dev, d = L.torch_dtype(cfg.dtype), gen.device, cfg.d_model
+    top = {"embed": embed, "final_norm": {"scale": torch.zeros(d, dtype=dt, device=dev)}}
     if not cfg.tie_embeddings:
         head = torch.randn((d, cfg.vocab_padded), generator=gen, device=dev) * 0.02
-        tree["head"] = head.to(dt)
+        top["head"] = head.to(dt)
+    return top
+
+
+def init_params(cfg: ModelConfig, *, seed: int = 0, device=None) -> dict:
+    """Seeded random master weights in cfg.dtype, one tree per layer, drawn
+    in the order embedding, blocks, head."""
+    gen = _generator(seed, device)
+    embed = _embed_param(gen, cfg)
+    blocks = tuple(_block_params(gen, cfg) for _ in cfg.layer_kinds())
+    return {**_top_params(gen, cfg, embed),
+            "layers": {"stacked": None, "tail": blocks, "shared": None}}
+
+
+def _export(tree, cfg: ModelConfig):
+    """A master tree (or subtree) in the config's serve format."""
+    if isinstance(tree, dict):
+        if "experts_gate" in tree:
+            return MOE.export_moe(tree, cfg)
+        if "w" in tree:
+            return export_tlin(tree, cfg.ternary)
+        return {k: _export(v, cfg) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_export(v, cfg) for v in tree)
     return tree
 
 
 def export_serving(params: dict, cfg: ModelConfig) -> TernaryLM:
-    """Master weights -> a TernaryLM whose ternary linears take the config's
-    serve format (TWD-packed or int8 trits), on the master weights' device."""
-    def conv(tree):
-        if isinstance(tree, dict):
-            if "w" in tree:
-                return export_tlin(tree, cfg.ternary)
-            return {k: conv(v) for k, v in tree.items()}
-        if isinstance(tree, tuple):
-            return tuple(conv(v) for v in tree)
-        return tree
-    return TernaryLM.from_tree(conv(params), cfg, params["embed"].device)
+    """Master weights -> a TernaryLM whose ternary linears and expert stacks
+    take the config's serve format (TWD-packed or int8 trits), on the
+    master weights' device."""
+    return TernaryLM.from_tree(_export(params, cfg), cfg, params["embed"].device)
+
+
+def init_serving(cfg: ModelConfig, *, seed: int = 0, device=None) -> TernaryLM:
+    """``export_serving(init_params(cfg, seed=seed, device=device), cfg)``,
+    bit for bit, with each layer's master weights drawn, exported into the
+    model and dropped before the next layer's are drawn."""
+    gen = _generator(seed, device)
+    model = TernaryLM(cfg, gen.device)
+    own = model.state_dict()
+    embed = _embed_param(gen, cfg)
+    for i in range(cfg.n_layers):
+        flat: dict = {}
+        _flatten(_export(_block_params(gen, cfg), cfg), f"layers.{i}.", flat)
+        _load({k: v for k, v in own.items() if k.startswith(f"layers.{i}.")}, flat, cfg)
+        del flat
+    flat = {}
+    _flatten(_top_params(gen, cfg, embed), "", flat)
+    _load({k: v for k, v in own.items() if not k.startswith("layers.")}, flat, cfg)
+    return model
 
 
 def trits_from_packed(packed: TernaryLM, cfg: ModelConfig) -> TernaryLM:
@@ -184,18 +235,23 @@ def trits_from_packed(packed: TernaryLM, cfg: ModelConfig) -> TernaryLM:
 
     ``cfg`` has the packed model's shapes and serve format "int8" or "bf16"
     (its DAS and LPSA settings may differ).  Every linear's trits are
-    ``ops.twd_decode`` of its packed weights, cut to d_in rows; the scales,
-    norms and embeddings are copied."""
+    ``ops.twd_decode`` of its packed weights, cut to d_in rows, and every
+    expert stack's ``ops.twd_decode_stack`` of its packed stack; the scales,
+    router, norms and embeddings are copied."""
     if cfg.ternary.serve_format not in TRITS_FORMATS:
         raise ValueError(f"serve_format {cfg.ternary.serve_format!r} holds no trits")
     out = TernaryLM(cfg, packed.device)
     src = packed.state_dict()
-    lins = {name: m for name, m in packed.named_modules()
-            if isinstance(m, TernaryLinear)}
+    mods = dict(packed.named_modules())
+
+    def decoded(m: nn.Module) -> torch.Tensor:
+        if isinstance(m, TernaryLinear):
+            return ops.twd_decode(m.packed, m.d_in)
+        return ops.twd_decode_stack(m.packed, m.d_in)
+
     for name, buf in out.state_dict().items():
         mod, _, leaf = name.rpartition(".")
-        val = (ops.twd_decode(lins[mod].packed, buf.shape[0]) if leaf == "trits"
-               else src[name])
+        val = decoded(mods[mod]) if leaf == "trits" else src[name]
         if val.shape != buf.shape:
             raise ValueError(f"{name}: packed model gives {tuple(val.shape)}, "
                              f"{cfg.name} wants {tuple(buf.shape)}")

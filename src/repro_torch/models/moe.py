@@ -1,0 +1,273 @@
+"""Mixture-of-Experts FFN with ternary experts: the JAX package's
+``models/moe.py`` without a mesh.
+
+Routing: a float32 router (TF32 off: a routing decision is a
+discontinuity), softmax, top-k, the gates renormalised over the k chosen.
+Dispatch: a stable argsort of the routed copies gives each its rank in its
+expert (the GShard/Switch recipe without the O(T*E*C) one-hot); a copy whose
+rank is not below the capacity is dropped, and the kept copies are scattered
+into an (E*C + 1, D) buffer whose last row takes the drops.  The experts run
+as three batched matrix products over that buffer, silu(x Wg) * (x Wi) Wo,
+on the whole dequantised stack of every expert (each packed stack unpacked
+by one ``twd_decode`` launch, ``ops.twd_decode_stack``); each kept copy is
+weighted by its gate and the k copies of a token are summed in routing
+order.  The experts' input is the normed rows, DAS-masked (dense, not
+compacted) and int8 fake-quantised; one ``das_topk`` call gives the normed
+rows (the router's input), the masked rows and, for the shared expert, the
+compaction.
+
+Every step is free of host syncs and of data-dependent shapes, so the
+engine's CUDA graph captures the decode step whole: expert loads are counted
+with ``scatter_add_`` (``bincount`` sizes its output from the data), and the
+combine adds a token's k contributions one after another onto zeros (no
+atomics, so the sum does not depend on the batch).
+
+Expert parallelism (the JAX package's ``shard_map`` branch, experts sharded
+over the model axis) waits for the distributed slice (ROADMAP queue 1,
+item 6); ``moe_apply`` is the single-device branch.
+"""
+
+from __future__ import annotations
+
+import contextlib
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig, TernaryConfig
+from repro_torch.core import ternary as tq
+from repro_torch.core import twd
+from repro_torch.kernels import ops
+from repro_torch.models.layers import rmsnorm, silu
+from repro_torch.models.ternary_linear import (ROW_ALIGN, TernaryLinear, check_format,
+                                               export_tlin, tlin_init)
+
+__all__ = ["EXPERT_STACKS", "SHARED", "ExpertStack", "MoE", "moe_init", "export_moe",
+           "pack_stack", "expert_weights", "dispatch_compute", "shared_ffn",
+           "decode_capacity", "prefill_capacity", "moe_apply"]
+
+EXPERT_STACKS = ("experts_gate", "experts_in", "experts_out")
+SHARED = ("shared_gate", "shared_in", "shared_out")
+
+
+class ExpertStack(nn.Module):
+    """Serving form of one expert weight stack, logically (E, d_in, d_out):
+    ``packed`` (E, R, d_out) uint8, each expert packed alone along d_in, or
+    ``trits`` (E, d_in, d_out) int8, by the config's serve format, and the
+    per-expert float32 ``scale`` (E, 1, 1)."""
+
+    def __init__(self, n_experts: int, d_in: int, d_out: int, tc: TernaryConfig,
+                 device=None):
+        super().__init__()
+        check_format(tc)
+        self.d_in, self.d_out = d_in, d_out
+        self.is_packed = tc.serve_format == "packed"
+        if self.is_packed:
+            rows = twd.packed_rows(d_in, ROW_ALIGN)
+            self.register_buffer("packed", torch.zeros((n_experts, rows, d_out),
+                                                       dtype=torch.uint8, device=device))
+        else:
+            self.register_buffer("trits", torch.zeros((n_experts, d_in, d_out),
+                                                      dtype=torch.int8, device=device))
+        self.register_buffer("scale", torch.ones((n_experts, 1, 1), dtype=torch.float32,
+                                                 device=device))
+
+    def trits_of(self) -> torch.Tensor:
+        """The stack's int8 trits (E, d_in, d_out), decoded when packed."""
+        return ops.twd_decode_stack(self.packed, self.d_in) if self.is_packed else self.trits
+
+
+class MoE(nn.Module):
+    """Serving weights of one MoE FFN, named as the JAX package's tree: the
+    ``router`` (d_model, E) in the model's dtype, the three expert stacks and,
+    with shared experts, ``shared_gate``/``shared_in``/``shared_out``.
+
+    After each call ``load`` holds the routed copies each expert received
+    (E,) and ``capacity`` the call's per-expert capacity; ``dropped`` is the
+    copies over it (a 0-d tensor on the model's device, read without a
+    sync)."""
+
+    def __init__(self, cfg: ModelConfig, dtype: torch.dtype, device=None):
+        super().__init__()
+        e, d, tc = cfg.moe, cfg.d_model, cfg.ternary
+        self.register_buffer("router", torch.zeros((d, e.n_experts), dtype=dtype,
+                                                   device=device))
+        self.experts_gate = ExpertStack(e.n_experts, d, e.d_expert, tc, device)
+        self.experts_in = ExpertStack(e.n_experts, d, e.d_expert, tc, device)
+        self.experts_out = ExpertStack(e.n_experts, e.d_expert, d, tc, device)
+        if e.n_shared:
+            fs = e.d_expert * e.n_shared
+            self.shared_gate = TernaryLinear(d, fs, tc, device)
+            self.shared_in = TernaryLinear(d, fs, tc, device)
+            self.shared_out = TernaryLinear(fs, d, tc, device)
+        self.load: torch.Tensor | None = None
+        self.capacity = 0
+
+    @property
+    def dropped(self) -> torch.Tensor:
+        return (self.load - self.capacity).clamp(min=0).sum()
+
+
+def moe_init(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype) -> dict:
+    """Master weights ~ N(0, s^2) from ``gen``: the router and gate/up stacks
+    at s = d_model^-1/2, the down stack at (2 d_expert n_layers)^-1/2, the
+    shared expert's linears as the dense FFN's."""
+    e, d, f = cfg.moe, cfg.d_model, cfg.moe.d_expert
+
+    def w(shape, scale):
+        return (torch.randn(shape, generator=gen, dtype=torch.float32, device=gen.device)
+                * scale).to(dtype)
+
+    p = {"router": w((d, e.n_experts), d ** -0.5),
+         "experts_gate": {"w": w((e.n_experts, d, f), d ** -0.5)},
+         "experts_in": {"w": w((e.n_experts, d, f), d ** -0.5)},
+         "experts_out": {"w": w((e.n_experts, f, d), (f * 2 * cfg.n_layers) ** -0.5)}}
+    if e.n_shared:
+        fs = f * e.n_shared
+        p["shared_gate"] = tlin_init(gen, d, fs, dtype)
+        p["shared_in"] = tlin_init(gen, d, fs, dtype)
+        p["shared_out"] = tlin_init(gen, fs, d, dtype, scale=(fs * 2 * cfg.n_layers) ** -0.5)
+    return p
+
+
+def pack_stack(trits: torch.Tensor) -> torch.Tensor:
+    """int8 trits (E, K, N) -> base-3 packed (E, R, N), each expert packed
+    along K with R a multiple of ROW_ALIGN."""
+    return twd.pack_ternary(trits.movedim(0, 1), row_align=ROW_ALIGN).movedim(1, 0).contiguous()
+
+
+def export_moe(p: dict, cfg: ModelConfig) -> dict:
+    """Master weights -> serving leaves: per-expert absmean scale (the mean
+    over each expert's (K, N) in w's dtype, + 1e-6), trits packed per expert
+    or kept as int8; the router as it is; the shared linears as
+    ``export_tlin``."""
+    check_format(cfg.ternary)
+    out = {"router": p["router"]}
+    for name in EXPERT_STACKS:
+        w = p[name]["w"]
+        gamma = w.abs().mean(dim=(1, 2), keepdim=True, dtype=torch.float32).to(w.dtype)
+        gamma = gamma + tq.EPS
+        trits = torch.clamp(torch.round(w / gamma), -1.0, 1.0).to(torch.int8)
+        key = "packed" if cfg.ternary.serve_format == "packed" else "trits"
+        out[name] = {key: pack_stack(trits) if key == "packed" else trits,
+                     "scale": gamma.float()}
+    for name in SHARED:
+        if name in p:
+            out[name] = export_tlin(p[name], cfg.ternary)
+    return out
+
+
+def expert_weights(p: MoE, x_dtype: torch.dtype) -> list[torch.Tensor]:
+    """(wg, wi, wo): every expert's weights in x's dtype, the trits times the
+    scale cast to x's dtype.  The JAX package casts the trits to x's dtype
+    first; a trit in {-1, 0, 1} casts exactly, so one multiply that
+    promotes the int8 trits gives the same bits in one pass."""
+    out = []
+    for name in EXPERT_STACKS:
+        st = getattr(p, name)
+        out.append(torch.mul(st.trits_of(), st.scale.to(x_dtype)))
+    return out
+
+
+@contextlib.contextmanager
+def _full_f32():
+    """float32 matmuls in full precision (TF32 off) inside the block."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def dispatch_compute(x_tok: torch.Tensor, x_in: torch.Tensor, weights, router: torch.Tensor,
+                     cfg: ModelConfig, capacity: int):
+    """Route the (T, D) normed rows ``x_tok``, run every expert on its kept
+    copies of the expert inputs ``x_in`` (T, D), and combine -> ((T, D) in
+    x_in's dtype, the routed copies of each expert (E,), drops included)."""
+    e = cfg.moe
+    t, d = x_tok.shape
+    n_e, k, dev = e.n_experts, e.top_k, x_tok.device
+    wg, wi, wo = weights
+    with _full_f32():
+        logits = x_tok.float() @ router.float()
+    probs = torch.softmax(logits, dim=-1)                        # (T, E)
+    # torch.topk and lax.top_k order exact ties differently; the router's
+    # float32 probabilities of distinct experts do not tie with these weights
+    gate, expert = torch.topk(probs, k, dim=-1)                  # (T, K)
+    gate = gate / gate.sum(dim=-1, keepdim=True)
+
+    flat_e = expert.reshape(-1)                                  # (T*K,)
+    order = torch.argsort(flat_e, stable=True)
+    counts = torch.zeros(n_e, dtype=flat_e.dtype, device=dev).scatter_add_(
+        0, flat_e, torch.ones_like(flat_e))
+    starts = torch.cumsum(counts, dim=0) - counts
+    pos_sorted = torch.arange(t * k, device=dev) - starts[flat_e[order]]
+    pos = torch.empty_like(flat_e).scatter_(0, order, pos_sorted)  # rank in expert
+    ok = pos < capacity
+    dump = n_e * capacity
+    slot = torch.where(ok, flat_e * capacity + pos, dump)
+
+    tok_idx = torch.arange(t * k, device=dev) // k             # copy -> its token
+    buf = x_in.new_zeros((dump + 1, d))
+    buf[slot] = x_in[tok_idx]             # the drops all land on the dump row
+    buf = buf[:-1].view(n_e, capacity, d)
+    h = silu(torch.bmm(buf, wg)) * torch.bmm(buf, wi)
+    y = torch.bmm(h, wo).view(dump, d)
+
+    y_flat = torch.cat([y, y.new_zeros((1, d))])
+    g = torch.where(ok, gate.reshape(-1), 0.0).to(y.dtype)
+    contrib = (y_flat[slot] * g[:, None]).view(t, k, d)
+    out = torch.zeros((t, d), dtype=y.dtype, device=dev)
+    for j in range(k):                    # a token's copies in routing order
+        out = out + contrib[:, j]
+    return out, counts
+
+
+def shared_ffn(p: MoE, x: torch.Tensor, ca: ops.DasTopK | None) -> torch.Tensor:
+    """The always-on experts on the normed rows x; gate and up share the
+    DAS step ``ca`` of x (None with DAS off)."""
+    g = p.shared_gate(x, ca)
+    u = p.shared_in(x, ca)
+    return p.shared_out(silu(g) * u)
+
+
+def decode_capacity(cfg: ModelConfig, batch: int) -> int:
+    """No-drop per-expert capacity for a decode tick of ``batch`` tokens: an
+    expert receives at most one routed copy of each token, so capacity ==
+    batch makes drops impossible, and a request's tokens do not depend on
+    its batch-mates."""
+    del cfg
+    return max(1, batch)
+
+
+def prefill_capacity(cfg: ModelConfig, t: int) -> int:
+    """The capacity-factor bound for t tokens: max(1, min(t, int(t * top_k /
+    E * cf) + 1))."""
+    e = cfg.moe
+    return max(1, min(t, int(t * e.top_k / e.n_experts * e.capacity_factor) + 1))
+
+
+def moe_apply(p: MoE, cfg: ModelConfig, x: torch.Tensor, norm_scale: torch.Tensor, *,
+              capacity: int | None = None) -> torch.Tensor:
+    """The MoE FFN of the residual x (B, S, D) normed by ``norm_scale`` ->
+    (B, S, D) in x's dtype.  ``capacity`` is the per-expert token capacity
+    (the engine's decode passes ``decode_capacity``); None takes the
+    capacity-factor bound over all B*S tokens."""
+    b, s, d = x.shape
+    t = b * s
+    cap = capacity if capacity is not None else prefill_capacity(cfg, t)
+    das = cfg.ternary.das
+    if das is None:
+        normed = rmsnorm(norm_scale, x).reshape(t, d)
+        x_in, ca = normed, None
+    else:
+        ca = ops.das_topk(x, keep=das.keep, block=das.block, norm_scale=norm_scale,
+                          with_mask=False, with_normed=True, with_dense=True)
+        normed, x_in = ca.normed, ca.dense
+    p.capacity = cap
+    y, p.load = dispatch_compute(normed, tq.int8_fake_quant(x_in),
+                                 expert_weights(p, x.dtype), p.router, cfg, cap)
+    if cfg.moe.n_shared:
+        y = y + shared_ffn(p, normed, ca)
+    return y.reshape(b, s, d)

@@ -43,14 +43,14 @@ from repro_torch.core import twd
 from repro_torch.kernels import ops
 from repro_torch.models.layers import rmsnorm
 
-__all__ = ["ROW_ALIGN", "TRITS_FORMATS", "TernaryLinear", "tlin_init",
+__all__ = ["ROW_ALIGN", "TRITS_FORMATS", "TernaryLinear", "check_format", "tlin_init",
            "export_tlin", "tlin_compact", "tlin_norm_input", "tlin_apply"]
 
 ROW_ALIGN = 16   # packed rows of an export are a multiple of this
 TRITS_FORMATS = ("int8", "bf16")   # serve formats that hold int8 trits
 
 
-def _check_format(tc: TernaryConfig) -> None:
+def check_format(tc: TernaryConfig) -> None:
     if not tc.enabled or tc.serve_format not in ("packed", *TRITS_FORMATS):
         raise NotImplementedError(
             "the port serves ternary weights base-3 packed or as int8 trits "
@@ -64,7 +64,7 @@ class TernaryLinear(nn.Module):
 
     def __init__(self, d_in: int, d_out: int, tc: TernaryConfig, device=None):
         super().__init__()
-        _check_format(tc)
+        check_format(tc)
         self.d_in, self.d_out, self.tc = d_in, d_out, tc
         if tc.serve_format == "packed":
             rows = twd.packed_rows(d_in, ROW_ALIGN)
@@ -92,7 +92,7 @@ def tlin_init(gen: torch.Generator, d_in: int, d_out: int, dtype: torch.dtype,
 def export_tlin(p: dict, tc: TernaryConfig) -> dict:
     """Master {"w"} -> serving {"packed" (R, N) uint8 | "trits" (K, N) int8,
     "scale" float32}."""
-    _check_format(tc)
+    check_format(tc)
     tw = tq.ternary_quantize(p["w"])
     if tc.serve_format == "packed":
         return {"packed": twd.pack_ternary(tw.values, row_align=ROW_ALIGN),

@@ -1,12 +1,14 @@
-"""Decoder blocks and the layer-stack loops for the dense attention kinds.
+"""Decoder blocks and the layer-stack loops for the attention kinds.
 
-A ``Block`` is rmsnorm -> attention -> residual -> rmsnorm -> gated FFN
-(silu or tanh-gelu, by ``cfg.act``) -> residual; with DAS on, each rmsnorm
-runs inside the DAS step of the projections it feeds (``tlin_norm_input``).
-The JAX package scans stacked layer groups; here the stack is a loop over
-the model's ``ModuleList``, whatever the pattern and its tail (gemma3's 26
-layers = 4 x 6 + 2).  Layer kinds "attn" and "local" are served; mamba,
-rwkv, gla, MoE and the 2-matrix MLP wait for later slices (ROADMAP).
+A ``Block`` is rmsnorm -> attention -> residual -> rmsnorm -> FFN ->
+residual, the FFN gated (silu or tanh-gelu, by ``cfg.act``) or, for a MoE
+config, the mixture of experts (models/moe.py); with DAS on, each rmsnorm
+runs inside the DAS step of the projections it feeds (``tlin_norm_input``,
+and the MoE's one ``das_topk`` call).  The JAX package scans stacked layer
+groups; here the stack is a loop over the model's ``ModuleList``, whatever
+the pattern and its tail (gemma3's 26 layers = 4 x 6 + 2).  Layer kinds
+"attn" and "local" are served; mamba, rwkv, gla and the 2-matrix MLP wait
+for later slices (ROADMAP).
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as A
 from repro_torch.models import kvcache as KV
+from repro_torch.models import moe as MOE
 from repro_torch.models.layers import ACT, RMSNorm
 from repro_torch.models.ternary_linear import TernaryLinear, tlin_norm_input
 
@@ -43,15 +46,17 @@ class Block(nn.Module):
     def __init__(self, cfg: ModelConfig, kind: str, dtype: torch.dtype,
                  device=None):
         super().__init__()
-        if kind not in ("attn", "local") or cfg.moe is not None:
+        if kind not in ("attn", "local"):
             raise NotImplementedError(
-                f"layer kind {kind!r} (moe={cfg.moe is not None}): the port "
-                f"serves dense attn/local blocks")
+                f"layer kind {kind!r}: the port serves attn/local blocks")
         self.kind = kind
         self.norm1 = RMSNorm(cfg.d_model, dtype, device)
         self.attn = A.Attention(cfg, device)
         self.norm2 = RMSNorm(cfg.d_model, dtype, device)
-        self.ffn = FFN(cfg, device)
+        if cfg.moe is not None:
+            self.moe = MOE.MoE(cfg, dtype, device)
+        else:
+            self.ffn = FFN(cfg, device)
 
 
 def ffn_apply(p: FFN, cfg: ModelConfig, x: torch.Tensor,
@@ -61,6 +66,17 @@ def ffn_apply(p: FFN, cfg: ModelConfig, x: torch.Tensor,
     xin, ca = tlin_norm_input(x, norm_scale, cfg.ternary)
     h = ACT[cfg.act](p.w_gate(xin, ca)) * p.w_in(xin, ca)
     return p.w_out(h)
+
+
+def _mixer_ffn(bp: Block, cfg: ModelConfig, x: torch.Tensor, decode: bool) -> torch.Tensor:
+    """The FFN or MoE half of a block on the residual x.  A decode step
+    gives the MoE the no-drop capacity (a hot expert must never drop a live
+    request's token); a prefill runs it over the whole prefix at once, with
+    the capacity-factor bound of all its tokens, as the JAX package does."""
+    if cfg.moe is not None:
+        cap = MOE.decode_capacity(cfg, x.shape[0] * x.shape[1]) if decode else None
+        return MOE.moe_apply(bp.moe, cfg, x, bp.norm2.scale, capacity=cap)
+    return ffn_apply(bp.ffn, cfg, x, bp.norm2.scale)
 
 
 def block_prefill(bp: Block, cfg: ModelConfig, x: torch.Tensor, *,
@@ -73,7 +89,7 @@ def block_prefill(bp: Block, cfg: ModelConfig, x: torch.Tensor, *,
     else:
         y, cache = A.attn_prefill_full(bp.attn, cfg, x, bp.norm1.scale, max_len)
     x = x + y
-    return x + ffn_apply(bp.ffn, cfg, x, bp.norm2.scale), cache
+    return x + _mixer_ffn(bp, cfg, x, decode=False), cache
 
 
 def block_decode(bp: Block, cfg: ModelConfig, x: torch.Tensor, cache: dict,
@@ -82,7 +98,7 @@ def block_decode(bp: Block, cfg: ModelConfig, x: torch.Tensor, cache: dict,
     updates in place."""
     x = x + A.attn_decode(bp.attn, cfg, x, bp.norm1.scale, cache, step, bp.kind,
                           serve_sparse=serve_sparse)
-    return x + ffn_apply(bp.ffn, cfg, x, bp.norm2.scale)
+    return x + _mixer_ffn(bp, cfg, x, decode=True)
 
 
 def layer_cache_spec(cfg: ModelConfig, kind: str, batch: int, max_len: int,

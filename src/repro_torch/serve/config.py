@@ -1,7 +1,7 @@
 """ServeConfig: the validated engine configuration of the port.
 
-The fields the dense/ring and paged serving paths read, with the JAX
-package's defaults and validation messages.  Top-k, policies, schedulers and
+The fields the dense/ring and paged serving paths and the MoE admission
+bound read, with the JAX package's defaults and validation messages.  Top-k, policies, schedulers and
 topology of the JAX ``ServeConfig`` wait for later slices (ROADMAP).
 """
 
@@ -27,7 +27,9 @@ class ServeConfig:
     (kvcache.CacheSpec layout="paged").  ``num_pages`` 0 sizes the pool to
     the per-slot worst case (max_slots * max_len / page_size + the null
     page).  ``prefix_sharing`` turns on the radix-trie prompt-prefix index
-    (paged layout only)."""
+    (paged layout only).  ``moe_expert_capacity`` > 0 bounds a MoE model's
+    per-expert load a decode tick by deferring admissions (0 = unbounded;
+    decode itself never drops a token)."""
     max_slots: int = 4
     max_len: int = 512
     layout: str = "auto"
@@ -35,6 +37,7 @@ class ServeConfig:
     num_pages: int = 0
     prefix_sharing: bool = True
     seed: int = 0
+    moe_expert_capacity: int = 0
     aging_steps: int = 64
 
     def __post_init__(self):
@@ -57,6 +60,10 @@ class ServeConfig:
             if self.num_pages and self.num_pages < 2:
                 raise ValueError("num_pages must be 0 (auto) or >= 2 "
                                  "(page 0 is the reserved null page)")
+        if self.moe_expert_capacity < 0:
+            raise ValueError(f"moe_expert_capacity must be >= 0 "
+                             f"(0 = unbounded), got "
+                             f"{self.moe_expert_capacity}")
         if self.aging_steps < 0:
             raise ValueError(f"aging_steps must be >= 0 (0 = strict "
                              f"priority), got {self.aging_steps}")

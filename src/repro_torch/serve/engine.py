@@ -37,6 +37,12 @@ releases its references and scrubs the pages that fall free.  A config
 without full-attention layers (the LPSA path) gets no pages and still
 shares exact prefix states through the trie.
 
+MoE configs decode with the no-drop expert capacity (models/moe.py
+``decode_capacity``: the batch, ``max_slots``, idle rows included, so the
+step's shapes stay static); ``ServeConfig.moe_expert_capacity`` optionally
+bounds the per-expert load of a tick by deferring admissions instead of
+dropping tokens.
+
 Sampling is greedy: a request with ``temperature > 0`` raises
 NotImplementedError (ROADMAP).
 """
@@ -60,7 +66,7 @@ from repro_torch.serve.kvpool import PagePool, PrefixEntry, RadixIndex
 from repro_torch.serve.sampler import greedy
 from repro_torch.serve.scheduler import FifoScheduler, Request
 
-__all__ = ["ServeEngine", "EngineStats", "RequestResult"]
+__all__ = ["ServeEngine", "EngineStats", "RequestResult", "check_serve_config"]
 
 FREE, PREFILL, DECODE = 0, 1, 2
 
@@ -102,11 +108,24 @@ class EngineStats:
     cow_copies: int = 0           # copy-on-write page copies
     prefix_evictions: int = 0     # trie entries evicted to free pages
     pool_peak_pages: int = 0      # peak pages in use during this run
+    moe_capacity_deferrals: int = 0  # admissions deferred by the MoE
+                                     # expert-capacity bound (ticks a ready
+                                     # request waited for it)
 
     @property
     def slot_utilization(self) -> float:
         """Mean fraction of decode-batch rows doing useful work."""
         return self.active_slot_steps / max(1, self.decode_steps * max(1, self.max_slots))
+
+
+def check_serve_config(cfg, config: ServeConfig) -> None:
+    """Raise ValueError when ``config`` cannot serve the model config
+    ``cfg``: an expert-capacity bound needs MoE layers."""
+    if config.moe_expert_capacity and cfg.moe is None:
+        raise ValueError(
+            f"moe_expert_capacity={config.moe_expert_capacity} is set "
+            f"but config {cfg.name!r} has no MoE layers; drop the bound "
+            f"or serve a MoE config")
 
 
 class _Slot:
@@ -136,12 +155,14 @@ class ServeEngine:
             raise ValueError(f"model lies on {model.device}, engine asked for {dev}")
         config = config or ServeConfig()
         cfg = model.cfg
+        check_serve_config(cfg, config)
         self.model, self.cfg, self.config = model, cfg, config
         self.device = model.device
         self.serve_sparse = serve_sparse
         self.max_slots, self.max_len = config.max_slots, config.max_len
         self.scheduler = FifoScheduler(aging_steps=config.aging_steps)
         self.stats = EngineStats(max_slots=config.max_slots)
+        self._moe_slot_cap = config.moe_expert_capacity if cfg.moe is not None else 0
         self.vtime = 0
         sw = [A.kind_sink_window(cfg, k, serve_sparse) for k in cfg.layer_kinds()]
         self._has_full = any(s >= A.FULL_SINK for s, _ in sw)
@@ -321,6 +342,14 @@ class ServeEngine:
         for i, slot in enumerate(self._slots):
             if slot.state != FREE:
                 continue
+            if self._moe_slot_cap and self.num_active >= self._moe_slot_cap:
+                # each active slot routes one token a tick, and an expert
+                # takes at most one copy of a token: active slots bound the
+                # per-expert load.  Hold admissions until a retirement.
+                nxt = self.scheduler.next_arrival()
+                if nxt is not None and nxt <= self.vtime:
+                    self.stats.moe_capacity_deferrals += 1
+                return
             req = self.scheduler.pop_ready(self.vtime)
             if req is None:
                 return
