@@ -21,7 +21,10 @@ Phases:
            packed GEMMs at every K of the zoo and gemma2-2b's and bitnet-3b's
            projections; qwen3-moe-30b-a3b's: twd_decode over a whole
            expert stack (exact), das_topk's MoE call (dense rows beside the
-           compaction), sparse_attention at 32 q heads over 4 kv heads of 64
+           compaction), sparse_attention at 32 q heads over 4 kv heads of 64;
+           the SSM pair's: das_topk (plain and gla's norm-fused) and
+           das_ternary_gemm at every rwkv6-3b and gla-1.3b projection at 4
+           and 1100 rows, ternary_gemm in float32 at 1 and 512 rows
   serve    full-width bitnet-1.3b (seeded random weights) on five paths, each
            driven with the launch counts at 0 and read after it; every
            engine captures its decode step into a CUDA graph after one
@@ -63,8 +66,8 @@ Phases:
            the admission of their first prompt and their decode step under
            the profiler, replayed and eager (the same tokens and launches a
            step), and a 2-layer model at their widths on the card against
-           the CPU; last the MoE path:
-             qwen3-moe-30b-a3b  full width and all 48 layers (128 experts of
+           the CPU; then the MoE path:
+             qwen3-moe-30b-a3b  full width, 16 of its 48 layers (128 experts of
                          768, top-8, 32 heads of 64 over 4, vocab 151936,
                          untied head), exported layer by layer: the packed
                          trace, each expert stack unpacked by one twd_decode
@@ -77,6 +80,23 @@ Phases:
                          copies), with the experts' fake-quant the identity
                          (2e-4) and as served (2e-3, the int8 values and
                          scales that differ counted)
+           last the SSM pair, each a model of its own (seeded random weights
+           exported layer by layer, packed, bf16, DAS 16/32, no attention):
+             rwkv6-3b    full width and all 32 layers (40 heads of 64, d_ff
+                         8960, vocab 65536, untied);
+             gla-1.3b    full width and all 24 layers (4 heads of 512, d_ff
+                         5632, vocab 32000, untied);
+           each serves the packed trace from the CUDA graph with its
+           recurrent slot states (every prompt prefilled whole at
+           admission): exact launch counts (das_topk / das_ternary_gemm 8 / 8
+           a rwkv layer and 4 / 8 a gla layer, per decode step and per
+           prefill), every step a replay, finite logits, bitwise batch
+           invariance, the slot-state layouts; the admission of the
+           1100-token prompt (chunk 55) and of a 997-token one (chunk 1: 997
+           chunks a layer) by CUDA events, host clock and device time by SSM
+           class; the decode step under the profiler, replayed and eager;
+           and a 2-layer model at its widths against the CPU (f32, DAS off:
+           ternary_gemm at these shapes)
   times    each kernel at its decode shape: CUDA-event median beside its
            bound, its plain version and one PyTorch call of the same function;
            the packed GEMMs and das_gemv also at their other decode shapes
@@ -88,7 +108,9 @@ Phases:
            sparse_attention at head sizes 100 and 256 in every class, and
            das_topk and das_ternary_gemm at gemma2-2b's decode shapes;
            twd_decode over qwen3-moe's expert stacks, sparse_attention at its
-           32 over 4 heads of 64
+           32 over 4 heads of 64; das_ternary_gemm and das_topk at every SSM
+           projection at decode and at the 1100-token admission, and the
+           MoE's das_topk call at 4 and 1024 rows
   profile  (only when named) the packed and int8w decode steps and the
            admission under torch.profiler, as the serve phase profiles them
 
@@ -108,6 +130,7 @@ import argparse
 import copy
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -395,6 +418,7 @@ class Smoke:
         self._zoo_attention_cases(g)
         self._zoo_gemm_cases(g)
         self._moe_cases(g)
+        self._ssm_cases(g)
 
     def _topk_cases(self, g):
         """das_topk against its plain version, exactly: bitnet-1.3b's widths
@@ -767,6 +791,65 @@ class Smoke:
         case("prefill bf16 LPSA pack t0=512 round_scores", 1, 256, 1280, qp1[None].to(dev),
              kp1[None].to(dev), True)
 
+    # the SSM pair's projections (label, K, N), every K a multiple of 32, so
+    # DAS compacts every input: rwkv6-3b's r/k/v/g/o and the channel-mix's
+    # r (2560 -> 2560), k (2560 -> 8960) and v (8960 -> 2560); gla-1.3b's
+    # q/k/v/g/o (2048 -> 2048), gate/up (2048 -> 5632) and down (5632 -> 2048)
+    SSM_GEMMS = (("rwkv6-3b r/k/v/g/o, cr", 2560, 2560), ("rwkv6-3b ck", 2560, 8960),
+                 ("rwkv6-3b cv", 8960, 2560), ("gla-1.3b q/k/v/g/o", 2048, 2048),
+                 ("gla-1.3b gate/up", 2048, 5632), ("gla-1.3b down", 5632, 2048))
+    SSM_PREFILL_M = 1100       # a prefill's rows: the whole prompt at once
+
+    def _ssm_cases(self, g):
+        """The SSM pair's shapes, at decode (4 rows) and at the 1100-token
+        admission (1100 rows): das_topk exactly against its plain version at
+        every K, plain (rwkv's 8 projections, gla's o and down) and
+        norm-fused with the normed rows (gla's q/k/v/g and gate/up take it
+        at K = 2048); das_ternary_gemm at every projection within the bf16
+        tolerance; ternary_gemm in float32 at every projection, at 1 and 512
+        rows, the shapes of the DAS-off width check.  The weight scale is
+        the one the export gives a projection of fan-in K (the absmean of
+        N(0, 1/K) master weights, sqrt(2/pi/K)), so the outputs have the
+        model's magnitude: at 0.37 the float32 sums over K = 8960 unit rows
+        reach ~30 and two summation orders differ by ~5e-4."""
+        torch = self.torch
+        from repro_torch.kernels import ref
+        from repro_torch.kernels.das_gemm import das_ternary_gemm_cuda
+        from repro_torch.kernels.ternary_gemm import ternary_gemm_cuda
+        from repro_torch.kernels.topk_mask import das_topk_cuda
+        dev, bf16, f32 = self.dev, torch.bfloat16, torch.float32
+        for k in (2560, 8960, 2048, 5632):
+            for m in (4, self.SSM_PREFILL_M):
+                x = torch.randn((m, k), generator=g, device=dev).to(bf16)
+                got = das_topk_cuda(x, keep=16, block=32, with_mask=False)
+                want = ref.das_topk_ref(x, keep=16, block=32, with_mask=False)
+                for name in ("values", "indices"):
+                    self.check(f"das_topk SSM ({m},{k}) {name}", getattr(got, name),
+                               getattr(want, name), 0, True)
+                nscale = (0.5 * torch.randn((k,), generator=g, device=dev)).to(bf16)
+                fused = das_topk_cuda(x, keep=16, block=32, norm_scale=nscale,
+                                      with_mask=False, with_normed=True)
+                plain = ref.das_topk_ref(fused.normed, keep=16, block=32, with_mask=False)
+                for name in ("values", "indices"):
+                    self.check(f"das_topk norm-fused ({m},{k}) {name} vs das_topk_ref(normed)",
+                               getattr(fused, name), getattr(plain, name), 0, True)
+        for label, k, n in self.SSM_GEMMS:
+            packed = self._packed(g, k, n)
+            scale = torch.tensor((2 / math.pi / k) ** 0.5, device=dev)
+            for m in (4, self.SSM_PREFILL_M):
+                x = torch.randn((m, k), generator=g, device=dev).to(bf16)
+                ca = ref.das_topk_ref(x, keep=16, block=32, with_mask=False)
+                self.check(f"das_ternary_gemm {label} ({m},{k // 2} of {k})x"
+                           f"({packed.shape[0]},{n})",
+                           das_ternary_gemm_cuda(ca.values, ca.indices, packed, scale, keep=16),
+                           ref.das_ternary_gemm_ref(ca.values, ca.indices, packed, scale),
+                           TOL_BF16)
+            for m in (1, 512):
+                x = torch.randn((m, k), generator=g, device=dev).to(f32)
+                self.check(f"ternary_gemm f32 {label} ({m},{k})x({packed.shape[0]},{n})",
+                           ternary_gemm_cuda(x, packed, scale),
+                           ref.ternary_gemm_ref(x, packed, scale), TOL_F32_GEMM)
+
     PROMPT_LENS, GEN_LEN = (1100, 300, 256, 40, 700), 32
 
     def _packed_model(self):
@@ -922,6 +1005,8 @@ class Smoke:
         for arch, (lens, gen, depth) in self.ZOO_PATHS.items():
             self._serve_zoo(arch, lens, gen, depth)
         self._serve_moe()
+        for arch in self.SSM_ARCHS:
+            self._serve_ssm(arch)
 
     # the zoo's serve paths: arch -> (prompt lengths, new tokens, depth; None:
     # the arch's own).  gemma2-2b's 4400-token prompt wraps both its 4096-slot
@@ -1005,10 +1090,15 @@ class Smoke:
         _took(arch, t_path)
 
     MOE_ARCH = "qwen3-moe-30b-a3b"
+    # the MoE path's depth, cut from 48 to keep the whole run near 800 s
+    # beside the SSM paths (with all 48 it read 820 s on an H100); the step
+    # unpacks every expert of every layer, so its time scales with depth
+    MOE_DEPTH = 16
 
     def _serve_moe(self):
-        """Path "qwen3-moe-30b-a3b": the MoE model at full width and all 48
-        layers (128 experts of 768, top-8; 32 heads of 64 over 4; vocab
+        """Path "qwen3-moe-30b-a3b": the MoE model at full width, its depth
+        cut to MOE_DEPTH of its 48 layers (128 experts of 768, top-8; 32
+        heads of 64 over 4; vocab
         151936, untied head), seeded random weights exported layer by layer,
         base-3 packed, bf16, DAS 16/32, LPSA 128 + 896, served from the CUDA
         graph: bitnet-1.3b's packed trace (4 slots, 5 greedy requests of 32
@@ -1027,7 +1117,7 @@ class Smoke:
         from repro_torch.serve import Request, ServeConfig
         arch = self.MOE_ARCH
         t_path = time.perf_counter()
-        cfg = get_config(arch)
+        cfg = dataclasses.replace(get_config(arch), n_layers=self.MOE_DEPTH)
         e = cfg.moe
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -1035,7 +1125,8 @@ class Smoke:
         torch.cuda.synchronize()
         nbytes = sum(b.numel() * b.element_size() for b in model.state_dict().values())
         st = model.layers[0].moe
-        log(f"[serve] {arch}: {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} heads "
+        log(f"[serve] {arch}: {cfg.n_layers} layers (cut from {get_config(arch).n_layers}), "
+            f"d_model {cfg.d_model}, {cfg.n_heads} heads "
             f"of {cfg.head_dim_} over {cfg.n_kv_heads}, {e.n_experts} experts of {e.d_expert}, "
             f"top-{e.top_k}, {e.n_shared} shared, vocab {cfg.vocab}, "
             f"{'tied' if cfg.tie_embeddings else 'untied'}; expert stacks packed "
@@ -1075,9 +1166,9 @@ class Smoke:
                 f"first: {load[:16]} ...; experts over capacity {sum(v > cap for v in load)}, "
                 f"with no copy {load.count(0)}, the 8 largest hold "
                 f"{sum(load[:8]) / sum(load):.3f} of the copies")
-        self._profile_admission(model, prompts[0], sc.max_len, moe=True)
+        self._profile_admission(model, prompts[0], sc.max_len, classes="moe")
         runs = [self._profile_decode(f"{arch} {'graph' if graph else 'eager'}", model, sc,
-                                     prompts, graph, profiled=graph, moe=True)
+                                     prompts, graph, profiled=graph, classes="moe")
                 for graph in (True, False)]
         if runs[0]["tokens"] != runs[1]["tokens"] or runs[0]["per_step"] != runs[1]["per_step"]:
             raise AssertionError(f"{arch}: the replayed decode step differs from the eager "
@@ -1090,6 +1181,138 @@ class Smoke:
         torch.cuda.empty_cache()
         self._moe_width_parity(arch, cfg, prompts[0])
         _took(arch, t_path)
+
+    SSM_ARCHS = ("rwkv6-3b", "gla-1.3b")
+    # (das_topk, das_ternary_gemm) launches a layer, per decode step and per
+    # prefill alike: rwkv's 8 projections each take their own DAS step; gla's
+    # q/k/v/g share one (the norm inside), o, gate/up (sharing one, the norm
+    # inside) and down
+    SSM_LAUNCHES = {"rwkv": (8, 8), "gla": (4, 8)}
+    SSM_C1_PROMPT = 997        # a prime above 56: the chunk rule's c = 1
+
+    def _serve_ssm(self, arch):
+        """Path ``arch``: an attention-free model at full width and depth
+        (rwkv6-3b: 32 layers, 40 heads of 64, d_ff 8960, vocab 65536;
+        gla-1.3b: 24 layers, 4 heads of 512, d_ff 5632, vocab 32000; both
+        untied), seeded random weights exported layer by layer, base-3
+        packed, bf16, DAS 16/32, served from the CUDA graph with its
+        recurrent slot states: bitnet-1.3b's packed trace (each prompt
+        prefilled whole at admission), exact launch counts, every decode
+        step a replay, finite logits, bitwise batch invariance; the
+        admission of the 1100-token prompt (chunk 55) and of a 997-token one
+        (chunk 1); the decode step under the profiler with device time by
+        SSM class, replayed and eager (the same tokens and launches a step);
+        a 2-layer model at these widths on the card against the CPU."""
+        torch = self.torch
+        from repro_torch.configs import get_config
+        from repro_torch.models import model as MD
+        from repro_torch.serve import Request, ServeConfig
+        t_path = time.perf_counter()
+        cfg = get_config(arch)
+        kind, n_l = cfg.layer_pattern[0], cfg.n_layers
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = MD.init_serving(cfg, seed=self.seed, device=self.dev)
+        torch.cuda.synchronize()
+        nbytes = sum(b.numel() * b.element_size() for b in model.state_dict().values())
+        state = sum(b.nbytes for b in MD.init_caches(cfg, 1, 1, device="meta")[0].values())
+        log(f"[serve] {arch}: {n_l} {kind} layers, d_model {cfg.d_model}, {cfg.n_heads} heads of "
+            f"{cfg.head_dim_}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
+            f"{'tied' if cfg.tie_embeddings else 'untied'}; serving weights {nbytes / 1e9:.3f} GB, "
+            f"recurrent state {state * n_l / 1e6:.1f} MB a slot (float32); init+export layer by "
+            f"layer {time.perf_counter() - t0:.1f} s, peak memory "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+        rng = torch.Generator().manual_seed(self.seed + 17)
+        prompts = [torch.randint(0, cfg.vocab, (p,), generator=rng).numpy()
+                   for p in (*self.PROMPT_LENS, self.SSM_C1_PROMPT)]
+        trace = [Request(uid=i, prompt=p, max_new_tokens=self.GEN_LEN, arrival=2 * i)
+                 for i, p in enumerate(prompts[:len(self.PROMPT_LENS)])]
+        sc = ServeConfig(max_slots=4, max_len=max(self.PROMPT_LENS) + self.GEN_LEN,
+                         seed=self.seed)
+        topk, gemm = self.SSM_LAUNCHES[kind]
+
+        def want(st):   # each admission prefills its whole prompt once
+            calls = st.decode_steps + st.warmup_steps + len(trace)
+            return {**{name: 0 for name in KERNEL_INFO}, "das_topk": n_l * topk * calls,
+                    "das_ternary_gemm": n_l * gemm * calls}
+
+        _, eng, res = self._serve_path(arch, lambda: model, trace, sc, want)
+        layouts = {(d["kind"], d["layout"]) for d in eng.layout_summary()}
+        log(f"[serve] {arch}: slot-state layouts {sorted(layouts)} over {n_l} layers; "
+            f"{eng.stats.prefill_tokens} prefill tokens (every prompt whole at admission)")
+        if layouts != {(kind, kind)} or eng.stats.prefill_tokens != sum(self.PROMPT_LENS):
+            raise AssertionError(f"{arch}: the engine's slot states or prefills are wrong")
+        self._finite_logits(arch, model, prompts[2], sc.max_len)
+        self._batch_invariance(arch, eng, trace, res, (0, 3))
+        del eng
+        for prompt in (prompts[0], prompts[-1]):
+            self._profile_ssm_admission(arch, model, prompt)
+        runs = [self._profile_decode(f"{arch} {'graph' if graph else 'eager'}", model, sc,
+                                     prompts, graph, profiled=graph, classes="ssm")
+                for graph in (True, False)]
+        if runs[0]["tokens"] != runs[1]["tokens"] or runs[0]["per_step"] != runs[1]["per_step"]:
+            raise AssertionError(f"{arch}: the replayed decode step differs from the eager "
+                                 f"one in tokens or launches a step")
+        log(f"[profile] {arch}: replayed and eager decode steps give the same tokens bitwise "
+            f"and the same launches a step {runs[0]['per_step']}; ms/step "
+            f"{runs[0]['ms_step']:.3f} / {runs[1]['ms_step']:.3f} (graph / eager), device "
+            f"busy {runs[0]['busy_ms_step']} ms/step, idle share {runs[0]['idle']} (graph)")
+        del model
+        torch.cuda.empty_cache()
+        self._width_parity(arch, cfg, prompts[0])
+        _took(arch, t_path)
+
+    def _profile_ssm_admission(self, arch, model, prompt):
+        """The admission of ``prompt`` on an SSM path: one batch-1 prefill of
+        the whole prompt, its chunk from the chunk rule; CUDA events and the
+        host clock around one prefill, then device busy by SSM class under
+        torch.profiler: over the whole prefill when its chunk is above 1,
+        else over layer 0's block alone (its tens of thousands of launches
+        a layer make a whole-model trace slow to aggregate), times the
+        layers for the model."""
+        torch = self.torch
+        from torch.profiler import ProfilerActivity, profile
+
+        from repro_torch.models import layers as L
+        from repro_torch.models import model as MD
+        from repro_torch.models import transformer as T
+        from repro_torch.models.linear_attn import CHUNK, chunk_size
+        cfg, n = model.cfg, len(prompt)
+        c = chunk_size(n, CHUNK)
+        tok = torch.as_tensor(prompt, dtype=torch.long, device=self.dev)[None]
+        if c > 1:    # warm the allocator (a c = 1 prefill runs the same ops as
+            MD.prefill(model, tok, max_len=n + 1)   # the one before, for ~20 s)
+        ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ev0.record()
+        MD.prefill(model, tok, max_len=n + 1)
+        ev1.record()
+        torch.cuda.synchronize()
+        host, ms = time.perf_counter() - t0, ev0.elapsed_time(ev1)
+        if c > 1:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                MD.prefill(model, tok, max_len=n + 1)
+                torch.cuda.synchronize()
+            scope, times = "the whole prefill", 1
+        else:
+            x = L.take_embed(model.embed, tok)
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                T.block_prefill(model.layers[0], cfg, x, serve_sparse=True, max_len=n + 1)
+                torch.cuda.synchronize()
+            scope, times = f"layer 0 alone x {cfg.n_layers} layers", cfg.n_layers
+        by_name = _device_times(prof.key_averages())
+        busy_us = sum(by_name.values()) * times
+        if not busy_us:
+            log(f"[profile] {arch} admission: the profiler recorded no device time: not measured")
+            return
+        log(f"[profile] {arch} admission of a {n}-token prompt (chunk {c}: {n // c} chunks a "
+            f"layer): {ms:.3f} ms (CUDA events), host {host:.3f} s, device busy "
+            f"{busy_us / 1e3:.3f} ms under torch.profiler ({scope}), idle share "
+            f"{1 - busy_us / 1e3 / ms:.3f}; by SSM class: " + ", ".join(
+                f"{cat} {us * times / 1e3:.3f}" for cat, us in _by_class(by_name, "ssm").items()))
+        for name, dt in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
+            log(f"[profile]   {dt * times / 1e3:8.3f} ms  {name[:90]}")
 
     # the MoE's width parity (2 layers, f32, card vs CPU) with the experts'
     # int8 fake-quant as it serves: 1.57e-3 read on an H100 at seed 0, where
@@ -1152,7 +1375,7 @@ class Smoke:
         the experts, vocab, pattern, soft-caps, activation) at 2 layers (one
         period of its pattern) in float32 with DAS off, on the card
         (kernels) against the same weights on the CPU (plain versions): a
-        2-pack prompt's prefill + 8 teacher-forced decode steps within
+        2-pack prompt's (512 tokens without LPSA) prefill + 8 teacher-forced decode steps within
         ``tol``, equal greedy tokens.  DAS is off because at these widths a
         float32 sum order that differs in the last bit flips near-ties of
         the top-16-of-32 (tens of thousands of blocks a run): DAS at these
@@ -1165,7 +1388,7 @@ class Smoke:
         t0 = time.perf_counter()
         m_cpu = MD.init_serving(small, seed=self.seed, device="cpu")
         m_gpu = copy.deepcopy(m_cpu).to(self.dev)
-        n = 2 * cfg.lpsa.chunk
+        n = 2 * (cfg.lpsa.chunk if cfg.lpsa else 256)
         prompt = torch.as_tensor(prompt_ids[:n], dtype=torch.long)[None]
         lg_c, c_c = MD.prefill(m_cpu, prompt, max_len=n + 9)
         lg_g, c_g = MD.prefill(m_gpu, prompt.to(self.dev), max_len=n + 9)
@@ -1449,15 +1672,17 @@ class Smoke:
             raise AssertionError(f"{label}: the card's reduced model disagrees with the CPU's")
 
     def _profile_decode(self, label, model, sc, prompts, graph=True, profiled=True,
-                        moe=False):
-        """A decode-only trace (40-token prompts fed through the decode step):
+                        classes="glue"):
+        """A decode-only trace (40-token prompts admitted before the timed
+        run, then fed through the decode step; without LPSA admission
+        prefills them whole, so the run is their decode steps alone):
         CUDA-event ms/step without the profiler, with that run's tokens and
         kernel launches a step, then the device busy time per step, the idle
         share and the host launches per step under torch.profiler (None:
         not measured; ``profiled=False`` skips that run).  ``graph=False``
         steps eagerly (a tree without the captured step always does);
-        ``moe`` gives the device time by MoE class (_moe_class) in place of
-        the glue classes."""
+        ``classes`` names the device-time classes (CLASSES: the glue
+        classes, the MoE's or the SSM's)."""
         torch = self.torch
         from torch.profiler import ProfilerActivity, profile
 
@@ -1472,7 +1697,8 @@ class Smoke:
         submit()
         eng.run()                                   # warm the allocator
         submit()
-        steps0 = eng.stats.decode_steps
+        eng._admit_ready()       # admissions outside the timed run: a model
+        steps0 = eng.stats.decode_steps    # without LPSA prefills each prompt
         ops.reset_launches()
         ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         ev0.record()
@@ -1489,6 +1715,7 @@ class Smoke:
             return {"ms_step": ms_step, "busy_ms_step": None, "idle": None, "launches": None,
                     "tokens": tokens, "per_step": per_step}
         submit()
+        eng._admit_ready()
         steps1 = eng.stats.decode_steps
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -1513,9 +1740,8 @@ class Smoke:
             f"{ms_step:.3f} ms/step: {1 - busy_ms / ms_step:.3f})")
         for name, dt in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
             log(f"[profile]   {dt / 1e3 / steps:8.4f} ms/step  {name[:90]}")
-        classes = _by_class(by_name, moe)
-        log(f"[profile] {label} device ms/step by {'MoE ' if moe else ''}class: " + ", ".join(
-            f"{cat} {us / 1e3 / steps:.4f}" for cat, us in classes.items()))
+        log(f"[profile] {label} device ms/step by {classes} class: " + ", ".join(
+            f"{cat} {us / 1e3 / steps:.4f}" for cat, us in _by_class(by_name, classes).items()))
         host = sorted(((e.self_cpu_time_total, e.count, e.key) for e in averages),
                       reverse=True)[:12]
         log("[profile] host: self CPU time per step, calls per step")
@@ -1548,11 +1774,11 @@ class Smoke:
         log(f"[profile] int8w model load: {n} twd_decode launches, {us / 1e3:.3f} ms of "
             f"device time")
 
-    def _profile_admission(self, model, prompt, max_len, moe=False):
+    def _profile_admission(self, model, prompt, max_len, classes="glue"):
         """The device time of admitting ``prompt``: the streaming prefill of
         its whole packs (4 for 1100 tokens), CUDA events around one
         prefill, then its kernels under torch.profiler, with
-        sparse_attention's share (and with ``moe`` the time by MoE class)."""
+        sparse_attention's share (and for the MoE the time by its class)."""
         torch = self.torch
         from torch.profiler import ProfilerActivity, profile
 
@@ -1582,9 +1808,9 @@ class Smoke:
             f"{busy_us / 1e3:.3f} ms under torch.profiler, sparse_attention "
             f"{attn_us / 1e3:.3f} ms of it (share {attn_us / busy_us:.3f}), das_topk "
             f"{topk_us / 1e3:.3f} ms")
-        if moe:
-            log("[profile] admission device ms by MoE class: " + ", ".join(
-                f"{cat} {us / 1e3:.4f}" for cat, us in _by_class(by_name, moe).items()))
+        if classes != "glue":
+            log(f"[profile] admission device ms by {classes} class: " + ", ".join(
+                f"{cat} {us / 1e3:.4f}" for cat, us in _by_class(by_name, classes).items()))
         for name, dt in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
             log(f"[profile]   {dt / 1e3:8.4f} ms  {name[:90]}")
 
@@ -1878,6 +2104,7 @@ class Smoke:
             self._zoo_times(t_ms, attn_row, extra, g)
         if hasattr(kops, "twd_decode_stack"):  # nor one before the MoE a stack decode
             self._moe_times(t_ms, attn_row, g)
+        self._ssm_times(t_ms, g)
 
     def _moe_times(self, t_ms, attn_row, g):
         """qwen3-moe-30b-a3b's shapes beside their bounds: twd_decode over each
@@ -1914,6 +2141,75 @@ class Smoke:
         qp1, kp1 = pack_positions(torch, 512)
         attn_row("prefill GQA 32/4 D=64 LPSA pack t0=512", 1, 32, 4, 64, torch.bfloat16,
                  qp1[None].to(dev), kp1[None].to(dev), 128, 896, None, True)
+
+    def _ssm_times(self, t_ms, g):
+        """The SSM pair's shapes beside their bounds, each with its plain
+        version and its library call: das_ternary_gemm at every projection
+        at decode (4 rows) and at the 1100-token admission (the library: a
+        bf16 matmul of the densified rows with the bf16 weight); das_topk's
+        serving calls at every K (plain at decode and admission, gla's
+        norm-fused one with the normed rows at K = 2048), no library call
+        (no PyTorch call takes a per-block top-k and compacts); and the MoE's
+        das_topk call (norm-fused, normed and dense rows beside the
+        compaction) at 4 and 1024 rows of 2048.  Bytes: each input once,
+        each output once; operations: the kept lanes' products."""
+        torch = self.torch
+        from repro_torch.core import twd
+        from repro_torch.kernels import ref
+        from repro_torch.kernels.das_gemm import das_ternary_gemm_cuda
+        from repro_torch.kernels.topk_mask import das_topk_cuda
+        dev, bf16 = self.dev, torch.bfloat16
+        scale = torch.tensor(0.37, device=dev)
+
+        def line(label, fn, plain, library, nbytes, flops):
+            ms, plain_ms = t_ms(fn), t_ms(plain)
+            lib_ms = t_ms(library) if library is not None else None
+            t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS["bfloat16"] * 1e3
+            log(f"[times] {label}: {ms * 1e3:.1f} us, bound {max(t_b, t_o) * 1e3:.2f} us "
+                f"({'bytes' if t_b >= t_o else 'operations'}), plain {plain_ms * 1e3:.1f} us, "
+                f"library {'n/a' if lib_ms is None else f'{lib_ms * 1e3:.1f} us'}")
+
+        for label, k, n in self.SSM_GEMMS:
+            packed = twd.pack_ternary(torch.randint(-1, 2, (k, n), generator=g, device=dev),
+                                      row_align=16)
+            w = (twd.unpack_ternary_arith(packed, packed.shape[0] * 5).float() * 0.37).to(bf16)
+            kc = k // 2
+            for m in (4, self.SSM_PREFILL_M):
+                x = torch.randn((m, k), generator=g, device=dev).to(bf16)
+                ca = ref.das_topk_ref(x, keep=16, block=32, with_mask=False)
+                dense = torch.zeros((m, w.shape[0]), dtype=bf16, device=dev)
+                dense.scatter_(1, ca.indices.long(), ca.values)
+                line(f"das_ternary_gemm {label} ({m},{kc} of {k}) x packed "
+                     f"{tuple(packed.shape)}",
+                     lambda: das_ternary_gemm_cuda(ca.values, ca.indices, packed, scale,
+                                                   keep=16),
+                     lambda: ref.das_ternary_gemm_ref(ca.values, ca.indices, packed, scale),
+                     lambda: torch.matmul(dense, w),
+                     m * kc * 6 + packed.numel() + m * n * 4 + 4, 2 * m * kc * n)
+        for k in (2560, 8960, 2048, 5632):
+            for m in (4, self.SSM_PREFILL_M):
+                x = torch.randn((m, k), generator=g, device=dev).to(bf16)
+                out = m * (k // 2) * (2 + 4)              # values and indices
+                line(f"das_topk serving, mask null ({m},{k})",
+                     lambda: das_topk_cuda(x, keep=16, block=32, with_mask=False),
+                     lambda: ref.das_topk_ref(x, keep=16, block=32, with_mask=False), None,
+                     m * k * 2 + out, 0)
+                if k == 2048:
+                    ns = (0.5 * torch.randn((k,), generator=g, device=dev)).to(bf16)
+                    line(f"das_topk gla norm-fused with normed rows ({m},{k})",
+                         lambda: das_topk_cuda(x, keep=16, block=32, norm_scale=ns,
+                                               with_mask=False, with_normed=True),
+                         lambda: ref.das_topk_ref(x, keep=16, block=32, norm_scale=ns,
+                                                  with_mask=False, with_normed=True), None,
+                         m * k * 2 + k * 2 + out + m * k * 2, 0)
+        for m in (4, 1024):
+            x = torch.randn((m, 2048), generator=g, device=dev).to(bf16)
+            ns = (0.5 * torch.randn((2048,), generator=g, device=dev)).to(bf16)
+            kw = dict(keep=16, block=32, norm_scale=ns, with_mask=False, with_normed=True,
+                      with_dense=True)
+            line(f"das_topk MoE call, normed and dense rows ({m},2048)",
+                 lambda: das_topk_cuda(x, **kw), lambda: ref.das_topk_ref(x, **kw), None,
+                 m * 2048 * 2 + 2048 * 2 + m * 1024 * 6 + 2 * m * 2048 * 2, 0)
 
     def _zoo_times(self, t_ms, attn_row, extra, g):
         """The zoo's shapes beside their bounds: sparse_attention at the head
@@ -2108,10 +2404,36 @@ def _moe_class(kernel_name: str) -> str:
     return "other glue"
 
 
-def _by_class(by_name: dict, moe: bool) -> dict:
-    """Device time by class: the MoE path's classes (_moe_class) with
-    ``moe``, else the port's kernels and PyTorch's glue (_glue_class)."""
-    cls, cats = (_moe_class, MOE_CLASSES) if moe else (_glue_class, GLUE_CLASSES)
+# the SSM paths' device kernels by class: the packed GEMMs and the DAS step
+# (the port's kernels), cuBLAS's matmuls (the float32 LoRAs, the head, the
+# linear attention's chunk and state products), the copies (state writes,
+# concatenations), and the rest: the linear attention's and the recurrent
+# state's elementwise glue, the mixes, the norms
+SSM_CLASSES = ("das_ternary_gemm", "das_topk", "cuBLAS matmuls", "copies",
+               "linear-attention and state glue")
+
+
+def _ssm_class(kernel_name: str) -> str:
+    if "das_topk" in kernel_name:
+        return "das_topk"
+    if "tenet::" in kernel_name:
+        return "das_ternary_gemm"
+    if any(k in kernel_name for k in ("gemm", "gemv", "nvjet", "xmma", "cutlass", "splitK")):
+        return "cuBLAS matmuls"
+    if "copy" in kernel_name:
+        return "copies"
+    return "linear-attention and state glue"
+
+
+CLASSES = {"glue": (_glue_class, GLUE_CLASSES), "moe": (_moe_class, MOE_CLASSES),
+           "ssm": (_ssm_class, SSM_CLASSES)}
+
+
+def _by_class(by_name: dict, classes: str) -> dict:
+    """Device time by class: the port's kernels and PyTorch's glue
+    (_glue_class), the MoE path's classes (_moe_class) or the SSM paths'
+    (_ssm_class)."""
+    cls, cats = CLASSES[classes]
     return {cat: sum(dt for name, dt in by_name.items() if cls(name) == cat) for cat in cats}
 
 

@@ -1,9 +1,10 @@
 """Architecture registry of the port: `get_config("<arch-id>")` / `--arch <id>`.
 
 Only the architectures the port serves are registered: the paper's own
-bitnet models, the dense models of the JAX package's zoo and its two MoE
-models (kimi-k2 reduced only: ROADMAP queue 1, item 6).  The SSM, hybrid and
-frontend models wait for later slices (ROADMAP queue 1, item 3).
+bitnet models, the dense models of the JAX package's zoo, its two MoE
+models (kimi-k2 reduced only: ROADMAP queue 1, item 5) and its two
+attention-free SSMs, rwkv6-3b and gla-1.3b.  The hybrid and frontend models
+wait for later slices (ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -21,6 +22,8 @@ ARCH_MODULES = {
     "bitnet-1.3b": "bitnet_1p3b",
     "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
     "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
+    "rwkv6-3b": "rwkv6_3b",
+    "gla-1.3b": "gla_1p3b",
 }
 
 

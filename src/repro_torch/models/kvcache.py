@@ -1,4 +1,5 @@
-"""KV caches for serving behind a tagged ``CacheSpec``: full, ring and paged.
+"""Slot caches for serving behind a tagged ``CacheSpec``: full, ring and
+paged KV caches for attention, and the recurrent states of rwkv and gla.
 
   * full — (B, max_len, Hkv, Dh) K/V + (B, max_len) positions: the
     conventional cache, used when a global layer serves without LPSA.
@@ -10,8 +11,16 @@
     Page 0 is the null page: unmapped table entries point at it and its
     positions stay -1, so reads through them are masked.
 
-A per-sequence cache is a dict {"k", "v", "pos"} of tensors, an arena
-{"k_pages", "v_pages", "pos_pages"}; position -1 marks an empty slot.
+  * rwkv — {"wkv" (B, H, hd, hd), "shift_t", "shift_c" (B, 1, D)}, float32.
+  * gla — {"s" (B, H, hd, hd)}, float32.
+
+A per-sequence KV cache is a dict {"k", "v", "pos"} of tensors, an arena
+{"k_pages", "v_pages", "pos_pages"}; position -1 marks an empty slot.  The
+recurrent states are O(1) a slot and take no position.  The token shifts
+hold bfloat16 values in a model of that dtype (the JAX package's eager step
+returns them in x's dtype); float32 holds them exactly, so both give the
+same tokens, and the port keeps float32, as the JAX package's
+``init_cache`` allocates them.
 ``attn_write`` updates a cache in place (the JAX package returns a new one):
 the engine's CUDA graph holds the caches' storage, so nothing rebinds them.
 """
@@ -28,14 +37,14 @@ from repro_torch.core.lpsa import decode_slot
 __all__ = ["CacheSpec", "CACHE_LAYOUTS", "init_cache", "is_paged", "write_slot",
            "attn_write", "attn_read", "ring_from_stream"]
 
-CACHE_LAYOUTS = ("full", "ring", "paged")
+CACHE_LAYOUTS = ("full", "ring", "paged", "rwkv", "gla")
 
 
 @dataclass(frozen=True)
 class CacheSpec:
     """One layer's serving cache: ``layout`` plus the fields it reads (full:
     max_len; ring: sink + window; paged: page_size + num_pages, the arena
-    itself batch-free)."""
+    itself batch-free; rwkv and gla: batch only)."""
     layout: str
     batch: int
     max_len: int = 0
@@ -62,7 +71,14 @@ class CacheSpec:
 
 def init_cache(cfg: ModelConfig, spec: CacheSpec, device=None) -> dict:
     """An empty cache (zeros, every position -1) for one layer."""
-    kv = (cfg.n_kv_heads, cfg.head_dim_)
+    f32, hd = torch.float32, cfg.head_dim_
+    if spec.layout == "rwkv":
+        return {"wkv": torch.zeros((spec.batch, cfg.n_heads, hd, hd), dtype=f32, device=device),
+                "shift_t": torch.zeros((spec.batch, 1, cfg.d_model), dtype=f32, device=device),
+                "shift_c": torch.zeros((spec.batch, 1, cfg.d_model), dtype=f32, device=device)}
+    if spec.layout == "gla":
+        return {"s": torch.zeros((spec.batch, cfg.n_heads, hd, hd), dtype=f32, device=device)}
+    kv = (cfg.n_kv_heads, hd)
     if spec.layout == "paged":
         shp = (spec.num_pages, spec.page_size)
         return {"k_pages": torch.zeros(shp + kv, dtype=spec.dtype, device=device),

@@ -1,23 +1,25 @@
-"""Shared model layers: RMSNorm, RoPE, activations, embeddings, logits,
-soft-cap.
+"""Shared model layers: RMSNorm, the group norm over heads, RoPE,
+activations, embeddings, logits, soft-cap, full-precision float32 matmuls.
 
 Plain functions on tensors, with ``RMSNorm`` as the module that holds a
-norm's ``scale`` buffer (zero-initialised: the norm scales by 1 + scale).
+norm's ``scale`` buffer (zero-initialised: the norm scales by 1 + scale) and
+``GroupNorm`` the one that holds the head norm's ``scale`` and ``bias``.
 The activations and the embedding scale round where the JAX package's do,
 step by step in x's dtype, so a bfloat16 model is bitwise the reference's.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
 from torch import nn
 from torch.nn import functional as F
 
-__all__ = ["torch_dtype", "RMSNorm", "rmsnorm", "softcap", "rope",
-           "apply_rope", "silu", "gelu", "ACT", "take_embed",
-           "logits_from_embed"]
+__all__ = ["torch_dtype", "full_f32", "RMSNorm", "rmsnorm", "GroupNorm", "group_norm",
+           "softcap", "rope", "apply_rope", "sigmoid", "silu", "gelu", "log_sigmoid", "ACT",
+           "take_embed", "logits_from_embed"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -27,6 +29,19 @@ def torch_dtype(name: str) -> torch.dtype:
     if name not in _DTYPES:
         raise ValueError(f"unsupported dtype {name!r}; have {sorted(_DTYPES)}")
     return _DTYPES[name]
+
+
+@contextlib.contextmanager
+def full_f32():
+    """float32 matmuls in full precision (TF32 off) inside the block,
+    whatever the global flag says: the JAX package's float32 products are
+    float32 (the MoE router, the linear attention and its LoRAs)."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
 
 
 class RMSNorm(nn.Module):
@@ -43,6 +58,29 @@ def rmsnorm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-6) -> torch.Te
     back to x's dtype."""
     y = F.rms_norm(x.float(), (x.shape[-1],), eps=eps)
     return (y * (1.0 + scale.float())).to(x.dtype)
+
+
+class GroupNorm(nn.Module):
+    """The head norm of the linear-attention blocks: ``scale`` (ones) and
+    ``bias`` (zeros) over the d = heads x head_dim output lanes."""
+
+    def __init__(self, d: int, dtype: torch.dtype, device=None):
+        super().__init__()
+        self.register_buffer("scale", torch.ones(d, dtype=dtype, device=device))
+        self.register_buffer("bias", torch.zeros(d, dtype=dtype, device=device))
+
+
+def group_norm(p: GroupNorm, x: torch.Tensor, n_heads: int, out_dtype: torch.dtype,
+               eps: float = 1e-5) -> torch.Tensor:
+    """x (B, L, H*hd) normed per head in float32 with the biased variance
+    (``jnp.var``; torch.var's default is the unbiased one), then y * scale
+    + bias (not the rmsnorm's 1 + scale), cast to ``out_dtype``."""
+    b, l, d = x.shape
+    xh = x.reshape(b, l, n_heads, d // n_heads).float()
+    mu = xh.mean(-1, keepdim=True)
+    var = xh.var(-1, keepdim=True, correction=0)
+    y = ((xh - mu) * torch.rsqrt(var + eps)).reshape(b, l, d)
+    return (y * p.scale.float() + p.bias.float()).to(out_dtype)
 
 
 def softcap(x: torch.Tensor, cap: float | None) -> torch.Tensor:
@@ -75,12 +113,21 @@ def _const(value: float, dtype: torch.dtype) -> float:
     return torch.tensor(value, dtype=dtype).item()
 
 
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """1 / (1 + exp(-x)) with every step rounded to x's dtype: the formula
+    that XLA lowers ``jax.nn.sigmoid`` to (``torch.sigmoid`` rounds once,
+    and differs from it in ~1.7 % of bfloat16 values).  All bfloat16 values
+    agree but -87.5, -88 and -88.5, where XLA's exp overflows and the port's
+    reciprocal gives a subnormal."""
+    return torch.reciprocal(1 + torch.exp(-x))
+
+
 def silu(g: torch.Tensor) -> torch.Tensor:
-    """g * (1 / (1 + exp(-g))) with every step rounded to g's dtype: the
-    formula that XLA lowers the JAX package's ``jax.nn.silu`` to, so a
-    bfloat16 model rounds where the reference rounds (``F.silu`` rounds
-    once, and differs from it in over a third of bfloat16 values)."""
-    return g * torch.reciprocal(1 + torch.exp(-g))
+    """g * sigmoid(g), every step rounded to g's dtype: the formula that
+    XLA lowers the JAX package's ``jax.nn.silu`` to, so a bfloat16 model
+    rounds where the reference rounds (``F.silu`` rounds once, and differs
+    from it in over a third of bfloat16 values)."""
+    return g * sigmoid(g)
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -92,6 +139,14 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     c, a = _const((2 / math.pi) ** 0.5, x.dtype), _const(0.044715, x.dtype)
     cube = x * (x * x)
     return x * (0.5 * (1 + torch.tanh(c * (x + a * cube))))
+
+
+def log_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.log_sigmoid``'s formula: -softplus(-x), softplus(y) =
+    logaddexp(y, 0) = max(y, 0) + log1p(exp(-|y|)).  ``F.logsigmoid`` is
+    another float32 formula."""
+    y = -x
+    return -(torch.clamp(y, min=0) + torch.log1p(torch.exp(-y.abs())))
 
 
 ACT = {"silu": silu, "gelu": gelu}

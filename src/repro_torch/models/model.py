@@ -2,11 +2,12 @@
 
 ``init_params`` draws master weights from a seeded ``torch.Generator`` into
 the JAX package's tree layout ({embed, final_norm, layers: {stacked, tail,
-shared}} with {"w"} leaves, a block's FFN as ``ffn`` or, for a MoE config,
-``moe`` with its router and expert stacks, and a dense ``head`` when the
-embeddings are untied); ``export_serving`` quantizes them to the config's
-serve format (base-3 packed, or int8 trits) and loads the result into a
-``TernaryLM``.  ``init_serving`` gives the same model layer by layer, never
+shared}} with {"w"} leaves, a block's mixer as ``attn``, ``rwkv`` or
+``gla`` (their dense LoRAs, mixes and head norms plain leaves), its FFN as
+``ffn`` or, for a MoE config, ``moe`` with its router and expert stacks,
+and a dense ``head`` when the embeddings are untied); ``export_serving``
+quantizes them to the config's serve format (base-3 packed, or int8 trits)
+and loads the result into a ``TernaryLM``.  ``init_serving`` gives the same model layer by layer, never
 holding more than one layer's master weights (qwen3-moe-30b-a3b's take
 ~58 GB in bfloat16).  ``TernaryLM.from_tree`` loads any serving tree in
 that layout — the port's own export, or the JAX package's through
@@ -23,9 +24,11 @@ from torch import nn
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.models import gla as G
 from repro_torch.models import kvcache as KV
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
+from repro_torch.models import rwkv6 as R
 from repro_torch.models import transformer as T
 from repro_torch.models.ternary_linear import (TRITS_FORMATS, TernaryLinear,
                                                export_tlin, tlin_init)
@@ -35,10 +38,10 @@ __all__ = ["TernaryLM", "init_params", "export_serving", "init_serving",
 
 
 class TernaryLM(nn.Module):
-    """Serving weights of a ternary LM, dense or MoE, on the CUDA device
-    unless ``device="cpu"``: the embedding, the untied dense ``head``
-    (d_model, vocab_padded) where the config has one, the blocks (each with
-    its gated FFN or its MoE) and the final norm."""
+    """Serving weights of a ternary LM, dense, MoE or attention-free, on the
+    CUDA device unless ``device="cpu"``: the embedding, the untied dense
+    ``head`` (d_model, vocab_padded) where the config has one, the blocks
+    (each with its mixer and its gated FFN or MoE) and the final norm."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
@@ -145,16 +148,25 @@ def _generator(seed: int, device) -> torch.Generator:
     return gen
 
 
-def _block_params(gen: torch.Generator, cfg: ModelConfig) -> dict:
-    """One block's master weights, drawn from ``gen`` in a fixed order."""
+def _block_params(gen: torch.Generator, cfg: ModelConfig, kind: str) -> dict:
+    """One block's master weights, drawn from ``gen`` in a fixed order: the
+    norms, the mixer (attention, rwkv or gla), then the FFN or the MoE (an
+    rwkv block has none: its channel-mix is part of the mixer)."""
     dt, dev = L.torch_dtype(cfg.dtype), gen.device
     d, qd, kvd, f = cfg.d_model, cfg.q_dim, cfg.kv_dim, cfg.d_ff
-    p = {"norm1": {"scale": torch.zeros(d, dtype=dt, device=dev)},
-         "attn": {"wq": tlin_init(gen, d, qd, dt),
-                  "wk": tlin_init(gen, d, kvd, dt),
-                  "wv": tlin_init(gen, d, kvd, dt),
-                  "wo": tlin_init(gen, qd, d, dt, scale=(qd * 2 * cfg.n_layers) ** -0.5)},
-         "norm2": {"scale": torch.zeros(d, dtype=dt, device=dev)}}
+    p = {"norm1": {"scale": torch.zeros(d, dtype=dt, device=dev)}}
+    if kind == "rwkv":
+        p["rwkv"] = R.rwkv_init(gen, cfg, dt)
+    elif kind == "gla":
+        p["gla"] = G.gla_init(gen, cfg, dt)
+    else:
+        p["attn"] = {"wq": tlin_init(gen, d, qd, dt),
+                     "wk": tlin_init(gen, d, kvd, dt),
+                     "wv": tlin_init(gen, d, kvd, dt),
+                     "wo": tlin_init(gen, qd, d, dt, scale=(qd * 2 * cfg.n_layers) ** -0.5)}
+    p["norm2"] = {"scale": torch.zeros(d, dtype=dt, device=dev)}
+    if kind == "rwkv":
+        return p
     if cfg.moe is not None:
         p["moe"] = MOE.moe_init(gen, cfg, dt)
     else:
@@ -186,7 +198,7 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None) -> dict:
     in the order embedding, blocks, head."""
     gen = _generator(seed, device)
     embed = _embed_param(gen, cfg)
-    blocks = tuple(_block_params(gen, cfg) for _ in cfg.layer_kinds())
+    blocks = tuple(_block_params(gen, cfg, kind) for kind in cfg.layer_kinds())
     return {**_top_params(gen, cfg, embed),
             "layers": {"stacked": None, "tail": blocks, "shared": None}}
 
@@ -219,9 +231,9 @@ def init_serving(cfg: ModelConfig, *, seed: int = 0, device=None) -> TernaryLM:
     model = TernaryLM(cfg, gen.device)
     own = model.state_dict()
     embed = _embed_param(gen, cfg)
-    for i in range(cfg.n_layers):
+    for i, kind in enumerate(cfg.layer_kinds()):
         flat: dict = {}
-        _flatten(_export(_block_params(gen, cfg), cfg), f"layers.{i}.", flat)
+        _flatten(_export(_block_params(gen, cfg, kind), cfg), f"layers.{i}.", flat)
         _load({k: v for k, v in own.items() if k.startswith(f"layers.{i}.")}, flat, cfg)
         del flat
     flat = {}

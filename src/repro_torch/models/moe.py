@@ -24,12 +24,10 @@ atomics, so the sum does not depend on the batch).
 
 Expert parallelism (the JAX package's ``shard_map`` branch, experts sharded
 over the model axis) waits for the distributed slice (ROADMAP queue 1,
-item 6); ``moe_apply`` is the single-device branch.
+item 5); ``moe_apply`` is the single-device branch.
 """
 
 from __future__ import annotations
-
-import contextlib
 
 import torch
 from torch import nn
@@ -38,7 +36,7 @@ from repro_torch.configs.base import ModelConfig, TernaryConfig
 from repro_torch.core import ternary as tq
 from repro_torch.core import twd
 from repro_torch.kernels import ops
-from repro_torch.models.layers import rmsnorm, silu
+from repro_torch.models.layers import full_f32, rmsnorm, silu
 from repro_torch.models.ternary_linear import (ROW_ALIGN, TernaryLinear, check_format,
                                                export_tlin, tlin_init)
 
@@ -169,17 +167,6 @@ def expert_weights(p: MoE, x_dtype: torch.dtype) -> list[torch.Tensor]:
     return out
 
 
-@contextlib.contextmanager
-def _full_f32():
-    """float32 matmuls in full precision (TF32 off) inside the block."""
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
-
-
 def dispatch_compute(x_tok: torch.Tensor, x_in: torch.Tensor, weights, router: torch.Tensor,
                      cfg: ModelConfig, capacity: int):
     """Route the (T, D) normed rows ``x_tok``, run every expert on its kept
@@ -189,7 +176,7 @@ def dispatch_compute(x_tok: torch.Tensor, x_in: torch.Tensor, weights, router: t
     t, d = x_tok.shape
     n_e, k, dev = e.n_experts, e.top_k, x_tok.device
     wg, wi, wo = weights
-    with _full_f32():
+    with full_f32():
         logits = x_tok.float() @ router.float()
     probs = torch.softmax(logits, dim=-1)                        # (T, E)
     # torch.topk and lax.top_k order exact ties differently; the router's

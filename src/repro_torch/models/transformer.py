@@ -1,14 +1,18 @@
-"""Decoder blocks and the layer-stack loops for the attention kinds.
+"""Decoder blocks and the layer-stack loops.
 
-A ``Block`` is rmsnorm -> attention -> residual -> rmsnorm -> FFN ->
-residual, the FFN gated (silu or tanh-gelu, by ``cfg.act``) or, for a MoE
-config, the mixture of experts (models/moe.py); with DAS on, each rmsnorm
-runs inside the DAS step of the projections it feeds (``tlin_norm_input``,
-and the MoE's one ``das_topk`` call).  The JAX package scans stacked layer
-groups; here the stack is a loop over the model's ``ModuleList``, whatever
-the pattern and its tail (gemma3's 26 layers = 4 x 6 + 2).  Layer kinds
-"attn" and "local" are served; mamba, rwkv, gla and the 2-matrix MLP wait
-for later slices (ROADMAP).
+An "attn" or "local" ``Block`` is rmsnorm -> attention -> residual ->
+rmsnorm -> FFN -> residual, the FFN gated (silu or tanh-gelu, by
+``cfg.act``) or, for a MoE config, the mixture of experts (models/moe.py);
+with DAS on, each rmsnorm runs inside the DAS step of the projections it
+feeds (``tlin_norm_input``, and the MoE's one ``das_topk`` call).  A "gla"
+block swaps the attention for gated linear attention (models/gla.py, its
+norm inside the q/k/v/g DAS step too); an "rwkv" block is the time-mix and
+the channel-mix (models/rwkv6.py), each after its rmsnorm, with no FFN.
+Their caches are recurrent slot states, written in place.  The JAX package
+scans stacked layer groups; here the stack is a loop over the model's
+``ModuleList``, whatever the pattern and its tail (gemma3's 26 layers = 4 x
+6 + 2).  The mamba kind and the 2-matrix MLP wait for later slices
+(ROADMAP).
 """
 
 from __future__ import annotations
@@ -18,13 +22,18 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as A
+from repro_torch.models import gla as G
 from repro_torch.models import kvcache as KV
 from repro_torch.models import moe as MOE
-from repro_torch.models.layers import ACT, RMSNorm
+from repro_torch.models import rwkv6 as R
+from repro_torch.models.layers import ACT, RMSNorm, rmsnorm
 from repro_torch.models.ternary_linear import TernaryLinear, tlin_norm_input
 
-__all__ = ["FFN", "Block", "ffn_apply", "block_prefill", "block_decode",
-           "layer_cache_spec", "stack_prefill", "stack_decode"]
+__all__ = ["ATTN_KINDS", "RECURRENT_KINDS", "FFN", "Block", "ffn_apply", "block_prefill",
+           "block_decode", "layer_cache_spec", "stack_prefill", "stack_decode"]
+
+ATTN_KINDS = ("attn", "local")
+RECURRENT_KINDS = ("rwkv", "gla")   # the recurrent kinds the port serves
 
 
 class FFN(nn.Module):
@@ -46,13 +55,20 @@ class Block(nn.Module):
     def __init__(self, cfg: ModelConfig, kind: str, dtype: torch.dtype,
                  device=None):
         super().__init__()
-        if kind not in ("attn", "local"):
+        if kind not in ATTN_KINDS + RECURRENT_KINDS:
             raise NotImplementedError(
-                f"layer kind {kind!r}: the port serves attn/local blocks")
+                f"layer kind {kind!r}: the port serves {ATTN_KINDS + RECURRENT_KINDS} blocks")
         self.kind = kind
         self.norm1 = RMSNorm(cfg.d_model, dtype, device)
-        self.attn = A.Attention(cfg, device)
+        if kind == "rwkv":
+            self.rwkv = R.RWKV(cfg, dtype, device)
+        elif kind == "gla":
+            self.gla = G.GLA(cfg, dtype, device)
+        else:
+            self.attn = A.Attention(cfg, device)
         self.norm2 = RMSNorm(cfg.d_model, dtype, device)
+        if kind == "rwkv":
+            return
         if cfg.moe is not None:
             self.moe = MOE.MoE(cfg, dtype, device)
         else:
@@ -79,9 +95,24 @@ def _mixer_ffn(bp: Block, cfg: ModelConfig, x: torch.Tensor, decode: bool) -> to
     return ffn_apply(bp.ffn, cfg, x, bp.norm2.scale)
 
 
+def _rwkv_prefill(bp: Block, cfg: ModelConfig, x: torch.Tensor):
+    """The rwkv block over a prompt: time-mix, then channel-mix, each after
+    its rmsnorm -> (x, {"wkv", "shift_t", "shift_c"})."""
+    y_t, state = R.time_mix(bp.rwkv, cfg, rmsnorm(bp.norm1.scale, x))
+    x = x + y_t
+    y_c, state["shift_c"] = R.channel_mix(bp.rwkv, rmsnorm(bp.norm2.scale, x))
+    return x + y_c, state
+
+
 def block_prefill(bp: Block, cfg: ModelConfig, x: torch.Tensor, *,
                   serve_sparse: bool, max_len: int):
     """-> (x, cache) with the cache ready for decode at position L."""
+    if bp.kind == "rwkv":
+        return _rwkv_prefill(bp, cfg, x)
+    if bp.kind == "gla":
+        y, cache = G.gla_prefill(bp.gla, cfg, x, bp.norm1.scale)
+        x = x + y
+        return x + _mixer_ffn(bp, cfg, x, decode=False), cache
     sink, window = A.kind_sink_window(cfg, bp.kind, serve_sparse)
     if sink < A.FULL_SINK:
         y, state = A.attn_prefill_streaming(bp.attn, cfg, x, bp.norm1.scale, bp.kind)
@@ -93,9 +124,16 @@ def block_prefill(bp: Block, cfg: ModelConfig, x: torch.Tensor, *,
 
 
 def block_decode(bp: Block, cfg: ModelConfig, x: torch.Tensor, cache: dict,
-                 step: A.DecodeStep, *, serve_sparse: bool) -> torch.Tensor:
-    """One token per sequence at the positions of ``step``; the cache
+                 step: A.DecodeStep | None, *, serve_sparse: bool) -> torch.Tensor:
+    """One token per sequence at the positions of ``step`` (None for a
+    stack without attention: recurrent blocks take no position); the cache
     updates in place."""
+    if bp.kind == "rwkv":
+        x = x + R.time_mix_step(bp.rwkv, cfg, rmsnorm(bp.norm1.scale, x), cache)
+        return x + R.channel_mix_step(bp.rwkv, rmsnorm(bp.norm2.scale, x), cache)
+    if bp.kind == "gla":
+        x = x + G.gla_decode(bp.gla, cfg, x, bp.norm1.scale, cache)
+        return x + _mixer_ffn(bp, cfg, x, decode=True)
     x = x + A.attn_decode(bp.attn, cfg, x, bp.norm1.scale, cache, step, bp.kind,
                           serve_sparse=serve_sparse)
     return x + _mixer_ffn(bp, cfg, x, decode=True)
@@ -105,7 +143,10 @@ def layer_cache_spec(cfg: ModelConfig, kind: str, batch: int, max_len: int,
                      dtype: torch.dtype, *, serve_sparse: bool, page_size: int = 0,
                      num_pages: int = 0) -> KV.CacheSpec:
     """A layer kind's serving cache; ``page_size > 0`` turns a would-be full
-    cache into a paged arena (ring caches are already O(1) a slot)."""
+    cache into a paged arena (ring caches and recurrent states are already
+    O(1) a slot)."""
+    if kind in RECURRENT_KINDS:
+        return KV.CacheSpec(kind, batch)
     sink, window = A.kind_sink_window(cfg, kind, serve_sparse)
     if sink < A.FULL_SINK:
         return KV.CacheSpec("ring", batch, sink=sink, window=window, dtype=dtype)
@@ -128,8 +169,9 @@ def stack_prefill(layers: nn.ModuleList, cfg: ModelConfig, x: torch.Tensor, *,
 def stack_decode(layers: nn.ModuleList, cfg: ModelConfig, x: torch.Tensor,
                  caches: list, t: torch.Tensor, *, serve_sparse: bool,
                  page_table: torch.Tensor | None = None) -> torch.Tensor:
-    step = A.decode_step_inputs(cfg, t, [bp.kind for bp in layers], serve_sparse,
-                                page_table)
+    kinds = [bp.kind for bp in layers if bp.kind in ATTN_KINDS]
+    step = (A.decode_step_inputs(cfg, t, kinds, serve_sparse, page_table)
+            if kinds else None)
     for bp, c in zip(layers, caches):
         x = block_decode(bp, cfg, x, c, step, serve_sparse=serve_sparse)
     return x

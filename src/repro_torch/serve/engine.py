@@ -37,6 +37,12 @@ releases its references and scrubs the pages that fall free.  A config
 without full-attention layers (the LPSA path) gets no pages and still
 shares exact prefix states through the trie.
 
+Each layer's slot state is the cache its kind resolves to
+(``layout_summary``): ring, full or paged KV for attention, the rwkv and
+gla recurrent states, which are O(1) a slot, take no position and prefill
+with the whole prompt at admission; an engine without full-cache layers
+accepts any prompt length.
+
 MoE configs decode with the no-drop expert capacity (models/moe.py
 ``decode_capacity``: the batch, ``max_slots``, idle rows included, so the
 step's shapes stay static); ``ServeConfig.moe_expert_capacity`` optionally
@@ -59,7 +65,9 @@ from repro_torch import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models import attention as A
 from repro_torch.models import kvcache as KV
+from repro_torch.models import layers as L
 from repro_torch.models import model as MD
+from repro_torch.models import transformer as T
 from repro_torch.models.model import TernaryLM
 from repro_torch.serve.config import ServeConfig
 from repro_torch.serve.kvpool import PagePool, PrefixEntry, RadixIndex
@@ -164,10 +172,14 @@ class ServeEngine:
         self.stats = EngineStats(max_slots=config.max_slots)
         self._moe_slot_cap = config.moe_expert_capacity if cfg.moe is not None else 0
         self.vtime = 0
-        sw = [A.kind_sink_window(cfg, k, serve_sparse) for k in cfg.layer_kinds()]
+        # over the attention layers only: a recurrent layer keeps O(1) state
+        sw = [A.kind_sink_window(cfg, k, serve_sparse) for k in cfg.layer_kinds()
+              if k in T.ATTN_KINDS]
         self._has_full = any(s >= A.FULL_SINK for s, _ in sw)
         has_stream = any(s < A.FULL_SINK for s, _ in sw)
-        # streaming prefill consumes whole packs; the prompt tail decodes
+        # streaming prefill consumes whole packs; the prompt tail decodes.
+        # Without a streaming layer (full caches, recurrent states) the whole
+        # prompt prefills at admission
         self._chunk = (cfg.lpsa.chunk if cfg.lpsa else 256) if has_stream else 1
 
         # ---- paged pool (layout="paged") --------------------------------
@@ -182,10 +194,16 @@ class ServeEngine:
         self._pool = PagePool(num_pages, self._page_size) if n_seq else None
         self._radix = RadixIndex() if self._share else None
 
-        self.caches = MD.init_caches(cfg, self.max_slots, self.max_len,
-                                     device=self.device, serve_sparse=serve_sparse,
-                                     page_size=self._page_size if n_seq else 0,
-                                     num_pages=num_pages)
+        # the per-layer slot-state union, the caches' source of truth
+        # (layout_summary): paged / full / ring KV for the attention layers,
+        # rwkv / gla recurrent states
+        self._layer_specs = [T.layer_cache_spec(cfg, kind, self.max_slots, self.max_len,
+                                                L.torch_dtype(cfg.dtype),
+                                                serve_sparse=serve_sparse,
+                                                page_size=self._page_size if n_seq else 0,
+                                                num_pages=num_pages)
+                             for kind in cfg.layer_kinds()]
+        self.caches = [KV.init_cache(cfg, spec, self.device) for spec in self._layer_specs]
         self._empty1 = MD.init_caches(cfg, 1, self.max_len, device=self.device,
                                       serve_sparse=serve_sparse)
         self._paged_layers = [KV.is_paged(c) for c in self.caches]
@@ -700,7 +718,14 @@ class ServeEngine:
         s.req = None
         s.tail = None
 
-    # -- pool introspection -----------------------------------------------
+    # -- introspection ----------------------------------------------------
+
+    def layout_summary(self) -> list[dict]:
+        """Ordered per-layer {layer, kind, layout}: the engine's resolved
+        slot-state union over the whole stack."""
+        return [{"layer": i, "kind": kind, "layout": spec.layout}
+                for i, (kind, spec) in enumerate(zip(self.cfg.layer_kinds(),
+                                                     self._layer_specs))]
 
     def pool_stats(self) -> dict:
         """Paged-pool occupancy snapshot (zeros for dense layouts).

@@ -699,3 +699,76 @@ def test_cuda_moe_graph_engine_matches_eager(cuda):
         assert results[0][uid].tokens.tolist() == res.tokens.tolist(), uid
     graph.submit(Request(uid=9, prompt=_stem_requests(cfg)[1].prompt, max_new_tokens=6))
     assert graph.run()[9].tokens.tolist() == results[0][1].tokens.tolist()
+
+
+# the SSM pair's projections (K, N) beyond bitnet-1.3b's: rwkv6-3b's 2560 ->
+# 2560 / 8960 and 8960 -> 2560, gla-1.3b's 2048 -> 5632 and 5632 -> 2048
+SSM_SHAPES = [(2560, 2560), (2560, 8960), (8960, 2560), (2048, 5632), (5632, 2048)]
+
+
+@pytest.mark.parametrize("k,n", SSM_SHAPES)
+def test_cuda_ssm_projections(cuda, rng, k, n):
+    """das_topk's serving call (exact) and das_ternary_gemm on its
+    compaction (bfloat16 tolerance) at the SSM shapes, 4 decode rows and a
+    300-row prefill, against their plain versions; the weight scale the
+    export gives a fan-in of K."""
+    packed = _packed(rng, k, n, cuda)
+    scale = (2 / np.pi / k) ** 0.5
+    for m in (4, 300):
+        x = _rows(rng, m, k, torch.bfloat16, False, cuda)
+        ca = ops.das_topk(x, keep=16, with_mask=False)
+        _assert_same(ca, ref.das_topk_ref(x, keep=16, block=32, with_mask=False))
+        got = ops.das_ternary_gemm(ca.values, ca.indices, packed, scale, keep=16)
+        want = ref.das_ternary_gemm_ref(ca.values, ca.indices, packed, scale)
+        torch.testing.assert_close(got, want, rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "gla-1.3b"])
+def test_cuda_ssm_model_matches_cpu(cuda, arch):
+    """Reduced rwkv6-3b and gla-1.3b in float32: a 61-token prefill (61
+    one-token chunks) + 8 decode steps through the kernels agree with the
+    same weights on the CPU within 2e-4, with equal greedy tokens."""
+    cfg = reduced(get_config(arch))
+    m_cpu = MD.init_serving(cfg, seed=3, device="cpu")
+    m_gpu = copy.deepcopy(m_cpu).to(cuda)
+    prompt = torch.from_numpy(np.random.default_rng(3).integers(0, cfg.vocab, 61))[None]
+    lg_c, c_c = MD.prefill(m_cpu, prompt)
+    lg_g, c_g = MD.prefill(m_gpu, prompt.to(cuda))
+    torch.testing.assert_close(lg_g.cpu(), lg_c, rtol=0, atol=2e-4)
+    tok = int(lg_c.argmax())
+    for i in range(8):
+        t = torch.tensor([61 + i])
+        lg_c, _ = MD.decode_step(m_cpu, c_c, torch.tensor([tok]), t)
+        lg_g, _ = MD.decode_step(m_gpu, c_g, torch.tensor([tok], device=cuda), t.to(cuda))
+        torch.testing.assert_close(lg_g.cpu(), lg_c, rtol=0, atol=2e-4)
+        assert int(lg_g.argmax()) == int(lg_c.argmax())
+        tok = int(lg_c.argmax())
+
+
+@pytest.mark.parametrize("layout", ["auto", "paged"])
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "gla-1.3b"])
+def test_cuda_ssm_graph_engine_matches_eager(cuda, arch, layout):
+    """The recurrent slot states inside the captured decode step: every
+    step a replay, the eager step's tokens bit for bit (a state rebound in
+    place of written would freeze under replay), a request re-served alone
+    keeps them, and a replay counts one eager step's launches."""
+    cfg = reduced(get_config(arch))
+    model = MD.init_serving(cfg, seed=5, device=cuda)
+    sc = ServeConfig(max_slots=2, max_len=64, layout=layout, page_size=8)
+    graph = ServeEngine(model, sc, device="cuda")
+    eager = ServeEngine(model, sc, device="cuda", cuda_graph=False)
+    per_layer = {"rwkv": 8, "gla": 4}[cfg.layer_pattern[0]]
+    assert graph.launches_per_replay["das_topk"] == per_layer * cfg.n_layers
+    assert graph.launches_per_replay["das_ternary_gemm"] == 8 * cfg.n_layers
+    results = []
+    for eng in (graph, eager):
+        for r in _stem_requests(cfg):
+            eng.submit(r)
+        results.append(eng.run())
+    assert graph.stats.graph_replays == graph.stats.decode_steps > 0
+    for uid, res in results[1].items():
+        assert results[0][uid].tokens.tolist() == res.tokens.tolist(), uid
+    if layout == "paged":
+        assert graph.stats.prefix_hits == eager.stats.prefix_hits > 0
+    graph.submit(Request(uid=9, prompt=_stem_requests(cfg)[1].prompt, max_new_tokens=6))
+    assert graph.run()[9].tokens.tolist() == results[0][1].tokens.tolist()
