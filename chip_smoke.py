@@ -24,7 +24,13 @@ Phases:
            compaction), sparse_attention at 32 q heads over 4 kv heads of 64;
            the SSM pair's: das_topk (plain and gla's norm-fused) and
            das_ternary_gemm at every rwkv6-3b and gla-1.3b projection at 4
-           and 1100 rows, ternary_gemm in float32 at 1 and 512 rows
+           and 1100 rows, ternary_gemm in float32 at 1 and 512 rows;
+           zamba2-2.7b's: das_topk (plain at K = 5120 and 10240, norm-fused
+           with the normed rows at 2560; at 5120 the norm-fused call beside
+           rmsnorm + das_topk) and das_ternary_gemm at every new projection
+           at 4 and 1024 rows, sparse_attention at 32 heads of 80 over 32
+           (decode over full rings and an LPSA pack, each bitwise batch
+           invariant), and layers.xla_cumsum bitwise the CPU's
   serve    full-width bitnet-1.3b (seeded random weights) on five paths, each
            driven with the launch counts at 0 and read after it; every
            engine captures its decode step into a CUDA graph after one
@@ -67,7 +73,7 @@ Phases:
            the profiler, replayed and eager (the same tokens and launches a
            step), and a 2-layer model at their widths on the card against
            the CPU; then the MoE path:
-             qwen3-moe-30b-a3b  full width, 16 of its 48 layers (128 experts of
+             qwen3-moe-30b-a3b  full width, 8 of its 48 layers (128 experts of
                          768, top-8, 32 heads of 64 over 4, vocab 151936,
                          untied head), exported layer by layer: the packed
                          trace, each expert stack unpacked by one twd_decode
@@ -80,7 +86,7 @@ Phases:
                          copies), with the experts' fake-quant the identity
                          (2e-4) and as served (2e-3, the int8 values and
                          scales that differ counted)
-           last the SSM pair, each a model of its own (seeded random weights
+           then the SSM pair, each a model of its own (seeded random weights
            exported layer by layer, packed, bf16, DAS 16/32, no attention):
              rwkv6-3b    full width and all 32 layers (40 heads of 64, d_ff
                          8960, vocab 65536, untied);
@@ -97,6 +103,24 @@ Phases:
            class; the decode step under the profiler, replayed and eager;
            and a 2-layer model at its widths against the CPU (f32, DAS off:
            ternary_gemm at these shapes)
+           last the hybrid:
+             zamba2-2.7b full width and all 54 layers (45 mamba, 9 attention
+                         positions sharing one block of 32 heads of 80, d_ff
+                         10240, vocab 32000, tied), exported layer by layer,
+                         packed, bf16, DAS 16/32, LPSA 128 + 896: the packed
+                         trace (pack-aligned prefixes prefilled, tails fed a
+                         token a tick), exact launch counts (2 / 3 das_topk /
+                         das_ternary_gemm a mamba layer per decode step and
+                         per prefill), every step a replay, finite logits,
+                         bitwise batch invariance, the slot-state layouts; the
+                         1100-token admission (the 1024-token prefill by
+                         device class, the 76 tail ticks); the decode step
+                         under the profiler, replayed and eager, by class,
+                         beside the floor of its bytes; one mamba layer's SSD
+                         glue (buffer writes, replay row, fold) under a CUDA
+                         graph; a 6-layer model at its widths against the CPU
+                         (f32, DAS and LPSA off, 508 tokens: a chunk and a
+                         remainder, then 8 steps across the fold at t = 511)
   times    each kernel at its decode shape: CUDA-event median beside its
            bound, its plain version and one PyTorch call of the same function;
            the packed GEMMs and das_gemv also at their other decode shapes
@@ -110,7 +134,10 @@ Phases:
            twd_decode over qwen3-moe's expert stacks, sparse_attention at its
            32 over 4 heads of 64; das_ternary_gemm and das_topk at every SSM
            projection at decode and at the 1100-token admission, and the
-           MoE's das_topk call at 4 and 1024 rows
+           MoE's das_topk call at 4 and 1024 rows; zamba2-2.7b's GEMM and
+           das_topk shapes at 4 and 1024 rows, sparse_attention at 32 heads
+           of 80 (decode, LPSA pack), and ternary_gemm in float32 at the SSM
+           pair's projections at 1 and 512 rows
   profile  (only when named) the packed and int8w decode steps and the
            admission under torch.profiler, as the serve phase profiles them
 
@@ -419,6 +446,7 @@ class Smoke:
         self._zoo_gemm_cases(g)
         self._moe_cases(g)
         self._ssm_cases(g)
+        self._hybrid_cases(g)
 
     def _topk_cases(self, g):
         """das_topk against its plain version, exactly: bitnet-1.3b's widths
@@ -850,6 +878,104 @@ class Smoke:
                            ternary_gemm_cuda(x, packed, scale),
                            ref.ternary_gemm_ref(x, packed, scale), TOL_F32_GEMM)
 
+    # zamba2-2.7b's projections (label, K, N) beyond the SSM pair's: the
+    # mamba block's wz / wx (2560 -> 5120, one DAS step), its wo (5120 ->
+    # 2560), the FFN's gate/up (2560 -> 10240) and down (10240 -> 2560); its
+    # q/k/v/o are rwkv6-3b's 2560 -> 2560
+    HYBRID_GEMMS = (("zamba2-2.7b mamba wz/wx", 2560, 5120), ("zamba2-2.7b mamba wo", 5120, 2560),
+                    ("zamba2-2.7b gate/up", 2560, 10240), ("zamba2-2.7b down", 10240, 2560))
+    HYBRID_PREFILL_M = 1024    # the 1100-token admission's prefix: mamba and FFN rows at once
+
+    def _hybrid_cases(self, g):
+        """zamba2-2.7b's shapes, at decode (4 rows) and at the 1100-token
+        admission's 1024-row prefix: das_topk exactly against its plain
+        version, plain at K = 5120 (the mamba wo) and 10240 (down) and
+        norm-fused with the normed rows at K = 2560 (the mamba block's and
+        the attention block's input); at K = 5120 the norm-fused call beside
+        rmsnorm + das_topk, which the mamba wo keeps apart (the counts of
+        normed values and kept lanes that differ); das_ternary_gemm at every
+        new projection within the bf16 tolerance; sparse_attention at 32 q
+        heads over 32 kv heads of 80, decode over full 1024-slot rings (each
+        row bitwise its B = 1 call) and a bf16 LPSA pack with rounded scores
+        (each query row bitwise its row of a call on a sub-range); and
+        layers.xla_cumsum on the card bitwise the CPU's."""
+        torch = self.torch
+        from repro_torch.kernels import ref
+        from repro_torch.kernels.das_gemm import das_ternary_gemm_cuda
+        from repro_torch.kernels.sparse_attn import sparse_attention_cuda
+        from repro_torch.kernels.topk_mask import das_topk_cuda
+        from repro_torch.models.layers import rmsnorm, xla_cumsum
+        dev, bf16, i32 = self.dev, torch.bfloat16, torch.int32
+        for k in (2560, 5120, 10240):
+            nscale = (0.5 * torch.randn((k,), generator=g, device=dev)).to(bf16)
+            for m in (4, self.HYBRID_PREFILL_M):
+                x = torch.randn((m, k), generator=g, device=dev).to(bf16)
+                got = das_topk_cuda(x, keep=16, block=32, with_mask=False)
+                want = ref.das_topk_ref(x, keep=16, block=32, with_mask=False)
+                for name in ("values", "indices"):
+                    self.check(f"das_topk zamba2 ({m},{k}) {name}", getattr(got, name),
+                               getattr(want, name), 0, True)
+                if k == 5120:
+                    fused = das_topk_cuda(x, keep=16, block=32, norm_scale=nscale,
+                                          with_mask=False, with_normed=True)
+                    normed = rmsnorm(nscale, x)
+                    apart = das_topk_cuda(normed, keep=16, block=32, with_mask=False)
+                    log(f"[kernels] das_topk ({m},5120) norm-fused against rmsnorm + das_topk: "
+                        f"{int((fused.normed != normed).sum())} of {normed.numel()} normed values "
+                        f"and {int((fused.indices != apart.indices).sum())} of "
+                        f"{apart.indices.numel()} kept lanes differ (the mamba wo keeps the two "
+                        f"apart)")
+                if k == 2560:
+                    fused = das_topk_cuda(x, keep=16, block=32, norm_scale=nscale,
+                                          with_mask=False, with_normed=True)
+                    plain = ref.das_topk_ref(fused.normed, keep=16, block=32, with_mask=False)
+                    for name in ("values", "indices"):
+                        self.check(f"das_topk norm-fused zamba2 ({m},{k}) {name} vs "
+                                   f"das_topk_ref(normed)", getattr(fused, name),
+                                   getattr(plain, name), 0, True)
+        for label, k, n in self.HYBRID_GEMMS:
+            packed = self._packed(g, k, n)
+            scale = torch.tensor((2 / math.pi / k) ** 0.5, device=dev)
+            for m in (4, self.HYBRID_PREFILL_M):
+                x = torch.randn((m, k), generator=g, device=dev).to(bf16)
+                ca = ref.das_topk_ref(x, keep=16, block=32, with_mask=False)
+                self.check(f"das_ternary_gemm {label} ({m},{k // 2} of {k})x"
+                           f"({packed.shape[0]},{n})",
+                           das_ternary_gemm_cuda(ca.values, ca.indices, packed, scale, keep=16),
+                           ref.das_ternary_gemm_ref(ca.values, ca.indices, packed, scale),
+                           TOL_BF16)
+        rows = (1500, 1023, 2000, 1100)              # every ring full
+        qp = torch.tensor(rows, dtype=i32, device=dev)[:, None]
+        kp = torch.stack([ring_positions(torch, t, 128, 896) for t in rows]).to(dev)
+        q = torch.randn((4, 1, 32, 80), generator=g, device=dev).to(bf16)
+        k_ = torch.randn((4, 1024, 32, 80), generator=g, device=dev).to(bf16)
+        v = torch.randn((4, 1024, 32, 80), generator=g, device=dev).to(bf16)
+        kw = dict(sink=128, window=896)
+        full = sparse_attention_cuda(q, k_, v, qp, kp, **kw)
+        self.check("sparse_attention zamba2 D=80 32/32 decode bf16 B=4 full rings of 1024", full,
+                   ref.sparse_attention_ref(q, k_, v, qp, kp, **kw), TOL_BF16)
+        for i in range(4):
+            self.check(f"sparse_attention zamba2 D=80 decode row {i} alone vs among 4",
+                       sparse_attention_cuda(q[i:i + 1], k_[i:i + 1], v[i:i + 1], qp[i:i + 1],
+                                             kp[i:i + 1], **kw), full[i:i + 1], 0, True)
+        qp1, kp1 = (p[None].to(dev) for p in pack_positions(torch, 512))
+        q = torch.randn((1, 256, 32, 80), generator=g, device=dev).to(bf16)
+        k_ = torch.randn((1, 1280, 32, 80), generator=g, device=dev).to(bf16)
+        v = torch.randn((1, 1280, 32, 80), generator=g, device=dev).to(bf16)
+        kw = dict(sink=128, window=896, round_scores=True)
+        full = sparse_attention_cuda(q, k_, v, qp1, kp1, **kw)
+        self.check("sparse_attention zamba2 D=80 32/32 prefill bf16 LPSA pack t0=512 "
+                   "round_scores", full, ref.sparse_attention_ref(q, k_, v, qp1, kp1, **kw),
+                   TOL_BF16)
+        for lo, hi in ((0, 64), (100, 137)):
+            self.check(f"sparse_attention zamba2 D=80 prefill queries [{lo},{hi}) alone vs in "
+                       f"the pack", sparse_attention_cuda(q[:, lo:hi], k_, v, qp1[:, lo:hi],
+                                                          kp1, **kw), full[:, lo:hi], 0, True)
+        for shape in ((4, 256, 80), (1, 1024, 80), (2, 37, 8)):
+            x = torch.randn(shape, generator=g, device=dev)
+            self.check(f"layers.xla_cumsum {shape} along dim 1, card vs CPU",
+                       xla_cumsum(x, 1), xla_cumsum(x.cpu(), 1), 0, True)
+
     PROMPT_LENS, GEN_LEN = (1100, 300, 256, 40, 700), 32
 
     def _packed_model(self):
@@ -1007,6 +1133,7 @@ class Smoke:
         self._serve_moe()
         for arch in self.SSM_ARCHS:
             self._serve_ssm(arch)
+        self._serve_hybrid()
 
     # the zoo's serve paths: arch -> (prompt lengths, new tokens, depth; None:
     # the arch's own).  gemma2-2b's 4400-token prompt wraps both its 4096-slot
@@ -1091,9 +1218,10 @@ class Smoke:
 
     MOE_ARCH = "qwen3-moe-30b-a3b"
     # the MoE path's depth, cut from 48 to keep the whole run near 800 s
-    # beside the SSM paths (with all 48 it read 820 s on an H100); the step
-    # unpacks every expert of every layer, so its time scales with depth
-    MOE_DEPTH = 16
+    # beside the SSM paths (with all 48 it read 820 s on an H100) and the
+    # hybrid (with 16, 884 s); the step unpacks every expert of every
+    # layer, so its time scales with depth
+    MOE_DEPTH = 8
 
     def _serve_moe(self):
         """Path "qwen3-moe-30b-a3b": the MoE model at full width, its depth
@@ -1314,6 +1442,200 @@ class Smoke:
         for name, dt in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
             log(f"[profile]   {dt * times / 1e3:8.3f} ms  {name[:90]}")
 
+    HYBRID_ARCH = "zamba2-2.7b"
+    # the width check's prompt (LPSA off, so it prefills whole): one full SSD
+    # chunk of 256 and a 252-token remainder; its 8 decode steps cross the
+    # fold at t = 511
+    HYBRID_PARITY_PROMPT = 508
+    # its tolerance: 8.1e-4 read on an H100 at seed 0, peaking at the fold
+    # (t = 511; 3.7e-4 at the prefill), where a per-layer reading (card vs
+    # CPU) finds layer 0's states within ~1e-6 of their size and the
+    # difference growing 3-10x a mamba layer, as float32 sum orders do
+    # through the gated rmsnorm; beside it the card's model moves its own
+    # logits by 9.2e-4 when its input moves one ulp (``_width_parity``)
+    HYBRID_PARITY_TOL = 2e-3
+
+    def _serve_hybrid(self):
+        """Path "zamba2-2.7b": the hybrid at full width and all 54 layers (45
+        mamba, d_inner 5120, 80 SSM heads of 64, state 64, chunk 256; 9
+        attention positions sharing one block of 32 heads of 80 over 32, each
+        with its own norms and FFN of 10240; vocab 32000, tied), seeded random
+        weights exported layer by layer, base-3 packed, bf16, DAS 16/32, LPSA
+        128 + 896, served from the CUDA graph: bitnet-1.3b's packed trace
+        (admission prefills the pack-aligned prefix, the tail fed a token a
+        tick), exact launch counts, every decode step a replay, finite
+        logits, bitwise batch invariance, the slot-state layouts (mamba on
+        45 layers, ring on 9); the 1100-token admission (its 1024-token
+        prefill by device class, then its 76 tail ticks); the decode step
+        under the profiler, replayed and eager (the same tokens and launches
+        a step), by class, beside the floor of the bytes a step moves; the
+        SSD glue of one mamba layer (buffer writes, replay row, fold) under
+        a CUDA graph; a 6-layer model at these widths (5 mamba layers and
+        the shared block) on the card against the CPU in float32 with DAS
+        and LPSA off, a 508-token prompt and 8 steps across a fold."""
+        torch = self.torch
+        from repro_torch.configs import get_config
+        from repro_torch.models import model as MD
+        from repro_torch.serve import Request, ServeConfig
+        arch = self.HYBRID_ARCH
+        t_path = time.perf_counter()
+        cfg = get_config(arch)
+        kinds = cfg.layer_kinds()
+        n_m, n_a = kinds.count("mamba"), kinds.count("attn")
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = MD.init_serving(cfg, seed=self.seed, device=self.dev)
+        torch.cuda.synchronize()
+        weights = sum(b.numel() * b.element_size() for b in model.state_dict().values())
+        caches = MD.init_caches(cfg, 1, 1, device="meta")
+        mamba = sum(b.nbytes for b in caches[kinds.index("mamba")].values())
+        ring = sum(b.nbytes for b in caches[kinds.index("attn")].values())
+        slot = n_m * mamba + n_a * ring
+        floor_ms = (weights + 4 * slot) / HBM_BYTES_PER_S * 1e3
+        ssm = cfg.ssm
+        log(f"[serve] {arch}: {n_m} mamba + {n_a} attention layers (one shared block), d_model "
+            f"{cfg.d_model}, d_inner {ssm.expand * cfg.d_model}, SSM heads of {ssm.head_dim}, "
+            f"state {ssm.state_dim}, chunk {ssm.chunk}; attention {cfg.n_heads} heads of "
+            f"{cfg.head_dim_} over {cfg.n_kv_heads}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
+            f"{'tied' if cfg.tie_embeddings else 'untied'}; serving weights {weights / 1e9:.3f} "
+            f"GB; slot state {slot / 1e6:.1f} MB a slot ({mamba / 1e6:.2f} MB a mamba layer, "
+            f"float32; {ring / 1e6:.2f} MB a ring); the floor of a 4-slot decode step, weights "
+            f"and 4 slots' states read once: {(weights + 4 * slot) / 1e9:.3f} GB, "
+            f"{floor_ms:.3f} ms at {HBM_BYTES_PER_S / 1e12:.2f} TB/s; init+export layer by "
+            f"layer {time.perf_counter() - t0:.1f} s, peak memory "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+        rng = torch.Generator().manual_seed(self.seed + 19)
+        prompts = [torch.randint(0, cfg.vocab, (p,), generator=rng).numpy()
+                   for p in self.PROMPT_LENS]
+        trace = [Request(uid=i, prompt=p, max_new_tokens=self.GEN_LEN, arrival=2 * i)
+                 for i, p in enumerate(prompts)]
+        sc = ServeConfig(max_slots=4, max_len=max(self.PROMPT_LENS) + self.GEN_LEN,
+                         seed=self.seed)
+        chunk = cfg.lpsa.chunk
+        packs = [p // chunk for p in self.PROMPT_LENS if p >= chunk]
+
+        def want(st):
+            return _hybrid_counts(n_m, n_a, st.decode_steps + st.warmup_steps, packs)
+
+        _, eng, res = self._serve_path(arch, lambda: model, trace, sc, want)
+        layouts = {}
+        for d in eng.layout_summary():
+            layouts[d["kind"], d["layout"]] = layouts.get((d["kind"], d["layout"]), 0) + 1
+        log(f"[serve] {arch}: slot-state layouts {layouts}; {eng.stats.prefill_tokens} prefill "
+            f"tokens (the pack-aligned prefixes; each tail fed a token a tick)")
+        if (layouts != {("mamba", "mamba"): n_m, ("attn", "ring"): n_a}
+                or eng.stats.prefill_tokens != chunk * sum(packs)):
+            raise AssertionError(f"{arch}: the engine's slot states or prefills are wrong")
+        self._finite_logits(arch, model, prompts[0][:chunk], sc.max_len)
+        self._batch_invariance(arch, eng, trace, res, (0, 3))
+        del eng
+        self._profile_admission(model, prompts[0], sc.max_len, classes="hybrid")
+        self._profile_tail(arch, model, prompts[0], sc)
+        runs = [self._profile_decode(f"{arch} {'graph' if graph else 'eager'}", model, sc,
+                                     prompts, graph, profiled=graph, classes="hybrid")
+                for graph in (True, False)]
+        if runs[0]["tokens"] != runs[1]["tokens"] or runs[0]["per_step"] != runs[1]["per_step"]:
+            raise AssertionError(f"{arch}: the replayed decode step differs from the eager "
+                                 f"one in tokens or launches a step")
+        log(f"[profile] {arch}: replayed and eager decode steps give the same tokens bitwise "
+            f"and the same launches a step {runs[0]['per_step']}; ms/step "
+            f"{runs[0]['ms_step']:.3f} / {runs[1]['ms_step']:.3f} (graph / eager), device "
+            f"busy {runs[0]['busy_ms_step']} ms/step, idle share {runs[0]['idle']} (graph); "
+            f"the floor {floor_ms:.3f} ms/step")
+        self._ssd_glue_times(model, n_m)
+        del model
+        torch.cuda.empty_cache()
+        self._width_parity(arch, cfg, prompts[0], tol=self.HYBRID_PARITY_TOL,
+                           n=self.HYBRID_PARITY_PROMPT, serve_sparse=False)
+        _took(arch, t_path)
+
+    def _profile_tail(self, arch, model, prompt, sc):
+        """The admission of ``prompt`` through a graph engine: the prefill of
+        its pack-aligned prefix, then its tail fed a token a tick through the
+        replayed decode step, each by CUDA events and the host clock (the
+        second of two runs; the first warms the allocator)."""
+        torch = self.torch
+        from repro_torch.serve import Request, ServeEngine
+        eng = ServeEngine(model, sc, device="cuda")
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        for uid in (0, 1):
+            eng.submit(Request(uid=uid, prompt=prompt, max_new_tokens=1))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ev[0].record()
+            eng._admit_ready()
+            ev[1].record()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            ticks = 0
+            while eng.num_active:
+                eng.step_decode()
+                ticks += 1
+            ev[2].record()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            eng.drain_results()
+        prefill, tail = ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
+        n = len(prompt) - ticks
+        log(f"[profile] {arch} admission of the {len(prompt)}-token prompt through the engine: "
+            f"the {n}-token prefill {prefill:.3f} ms (CUDA events; host {t1 - t0:.3f} s), then "
+            f"{ticks} tail ticks {tail:.3f} ms ({tail / ticks:.3f} ms a tick, replayed; host "
+            f"{t2 - t1:.3f} s); first token after {prefill + tail:.3f} ms")
+
+    def _graph_ms(self, fn, reps=50):
+        """ms of one replay of ``fn`` captured into a CUDA graph (after a
+        warm-up call on a side stream), by CUDA events over ``reps``."""
+        torch = self.torch
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            fn()
+        graph.replay()
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(reps):
+            graph.replay()
+        e1.record()
+        torch.cuda.synchronize()
+        return e0.elapsed_time(e1) / reps
+
+    def _ssd_glue_times(self, model, n_m):
+        """The SSD glue of one mamba layer's decode step at 4 slots (rows at
+        t = 1100, 511, 300, 40: row 1 fills its chunk and folds), each part
+        captured into a CUDA graph of its own and replayed: the buffer writes
+        (mamba2.ssd_write), the replay row (ssd_row: XLA's cumsum order over
+        the chunk, the row's decays, scores and einsums) and the fold
+        (ssd_fold: computed for every row, selected, the folded rows'
+        buffers cleared), each times the mamba layers for the step."""
+        torch = self.torch
+        from repro_torch.models import kvcache as KV
+        from repro_torch.models import mamba2 as M
+        cfg, dev = model.cfg, self.dev
+        g = self.gen(self.seed + 23)
+        state = KV.init_cache(cfg, KV.CacheSpec("mamba", 4), dev)
+        for buf in state.values():
+            buf.copy_(0.1 * torch.randn(buf.shape, generator=g, device=dev))
+        state["ssd_dt"].abs_()
+        step = M.ssd_step_inputs(cfg, torch.tensor([1100, 511, 300, 40], device=dev))
+        _, nh = M.mamba_dims(cfg)
+        xh = torch.randn((4, nh, cfg.ssm.head_dim), generator=g, device=dev)
+        bc = torch.randn((4, cfg.ssm.state_dim), generator=g, device=dev)
+        dt = torch.rand((4, nh), generator=g, device=dev)
+        a = -torch.exp(model.layers[0].mamba.a_log.float())
+        _, cla = M.ssd_row(state, step, a)
+        parts = {"buffer writes": lambda: M.ssd_write(state, step, xh, bc, bc, dt),
+                 "replay row": lambda: M.ssd_row(state, step, a),
+                 "fold": lambda: M.ssd_fold(state, step, cla)}
+        times = {name: self._graph_ms(fn) for name, fn in parts.items()}
+        log(f"[profile] {self.HYBRID_ARCH} SSD glue of one mamba layer's decode step at 4 slots, "
+            f"each part a CUDA graph of its own: " + ", ".join(
+                f"{name} {ms * 1e3:.1f} us ({ms * n_m:.3f} ms a step over {n_m} layers)"
+                for name, ms in times.items()))
+
     # the MoE's width parity (2 layers, f32, card vs CPU) with the experts'
     # int8 fake-quant as it serves: 1.57e-3 read on an H100 at seed 0, where
     # the same model with the fake-quant the identity on both sides reads
@@ -1370,16 +1692,19 @@ class Smoke:
             f"{int((qc.scale != qg.scale).sum())} of {qc.scale.numel()} row scales, the "
             f"outputs by at most {(yg - yc).abs().max().item():.2e}")
 
-    def _width_parity(self, label, cfg, prompt_ids, tol=2e-4):
+    def _width_parity(self, label, cfg, prompt_ids, tol=2e-4, n=None, serve_sparse=True):
         """A model of ``cfg``'s widths (d_model, heads and head size, d_ff or
-        the experts, vocab, pattern, soft-caps, activation) at 2 layers (one
-        period of its pattern) in float32 with DAS off, on the card
-        (kernels) against the same weights on the CPU (plain versions): a
-        2-pack prompt's (512 tokens without LPSA) prefill + 8 teacher-forced decode steps within
-        ``tol``, equal greedy tokens.  DAS is off because at these widths a
+        the experts, vocab, pattern, soft-caps, activation) at 2 layers or
+        one period of its pattern in float32 with DAS off, on the card
+        (kernels) against the same weights on the CPU (plain versions): the
+        prefill of an ``n``-token prompt (default 2 packs; 512 tokens without
+        LPSA) + 8 teacher-forced decode steps within ``tol``, equal greedy
+        tokens; ``serve_sparse=False`` turns LPSA off.  DAS is off because at these widths a
         float32 sum order that differs in the last bit flips near-ties of
         the top-16-of-32 (tens of thousands of blocks a run): DAS at these
-        widths is held exactly in the kernels phase."""
+        widths is held exactly in the kernels phase.  Beside it, the card's
+        model with every embedding value moved one ulp up (teacher-forced on
+        the same tokens): how far a last-bit difference moves its logits."""
         torch = self.torch
         from repro_torch.models import model as MD
         small = dataclasses.replace(
@@ -1388,11 +1713,13 @@ class Smoke:
         t0 = time.perf_counter()
         m_cpu = MD.init_serving(small, seed=self.seed, device="cpu")
         m_gpu = copy.deepcopy(m_cpu).to(self.dev)
-        n = 2 * (cfg.lpsa.chunk if cfg.lpsa else 256)
+        n = n if n is not None else 2 * (cfg.lpsa.chunk if cfg.lpsa else 256)
+        kw = dict(max_len=n + 9, serve_sparse=serve_sparse)
         prompt = torch.as_tensor(prompt_ids[:n], dtype=torch.long)[None]
-        lg_c, c_c = MD.prefill(m_cpu, prompt, max_len=n + 9)
-        lg_g, c_g = MD.prefill(m_gpu, prompt.to(self.dev), max_len=n + 9)
-        err = (lg_g.cpu() - lg_c).abs().max().item()
+        lg_c, c_c = MD.prefill(m_cpu, prompt, **kw)
+        lg_g, c_g = MD.prefill(m_gpu, prompt.to(self.dev), **kw)
+        errs = [(lg_g.cpu() - lg_c).abs().max().item()]
+        card = [lg_g]
         if cfg.moe is not None:
             drops = [[int(b.moe.dropped) for b in m.layers] for m in (m_cpu, m_gpu)]
             loads = all(torch.equal(a.moe.load, b.moe.load.cpu())
@@ -1405,16 +1732,32 @@ class Smoke:
         toks_c, toks_g = [int(lg_c.argmax())], [int(lg_g.argmax())]
         for i in range(8):
             t = torch.tensor([n + i])
-            lg_c, _ = MD.decode_step(m_cpu, c_c, torch.tensor([toks_c[-1]]), t)
+            lg_c, _ = MD.decode_step(m_cpu, c_c, torch.tensor([toks_c[-1]]), t,
+                                     serve_sparse=serve_sparse)
             lg_g, _ = MD.decode_step(m_gpu, c_g, torch.tensor([toks_c[-1]], device=self.dev),
-                                     t.to(self.dev))
-            err = max(err, (lg_g.cpu() - lg_c).abs().max().item())
+                                     t.to(self.dev), serve_sparse=serve_sparse)
+            errs.append((lg_g.cpu() - lg_c).abs().max().item())
+            card.append(lg_g)
             toks_c.append(int(lg_c.argmax()))
             toks_g.append(int(lg_g.argmax()))
-        log(f"[serve] {label} at its widths, {small.n_layers} layers, f32, DAS off, card vs CPU: "
-            f"{n}-token prefill + 8 teacher-forced steps, max logit err {err:.2e} (tol {tol:g}), "
-            f"greedy tokens {'equal' if toks_c == toks_g else 'DIFFERENT'} "
-            f"({time.perf_counter() - t0:.1f} s)")
+        err = max(errs)
+        log(f"[serve] {label} at its widths, {small.n_layers} layers, f32, DAS off"
+            f"{'' if serve_sparse else ', LPSA off'}, card vs CPU: "
+            f"{n}-token prefill + 8 teacher-forced steps, max logit err {err:.2e} (tol {tol:g}; "
+            f"by step {', '.join(f'{e:.1e}' for e in errs)}), greedy tokens "
+            f"{'equal' if toks_c == toks_g else 'DIFFERENT'} ({time.perf_counter() - t0:.1f} s)")
+        emb = m_gpu.embed
+        emb.copy_(torch.nextafter(emb, torch.full_like(emb, math.inf)))
+        lg_p, c_p = MD.prefill(m_gpu, prompt.to(self.dev), **kw)
+        moved = [(lg_p - card[0]).abs().max().item()]
+        for i in range(8):
+            lg_p, _ = MD.decode_step(m_gpu, c_p, torch.tensor([toks_c[i]], device=self.dev),
+                                     torch.tensor([n + i], device=self.dev),
+                                     serve_sparse=serve_sparse)
+            moved.append((lg_p - card[i + 1]).abs().max().item())
+        log(f"[serve] {label} at its widths, the card's model with every embedding value one "
+            f"ulp up against itself: max logit difference {max(moved):.2e} (by step "
+            f"{', '.join(f'{e:.1e}' for e in moved)})")
         if err > tol or toks_c != toks_g:
             raise AssertionError(f"{label}: the card's model at its widths disagrees with the "
                                  f"CPU's")
@@ -2105,6 +2448,7 @@ class Smoke:
         if hasattr(kops, "twd_decode_stack"):  # nor one before the MoE a stack decode
             self._moe_times(t_ms, attn_row, g)
         self._ssm_times(t_ms, g)
+        self._hybrid_times(t_ms, attn_row, g)
 
     def _moe_times(self, t_ms, attn_row, g):
         """qwen3-moe-30b-a3b's shapes beside their bounds: twd_decode over each
@@ -2161,13 +2505,8 @@ class Smoke:
         dev, bf16 = self.dev, torch.bfloat16
         scale = torch.tensor(0.37, device=dev)
 
-        def line(label, fn, plain, library, nbytes, flops):
-            ms, plain_ms = t_ms(fn), t_ms(plain)
-            lib_ms = t_ms(library) if library is not None else None
-            t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS["bfloat16"] * 1e3
-            log(f"[times] {label}: {ms * 1e3:.1f} us, bound {max(t_b, t_o) * 1e3:.2f} us "
-                f"({'bytes' if t_b >= t_o else 'operations'}), plain {plain_ms * 1e3:.1f} us, "
-                f"library {'n/a' if lib_ms is None else f'{lib_ms * 1e3:.1f} us'}")
+        def line(*args):
+            self._time_line(t_ms, *args)
 
         for label, k, n in self.SSM_GEMMS:
             packed = twd.pack_ternary(torch.randint(-1, 2, (k, n), generator=g, device=dev),
@@ -2210,6 +2549,89 @@ class Smoke:
             line(f"das_topk MoE call, normed and dense rows ({m},2048)",
                  lambda: das_topk_cuda(x, **kw), lambda: ref.das_topk_ref(x, **kw), None,
                  m * 2048 * 2 + 2048 * 2 + m * 1024 * 6 + 2 * m * 2048 * 2, 0)
+
+    @staticmethod
+    def _time_line(t_ms, label, fn, plain, library, nbytes, flops, dtype="bfloat16"):
+        """Log one shape's time beside its bound (``nbytes`` at the memory
+        rate or ``flops`` at the peak of ``dtype``, the larger), its plain
+        version's and its library call's (None: n/a)."""
+        ms, plain_ms = t_ms(fn), t_ms(plain)
+        lib_ms = t_ms(library) if library is not None else None
+        t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[dtype] * 1e3
+        log(f"[times] {label}: {ms * 1e3:.1f} us, bound {max(t_b, t_o) * 1e3:.2f} us "
+            f"({'bytes' if t_b >= t_o else 'operations'}), plain {plain_ms * 1e3:.1f} us, "
+            f"library {'n/a' if lib_ms is None else f'{lib_ms * 1e3:.1f} us'}")
+
+    def _hybrid_times(self, t_ms, attn_row, g):
+        """zamba2-2.7b's shapes beside their bounds, plain versions and
+        library calls: das_ternary_gemm at every new projection at decode and
+        at the 1024-row prefix (the library: a bf16 matmul of the densified
+        rows with the bf16 weight); das_topk norm-fused with the normed rows
+        at K = 2560 and plain at 5120 and 10240 (no library call);
+        sparse_attention at 32 heads of 80 over 32, decode over full rings
+        and an LPSA prefill pack (the library: SDPA with the same mask); and
+        ternary_gemm in float32 at every projection of the SSM pair at 1 and
+        512 rows, the shapes of their DAS-off width checks (the library: a
+        float32 matmul with the float32 weight, TF32 off)."""
+        torch = self.torch
+        from repro_torch.core import twd
+        from repro_torch.kernels import ref
+        from repro_torch.kernels.das_gemm import das_ternary_gemm_cuda
+        from repro_torch.kernels.ternary_gemm import ternary_gemm_cuda
+        from repro_torch.kernels.topk_mask import das_topk_cuda
+        dev, bf16, f32 = self.dev, torch.bfloat16, torch.float32
+        scale = torch.tensor(0.37, device=dev)
+
+        def line(*args, **kw):
+            self._time_line(t_ms, *args, **kw)
+
+        for label, k, n in self.HYBRID_GEMMS:
+            packed = twd.pack_ternary(torch.randint(-1, 2, (k, n), generator=g, device=dev),
+                                      row_align=16)
+            w = (twd.unpack_ternary_arith(packed, packed.shape[0] * 5).float() * 0.37).to(bf16)
+            kc = k // 2
+            for m in (4, self.HYBRID_PREFILL_M):
+                x = torch.randn((m, k), generator=g, device=dev).to(bf16)
+                ca = ref.das_topk_ref(x, keep=16, block=32, with_mask=False)
+                dense = torch.zeros((m, w.shape[0]), dtype=bf16, device=dev)
+                dense.scatter_(1, ca.indices.long(), ca.values)
+                line(f"das_ternary_gemm {label} ({m},{kc} of {k}) x packed "
+                     f"{tuple(packed.shape)}",
+                     lambda: das_ternary_gemm_cuda(ca.values, ca.indices, packed, scale,
+                                                   keep=16),
+                     lambda: ref.das_ternary_gemm_ref(ca.values, ca.indices, packed, scale),
+                     lambda: torch.matmul(dense, w),
+                     m * kc * 6 + packed.numel() + m * n * 4 + 4, 2 * m * kc * n)
+        for k in (2560, 5120, 10240):
+            ns = (0.5 * torch.randn((k,), generator=g, device=dev)).to(bf16)
+            kw = dict(keep=16, block=32, with_mask=False)
+            if k == 2560:
+                kw.update(norm_scale=ns, with_normed=True)
+            for m in (4, self.HYBRID_PREFILL_M):
+                x = torch.randn((m, k), generator=g, device=dev).to(bf16)
+                out = m * (k // 2) * 6 + (m * k * 2 + k * 2 if k == 2560 else 0)
+                line(f"das_topk zamba2 {'norm-fused with normed rows' if k == 2560 else 'plain'}"
+                     f" ({m},{k})", lambda: das_topk_cuda(x, **kw),
+                     lambda: ref.das_topk_ref(x, **kw), None, m * k * 2 + out, 0)
+        rows = (1500, 1023, 2000, 1100)
+        qp = torch.tensor(rows, dtype=torch.int32, device=dev)[:, None]
+        kp = torch.stack([ring_positions(torch, t, 128, 896) for t in rows]).to(dev)
+        attn_row("zamba2 decode D=80 32/32 full rings of 1024", 4, 32, 32, 80, bf16, qp, kp,
+                 128, 896, None, False)
+        qp1, kp1 = pack_positions(torch, 512)
+        attn_row("zamba2 prefill D=80 32/32 LPSA pack t0=512", 1, 32, 32, 80, bf16,
+                 qp1[None].to(dev), kp1[None].to(dev), 128, 896, None, True)
+        for label, k, n in self.SSM_GEMMS:
+            packed = twd.pack_ternary(torch.randint(-1, 2, (k, n), generator=g, device=dev),
+                                      row_align=16)
+            sc = torch.tensor((2 / math.pi / k) ** 0.5, device=dev)
+            w = twd.unpack_ternary_arith(packed, k).float() * sc
+            for m in (1, 512):
+                x = torch.randn((m, k), generator=g, device=dev)
+                line(f"ternary_gemm f32 {label} ({m},{k}) x packed {tuple(packed.shape)}",
+                     lambda: ternary_gemm_cuda(x, packed, sc),
+                     lambda: ref.ternary_gemm_ref(x, packed, sc), lambda: torch.matmul(x, w),
+                     m * k * 4 + packed.numel() + m * n * 4 + 4, 2 * m * k * n, dtype="float32")
 
     def _zoo_times(self, t_ms, attn_row, extra, g):
         """The zoo's shapes beside their bounds: sparse_attention at the head
@@ -2326,6 +2748,21 @@ def _packed_counts(n_l: int, steps: int, packs, dense_down: bool = True) -> dict
             "sparse_attention": n_l * (steps + sum(packs))}
 
 
+def _hybrid_counts(n_m: int, n_a: int, steps: int, packs) -> dict:
+    """zamba2's launches for ``steps`` decode steps and prefills of ``packs``
+    packs each: a mamba layer 2 / 3 das_topk / das_ternary_gemm per decode
+    step and per prefill alike (wz and wx share one DAS step with the norm
+    inside, wo takes its own); an attention block the packed model's with
+    the down compacted (32 | d_ff: per decode step 4 / 7 / 1 das_topk /
+    das_ternary_gemm / sparse_attention, per prefill of n packs n+3 / 3n+4
+    / n)."""
+    counts = _packed_counts(n_a, steps, packs, dense_down=False)
+    calls = steps + len(packs)
+    counts["das_topk"] += 2 * n_m * calls
+    counts["das_ternary_gemm"] += 3 * n_m * calls
+    return counts
+
+
 def _moe_counts(n_l: int, steps: int, packs) -> dict:
     """The MoE model's launches for ``steps`` decode steps and streaming
     prefills of ``packs`` packs each: per decode step 3 / 4 / 1 / 3
@@ -2425,8 +2862,34 @@ def _ssm_class(kernel_name: str) -> str:
     return "linear-attention and state glue"
 
 
+# the hybrid path's device kernels by class: the port's kernels; cuBLAS's
+# matmuls (the SSD einsums of the replay row, the fold and the prefill's
+# chunks, wb / wc / wdt, the tied head); the copies (einsum operands
+# permuted, casts, the conv's state); the buffer writes and row gathers
+# (index kernels); and the rest, the SSD's and the blocks' elementwise glue
+HYBRID_CLASSES = ("das_ternary_gemm", "das_topk", "sparse_attention", "cuBLAS matmuls",
+                  "copies", "index (buffer writes, row gathers)",
+                  "SSD and other elementwise glue")
+
+
+def _hybrid_class(kernel_name: str) -> str:
+    if "das_topk" in kernel_name:
+        return "das_topk"
+    if _is_attention(kernel_name):
+        return "sparse_attention"
+    if "tenet::" in kernel_name:
+        return "das_ternary_gemm"
+    if any(k in kernel_name for k in ("gemm", "gemv", "nvjet", "xmma", "cutlass", "splitK")):
+        return "cuBLAS matmuls"
+    if "copy" in kernel_name:
+        return "copies"
+    if any(k in kernel_name for k in ("index", "gather", "scatter")):
+        return "index (buffer writes, row gathers)"
+    return "SSD and other elementwise glue"
+
+
 CLASSES = {"glue": (_glue_class, GLUE_CLASSES), "moe": (_moe_class, MOE_CLASSES),
-           "ssm": (_ssm_class, SSM_CLASSES)}
+           "ssm": (_ssm_class, SSM_CLASSES), "hybrid": (_hybrid_class, HYBRID_CLASSES)}
 
 
 def _by_class(by_name: dict, classes: str) -> dict:

@@ -2,9 +2,10 @@
 
 Only the architectures the port serves are registered: the paper's own
 bitnet models, the dense models of the JAX package's zoo, its two MoE
-models (kimi-k2 reduced only: ROADMAP queue 1, item 5) and its two
-attention-free SSMs, rwkv6-3b and gla-1.3b.  The hybrid and frontend models
-wait for later slices (ROADMAP queue 1).
+models (kimi-k2 reduced only: ROADMAP queue 1, item 4), its two
+attention-free SSMs, rwkv6-3b and gla-1.3b, and the hybrid zamba2-2.7b
+(Mamba2 blocks and one shared attention block).  The frontend models wait
+for later slices (ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ ARCH_MODULES = {
     "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
     "rwkv6-3b": "rwkv6_3b",
     "gla-1.3b": "gla_1p3b",
+    "zamba2-2.7b": "zamba2_2p7b",
 }
 
 

@@ -1,5 +1,6 @@
 """Slot caches for serving behind a tagged ``CacheSpec``: full, ring and
-paged KV caches for attention, and the recurrent states of rwkv and gla.
+paged KV caches for attention, and the recurrent states of mamba, rwkv and
+gla.
 
   * full — (B, max_len, Hkv, Dh) K/V + (B, max_len) positions: the
     conventional cache, used when a global layer serves without LPSA.
@@ -11,16 +12,19 @@ paged KV caches for attention, and the recurrent states of rwkv and gla.
     Page 0 is the null page: unmapped table entries point at it and its
     positions stay -1, so reads through them are masked.
 
+  * mamba — {"conv" (B, cw - 1, d_inner), "ssm" (B, nh, hd, N), and the
+    chunk-replay buffers "ssd_x" (B, chunk, nh, hd), "ssd_b", "ssd_c" (B,
+    chunk, N), "ssd_dt" (B, chunk, nh)}, float32 (``mamba2.init_state``).
   * rwkv — {"wkv" (B, H, hd, hd), "shift_t", "shift_c" (B, 1, D)}, float32.
   * gla — {"s" (B, H, hd, hd)}, float32.
 
 A per-sequence KV cache is a dict {"k", "v", "pos"} of tensors, an arena
 {"k_pages", "v_pages", "pos_pages"}; position -1 marks an empty slot.  The
 recurrent states are O(1) a slot and take no position.  The token shifts
-hold bfloat16 values in a model of that dtype (the JAX package's eager step
-returns them in x's dtype); float32 holds them exactly, so both give the
-same tokens, and the port keeps float32, as the JAX package's
-``init_cache`` allocates them.
+and the conv's inputs hold bfloat16 values in a model of that dtype (the
+JAX package's eager step returns them in x's dtype); float32 holds them
+exactly, so both give the same tokens, and the port keeps float32, as the
+JAX package's ``init_cache`` allocates them.
 ``attn_write`` updates a cache in place (the JAX package returns a new one):
 the engine's CUDA graph holds the caches' storage, so nothing rebinds them.
 """
@@ -33,18 +37,19 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.lpsa import decode_slot
+from repro_torch.models import mamba2
 
 __all__ = ["CacheSpec", "CACHE_LAYOUTS", "init_cache", "is_paged", "write_slot",
            "attn_write", "attn_read", "ring_from_stream"]
 
-CACHE_LAYOUTS = ("full", "ring", "paged", "rwkv", "gla")
+CACHE_LAYOUTS = ("full", "ring", "paged", "mamba", "rwkv", "gla")
 
 
 @dataclass(frozen=True)
 class CacheSpec:
     """One layer's serving cache: ``layout`` plus the fields it reads (full:
     max_len; ring: sink + window; paged: page_size + num_pages, the arena
-    itself batch-free; rwkv and gla: batch only)."""
+    itself batch-free; mamba, rwkv and gla: batch only)."""
     layout: str
     batch: int
     max_len: int = 0
@@ -72,6 +77,8 @@ class CacheSpec:
 def init_cache(cfg: ModelConfig, spec: CacheSpec, device=None) -> dict:
     """An empty cache (zeros, every position -1) for one layer."""
     f32, hd = torch.float32, cfg.head_dim_
+    if spec.layout == "mamba":
+        return mamba2.init_state(cfg, spec.batch, device)
     if spec.layout == "rwkv":
         return {"wkv": torch.zeros((spec.batch, cfg.n_heads, hd, hd), dtype=f32, device=device),
                 "shift_t": torch.zeros((spec.batch, 1, cfg.d_model), dtype=f32, device=device),

@@ -18,8 +18,8 @@ from torch import nn
 from torch.nn import functional as F
 
 __all__ = ["torch_dtype", "full_f32", "RMSNorm", "rmsnorm", "GroupNorm", "group_norm",
-           "softcap", "rope", "apply_rope", "sigmoid", "silu", "gelu", "log_sigmoid", "ACT",
-           "take_embed", "logits_from_embed"]
+           "softcap", "rope", "apply_rope", "sigmoid", "silu", "gelu", "softplus", "log_sigmoid",
+           "ACT", "xla_cumsum", "take_embed", "logits_from_embed"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -141,15 +141,57 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return x * (0.5 * (1 + torch.tanh(c * (x + a * cube))))
 
 
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``'s formula: logaddexp(x, 0) = max(x, 0) +
+    log1p(exp(-|x|)).  ``F.softplus`` is another float32 formula (up to
+    ~1e-6 away)."""
+    return torch.clamp(x, min=0) + torch.log1p(torch.exp(-x.abs()))
+
+
 def log_sigmoid(x: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.log_sigmoid``'s formula: -softplus(-x), softplus(y) =
-    logaddexp(y, 0) = max(y, 0) + log1p(exp(-|y|)).  ``F.logsigmoid`` is
+    """``jax.nn.log_sigmoid``'s formula: -softplus(-x).  ``F.logsigmoid`` is
     another float32 formula."""
-    y = -x
-    return -(torch.clamp(y, min=0) + torch.log1p(torch.exp(-y.abs())))
+    return -softplus(-x)
 
 
 ACT = {"silu": silu, "gelu": gelu}
+
+XLA_SCAN_BLOCK = 16
+
+
+def _running_sums(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive sums along dim -2 of x (..., 16, m), added one term at a
+    time from the first.  On the card ``torch.cumsum`` over a dim that is not
+    the last adds exactly so (one thread a column, a float32 accumulator);
+    on the CPU it accumulates in float64, so there the loop is written out."""
+    if x.is_cuda and x.numel() > x.shape[-2]:
+        return torch.cumsum(x, dim=-2)
+    out = x.clone()
+    for j in range(1, x.shape[-2]):
+        out[..., j, :] += out[..., j - 1, :]
+    return out
+
+
+def xla_cumsum(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``jnp.cumsum(x, axis=dim)`` in the order XLA computes it: the
+    running sums inside blocks of 16 terms, the same scan over the blocks'
+    totals (recursively), and each block's exclusive prefix added to its
+    running sums.  Bitwise ``jnp.cumsum`` on the CPU in float32;
+    ``torch.cumsum`` differs from it in about half the values at length
+    256."""
+    dim = dim % x.ndim
+    n = x.shape[dim]
+    pre, post = x.shape[:dim], x.shape[dim + 1:]
+    y = x.reshape(math.prod(pre), n, math.prod(post))
+    nb = -(-n // XLA_SCAN_BLOCK)
+    if nb > 1 and nb * XLA_SCAN_BLOCK != n:
+        y = F.pad(y, (0, 0, 0, nb * XLA_SCAN_BLOCK - n))
+    if nb == 1:
+        return _running_sums(y).reshape(x.shape)
+    r = _running_sums(y.reshape(y.shape[0], nb, XLA_SCAN_BLOCK, y.shape[-1]))
+    tot = xla_cumsum(r[:, :, -1], 1)
+    r[:, 1:] += tot[:, :-1, None]
+    return r.reshape(y.shape)[:, :n].reshape(x.shape)
 
 
 def take_embed(embed: torch.Tensor, tokens: torch.Tensor, *,

@@ -2,8 +2,9 @@
 
 ``init_params`` draws master weights from a seeded ``torch.Generator`` into
 the JAX package's tree layout ({embed, final_norm, layers: {stacked, tail,
-shared}} with {"w"} leaves, a block's mixer as ``attn``, ``rwkv`` or
-``gla`` (their dense LoRAs, mixes and head norms plain leaves), its FFN as
+shared}} with {"w"} leaves, a block's mixer as ``attn``, ``mamba``,
+``rwkv`` or ``gla`` (their dense LoRAs, projections, mixes and norms plain
+leaves), zamba2's one attention under ``layers.shared``, its FFN as
 ``ffn`` or, for a MoE config, ``moe`` with its router and expert stacks,
 and a dense ``head`` when the embeddings are untied); ``export_serving``
 quantizes them to the config's serve format (base-3 packed, or int8 trits)
@@ -24,9 +25,11 @@ from torch import nn
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.models import attention as A
 from repro_torch.models import gla as G
 from repro_torch.models import kvcache as KV
 from repro_torch.models import layers as L
+from repro_torch.models import mamba2 as M
 from repro_torch.models import moe as MOE
 from repro_torch.models import rwkv6 as R
 from repro_torch.models import transformer as T
@@ -38,10 +41,11 @@ __all__ = ["TernaryLM", "init_params", "export_serving", "init_serving",
 
 
 class TernaryLM(nn.Module):
-    """Serving weights of a ternary LM, dense, MoE or attention-free, on the
-    CUDA device unless ``device="cpu"``: the embedding, the untied dense
-    ``head`` (d_model, vocab_padded) where the config has one, the blocks
-    (each with its mixer and its gated FFN or MoE) and the final norm."""
+    """Serving weights of a ternary LM, dense, MoE, hybrid or attention-free,
+    on the CUDA device unless ``device="cpu"``: the embedding, the untied
+    dense ``head`` (d_model, vocab_padded) where the config has one, the
+    blocks (each with its mixer and its gated FFN or MoE), the one
+    ``shared`` attention of a ``shared_attn`` config, and the final norm."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
@@ -61,6 +65,8 @@ class TernaryLM(nn.Module):
         self.final_norm = L.RMSNorm(cfg.d_model, dt, device)
         self.layers = nn.ModuleList(T.Block(cfg, kind, dt, device)
                                     for kind in cfg.layer_kinds())
+        # one set of buffers, which every attention block runs
+        self.shared = A.Attention(cfg, device) if _has_shared(cfg) else None
         # logits past `vocab` are padding rows: masked out
         bias = torch.where(torch.arange(cfg.vocab_padded) < cfg.vocab, 0.0, -1e30)
         self.register_buffer("vocab_bias", bias.to(device), persistent=False)
@@ -80,6 +86,10 @@ class TernaryLM(nn.Module):
         return model
 
 
+def _has_shared(cfg: ModelConfig) -> bool:
+    return cfg.shared_attn and any(k in T.ATTN_KINDS for k in cfg.layer_kinds())
+
+
 def _load(own: dict, flat: dict, cfg: ModelConfig) -> None:
     """Copy each leaf of ``flat`` into the buffer of its name in ``own``;
     the names must be the same, and each leaf's shape and dtype its buffer's."""
@@ -97,10 +107,9 @@ def _load(own: dict, flat: dict, cfg: ModelConfig) -> None:
 
 def flatten_tree(tree: dict, cfg: ModelConfig) -> dict:
     """{module-style name: leaf} of a serving tree in the JAX package's
-    layout; scan-stacked groups (leading group axis) are split per layer."""
+    layout; scan-stacked groups (leading group axis) are split per layer,
+    and the shared attention goes to the model's ``shared``."""
     lay = tree["layers"]
-    if lay.get("shared") is not None:
-        raise NotImplementedError("shared attention blocks are not ported")
     blocks: list = []
     if lay.get("stacked") is not None:
         per_pos = lay["stacked"]
@@ -117,6 +126,7 @@ def flatten_tree(tree: dict, cfg: ModelConfig) -> dict:
     if "head" in tree:
         top["head"] = tree["head"]
     _flatten(top, "", out)
+    _flatten(lay.get("shared"), "shared.", out)
     for i, b in enumerate(blocks):
         _flatten(b, f"layers.{i}.", out)
     return out
@@ -148,22 +158,30 @@ def _generator(seed: int, device) -> torch.Generator:
     return gen
 
 
+def _attn_params(gen: torch.Generator, cfg: ModelConfig) -> dict:
+    dt, d, qd, kvd = L.torch_dtype(cfg.dtype), cfg.d_model, cfg.q_dim, cfg.kv_dim
+    return {"wq": tlin_init(gen, d, qd, dt),
+            "wk": tlin_init(gen, d, kvd, dt),
+            "wv": tlin_init(gen, d, kvd, dt),
+            "wo": tlin_init(gen, qd, d, dt, scale=(qd * 2 * cfg.n_layers) ** -0.5)}
+
+
 def _block_params(gen: torch.Generator, cfg: ModelConfig, kind: str) -> dict:
     """One block's master weights, drawn from ``gen`` in a fixed order: the
-    norms, the mixer (attention, rwkv or gla), then the FFN or the MoE (an
-    rwkv block has none: its channel-mix is part of the mixer)."""
+    norms, the mixer (attention unless the config shares one, mamba, rwkv
+    or gla), then the FFN or the MoE (a mamba or rwkv block has none)."""
     dt, dev = L.torch_dtype(cfg.dtype), gen.device
-    d, qd, kvd, f = cfg.d_model, cfg.q_dim, cfg.kv_dim, cfg.d_ff
+    d, f = cfg.d_model, cfg.d_ff
     p = {"norm1": {"scale": torch.zeros(d, dtype=dt, device=dev)}}
+    if kind == "mamba":
+        p["mamba"] = M.mamba_init(gen, cfg, dt)
+        return p
     if kind == "rwkv":
         p["rwkv"] = R.rwkv_init(gen, cfg, dt)
     elif kind == "gla":
         p["gla"] = G.gla_init(gen, cfg, dt)
-    else:
-        p["attn"] = {"wq": tlin_init(gen, d, qd, dt),
-                     "wk": tlin_init(gen, d, kvd, dt),
-                     "wv": tlin_init(gen, d, kvd, dt),
-                     "wo": tlin_init(gen, qd, d, dt, scale=(qd * 2 * cfg.n_layers) ** -0.5)}
+    elif not cfg.shared_attn:
+        p["attn"] = _attn_params(gen, cfg)
     p["norm2"] = {"scale": torch.zeros(d, dtype=dt, device=dev)}
     if kind == "rwkv":
         return p
@@ -195,12 +213,13 @@ def _top_params(gen: torch.Generator, cfg: ModelConfig, embed: torch.Tensor) -> 
 
 def init_params(cfg: ModelConfig, *, seed: int = 0, device=None) -> dict:
     """Seeded random master weights in cfg.dtype, one tree per layer, drawn
-    in the order embedding, blocks, head."""
+    in the order embedding, blocks, shared attention, head."""
     gen = _generator(seed, device)
     embed = _embed_param(gen, cfg)
     blocks = tuple(_block_params(gen, cfg, kind) for kind in cfg.layer_kinds())
+    shared = _attn_params(gen, cfg) if _has_shared(cfg) else None
     return {**_top_params(gen, cfg, embed),
-            "layers": {"stacked": None, "tail": blocks, "shared": None}}
+            "layers": {"stacked": None, "tail": blocks, "shared": shared}}
 
 
 def _export(tree, cfg: ModelConfig):
@@ -237,6 +256,8 @@ def init_serving(cfg: ModelConfig, *, seed: int = 0, device=None) -> TernaryLM:
         _load({k: v for k, v in own.items() if k.startswith(f"layers.{i}.")}, flat, cfg)
         del flat
     flat = {}
+    if _has_shared(cfg):
+        _flatten(_export(_attn_params(gen, cfg), cfg), "shared.", flat)
     _flatten(_top_params(gen, cfg, embed), "", flat)
     _load({k: v for k, v in own.items() if not k.startswith("layers.")}, flat, cfg)
     return model
@@ -291,7 +312,8 @@ def prefill(model: TernaryLM, tokens: torch.Tensor, *, max_len: int | None = Non
     s = tokens.shape[1]
     x = L.take_embed(model.embed, tokens, scale=model.embed_scale)
     x, caches = T.stack_prefill(model.layers, model.cfg, x, serve_sparse=serve_sparse,
-                                max_len=max_len if max_len is not None else s + 1)
+                                max_len=max_len if max_len is not None else s + 1,
+                                shared=model.shared)
     return _logits(model, x[:, -1:])[:, 0], caches
 
 
@@ -304,7 +326,7 @@ def decode_step(model: TernaryLM, caches: list, tokens: torch.Tensor,
     with t = -1 are inactive."""
     x = L.take_embed(model.embed, tokens, scale=model.embed_scale)[:, None]
     x = T.stack_decode(model.layers, model.cfg, x, caches, t,
-                       serve_sparse=serve_sparse, page_table=page_table)
+                       serve_sparse=serve_sparse, page_table=page_table, shared=model.shared)
     return _logits(model, x)[:, 0], caches
 
 

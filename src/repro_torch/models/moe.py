@@ -24,7 +24,7 @@ atomics, so the sum does not depend on the batch).
 
 Expert parallelism (the JAX package's ``shard_map`` branch, experts sharded
 over the model axis) waits for the distributed slice (ROADMAP queue 1,
-item 5); ``moe_apply`` is the single-device branch.
+item 4); ``moe_apply`` is the single-device branch.
 """
 
 from __future__ import annotations

@@ -7,12 +7,15 @@ with DAS on, each rmsnorm runs inside the DAS step of the projections it
 feeds (``tlin_norm_input``, and the MoE's one ``das_topk`` call).  A "gla"
 block swaps the attention for gated linear attention (models/gla.py, its
 norm inside the q/k/v/g DAS step too); an "rwkv" block is the time-mix and
-the channel-mix (models/rwkv6.py), each after its rmsnorm, with no FFN.
-Their caches are recurrent slot states, written in place.  The JAX package
-scans stacked layer groups; here the stack is a loop over the model's
-``ModuleList``, whatever the pattern and its tail (gemma3's 26 layers = 4 x
-6 + 2).  The mamba kind and the 2-matrix MLP wait for later slices
-(ROADMAP).
+the channel-mix (models/rwkv6.py), each after its rmsnorm, with no FFN; a
+"mamba" block is its rmsnorm and the Mamba2 mixer (models/mamba2.py), with
+no FFN either.  Their caches are recurrent slot states, written in place.
+A config with ``shared_attn`` (zamba2) has one attention module, owned by
+the model and passed to every attention block, each of which keeps its own
+norms and FFN.  The JAX package scans stacked layer groups; here the stack
+is a loop over the model's ``ModuleList``, whatever the pattern and its
+tail (gemma3's 26 layers = 4 x 6 + 2).  The 2-matrix MLP waits for a later
+slice (ROADMAP).
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as A
 from repro_torch.models import gla as G
 from repro_torch.models import kvcache as KV
+from repro_torch.models import mamba2 as M
 from repro_torch.models import moe as MOE
 from repro_torch.models import rwkv6 as R
 from repro_torch.models.layers import ACT, RMSNorm, rmsnorm
@@ -33,7 +37,7 @@ __all__ = ["ATTN_KINDS", "RECURRENT_KINDS", "FFN", "Block", "ffn_apply", "block_
            "block_decode", "layer_cache_spec", "stack_prefill", "stack_decode"]
 
 ATTN_KINDS = ("attn", "local")
-RECURRENT_KINDS = ("rwkv", "gla")   # the recurrent kinds the port serves
+RECURRENT_KINDS = ("mamba", "rwkv", "gla")   # the recurrent kinds the port serves
 
 
 class FFN(nn.Module):
@@ -60,11 +64,14 @@ class Block(nn.Module):
                 f"layer kind {kind!r}: the port serves {ATTN_KINDS + RECURRENT_KINDS} blocks")
         self.kind = kind
         self.norm1 = RMSNorm(cfg.d_model, dtype, device)
+        if kind == "mamba":
+            self.mamba = M.Mamba2(cfg, dtype, device)
+            return
         if kind == "rwkv":
             self.rwkv = R.RWKV(cfg, dtype, device)
         elif kind == "gla":
             self.gla = G.GLA(cfg, dtype, device)
-        else:
+        elif not cfg.shared_attn:   # else the model's one shared attention
             self.attn = A.Attention(cfg, device)
         self.norm2 = RMSNorm(cfg.d_model, dtype, device)
         if kind == "rwkv":
@@ -104,9 +111,18 @@ def _rwkv_prefill(bp: Block, cfg: ModelConfig, x: torch.Tensor):
     return x + y_c, state
 
 
+def _attn(bp: Block, shared: A.Attention | None) -> A.Attention:
+    """The block's attention, or the model's shared one."""
+    return bp.attn if hasattr(bp, "attn") else shared
+
+
 def block_prefill(bp: Block, cfg: ModelConfig, x: torch.Tensor, *,
-                  serve_sparse: bool, max_len: int):
-    """-> (x, cache) with the cache ready for decode at position L."""
+                  serve_sparse: bool, max_len: int, shared: A.Attention | None = None):
+    """-> (x, cache) with the cache ready for decode at position L;
+    ``shared`` is the model's shared attention (``cfg.shared_attn``)."""
+    if bp.kind == "mamba":
+        y, cache = M.mamba_prefill(bp.mamba, cfg, x, bp.norm1.scale)
+        return x + y, cache
     if bp.kind == "rwkv":
         return _rwkv_prefill(bp, cfg, x)
     if bp.kind == "gla":
@@ -114,27 +130,32 @@ def block_prefill(bp: Block, cfg: ModelConfig, x: torch.Tensor, *,
         x = x + y
         return x + _mixer_ffn(bp, cfg, x, decode=False), cache
     sink, window = A.kind_sink_window(cfg, bp.kind, serve_sparse)
+    attn = _attn(bp, shared)
     if sink < A.FULL_SINK:
-        y, state = A.attn_prefill_streaming(bp.attn, cfg, x, bp.norm1.scale, bp.kind)
+        y, state = A.attn_prefill_streaming(attn, cfg, x, bp.norm1.scale, bp.kind)
         cache = KV.ring_from_stream(cfg, state, sink=sink, window=window)
     else:
-        y, cache = A.attn_prefill_full(bp.attn, cfg, x, bp.norm1.scale, max_len)
+        y, cache = A.attn_prefill_full(attn, cfg, x, bp.norm1.scale, max_len)
     x = x + y
     return x + _mixer_ffn(bp, cfg, x, decode=False), cache
 
 
 def block_decode(bp: Block, cfg: ModelConfig, x: torch.Tensor, cache: dict,
-                 step: A.DecodeStep | None, *, serve_sparse: bool) -> torch.Tensor:
+                 step: A.DecodeStep | None, ssd: M.SsdStep | None = None, *,
+                 serve_sparse: bool, shared: A.Attention | None = None) -> torch.Tensor:
     """One token per sequence at the positions of ``step`` (None for a
-    stack without attention: recurrent blocks take no position); the cache
-    updates in place."""
+    stack without attention) and, for a mamba block, of ``ssd`` (its
+    buffer rows; rwkv and gla take no position); the cache updates in
+    place."""
+    if bp.kind == "mamba":
+        return x + M.mamba_decode(bp.mamba, cfg, x, bp.norm1.scale, cache, ssd)
     if bp.kind == "rwkv":
         x = x + R.time_mix_step(bp.rwkv, cfg, rmsnorm(bp.norm1.scale, x), cache)
         return x + R.channel_mix_step(bp.rwkv, rmsnorm(bp.norm2.scale, x), cache)
     if bp.kind == "gla":
         x = x + G.gla_decode(bp.gla, cfg, x, bp.norm1.scale, cache)
         return x + _mixer_ffn(bp, cfg, x, decode=True)
-    x = x + A.attn_decode(bp.attn, cfg, x, bp.norm1.scale, cache, step, bp.kind,
+    x = x + A.attn_decode(_attn(bp, shared), cfg, x, bp.norm1.scale, cache, step, bp.kind,
                           serve_sparse=serve_sparse)
     return x + _mixer_ffn(bp, cfg, x, decode=True)
 
@@ -157,21 +178,24 @@ def layer_cache_spec(cfg: ModelConfig, kind: str, batch: int, max_len: int,
 
 
 def stack_prefill(layers: nn.ModuleList, cfg: ModelConfig, x: torch.Tensor, *,
-                  serve_sparse: bool, max_len: int):
+                  serve_sparse: bool, max_len: int, shared: A.Attention | None = None):
     caches = []
     for bp in layers:
         x, c = block_prefill(bp, cfg, x, serve_sparse=serve_sparse,
-                             max_len=max_len)
+                             max_len=max_len, shared=shared)
         caches.append(c)
     return x, caches
 
 
 def stack_decode(layers: nn.ModuleList, cfg: ModelConfig, x: torch.Tensor,
                  caches: list, t: torch.Tensor, *, serve_sparse: bool,
-                 page_table: torch.Tensor | None = None) -> torch.Tensor:
+                 page_table: torch.Tensor | None = None,
+                 shared: A.Attention | None = None) -> torch.Tensor:
     kinds = [bp.kind for bp in layers if bp.kind in ATTN_KINDS]
     step = (A.decode_step_inputs(cfg, t, kinds, serve_sparse, page_table)
             if kinds else None)
+    ssd = (M.ssd_step_inputs(cfg, t) if any(bp.kind == "mamba" for bp in layers)
+           else None)
     for bp, c in zip(layers, caches):
-        x = block_decode(bp, cfg, x, c, step, serve_sparse=serve_sparse)
+        x = block_decode(bp, cfg, x, c, step, ssd, serve_sparse=serve_sparse, shared=shared)
     return x

@@ -38,10 +38,16 @@ without full-attention layers (the LPSA path) gets no pages and still
 shares exact prefix states through the trie.
 
 Each layer's slot state is the cache its kind resolves to
-(``layout_summary``): ring, full or paged KV for attention, the rwkv and
-gla recurrent states, which are O(1) a slot, take no position and prefill
-with the whole prompt at admission; an engine without full-cache layers
-accepts any prompt length.
+(``layout_summary``): ring, full or paged KV for attention, or the mamba,
+rwkv and gla recurrent states, which are O(1) a slot; an engine without
+full-cache layers accepts any prompt length.  A recurrent state prefills
+with the rest of the model: with the whole prompt at admission only when no
+layer streams (rwkv6-3b, gla-1.3b, or LPSA off), else with the pack-aligned
+prefix, the tail fed through the decode step (zamba2-2.7b's mamba layers
+beside its streaming attention).  A free row decodes token 0 at position 0
+(t = -1 under the paged layout); its mamba buffer writes land in row 0 of
+its slot, a don't-care that never folds, so a retired slot's carry stays
+zero.
 
 MoE configs decode with the no-drop expert capacity (models/moe.py
 ``decode_capacity``: the batch, ``max_slots``, idle rows included, so the

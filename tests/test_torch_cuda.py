@@ -772,3 +772,132 @@ def test_cuda_ssm_graph_engine_matches_eager(cuda, arch, layout):
         assert graph.stats.prefix_hits == eager.stats.prefix_hits > 0
     graph.submit(Request(uid=9, prompt=_stem_requests(cfg)[1].prompt, max_new_tokens=6))
     assert graph.run()[9].tokens.tolist() == results[0][1].tokens.tolist()
+
+
+# zamba2-2.7b's projections (K, N): wz / wx 2560 -> 5120, the mamba wo
+# 5120 -> 2560, the FFN's gate/up 2560 -> 10240 and down 10240 -> 2560
+HYBRID_SHAPES = [(2560, 5120), (5120, 2560), (2560, 10240), (10240, 2560)]
+
+
+@pytest.mark.parametrize("k,n", HYBRID_SHAPES)
+def test_cuda_hybrid_projections(cuda, rng, k, n):
+    """das_topk's serving call (exact; norm-fused with the normed rows at
+    K = 2560, the mamba and attention blocks' input) and das_ternary_gemm on
+    its compaction (bfloat16 tolerance) at zamba2's shapes, 4 decode rows
+    and a 256-row pack, against their plain versions."""
+    packed = _packed(rng, k, n, cuda)
+    scale = (2 / np.pi / k) ** 0.5
+    nscale = (0.5 * torch.from_numpy(rng.standard_normal(k).astype(np.float32))).to(
+        cuda, torch.bfloat16)
+    for m in (4, 256):
+        x = _rows(rng, m, k, torch.bfloat16, False, cuda)
+        ca = ops.das_topk(x, keep=16, with_mask=False)
+        _assert_same(ca, ref.das_topk_ref(x, keep=16, block=32, with_mask=False))
+        if k == 2560:
+            fused = ops.das_topk(x, keep=16, norm_scale=nscale, with_mask=False,
+                                 with_normed=True)
+            _assert_same(fused[:4], ref.das_topk_ref(fused.normed, keep=16, block=32,
+                                                     with_mask=False)[:4])
+            torch.testing.assert_close(fused.normed, rmsnorm(nscale, x), rtol=8e-3, atol=8e-3)
+        got = ops.das_ternary_gemm(ca.values, ca.indices, packed, scale, keep=16)
+        want = ref.das_ternary_gemm_ref(ca.values, ca.indices, packed, scale)
+        torch.testing.assert_close(got, want, rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("rows", [(1500, 700, 5, 1023), (2000,)])
+def test_cuda_sparse_attention_hybrid_decode(cuda, rng, rows):
+    """zamba2's attention, 32 query heads over 32 kv heads of 80: decode
+    over full 1024-slot rings within the bfloat16 tolerance of the plain
+    version, and each row bitwise the B = 1 call on it."""
+    b, lk, h, d = len(rows), 1024, 32, 80
+    mk = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(  # noqa: E731
+        cuda, torch.bfloat16)
+    q, k, v = mk(b, 1, h, d), mk(b, lk, h, d), mk(b, lk, h, d)
+    qp = torch.tensor(rows, dtype=torch.int32, device=cuda)[:, None]
+    kp = torch.stack([_ring_positions(t) for t in rows]).to(cuda)
+    full = ops.sparse_attention(q, k, v, qp, kp, sink=128, window=896)
+    torch.testing.assert_close(
+        full, ref.sparse_attention_ref(q, k, v, qp, kp, sink=128, window=896),
+        rtol=2e-2, atol=2e-2)
+    for i in range(b):
+        one = ops.sparse_attention(q[i:i + 1], k[i:i + 1], v[i:i + 1], qp[i:i + 1],
+                                   kp[i:i + 1], sink=128, window=896)
+        assert torch.equal(one, full[i:i + 1]), i
+
+
+def test_cuda_sparse_attention_hybrid_prefill_pack(cuda, rng):
+    """zamba2's streaming prefill pack (32 heads of 80 over 32, the pack at
+    t0 = 512, rounded scores) within the bfloat16 tolerance, and each query
+    row bitwise the same row of a call on a sub-range of the queries."""
+    q, k, v, qp, kp = _prefill_inputs(rng, 1, 256, 1280, 32, 32, 80, 512, cuda)
+    kw = dict(sink=128, window=896, round_scores=True)
+    full = ops.sparse_attention(q, k, v, qp, kp, **kw)
+    torch.testing.assert_close(full, ref.sparse_attention_ref(q, k, v, qp, kp, **kw),
+                               rtol=2e-2, atol=2e-2)
+    for lo, hi in ((0, 64), (100, 137)):
+        part = ops.sparse_attention(q[:, lo:hi], k, v, qp[:, lo:hi], kp, **kw)
+        assert torch.equal(part, full[:, lo:hi]), (lo, hi)
+
+
+@pytest.mark.parametrize("shape", [(4, 256, 80), (1, 1024, 80), (2, 37, 8)])
+def test_cuda_xla_cumsum_matches_cpu(cuda, rng, shape):
+    """XLA's cumsum order on the card is the CPU's bit for bit: the decode
+    step's (4 rows of 256 over 80 heads), a prefill's whole prompt and an
+    unaligned length."""
+    from repro_torch.models.layers import xla_cumsum
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    assert torch.equal(xla_cumsum(x.to(cuda), 1).cpu(), xla_cumsum(x, 1))
+
+
+def test_cuda_hybrid_model_matches_cpu(cuda):
+    """Reduced zamba2 at 12 layers (the shared attention at two positions)
+    in float32: a 37-token prefill (2 chunks + 5) + 16 decode steps across a
+    fold, LPSA off, agree with the same weights on the CPU within 2e-4, with
+    equal greedy tokens."""
+    cfg = reduced(get_config("zamba2-2.7b"), n_layers=12)
+    m_cpu = MD.init_serving(cfg, seed=3, device="cpu")
+    m_gpu = copy.deepcopy(m_cpu).to(cuda)
+    prompt = torch.from_numpy(np.random.default_rng(3).integers(0, cfg.vocab, 37))[None]
+    kw = dict(serve_sparse=False)
+    lg_c, c_c = MD.prefill(m_cpu, prompt, max_len=64, **kw)
+    lg_g, c_g = MD.prefill(m_gpu, prompt.to(cuda), max_len=64, **kw)
+    torch.testing.assert_close(lg_g.cpu(), lg_c, rtol=0, atol=2e-4)
+    tok = int(lg_c.argmax())
+    for i in range(16):
+        t = torch.tensor([37 + i])
+        lg_c, _ = MD.decode_step(m_cpu, c_c, torch.tensor([tok]), t, **kw)
+        lg_g, _ = MD.decode_step(m_gpu, c_g, torch.tensor([tok], device=cuda), t.to(cuda), **kw)
+        torch.testing.assert_close(lg_g.cpu(), lg_c, rtol=0, atol=2e-4)
+        assert int(lg_g.argmax()) == int(lg_c.argmax())
+        tok = int(lg_c.argmax())
+
+
+@pytest.mark.parametrize("layout", ["auto", "paged"])
+def test_cuda_hybrid_graph_engine_matches_eager(cuda, layout):
+    """Reduced zamba2 at 12 layers: the mamba states and the shared
+    attention inside the captured decode step, every step a replay, the
+    eager step's tokens bit for bit (a fold or a buffer write rebound in
+    place of written would freeze under replay), a request re-served alone
+    keeps them, and a replay counts one eager step's launches (2 das_topk /
+    3 das_ternary_gemm a mamba layer, 4 / 7 / 1 sparse_attention an
+    attention block)."""
+    cfg = reduced(get_config("zamba2-2.7b"), n_layers=12)
+    model = MD.init_serving(cfg, seed=5, device=cuda)
+    sc = ServeConfig(max_slots=2, max_len=64, layout=layout, page_size=8)
+    graph = ServeEngine(model, sc, device="cuda")
+    eager = ServeEngine(model, sc, device="cuda", cuda_graph=False)
+    assert graph.launches_per_replay == {**{k: 0 for k in ops.KERNELS}, "das_topk": 10 * 2 + 2 * 4,
+                                         "das_ternary_gemm": 10 * 3 + 2 * 7,
+                                         "sparse_attention": 2}
+    results = []
+    for eng in (graph, eager):
+        for r in _stem_requests(cfg, gen=20):
+            eng.submit(r)
+        results.append(eng.run())
+    assert graph.stats.graph_replays == graph.stats.decode_steps > 0
+    for uid, res in results[1].items():
+        assert results[0][uid].tokens.tolist() == res.tokens.tolist(), uid
+    if layout == "paged":
+        assert graph.stats.prefix_hits == eager.stats.prefix_hits > 0
+    graph.submit(Request(uid=9, prompt=_stem_requests(cfg)[1].prompt, max_new_tokens=20))
+    assert graph.run()[9].tokens.tolist() == results[0][1].tokens.tolist()

@@ -110,7 +110,7 @@ def test_cli_reduced_on_cpu(capsys):
     assert all(len(r.tokens) == 4 for r in res.values())
     assert "decode steps" in capsys.readouterr().out
     with pytest.raises(SystemExit):
-        cli.main(["--arch", "zamba2-2.7b", "--device", "cpu"])
+        cli.main(["--arch", "musicgen-medium", "--device", "cpu"])
 
 
 @pytest.mark.parametrize("name", ["bitnet-reduced-int8", "baseline-reduced"])
