@@ -30,7 +30,15 @@ Phases:
            rmsnorm + das_topk) and das_ternary_gemm at every new projection
            at 4 and 1024 rows, sparse_attention at 32 heads of 80 over 32
            (decode over full rings and an LPSA pack, each bitwise batch
-           invariant), and layers.xla_cumsum bitwise the CPU's
+           invariant), and layers.xla_cumsum bitwise the CPU's; the
+           stub-frontend models' (float32 rows: their residual stream):
+           das_topk at K = 1536, 5120, 6144 and 14336, plain and norm-fused
+           with a float32 scale, das_ternary_gemm at every musicgen-medium
+           and pixtral-12b projection at 4 and 256 rows, ternary_gemm in
+           float32 at their FFN shapes, sparse_attention at 32 heads of 160
+           over 8 in every class (bf16 decode, float32 queries over bf16
+           rings, also at 24/24 of 64, a bf16 and a float32 LPSA pack), each
+           bitwise batch invariant
   serve    full-width bitnet-1.3b (seeded random weights) on five paths, each
            driven with the launch counts at 0 and read after it; every
            engine captures its decode step into a CUDA graph after one
@@ -73,7 +81,7 @@ Phases:
            the profiler, replayed and eager (the same tokens and launches a
            step), and a 2-layer model at their widths on the card against
            the CPU; then the MoE path:
-             qwen3-moe-30b-a3b  full width, 8 of its 48 layers (128 experts of
+             qwen3-moe-30b-a3b  full width, 4 of its 48 layers (128 experts of
                          768, top-8, 32 heads of 64 over 4, vocab 151936,
                          untied head), exported layer by layer: the packed
                          trace, each expert stack unpacked by one twd_decode
@@ -103,10 +111,11 @@ Phases:
            class; the decode step under the profiler, replayed and eager;
            and a 2-layer model at its widths against the CPU (f32, DAS off:
            ternary_gemm at these shapes)
-           last the hybrid:
-             zamba2-2.7b full width and all 54 layers (45 mamba, 9 attention
-                         positions sharing one block of 32 heads of 80, d_ff
-                         10240, vocab 32000, tied), exported layer by layer,
+           then the hybrid:
+             zamba2-2.7b full width, 12 of its 54 layers (HYBRID_DEPTH: 10
+                         mamba, 2 attention positions sharing one block of
+                         32 heads of 80, d_ff 10240, vocab 32000, tied),
+                         exported layer by layer,
                          packed, bf16, DAS 16/32, LPSA 128 + 896: the packed
                          trace (pack-aligned prefixes prefilled, tails fed a
                          token a tick), exact launch counts (2 / 3 das_topk /
@@ -121,6 +130,25 @@ Phases:
                          graph; a 6-layer model at its widths against the CPU
                          (f32, DAS and LPSA off, 508 tokens: a chunk and a
                          remainder, then 8 steps across the fold at t = 511)
+           then the stub-frontend models, each fed float32 embedding prompts
+           (seeded), so the residual stream is float32 over bf16 weights and
+           rings (the reference's), exported layer by layer, packed, bf16,
+           DAS 16/32, LPSA 128 + 896:
+             musicgen-medium  full width and all 48 layers (24 heads of 64,
+                         the 2-matrix gelu MLP of 6144, vocab 2048, untied);
+             pixtral-12b full width and all 40 layers (32 heads of 160 over
+                         8, the gated silu FFN of 14336, vocab 131072,
+                         untied: the logits read a float32 copy of the head
+                         made once);
+           each the packed trace of embedding rows (pack-aligned prefixes
+           prefilled, tails fed a row a tick through forced_x), exact launch
+           counts (4 / 6 or 7 / 1 a layer a decode step), every step a
+           replay, finite logits, bitwise batch invariance, a bf16 ring on
+           every layer; musicgen-medium again under layout="paged" (the same
+           tokens, no prefix hit); the 1100-row admission by device class;
+           the decode step under the profiler, replayed and eager, by class,
+           beside the floor of its bytes; a 2-layer model at its widths on
+           the card against the CPU (f32, DAS off, the embedding prompt)
   times    each kernel at its decode shape: CUDA-event median beside its
            bound, its plain version and one PyTorch call of the same function;
            the packed GEMMs and das_gemv also at their other decode shapes
@@ -137,7 +165,11 @@ Phases:
            MoE's das_topk call at 4 and 1024 rows; zamba2-2.7b's GEMM and
            das_topk shapes at 4 and 1024 rows, sparse_attention at 32 heads
            of 80 (decode, LPSA pack), and ternary_gemm in float32 at the SSM
-           pair's projections at 1 and 512 rows
+           pair's projections at 1 and 512 rows; the stub-frontend models'
+           float32 shapes (das_ternary_gemm and das_topk at 4 and 256 rows,
+           ternary_gemm at 1 and 512), sparse_attention at 32/8 heads of 160
+           (bf16 decode, bf16 and float32 LPSA packs) and the float32-query
+           decode over bf16 rings (library: SDPA on K/V upcast to float32)
   profile  (only when named) the packed and int8w decode steps and the
            admission under torch.profiler, as the serve phase profiles them
 
@@ -238,6 +270,14 @@ class Smoke:
         g = self.torch.Generator(device=self.dev)
         g.manual_seed(seed)
         return g
+
+    def _inputs(self, prompt, device=None):
+        """A prompt as a model takes it, batch 1: (1, P) token ids, or (1, P,
+        D) float32 embeddings for a stub frontend's (P, D) prompt."""
+        torch = self.torch
+        dtype = torch.float32 if prompt.ndim == 2 else torch.long
+        return torch.as_tensor(prompt, dtype=dtype,
+                               device=self.dev if device is None else device)[None]
 
     def check(self, label: str, got, want, tol: float, exact: bool = False) -> float:
         torch = self.torch
@@ -447,6 +487,7 @@ class Smoke:
         self._moe_cases(g)
         self._ssm_cases(g)
         self._hybrid_cases(g)
+        self._frontend_cases(g)
 
     def _topk_cases(self, g):
         """das_topk against its plain version, exactly: bitnet-1.3b's widths
@@ -976,6 +1017,117 @@ class Smoke:
             self.check(f"layers.xla_cumsum {shape} along dim 1, card vs CPU",
                        xla_cumsum(x, 1), xla_cumsum(x.cpu(), 1), 0, True)
 
+    # the stub-frontend models' projections: (label, K, N)
+    FRONTEND_GEMMS = (("musicgen-medium q/k/v/o", 1536, 1536),
+                      ("musicgen-medium w_in", 1536, 6144),
+                      ("musicgen-medium w_out", 6144, 1536),
+                      ("pixtral-12b q/o", 5120, 5120), ("pixtral-12b k/v", 5120, 1280),
+                      ("pixtral-12b gate/up", 5120, 14336), ("pixtral-12b down", 14336, 5120))
+    FRONTEND_PREFILL_M = 256   # a prefill pack's rows (q/k/v; o and the FFN take 1024)
+
+    def _frontend_cases(self, g):
+        """musicgen-medium's and pixtral-12b's shapes, float32 rows (their
+        residual stream), at decode (4 rows) and at a 256-row pack: das_topk
+        exactly against its plain version at K = 1536, 5120, 6144 and 14336,
+        plain and norm-fused with a float32 scale (the normed rows within 8
+        float32 steps of rmsnorm, the DAS step of them exact); das_ternary_gemm
+        on the float32 compaction at every projection (1e-4; the decode
+        class and the FMA prefill class); ternary_gemm in float32 at the
+        width checks' FFN shapes at 1 and 512 rows; sparse_attention at 32 q
+        heads over 8 of 160: bf16 decode over full 1024-slot rings, the
+        float32-query decode over bfloat16 rings (also at 24 over 24 of 64,
+        musicgen's), a bf16 and a float32 LPSA pack, each row bitwise its B =
+        1 call."""
+        torch = self.torch
+        from repro_torch.kernels import ref
+        from repro_torch.kernels.das_gemm import das_ternary_gemm_cuda
+        from repro_torch.kernels.sparse_attn import sparse_attention_cuda
+        from repro_torch.kernels.ternary_gemm import ternary_gemm_cuda
+        from repro_torch.kernels.topk_mask import das_topk_cuda
+        from repro_torch.models.layers import rmsnorm
+        dev, bf16, f32, i32 = self.dev, torch.bfloat16, torch.float32, torch.int32
+        for k in (1536, 5120, 6144, 14336):
+            nscale = 0.5 * torch.randn((k,), generator=g, device=dev)
+            for m in (4, self.FRONTEND_PREFILL_M):
+                x = torch.randn((m, k), generator=g, device=dev)
+                got = das_topk_cuda(x, keep=16, block=32, with_mask=False)
+                want = ref.das_topk_ref(x, keep=16, block=32, with_mask=False)
+                for name in ("values", "indices"):
+                    self.check(f"das_topk f32 ({m},{k}) {name}", getattr(got, name),
+                               getattr(want, name), 0, True)
+                fused = das_topk_cuda(x, keep=16, block=32, norm_scale=nscale,
+                                      with_mask=False, with_normed=True)
+                normed = rmsnorm(nscale, x)
+                step = torch.exp2(torch.floor(torch.log2(normed.abs().clamp_min(2.0 ** -100)))
+                                  - 23)
+                steps = float(((fused.normed - normed).abs() / step).max())
+                log(f"[kernels] das_topk f32 norm-fused ({m},{k}): normed rows within "
+                    f"{steps:.1f} float32 steps of rmsnorm (tol 8) "
+                    f"{'ok' if steps <= 8 else 'FAIL'}")
+                if steps > 8:
+                    raise AssertionError(f"das_topk f32 norm-fused ({m},{k}): normed rows off")
+                plain = ref.das_topk_ref(fused.normed, keep=16, block=32, with_mask=False)
+                for name in ("values", "indices"):
+                    self.check(f"das_topk f32 norm-fused ({m},{k}) {name} vs "
+                               f"das_topk_ref(normed)", getattr(fused, name),
+                               getattr(plain, name), 0, True)
+        for label, k, n in self.FRONTEND_GEMMS:
+            packed = self._packed(g, k, n)
+            scale = torch.tensor((2 / math.pi / k) ** 0.5, device=dev)
+            for m in (4, self.FRONTEND_PREFILL_M):
+                x = torch.randn((m, k), generator=g, device=dev)
+                ca = ref.das_topk_ref(x, keep=16, block=32, with_mask=False)
+                want = ref.das_ternary_gemm_ref(ca.values, ca.indices, packed, scale)
+                if not bool(want.abs().max() > 0):
+                    raise AssertionError(f"das_ternary_gemm f32 {label}: an all-zero reference")
+                self.check(f"das_ternary_gemm f32 {label} ({m},{k // 2} of {k})x"
+                           f"({packed.shape[0]},{n}), |want| <= {float(want.abs().max()):.1f}",
+                           das_ternary_gemm_cuda(ca.values, ca.indices, packed, scale, keep=16),
+                           want, TOL_F32_GEMM)
+            if n > k or k > 5120:                  # the FFN's: the width checks' DAS-off path
+                for m in (1, 512):
+                    x = torch.randn((m, k), generator=g, device=dev)
+                    self.check(f"ternary_gemm f32 {label} ({m},{k})x({packed.shape[0]},{n})",
+                               ternary_gemm_cuda(x, packed, scale),
+                               ref.ternary_gemm_ref(x, packed, scale), TOL_F32_GEMM)
+        rows = (1500, 1023, 2000, 1100)              # every ring full
+        qp = torch.tensor(rows, dtype=i32, device=dev)[:, None]
+        kp = torch.stack([ring_positions(torch, t, 128, 896) for t in rows]).to(dev)
+        kw = dict(sink=128, window=896)
+        for hq, hkv, d, q_dt in ((32, 8, 160, bf16), (32, 8, 160, f32), (24, 24, 64, f32)):
+            q = torch.randn((4, 1, hq, d), generator=g, device=dev).to(q_dt)
+            k_ = torch.randn((4, 1024, hkv, d), generator=g, device=dev).to(bf16)
+            v = torch.randn((4, 1024, hkv, d), generator=g, device=dev).to(bf16)
+            label = (f"sparse_attention D={d} {hq}/{hkv} decode "
+                     f"{'bf16' if q_dt == bf16 else 'f32 q over bf16 K/V'}")
+            full = sparse_attention_cuda(q, k_, v, qp, kp, **kw)
+            if full.dtype != q_dt:
+                raise AssertionError(f"{label}: output {full.dtype}, want {q_dt}")
+            self.check(f"{label} B=4 full rings of 1024", full,
+                       ref.sparse_attention_ref(q, k_, v, qp, kp, **kw),
+                       TOL_BF16 if q_dt == bf16 else TOL_F32_ATTN)
+            for i in range(4):
+                self.check(f"{label} row {i} alone vs among 4",
+                           sparse_attention_cuda(q[i:i + 1], k_[i:i + 1], v[i:i + 1],
+                                                 qp[i:i + 1], kp[i:i + 1], **kw),
+                           full[i:i + 1], 0, True)
+        packs = [pack_positions(torch, t0) for t0 in (2000, 512)]
+        qp2 = torch.stack([p[0] for p in packs]).to(dev)
+        kp2 = torch.stack([p[1] for p in packs]).to(dev)
+        for dt, lq, hq, hkv in ((bf16, 256, 32, 8), (f32, 256, 32, 8)):
+            q = torch.randn((2, lq, hq, 160), generator=g, device=dev).to(dt)
+            k_ = torch.randn((2, 1280, hkv, 160), generator=g, device=dev).to(dt)
+            v = torch.randn((2, 1280, hkv, 160), generator=g, device=dev).to(dt)
+            kw = dict(sink=128, window=896, round_scores=True)
+            name = f"sparse_attention D=160 {hq}/{hkv} prefill {'bf16' if dt == bf16 else 'f32'}"
+            full = sparse_attention_cuda(q, k_, v, qp2[:, :lq], kp2, **kw)
+            self.check(f"{name} LPSA packs t0=2000, 512 round_scores", full,
+                       ref.sparse_attention_ref(q, k_, v, qp2[:, :lq], kp2, **kw),
+                       TOL_BF16 if dt == bf16 else TOL_F32_ATTN)
+            self.check(f"{name} pack t0=512 alone vs beside t0=2000",
+                       sparse_attention_cuda(q[1:], k_[1:], v[1:], qp2[1:, :lq], kp2[1:], **kw),
+                       full[1:], 0, True)
+
     PROMPT_LENS, GEN_LEN = (1100, 300, 256, 40, 700), 32
 
     def _packed_model(self):
@@ -1134,6 +1286,8 @@ class Smoke:
         for arch in self.SSM_ARCHS:
             self._serve_ssm(arch)
         self._serve_hybrid()
+        for arch in self.FRONTEND_ARCHS:
+            self._serve_frontend(arch)
 
     # the zoo's serve paths: arch -> (prompt lengths, new tokens, depth; None:
     # the arch's own).  gemma2-2b's 4400-token prompt wraps both its 4096-slot
@@ -1217,11 +1371,12 @@ class Smoke:
         _took(arch, t_path)
 
     MOE_ARCH = "qwen3-moe-30b-a3b"
-    # the MoE path's depth, cut from 48 to keep the whole run near 800 s
-    # beside the SSM paths (with all 48 it read 820 s on an H100) and the
-    # hybrid (with 16, 884 s); the step unpacks every expert of every
-    # layer, so its time scales with depth
-    MOE_DEPTH = 8
+    # the MoE path's depth, cut from 48 to keep the whole run within the
+    # time limit beside the SSM paths (with all 48 it read 820 s on an H100),
+    # the hybrid (with 16, 884 s) and the stub-frontend models (4 since
+    # them); the step unpacks every expert of every layer, so its serving
+    # time scales with depth (its width checks, most of its time, do not)
+    MOE_DEPTH = 4
 
     def _serve_moe(self):
         """Path "qwen3-moe-30b-a3b": the MoE model at full width, its depth
@@ -1443,6 +1598,10 @@ class Smoke:
             log(f"[profile]   {dt * times / 1e3:8.3f} ms  {name[:90]}")
 
     HYBRID_ARCH = "zamba2-2.7b"
+    # the hybrid path's depth, cut from 54 to two periods of its pattern (10
+    # mamba layers, the shared block at 2 positions) since the stub-frontend
+    # paths joined the run (with all 54 the hybrid path read 113.7 s)
+    HYBRID_DEPTH = 12
     # the width check's prompt (LPSA off, so it prefills whole): one full SSD
     # chunk of 256 and a 252-token remainder; its 8 decode steps cross the
     # fold at t = 511
@@ -1456,16 +1615,17 @@ class Smoke:
     HYBRID_PARITY_TOL = 2e-3
 
     def _serve_hybrid(self):
-        """Path "zamba2-2.7b": the hybrid at full width and all 54 layers (45
-        mamba, d_inner 5120, 80 SSM heads of 64, state 64, chunk 256; 9
-        attention positions sharing one block of 32 heads of 80 over 32, each
-        with its own norms and FFN of 10240; vocab 32000, tied), seeded random
+        """Path "zamba2-2.7b": the hybrid at full width, its depth cut to
+        HYBRID_DEPTH of its 54 layers (mamba blocks of d_inner 5120, 80 SSM
+        heads of 64, state 64, chunk 256; attention positions sharing one
+        block of 32 heads of 80 over 32, each with its own norms and FFN of
+        10240; vocab 32000, tied), seeded random
         weights exported layer by layer, base-3 packed, bf16, DAS 16/32, LPSA
         128 + 896, served from the CUDA graph: bitnet-1.3b's packed trace
         (admission prefills the pack-aligned prefix, the tail fed a token a
         tick), exact launch counts, every decode step a replay, finite
         logits, bitwise batch invariance, the slot-state layouts (mamba on
-        45 layers, ring on 9); the 1100-token admission (its 1024-token
+        the mamba layers, ring on the attention positions); the 1100-token admission (its 1024-token
         prefill by device class, then its 76 tail ticks); the decode step
         under the profiler, replayed and eager (the same tokens and launches
         a step), by class, beside the floor of the bytes a step moves; the
@@ -1479,7 +1639,7 @@ class Smoke:
         from repro_torch.serve import Request, ServeConfig
         arch = self.HYBRID_ARCH
         t_path = time.perf_counter()
-        cfg = get_config(arch)
+        cfg = dataclasses.replace(get_config(arch), n_layers=self.HYBRID_DEPTH)
         kinds = cfg.layer_kinds()
         n_m, n_a = kinds.count("mamba"), kinds.count("attn")
         torch.cuda.reset_peak_memory_stats()
@@ -1547,6 +1707,109 @@ class Smoke:
         torch.cuda.empty_cache()
         self._width_parity(arch, cfg, prompts[0], tol=self.HYBRID_PARITY_TOL,
                            n=self.HYBRID_PARITY_PROMPT, serve_sparse=False)
+        _took(arch, t_path)
+
+    FRONTEND_ARCHS = ("musicgen-medium", "pixtral-12b")
+    FRONTEND_PAGED = "musicgen-medium"      # the one served again under layout="paged"
+
+    def _serve_frontend(self, arch):
+        """Path ``arch``, a stub-frontend model at full width and depth
+        (musicgen-medium: 48 layers, 24 heads of 64 over 24, the 2-matrix gelu
+        MLP of 6144, vocab 2048; pixtral-12b: 40 layers, 32 heads of 160 over
+        8, the gated silu FFN of 14336, vocab 131072, RoPE theta 1e6; both
+        untied), seeded random weights exported layer by layer, base-3
+        packed, bf16, DAS 16/32, LPSA 128 + 896, served from the CUDA graph
+        on prompts of float32 embeddings: the packed trace (pack-aligned
+        prefixes prefilled, tails fed a row a tick through ``forced_x``), so
+        the residual stream is float32 throughout (the reference's), its
+        K/V rounded into bfloat16 rings; exact launch counts, every decode
+        step a replay, finite logits, bitwise batch invariance, a ring on
+        every layer; for musicgen-medium the same trace again under
+        layout="paged" (equal tokens, no prefix hit: embeddings carry no ids);
+        the 1100-row admission by device class; the decode step under the
+        profiler, replayed and eager (the same tokens and launches a step), by
+        class, beside the floor of the bytes a step moves; a 2-layer model at
+        these widths against the CPU (f32, DAS off, the embedding prompt)."""
+        torch = self.torch
+        from repro_torch.configs import get_config
+        from repro_torch.models import model as MD
+        from repro_torch.models.ternary_linear import TernaryLinear
+        from repro_torch.serve import Request, ServeConfig
+        t_path = time.perf_counter()
+        cfg = get_config(arch)
+        n_l, chunk = cfg.n_layers, cfg.lpsa.chunk
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = MD.init_serving(cfg, seed=self.seed, device=self.dev)
+        torch.cuda.synchronize()
+        packed = sum(m.packed.nbytes for m in model.modules() if isinstance(m, TernaryLinear))
+        ring = sum(b.nbytes for b in MD.init_caches(cfg, 1, 1, device="meta")[0].values())
+        head32 = cfg.d_model * cfg.vocab_padded * 4       # the head the float32 logits read
+        step_bytes = packed + head32 + 4 * n_l * ring
+        floor_ms = step_bytes / HBM_BYTES_PER_S * 1e3
+        log(f"[serve] {arch}: {n_l} layers, d_model {cfg.d_model}, {cfg.n_heads} heads of "
+            f"{cfg.head_dim_} over {cfg.n_kv_heads}, {cfg.ffn_kind} FFN of {cfg.d_ff} ({cfg.act})"
+            f", vocab {cfg.vocab}, untied, frontend {cfg.frontend!r}: prompts of float32 "
+            f"embeddings, so the residual stream is float32 over bf16 weights and rings; "
+            f"packed ternary weights {packed / 1e9:.3f} GB, head {head32 / 2e9:.3f} GB in bf16 "
+            f"({head32 / 1e9:.3f} GB as the float32 copy the logits read), rings "
+            f"{n_l * ring / 1e6:.1f} MB a slot; the floor of a 4-slot decode step, those read "
+            f"once: {step_bytes / 1e9:.3f} GB, {floor_ms:.3f} ms at "
+            f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s; init+export layer by layer "
+            f"{time.perf_counter() - t0:.1f} s, peak memory "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+        rng = torch.Generator().manual_seed(self.seed + 23)
+        prompts = [torch.randn((p, cfg.d_model), generator=rng).numpy() for p in self.PROMPT_LENS]
+        trace = [Request(uid=i, prompt=p, max_new_tokens=self.GEN_LEN, arrival=2 * i)
+                 for i, p in enumerate(prompts)]
+        sc = ServeConfig(max_slots=4, max_len=max(self.PROMPT_LENS) + self.GEN_LEN,
+                         seed=self.seed)
+        packs = [p // chunk for p in self.PROMPT_LENS if p >= chunk]
+        mlp = cfg.ffn_kind == "mlp"
+
+        def want(st):
+            return _frontend_counts(n_l, st.decode_steps + st.warmup_steps, packs, mlp)
+
+        _, eng, res = self._serve_path(arch, lambda: model, trace, sc, want)
+        layouts = {}
+        for d in eng.layout_summary():
+            layouts[d["kind"], d["layout"]] = layouts.get((d["kind"], d["layout"]), 0) + 1
+        dtypes = {str(c["k"].dtype) for c in eng.caches}
+        log(f"[serve] {arch}: slot-state layouts {layouts}, ring dtype {dtypes}; "
+            f"{eng.stats.prefill_tokens} prefill rows (the pack-aligned prefixes; each tail fed "
+            f"a row a tick), {eng.stats.prefix_hits} prefix hits")
+        if (layouts != {("attn", "ring"): n_l} or dtypes != {"torch.bfloat16"}
+                or eng.stats.prefill_tokens != chunk * sum(packs)):
+            raise AssertionError(f"{arch}: the engine's slot states or prefills are wrong")
+        self._finite_logits(arch, model, prompts[0][:chunk], sc.max_len)
+        self._batch_invariance(arch, eng, trace, res, (0, 3))
+        del eng
+        if arch == self.FRONTEND_PAGED:
+            # max_len in whole pages (the paged layout's rule; a ring has no pages)
+            paged = dataclasses.replace(sc, layout="paged", max_len=-(-sc.max_len // 16) * 16)
+            _, eng, res_p = self._serve_path(f"{arch} paged", lambda: model, trace, paged, want)
+            log(f"[serve] {arch} paged: prefix_hits {eng.stats.prefix_hits}, pool "
+                f"{eng.pool_stats()}")
+            if eng.stats.prefix_hits or eng.stats.prefill_tokens != chunk * sum(packs):
+                raise AssertionError(f"{arch} paged: a prefix was shared or prefills differ")
+            self._same_tokens(f"{arch} paged (the dense engine's)", res_p,
+                              {u: r.tokens for u, r in res.items()}, range(len(trace)))
+            del eng
+        self._profile_admission(model, prompts[0], sc.max_len, classes="frontend")
+        runs = [self._profile_decode(f"{arch} {'graph' if graph else 'eager'}", model, sc,
+                                     prompts, graph, profiled=graph, classes="frontend")
+                for graph in (True, False)]
+        if runs[0]["tokens"] != runs[1]["tokens"] or runs[0]["per_step"] != runs[1]["per_step"]:
+            raise AssertionError(f"{arch}: the replayed decode step differs from the eager "
+                                 f"one in tokens or launches a step")
+        log(f"[profile] {arch}: replayed and eager decode steps give the same tokens bitwise "
+            f"and the same launches a step {runs[0]['per_step']}; ms/step "
+            f"{runs[0]['ms_step']:.3f} / {runs[1]['ms_step']:.3f} (graph / eager), device "
+            f"busy {runs[0]['busy_ms_step']} ms/step, idle share {runs[0]['idle']} (graph); "
+            f"the floor {floor_ms:.3f} ms/step")
+        del model
+        torch.cuda.empty_cache()
+        self._width_parity(arch, cfg, prompts[0])
         _took(arch, t_path)
 
     def _profile_tail(self, arch, model, prompt, sc):
@@ -1702,9 +1965,11 @@ class Smoke:
         tokens; ``serve_sparse=False`` turns LPSA off.  DAS is off because at these widths a
         float32 sum order that differs in the last bit flips near-ties of
         the top-16-of-32 (tens of thousands of blocks a run): DAS at these
-        widths is held exactly in the kernels phase.  Beside it, the card's
-        model with every embedding value moved one ulp up (teacher-forced on
-        the same tokens): how far a last-bit difference moves its logits."""
+        widths is held exactly in the kernels phase.  A stub frontend's
+        prompt is its first ``n`` embedding rows.  Beside it, the card's
+        model with every embedding value (and an embedding prompt's) moved
+        one ulp up, teacher-forced on the same tokens: how far a last-bit
+        difference moves its logits."""
         torch = self.torch
         from repro_torch.models import model as MD
         small = dataclasses.replace(
@@ -1715,7 +1980,7 @@ class Smoke:
         m_gpu = copy.deepcopy(m_cpu).to(self.dev)
         n = n if n is not None else 2 * (cfg.lpsa.chunk if cfg.lpsa else 256)
         kw = dict(max_len=n + 9, serve_sparse=serve_sparse)
-        prompt = torch.as_tensor(prompt_ids[:n], dtype=torch.long)[None]
+        prompt = self._inputs(prompt_ids[:n], "cpu")
         lg_c, c_c = MD.prefill(m_cpu, prompt, **kw)
         lg_g, c_g = MD.prefill(m_gpu, prompt.to(self.dev), **kw)
         errs = [(lg_g.cpu() - lg_c).abs().max().item()]
@@ -1748,6 +2013,8 @@ class Smoke:
             f"{'equal' if toks_c == toks_g else 'DIFFERENT'} ({time.perf_counter() - t0:.1f} s)")
         emb = m_gpu.embed
         emb.copy_(torch.nextafter(emb, torch.full_like(emb, math.inf)))
+        if prompt.is_floating_point():      # an embedding prompt moves too
+            prompt = torch.nextafter(prompt, torch.full_like(prompt, math.inf))
         lg_p, c_p = MD.prefill(m_gpu, prompt.to(self.dev), **kw)
         moved = [(lg_p - card[0]).abs().max().item()]
         for i in range(8):
@@ -1959,10 +2226,14 @@ class Smoke:
         torch = self.torch
         from repro_torch.models import model as MD
         cfg = model.cfg
-        tok = torch.as_tensor(prompt, dtype=torch.long, device=self.dev)[None]
+        tok = self._inputs(prompt)
         logits, caches = MD.prefill(model, tok, max_len=max_len)
+        kw = {}
+        if MD.uses_embeds(cfg):     # the engine's decode input: a token in float32
+            kw = dict(forced=torch.zeros(1, dtype=torch.bool, device=self.dev),
+                      forced_x=torch.zeros((1, cfg.d_model), device=self.dev))
         lg2, _ = MD.decode_step(model, caches, logits.argmax(-1),
-                                torch.tensor([tok.shape[1]], device=self.dev))
+                                torch.tensor([tok.shape[1]], device=self.dev), **kw)
         for name, lg in (("prefill", logits), ("decode", lg2)):
             if tuple(lg.shape) != (1, cfg.vocab_padded) or not bool(
                     torch.isfinite(lg[:, :cfg.vocab]).all()):
@@ -2127,7 +2398,7 @@ class Smoke:
 
         from repro_torch.models import model as MD
         n = len(prompt) // model.cfg.lpsa.chunk * model.cfg.lpsa.chunk
-        tok = torch.as_tensor(prompt[:n], dtype=torch.long, device=self.dev)[None]
+        tok = self._inputs(prompt[:n])
         MD.prefill(model, tok, max_len=max_len)         # warm the allocator
         ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
@@ -2449,6 +2720,8 @@ class Smoke:
             self._moe_times(t_ms, attn_row, g)
         self._ssm_times(t_ms, g)
         self._hybrid_times(t_ms, attn_row, g)
+        if 160 in sparse_attn.HEAD_DIMS:      # a tree before the frontends has no D = 160
+            self._frontend_times(t_ms, attn_row, g)
 
     def _moe_times(self, t_ms, attn_row, g):
         """qwen3-moe-30b-a3b's shapes beside their bounds: twd_decode over each
@@ -2633,6 +2906,97 @@ class Smoke:
                      lambda: ref.ternary_gemm_ref(x, packed, sc), lambda: torch.matmul(x, w),
                      m * k * 4 + packed.numel() + m * n * 4 + 4, 2 * m * k * n, dtype="float32")
 
+    def _frontend_times(self, t_ms, attn_row, g):
+        """musicgen-medium's and pixtral-12b's shapes beside their bounds,
+        plain versions and library calls, float32 rows: das_ternary_gemm at
+        every projection at decode and at a 256-row pack (the library: a
+        float32 matmul of the densified rows with the float32 weight, TF32
+        off); das_topk plain and norm-fused at K = 1536, 5120, 6144 and 14336
+        (no library call); ternary_gemm in float32 at the FFN shapes at 1 and
+        512 rows (the width checks' path); sparse_attention at 32 heads of
+        160 over 8 (bf16 decode over full rings, a bf16 and a float32 LPSA
+        pack: the library SDPA with the same mask) and the float32-query
+        decode over bfloat16 rings at 32/8 of 160 and 24/24 of 64 (the
+        library: SDPA with the same mask on K/V upcast to float32; the bytes
+        count the bf16 rows read, q and the float32 output)."""
+        torch = self.torch
+        from repro_torch.core import twd
+        from repro_torch.core.lpsa import lpsa_allowed
+        from repro_torch.kernels import ref
+        from repro_torch.kernels.das_gemm import das_ternary_gemm_cuda
+        from repro_torch.kernels.sparse_attn import sparse_attention_cuda
+        from repro_torch.kernels.ternary_gemm import ternary_gemm_cuda
+        from repro_torch.kernels.topk_mask import das_topk_cuda
+        dev, bf16, f32 = self.dev, torch.bfloat16, torch.float32
+
+        def line(*args, **kw):
+            self._time_line(t_ms, *args, dtype="float32", **kw)
+
+        for label, k, n in self.FRONTEND_GEMMS:
+            packed = twd.pack_ternary(torch.randint(-1, 2, (k, n), generator=g, device=dev),
+                                      row_align=16)
+            sc = torch.tensor((2 / math.pi / k) ** 0.5, device=dev)
+            w = twd.unpack_ternary_arith(packed, packed.shape[0] * 5).float() * sc
+            kc = k // 2
+            for m in (4, self.FRONTEND_PREFILL_M):
+                x = torch.randn((m, k), generator=g, device=dev)
+                ca = ref.das_topk_ref(x, keep=16, block=32, with_mask=False)
+                dense = torch.zeros((m, w.shape[0]), device=dev)
+                dense.scatter_(1, ca.indices.long(), ca.values)
+                line(f"das_ternary_gemm f32 {label} ({m},{kc} of {k}) x packed "
+                     f"{tuple(packed.shape)}",
+                     lambda: das_ternary_gemm_cuda(ca.values, ca.indices, packed, sc, keep=16),
+                     lambda: ref.das_ternary_gemm_ref(ca.values, ca.indices, packed, sc),
+                     lambda: torch.matmul(dense, w),
+                     m * kc * 8 + packed.numel() + m * n * 4 + 4, 2 * m * kc * n)
+            if n > k or k > 5120:
+                wk = w[:k]
+                for m in (1, 512):
+                    x = torch.randn((m, k), generator=g, device=dev)
+                    line(f"ternary_gemm f32 {label} ({m},{k}) x packed {tuple(packed.shape)}",
+                         lambda: ternary_gemm_cuda(x, packed, sc),
+                         lambda: ref.ternary_gemm_ref(x, packed, sc), lambda: torch.matmul(x, wk),
+                         m * k * 4 + packed.numel() + m * n * 4 + 4, 2 * m * k * n)
+        for k in (1536, 5120, 6144, 14336):
+            ns = 0.5 * torch.randn((k,), generator=g, device=dev)
+            for m in (4, self.FRONTEND_PREFILL_M):
+                x = torch.randn((m, k), generator=g, device=dev)
+                out = m * (k // 2) * 8
+                for fused in (False, True):
+                    kw = dict(keep=16, block=32, with_mask=False)
+                    if fused:
+                        kw["norm_scale"] = ns
+                    line(f"das_topk f32 {'norm-fused' if fused else 'plain'} ({m},{k})",
+                         lambda: das_topk_cuda(x, **kw), lambda: ref.das_topk_ref(x, **kw), None,
+                         m * k * 4 + (k * 4 if fused else 0) + out, 0)
+        rows = (1500, 1023, 2000, 1100)
+        qp = torch.tensor(rows, dtype=torch.int32, device=dev)[:, None]
+        kp = torch.stack([ring_positions(torch, t, 128, 896) for t in rows]).to(dev)
+        attn_row("pixtral-12b decode D=160 32/8 full rings of 1024", 4, 32, 8, 160, bf16, qp, kp,
+                 128, 896, None, False)
+        qp1, kp1 = pack_positions(torch, 512)
+        for dt in (bf16, f32):
+            attn_row(f"pixtral-12b prefill D=160 32/8 LPSA pack t0=512 "
+                     f"{'bf16' if dt == bf16 else 'f32'}", 1, 32, 8, 160, dt,
+                     qp1[None].to(dev), kp1[None].to(dev), 128, 896, None, True)
+        allowed = lpsa_allowed(qp[:, :, None], kp[:, None, :], 128, 896) & (kp >= 0)[:, None, :]
+        keys = int(allowed.sum())
+        for hq, hkv, d in ((32, 8, 160), (24, 24, 64)):
+            q = torch.randn((4, 1, hq, d), generator=g, device=dev)
+            k_ = torch.randn((4, 1024, hkv, d), generator=g, device=dev).to(bf16)
+            v = torch.randn((4, 1024, hkv, d), generator=g, device=dev).to(bf16)
+            kw = dict(sink=128, window=896)
+            qt = q.transpose(1, 2)
+            line(f"sparse_attention decode f32 q over bf16 K/V D={d} {hq}/{hkv} B=4 full rings "
+                 f"of 1024 ({keys} attended keys)",
+                 lambda: sparse_attention_cuda(q, k_, v, qp, kp, **kw),
+                 lambda: ref.sparse_attention_ref(q, k_, v, qp, kp, **kw),
+                 lambda: torch.nn.functional.scaled_dot_product_attention(
+                     qt, k_.float().transpose(1, 2), v.float().transpose(1, 2),
+                     attn_mask=allowed[:, None], enable_gqa=hq != hkv),
+                 2 * keys * hkv * d * 2 + 2 * 4 * hq * d * 4 + 4 * (1 + 1024) * 4,
+                 4 * keys * hq * d)
+
     def _zoo_times(self, t_ms, attn_row, extra, g):
         """The zoo's shapes beside their bounds: sparse_attention at the head
         sizes 100 and 256 in the decode class (full rings of 1024 and 4096),
@@ -2777,6 +3141,19 @@ def _moe_counts(n_l: int, steps: int, packs) -> dict:
             "twd_decode": 3 * n_l * (steps + len(packs))}
 
 
+def _frontend_counts(n_l: int, steps: int, packs, mlp: bool) -> dict:
+    """A stub-frontend model's launches for ``steps`` decode steps and
+    streaming prefills of ``packs`` packs each: the packed model's with the
+    down projection compacted (32 | d_ff; per decode step 4 / 7 / 1
+    das_topk / das_ternary_gemm / sparse_attention a layer, per prefill of n
+    packs n+3 / 3n+4 / n), less one das_ternary_gemm a decode step and a
+    prefill for the 2-matrix MLP (w_in alone beside w_out)."""
+    counts = _packed_counts(n_l, steps, packs, dense_down=False)
+    if mlp:
+        counts["das_ternary_gemm"] -= n_l * (steps + len(packs))
+    return counts
+
+
 def _took(label: str, t0: float) -> float:
     """Log the seconds since t0 that a path of the serve phase took; returns now."""
     now = time.perf_counter()
@@ -2888,8 +3265,31 @@ def _hybrid_class(kernel_name: str) -> str:
     return "SSD and other elementwise glue"
 
 
+# the stub-frontend paths' device kernels by class: the port's kernels (the
+# packed GEMMs on float32 values), the head's float32 matmul (cuBLAS: the
+# step's only matmul), the copies (the float32 K/V cast into the bf16 rings,
+# the norm scales upcast, casts) and the rest of the elementwise glue
+FRONTEND_CLASSES = ("das_ternary_gemm", "das_topk", "sparse_attention",
+                    "the head (cuBLAS matmul)", "copies", "other glue")
+
+
+def _frontend_class(kernel_name: str) -> str:
+    if "das_topk" in kernel_name:
+        return "das_topk"
+    if _is_attention(kernel_name):
+        return "sparse_attention"
+    if "tenet::" in kernel_name:
+        return "das_ternary_gemm"
+    if any(k in kernel_name for k in ("gemm", "gemv", "nvjet", "xmma", "cutlass", "splitK")):
+        return "the head (cuBLAS matmul)"
+    if "copy" in kernel_name:
+        return "copies"
+    return "other glue"
+
+
 CLASSES = {"glue": (_glue_class, GLUE_CLASSES), "moe": (_moe_class, MOE_CLASSES),
-           "ssm": (_ssm_class, SSM_CLASSES), "hybrid": (_hybrid_class, HYBRID_CLASSES)}
+           "ssm": (_ssm_class, SSM_CLASSES), "hybrid": (_hybrid_class, HYBRID_CLASSES),
+           "frontend": (_frontend_class, FRONTEND_CLASSES)}
 
 
 def _by_class(by_name: dict, classes: str) -> dict:

@@ -1,11 +1,12 @@
 """Architecture registry of the port: `get_config("<arch-id>")` / `--arch <id>`.
 
-Only the architectures the port serves are registered: the paper's own
-bitnet models, the dense models of the JAX package's zoo, its two MoE
-models (kimi-k2 reduced only: ROADMAP queue 1, item 4), its two
-attention-free SSMs, rwkv6-3b and gla-1.3b, and the hybrid zamba2-2.7b
-(Mamba2 blocks and one shared attention block).  The frontend models wait
-for later slices (ROADMAP queue 1).
+Every architecture of the JAX package's registry is registered: the
+paper's own bitnet models, the dense models of its zoo, its two MoE models
+(kimi-k2 reduced only: ROADMAP queue 1), its two attention-free SSMs,
+rwkv6-3b and gla-1.3b, the hybrid zamba2-2.7b (Mamba2 blocks and one shared
+attention block), and the two stub-frontend models, musicgen-medium (2-matrix
+gelu MLP) and pixtral-12b (head size 160), whose prompts are float32
+embeddings (``models.model.uses_embeds``).
 """
 
 from __future__ import annotations
@@ -26,6 +27,8 @@ ARCH_MODULES = {
     "rwkv6-3b": "rwkv6_3b",
     "gla-1.3b": "gla_1p3b",
     "zamba2-2.7b": "zamba2_2p7b",
+    "musicgen-medium": "musicgen_medium",
+    "pixtral-12b": "pixtral_12b",
 }
 
 

@@ -45,9 +45,9 @@ _SIGNATURES = {
                                _P],
     # x, dtype, packed, w_scale, x_scale, out, M, K, R, N, stream
     "tenet_ternary_gemm": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # q, k, v, q_pos, k_pos, out, dtype, B, Lq, Lk, Hq, Hkv, D, sink, window,
-    # softcap, scale, round_scores, stream
-    "tenet_sparse_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+    # q, k, v, q_pos, k_pos, out, dtype, kv dtype, B, Lq, Lk, Hq, Hkv, D,
+    # sink, window, softcap, scale, round_scores, stream
+    "tenet_sparse_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                _I, _I, _I, _I, _F, _F, _I, _P],
     # packed, out, R, K, N, stream
     "tenet_twd_decode": [_P, _P, _I, _I, _I, _P],

@@ -12,11 +12,11 @@
 // `scale` (1/sqrt(D)), soft-capped by tanh when softcap > 0, and a row with
 // no allowed key outputs 0.  out: (B, Lq, Hq, D) in q's dtype.
 //
-// Head sizes D = 16, 32, 64, 80, 100 and 256.  Rows move in vectors of 16
-// bytes where the row size allows, else 8 (a bf16 row of D = 100 is 200
+// Head sizes D = 16, 32, 64, 80, 100, 160 and 256.  Rows move in vectors of
+// 16 bytes where the row size allows, else 8 (a bf16 row of D = 100 is 200
 // bytes, so its heads start 8 bytes past a 16-byte boundary).
 //
-// Three classes, chosen by Lq and the dtype alone (launch, at the end):
+// Three classes, chosen by Lq and the dtypes alone (launch, at the end):
 //
 //  * decode (Lq == 1): split_decode_kernel, flash-decoding in one launch.
 //    Bound on the H100 by bytes: every allowed key's K and V rows are read
@@ -36,6 +36,13 @@
 //    denominator, accumulator), one exp a key; the groups merge in order,
 //    then the blocks in block order through distributed shared memory: no
 //    atomics, no second pass.
+//    The same kernel takes float32 q over bfloat16 K and V (the
+//    stub-frontend models' float32 stream reading its bfloat16 ring): the
+//    rows are copied and staged as bfloat16, converted in registers (exact),
+//    and everything after is float32, with a float32 output.  That is the
+//    plain version's function (it upcasts K and V first), without a float32
+//    copy of the ring: 1024 x 8 x 160 x 2 x 4 B = 10.5 MB a layer a slot at
+//    pixtral-12b's shape.
 //
 //  * bf16 prefill (Lq > 1): attn_prefill_kernel, flash attention on the
 //    tensor cores.  A prefill pack (256 queries x 32 heads over 1280 keys)
@@ -75,8 +82,10 @@
 //    (query, q head, batch row), its threads striding over the
 //    keys on FMAs with a float32 state each, merged in a fixed order.
 //    mma.sync takes no float32 operands and TF32 would miss the 3e-4
-//    attention tolerance; float32 serves the reduced models' parity checks,
-//    not the full-width bf16 serving path.
+//    attention tolerance.  It serves the reduced models' parity checks and
+//    the stub-frontend models' admissions at width (musicgen-medium at D =
+//    64, pixtral-12b at D = 160: their residual stream is float32), where
+//    a thread's q and accumulator rows spill at D = 160 and 256.
 //
 // Batch invariance, in every class: the order in which a query's terms are
 // summed depends on (Lk, D, dtype, class) only -- never on B, on Lq, on the
@@ -105,7 +114,7 @@ template <typename T, int D> __host__ __device__ constexpr int vec_bytes() {
   return D * (int)sizeof(T) % 16 == 0 ? 16 : D * (int)sizeof(T) % 8 == 0 ? 8 : 4;
 }
 
-// NB bytes of a row as float32
+// NB bytes of a row as float32 (NB = 16, 8 or 4)
 template <typename T, int NB> struct Vec {
   static constexpr int n = NB / (int)sizeof(T);
   using Raw = typename std::conditional<NB == 16, uint4,
@@ -118,6 +127,26 @@ template <typename T, int NB> struct Vec {
     for (int e = 0; e < n; ++e) o[e] = to_f32(v[e]);
   }
 };
+
+// N values of T from p as float32, in 16-byte loads where N values of T
+// take more (float32 q beside bfloat16 K rows: 8 values, 32 bytes)
+template <typename T, int N>
+__device__ __forceinline__ void load_vals(const T* __restrict__ p, float (&o)[N]) {
+  constexpr int NB = N * (int)sizeof(T);
+  if constexpr (NB <= 16) {
+    Vec<T, NB>::load(p, o);
+  } else {
+    static_assert(NB % 16 == 0, "whole 16-byte loads");
+    constexpr int M = 16 / (int)sizeof(T);
+#pragma unroll
+    for (int i = 0; i < N / M; ++i) {
+      float t[M];
+      Vec<T, 16>::load(p + i * M, t);
+#pragma unroll
+      for (int e = 0; e < M; ++e) o[i * M + e] = t[e];
+    }
+  }
+}
 
 // --- float32 prefill class: a block per (query, q head, batch row) ----------
 
@@ -246,14 +275,15 @@ template <int D, typename T> struct SplitSmem {
   static constexpr int kBytes = 2 * kStage;
 };
 
-template <int D, typename T>
+// TQ: q and out; T: K and V (TQ == T, or float32 q over bfloat16 K/V)
+template <int D, typename TQ, typename T>
 __global__ void __launch_bounds__(kSplitThreads)
-split_decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+split_decode_kernel(const TQ* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                     const int* __restrict__ q_pos, const int* __restrict__ k_pos,
-                    T* __restrict__ out, int Lk, int Hq, int Hkv, int chunk, int sink,
+                    TQ* __restrict__ out, int Lk, int Hq, int Hkv, int chunk, int sink,
                     int window, float softcap, float scale, bool round_scores) {
   using Sm = SplitSmem<D, T>;
-  constexpr int VB = vec_bytes<T, D>();                  // bytes of a copy and a load
+  constexpr int VB = vec_bytes<T, D>();                  // bytes of a K/V copy and load
   using VL = Vec<T, VB>;
   constexpr int VE = VL::n;                              // values of a vector
   constexpr int CPR = D / VE;                            // vectors a row
@@ -307,7 +337,7 @@ split_decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   float qv[QC][VE], acc[QC][VE];
 #pragma unroll
   for (int c = 0; c < QC; ++c) {
-    if (li + 8 * c < CPR) VL::load(q + qoff + (li + 8 * c) * VE, qv[c]);
+    if (li + 8 * c < CPR) load_vals<TQ, VE>(q + qoff + (li + 8 * c) * VE, qv[c]);
 #pragma unroll
     for (int e = 0; e < VE; ++e) acc[c][e] = 0.f;
   }
@@ -350,7 +380,7 @@ split_decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
         part += __shfl_xor_sync(gmask, part, 2);
         part += __shfl_xor_sync(gmask, part, 1);
         float sv = part;
-        if (round_scores) sv = to_f32(from_f32<T>(sv));
+        if (round_scores) sv = to_f32(from_f32<TQ>(sv));
         sv *= scale;
         if (softcap > 0.f) sv = tanhf(sv / softcap) * softcap;
         // online softmax, one exp a key: the larger of (m, sv) is the new max
@@ -417,7 +447,7 @@ split_decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 #pragma unroll
     for (int i = 0; i < DPT; ++i) {
       const int d = tid + i * kSplitThreads;
-      if (d < D) out[qoff + d] = from_f32<T>(l == 0.f ? 0.f : a[i] / l);
+      if (d < D) out[qoff + d] = from_f32<TQ>(l == 0.f ? 0.f : a[i] / l);
     }
     return;
   }
@@ -442,20 +472,20 @@ split_decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
     const int d = tid + i * kSplitThreads;
     if (d < D) {
       const float ad = merge(slots, S, d, m, l);
-      out[qoff + d] = from_f32<T>(l == 0.f ? 0.f : ad / l);
+      out[qoff + d] = from_f32<TQ>(l == 0.f ? 0.f : ad / l);
     }
   }
 }
 
-template <int D, typename T>
-static cudaError_t launch_split(const T* q, const T* k, const T* v, const int* q_pos,
-                                const int* k_pos, T* out, int B, int Lk, int Hq, int Hkv,
+template <int D, typename TQ, typename T>
+static cudaError_t launch_split(const TQ* q, const T* k, const T* v, const int* q_pos,
+                                const int* k_pos, TQ* out, int B, int Lk, int Hq, int Hkv,
                                 int sink, int window, float softcap, float scale,
                                 bool round_scores, cudaStream_t stream) {
   int S, chunk;
   split_keys(Lk, S, chunk);
   constexpr int smem = SplitSmem<D, T>::kBytes;
-  auto kernel = split_decode_kernel<D, T>;
+  auto kernel = split_decode_kernel<D, TQ, T>;
   // the attributes once per instantiation (its first launch, before any
   // graph capture of the engine, which warms up first)
   static const cudaError_t attr_err = set_attributes(kernel, smem);
@@ -888,8 +918,8 @@ static cudaError_t launch(const void* q, const void* k, const void* v, const int
   const T* vt = static_cast<const T*>(v);
   T* ot = static_cast<T*>(out);
   if (Lq == 1) {
-    return launch_split<D, T>(qt, kt, vt, q_pos, k_pos, ot, B, Lk, Hq, Hkv, sink, window,
-                              softcap, scale, round_scores, stream);
+    return launch_split<D, T, T>(qt, kt, vt, q_pos, k_pos, ot, B, Lk, Hq, Hkv, sink, window,
+                                 softcap, scale, round_scores, stream);
   }
   if constexpr (std::is_same<T, bf16>::value) {
     return launch_prefill<D>(qt, kt, vt, q_pos, k_pos, ot, B, Lq, Lk, Hq, Hkv, sink, window,
@@ -902,30 +932,60 @@ static cudaError_t launch(const void* q, const void* k, const void* v, const int
   }
 }
 
+// float32 q over bfloat16 K/V: the decode class only
+template <int D>
+static cudaError_t launch_mixed(const void* q, const void* k, const void* v, const int* q_pos,
+                                const int* k_pos, void* out, int B, int Lq, int Lk, int Hq,
+                                int Hkv, int sink, int window, float softcap, float scale,
+                                bool round_scores, cudaStream_t stream) {
+  if (Lq != 1) return cudaErrorInvalidValue;
+  return launch_split<D, float, bf16>(static_cast<const float*>(q), static_cast<const bf16*>(k),
+                                      static_cast<const bf16*>(v), q_pos, k_pos,
+                                      static_cast<float*>(out), B, Lk, Hq, Hkv, sink, window,
+                                      softcap, scale, round_scores, stream);
+}
+
+// the class of q's and K/V's dtypes, one instantiation a head size
 template <typename T>
+struct ByDtype {
+  template <int D>
+  static cudaError_t go(const void* q, const void* k, const void* v, const int* q_pos,
+                        const int* k_pos, void* out, int B, int Lq, int Lk, int Hq, int Hkv,
+                        int sink, int window, float softcap, float scale, bool rs,
+                        cudaStream_t s) {
+    return launch<D, T>(q, k, v, q_pos, k_pos, out, B, Lq, Lk, Hq, Hkv, sink, window, softcap,
+                        scale, rs, s);
+  }
+};
+struct Mixed {
+  template <int D>
+  static cudaError_t go(const void* q, const void* k, const void* v, const int* q_pos,
+                        const int* k_pos, void* out, int B, int Lq, int Lk, int Hq, int Hkv,
+                        int sink, int window, float softcap, float scale, bool rs,
+                        cudaStream_t s) {
+    return launch_mixed<D>(q, k, v, q_pos, k_pos, out, B, Lq, Lk, Hq, Hkv, sink, window,
+                           softcap, scale, rs, s);
+  }
+};
+
+template <typename C>
 static cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v,
                               const int* q_pos, const int* k_pos, void* out, int B, int Lq,
                               int Lk, int Hq, int Hkv, int sink, int window, float softcap,
                               float scale, bool rs, cudaStream_t s) {
   switch (D) {
-    case 16:
-      return launch<16, T>(q, k, v, q_pos, k_pos, out, B, Lq, Lk, Hq, Hkv, sink, window,
-                           softcap, scale, rs, s);
-    case 32:
-      return launch<32, T>(q, k, v, q_pos, k_pos, out, B, Lq, Lk, Hq, Hkv, sink, window,
-                           softcap, scale, rs, s);
-    case 64:
-      return launch<64, T>(q, k, v, q_pos, k_pos, out, B, Lq, Lk, Hq, Hkv, sink, window,
-                           softcap, scale, rs, s);
-    case 80:
-      return launch<80, T>(q, k, v, q_pos, k_pos, out, B, Lq, Lk, Hq, Hkv, sink, window,
-                           softcap, scale, rs, s);
-    case 100:
-      return launch<100, T>(q, k, v, q_pos, k_pos, out, B, Lq, Lk, Hq, Hkv, sink, window,
-                            softcap, scale, rs, s);
-    case 256:
-      return launch<256, T>(q, k, v, q_pos, k_pos, out, B, Lq, Lk, Hq, Hkv, sink, window,
-                            softcap, scale, rs, s);
+#define TENET_ATTN_CASE(DV)                                                                  \
+  case DV:                                                                                   \
+    return C::template go<DV>(q, k, v, q_pos, k_pos, out, B, Lq, Lk, Hq, Hkv, sink, window, \
+                              softcap, scale, rs, s);
+    TENET_ATTN_CASE(16)
+    TENET_ATTN_CASE(32)
+    TENET_ATTN_CASE(64)
+    TENET_ATTN_CASE(80)
+    TENET_ATTN_CASE(100)
+    TENET_ATTN_CASE(160)
+    TENET_ATTN_CASE(256)
+#undef TENET_ATTN_CASE
     default:
       return cudaErrorInvalidValue;
   }
@@ -933,20 +993,26 @@ static cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v
 
 }  // namespace tenet
 
+// dtype: q's (and out's); kv_dtype: K's and V's, q's own or, with float32
+// q at Lq == 1, bfloat16
 extern "C" int tenet_sparse_attention(const void* q, const void* k, const void* v,
                                       const void* q_pos, const void* k_pos, void* out,
-                                      int dtype, int B, int Lq, int Lk, int Hq, int Hkv,
-                                      int D, int sink, int window, float softcap,
+                                      int dtype, int kv_dtype, int B, int Lq, int Lk, int Hq,
+                                      int Hkv, int D, int sink, int window, float softcap,
                                       float scale, int round_scores, void* stream) {
   using namespace tenet;
   const int* qp = static_cast<const int*>(q_pos);
   const int* kp = static_cast<const int*>(k_pos);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kF32)
-    return (int)dispatch_d<float>(D, q, k, v, qp, kp, out, B, Lq, Lk, Hq, Hkv, sink, window,
-                                  softcap, scale, round_scores != 0, s);
-  if (dtype == kBF16)
-    return (int)dispatch_d<__nv_bfloat16>(D, q, k, v, qp, kp, out, B, Lq, Lk, Hq, Hkv, sink,
-                                          window, softcap, scale, round_scores != 0, s);
+  const bool rs = round_scores != 0;
+  if (dtype == kF32 && kv_dtype == kF32)
+    return (int)dispatch_d<ByDtype<float>>(D, q, k, v, qp, kp, out, B, Lq, Lk, Hq, Hkv, sink,
+                                           window, softcap, scale, rs, s);
+  if (dtype == kBF16 && kv_dtype == kBF16)
+    return (int)dispatch_d<ByDtype<bf16>>(D, q, k, v, qp, kp, out, B, Lq, Lk, Hq, Hkv, sink,
+                                          window, softcap, scale, rs, s);
+  if (dtype == kF32 && kv_dtype == kBF16)
+    return (int)dispatch_d<Mixed>(D, q, k, v, qp, kp, out, B, Lq, Lk, Hq, Hkv, sink, window,
+                                  softcap, scale, rs, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -8,7 +8,9 @@ Runs on the CUDA device unless ``--device cpu``.  Master weights are drawn
 from ``--seed`` and exported layer by layer to base-3 packed ternary
 weights (``models.model.init_serving``), then served greedily; the summary
 line reports decode steps, tokens and tok/s, and each request's first token
-ids follow.
+ids follow.  The stub-frontend models (musicgen-medium, pixtral-12b) take
+prompts of float32 embeddings (``--prompt-len`` rows of d_model), drawn
+from the same generator.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ from repro_torch.models import model as MD
 from repro_torch.serve import Request, ServeConfig, ServeEngine
 from repro_torch.serve.engine import check_serve_config
 
-__all__ = ["build_engine", "main"]
+__all__ = ["build_engine", "make_prompt", "main"]
 
 
 def build_engine(cfg, config: ServeConfig, device) -> ServeEngine:
@@ -34,6 +36,14 @@ def build_engine(cfg, config: ServeConfig, device) -> ServeEngine:
     nbytes = sum(b.numel() * b.element_size() for b in model.state_dict().values())
     print(f"[serve] {cfg.name}: serving weights {nbytes / 1e6:.1f} MB on {model.device}")
     return ServeEngine(model, config, device=device)
+
+
+def make_prompt(cfg, rng: np.random.Generator, length: int) -> np.ndarray:
+    """A seeded prompt: float32 embeddings (length, d_model) for a stub
+    frontend, as the JAX package's CLI draws them, else token ids."""
+    if MD.uses_embeds(cfg):
+        return rng.standard_normal((length, cfg.d_model)).astype(np.float32)
+    return rng.integers(0, cfg.vocab, length)
 
 
 def _build_parser() -> argparse.ArgumentParser:
@@ -76,7 +86,7 @@ def main(argv=None):
     eng = build_engine(cfg, sc, device)
     rng = np.random.default_rng(args.seed)
     for i in range(args.requests):
-        eng.submit(Request(uid=i, prompt=rng.integers(0, cfg.vocab, args.prompt_len),
+        eng.submit(Request(uid=i, prompt=make_prompt(cfg, rng, args.prompt_len),
                            max_new_tokens=args.gen, arrival=i * args.stagger))
     ops.reset_launches()
     results = eng.run()

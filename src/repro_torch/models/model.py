@@ -15,6 +15,14 @@ that layout — the port's own export, or the JAX package's through
 ``repro_torch.bridge`` — leaf path by leaf path.  ``trits_from_packed``
 turns a packed model into the int8-resident form on its device, through the
 ``twd_decode`` kernel.
+
+The stub-frontend models (musicgen-medium, pixtral-12b; ``uses_embeds``)
+take float embeddings in place of token ids: ``prefill`` passes them
+through in their own dtype, as the JAX package's ``_inputs_to_x`` does, so
+a float32 prompt runs a float32 residual stream under a bfloat16 config
+(ternary weights, bfloat16 norm scales, embeddings and head, bfloat16 slot
+caches).  Their decode steps take token ids with an optional ``forced``
+mask and its float32 rows, as the JAX engine's step builds its input.
 """
 
 from __future__ import annotations
@@ -36,7 +44,7 @@ from repro_torch.models import transformer as T
 from repro_torch.models.ternary_linear import (TRITS_FORMATS, TernaryLinear,
                                                export_tlin, tlin_init)
 
-__all__ = ["TernaryLM", "init_params", "export_serving", "init_serving",
+__all__ = ["TernaryLM", "uses_embeds", "init_params", "export_serving", "init_serving",
            "trits_from_packed", "flatten_tree", "prefill", "decode_step", "init_caches"]
 
 
@@ -44,14 +52,11 @@ class TernaryLM(nn.Module):
     """Serving weights of a ternary LM, dense, MoE, hybrid or attention-free,
     on the CUDA device unless ``device="cpu"``: the embedding, the untied
     dense ``head`` (d_model, vocab_padded) where the config has one, the
-    blocks (each with its mixer and its gated FFN or MoE), the one
-    ``shared`` attention of a ``shared_attn`` config, and the final norm."""
+    blocks (each with its mixer and its FFN or MoE), the one ``shared``
+    attention of a ``shared_attn`` config, and the final norm."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
-        if cfg.frontend != "none":
-            raise NotImplementedError("the port serves token-input models; "
-                                      f"frontend {cfg.frontend!r} waits (ROADMAP)")
         dt = L.torch_dtype(cfg.dtype)
         device = resolve_device(device)
         self.cfg = cfg
@@ -70,6 +75,22 @@ class TernaryLM(nn.Module):
         # logits past `vocab` are padding rows: masked out
         bias = torch.where(torch.arange(cfg.vocab_padded) < cfg.vocab, 0.0, -1e30)
         self.register_buffer("vocab_bias", bias.to(device), persistent=False)
+        self._head_cast: tuple | None = None   # (dtype, storage, version, copy)
+
+    def head_as(self, dtype: torch.dtype) -> torch.Tensor:
+        """The untied head in ``dtype``: the buffer itself in its own dtype,
+        else a copy made once and kept while the head is unchanged (a float32
+        stream's logits would otherwise copy pixtral-12b's 1.34 GB bfloat16
+        head into 2.68 GB of float32 on every step; the copy is exact).  The
+        copy is made anew when the head moves or is written in place."""
+        head = self.head
+        if dtype == head.dtype:
+            return head
+        key = (dtype, head.data_ptr(), head._version)
+        if self._head_cast is None or self._head_cast[:3] != key:
+            self._head_cast = None          # free the stale copy first
+            self._head_cast = (*key, head.to(dtype))
+        return self._head_cast[3]
 
     @property
     def device(self) -> torch.device:
@@ -84,6 +105,11 @@ class TernaryLM(nn.Module):
         model = cls(cfg, device)
         _load(model.state_dict(), flatten_tree(tree, cfg), cfg)
         return model
+
+
+def uses_embeds(cfg: ModelConfig) -> bool:
+    """Whether the config's prompts are float embeddings (a stub frontend)."""
+    return cfg.frontend != "none"
 
 
 def _has_shared(cfg: ModelConfig) -> bool:
@@ -187,10 +213,11 @@ def _block_params(gen: torch.Generator, cfg: ModelConfig, kind: str) -> dict:
         return p
     if cfg.moe is not None:
         p["moe"] = MOE.moe_init(gen, cfg, dt)
-    else:
-        p["ffn"] = {"w_gate": tlin_init(gen, d, f, dt),
-                    "w_in": tlin_init(gen, d, f, dt),
-                    "w_out": tlin_init(gen, f, d, dt, scale=(f * 2 * cfg.n_layers) ** -0.5)}
+        return p
+    ffn = {} if cfg.ffn_kind == "mlp" else {"w_gate": tlin_init(gen, d, f, dt)}
+    ffn["w_in"] = tlin_init(gen, d, f, dt)
+    ffn["w_out"] = tlin_init(gen, f, d, dt, scale=(f * 2 * cfg.n_layers) ** -0.5)
+    p["ffn"] = ffn
     return p
 
 
@@ -294,23 +321,27 @@ def trits_from_packed(packed: TernaryLM, cfg: ModelConfig) -> TernaryLM:
 
 def _logits(model: TernaryLM, x: torch.Tensor) -> torch.Tensor:
     """The final norm, then the tied embedding's or the untied head's
-    product in x's dtype, float32, soft-capped, the padded vocab masked."""
+    product in x's dtype (TF32 off), float32, soft-capped, the padded vocab
+    masked."""
     cfg = model.cfg
     x = model.final_norm(x)
     if cfg.tie_embeddings:
         lg = L.logits_from_embed(model.embed, x, cfg.logit_softcap)
     else:
-        lg = L.softcap((x @ model.head.to(x.dtype)).float(), cfg.logit_softcap)
+        with L.full_f32():
+            lg = L.softcap((x @ model.head_as(x.dtype)).float(), cfg.logit_softcap)
     if cfg.vocab_padded > cfg.vocab:
         lg = lg + model.vocab_bias
     return lg
 
 
-def prefill(model: TernaryLM, tokens: torch.Tensor, *, max_len: int | None = None,
+def prefill(model: TernaryLM, inputs: torch.Tensor, *, max_len: int | None = None,
             serve_sparse: bool = True):
-    """tokens (B, S) -> (last-position logits (B, V) float32, caches)."""
-    s = tokens.shape[1]
-    x = L.take_embed(model.embed, tokens, scale=model.embed_scale)
+    """Token ids (B, S), or float embeddings (B, S, D), which pass through
+    in their own dtype -> (last-position logits (B, V) float32, caches)."""
+    s = inputs.shape[1]
+    x = (inputs if inputs.is_floating_point()
+         else L.take_embed(model.embed, inputs, scale=model.embed_scale))
     x, caches = T.stack_prefill(model.layers, model.cfg, x, serve_sparse=serve_sparse,
                                 max_len=max_len if max_len is not None else s + 1,
                                 shared=model.shared)
@@ -319,12 +350,23 @@ def prefill(model: TernaryLM, tokens: torch.Tensor, *, max_len: int | None = Non
 
 def decode_step(model: TernaryLM, caches: list, tokens: torch.Tensor,
                 t: torch.Tensor, *, serve_sparse: bool = True,
-                page_table: torch.Tensor | None = None):
+                page_table: torch.Tensor | None = None,
+                forced: torch.Tensor | None = None,
+                forced_x: torch.Tensor | None = None):
     """One token per sequence: tokens (B,), positions t (B,).  The caches
     are updated in place and returned with the logits (B, V) float32.
     Paged arenas take ``page_table`` (B, pages_per_seq) int32, and rows
-    with t = -1 are inactive."""
-    x = L.take_embed(model.embed, tokens, scale=model.embed_scale)[:, None]
+    with t = -1 are inactive.
+
+    With ``forced`` (B,) bool and ``forced_x`` (B, D) float32 (a stub
+    frontend's prompt rows still being fed), row b's input is forced_x[b]
+    where forced[b], else its token's embedding in float32: the JAX
+    engine's decode input for these models."""
+    if forced is not None:
+        emb = model.embed[tokens].to(forced_x.dtype)
+        x = torch.where(forced[:, None], forced_x, emb)[:, None]
+    else:
+        x = L.take_embed(model.embed, tokens, scale=model.embed_scale)[:, None]
     x = T.stack_decode(model.layers, model.cfg, x, caches, t,
                        serve_sparse=serve_sparse, page_table=page_table, shared=model.shared)
     return _logits(model, x)[:, 0], caches

@@ -103,9 +103,14 @@ def export_tlin(p: dict, tc: TernaryConfig) -> dict:
 def tlin_compact(x: torch.Tensor, tc: TernaryConfig,
                  norm_scale: torch.Tensor | None = None) -> ops.DasTopK | None:
     """The DAS step of x's flattened rows, of ``rmsnorm(norm_scale, x)``
-    when a norm scale is given, or None with DAS off."""
+    when a norm scale is given, or None with DAS off.  The kernel takes the
+    scale in x's dtype: a bfloat16 scale over a float32 stream (the
+    stub-frontend models) is upcast, which is exact and is what ``rmsnorm``
+    computes with."""
     if tc.das is None:
         return None
+    if norm_scale is not None:
+        norm_scale = norm_scale.to(x.dtype)
     return ops.das_topk(x, keep=tc.das.keep, block=tc.das.block,
                         norm_scale=norm_scale, with_mask=False)
 

@@ -2,7 +2,8 @@
 
 An "attn" or "local" ``Block`` is rmsnorm -> attention -> residual ->
 rmsnorm -> FFN -> residual, the FFN gated (silu or tanh-gelu, by
-``cfg.act``) or, for a MoE config, the mixture of experts (models/moe.py);
+``cfg.act``), the 2-matrix MLP (``ffn_kind="mlp"``, musicgen-medium) or,
+for a MoE config, the mixture of experts (models/moe.py);
 with DAS on, each rmsnorm runs inside the DAS step of the projections it
 feeds (``tlin_norm_input``, and the MoE's one ``das_topk`` call).  A "gla"
 block swaps the attention for gated linear attention (models/gla.py, its
@@ -14,8 +15,7 @@ A config with ``shared_attn`` (zamba2) has one attention module, owned by
 the model and passed to every attention block, each of which keeps its own
 norms and FFN.  The JAX package scans stacked layer groups; here the stack
 is a loop over the model's ``ModuleList``, whatever the pattern and its
-tail (gemma3's 26 layers = 4 x 6 + 2).  The 2-matrix MLP waits for a later
-slice (ROADMAP).
+tail (gemma3's 26 layers = 4 x 6 + 2).
 """
 
 from __future__ import annotations
@@ -33,24 +33,29 @@ from repro_torch.models import rwkv6 as R
 from repro_torch.models.layers import ACT, RMSNorm, rmsnorm
 from repro_torch.models.ternary_linear import TernaryLinear, tlin_norm_input
 
-__all__ = ["ATTN_KINDS", "RECURRENT_KINDS", "FFN", "Block", "ffn_apply", "block_prefill",
+__all__ = ["ATTN_KINDS", "RECURRENT_KINDS", "FFN_KINDS", "FFN", "Block", "ffn_apply", "block_prefill",
            "block_decode", "layer_cache_spec", "stack_prefill", "stack_decode"]
 
 ATTN_KINDS = ("attn", "local")
 RECURRENT_KINDS = ("mamba", "rwkv", "gla")   # the recurrent kinds the port serves
 
 
+FFN_KINDS = ("gated", "mlp")
+
+
 class FFN(nn.Module):
-    """Gated FFN: w_out(act(w_gate x) * w_in x), act = silu or gelu."""
+    """Gated FFN, w_out(act(w_gate x) * w_in x), or with ``ffn_kind="mlp"``
+    the 2-matrix MLP, w_out(act(w_in x)); act = silu or gelu."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
-        if cfg.ffn_kind != "gated" or cfg.act not in ACT:
+        if cfg.ffn_kind not in FFN_KINDS or cfg.act not in ACT:
             raise NotImplementedError(
                 f"ffn_kind {cfg.ffn_kind!r}, act {cfg.act!r}: the port serves "
-                f"the gated FFN with {sorted(ACT)}")
+                f"ffn_kind {FFN_KINDS} with {sorted(ACT)}")
         d, f, tc = cfg.d_model, cfg.d_ff, cfg.ternary
-        self.w_gate = TernaryLinear(d, f, tc, device)
+        if cfg.ffn_kind == "gated":
+            self.w_gate = TernaryLinear(d, f, tc, device)
         self.w_in = TernaryLinear(d, f, tc, device)
         self.w_out = TernaryLinear(f, d, tc, device)
 
@@ -84,10 +89,14 @@ class Block(nn.Module):
 
 def ffn_apply(p: FFN, cfg: ModelConfig, x: torch.Tensor,
               norm_scale: torch.Tensor) -> torch.Tensor:
-    """The FFN of the residual x normed by ``norm_scale``: gate and up share
-    one DAS step, with the norm inside it."""
+    """The FFN of the residual x normed by ``norm_scale``: gate and up (or
+    the MLP's w_in alone) take one DAS step, with the norm inside it."""
     xin, ca = tlin_norm_input(x, norm_scale, cfg.ternary)
-    h = ACT[cfg.act](p.w_gate(xin, ca)) * p.w_in(xin, ca)
+    act = ACT[cfg.act]
+    if cfg.ffn_kind == "mlp":
+        h = act(p.w_in(xin, ca))
+    else:
+        h = act(p.w_gate(xin, ca)) * p.w_in(xin, ca)
     return p.w_out(h)
 
 

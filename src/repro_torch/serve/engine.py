@@ -49,6 +49,15 @@ beside its streaming attention).  A free row decodes token 0 at position 0
 its slot, a don't-care that never folds, so a retired slot's carry stays
 zero.
 
+The stub-frontend models (``MD.uses_embeds``: musicgen-medium,
+pixtral-12b) take float32 embedding prompts (P, d_model): admission
+prefills the pack-aligned prefix's rows as they are, and each tail row is
+fed through two more static buffers, ``forced`` (B,) and ``forced_x`` (B,
+d_model) float32, which the step reads in place of the row's token
+embedding; generated tokens and free rows carry ``forced = False``.  Such
+prompts carry no token ids, so the paged layout serves them without the
+prefix trie.
+
 MoE configs decode with the no-drop expert capacity (models/moe.py
 ``decode_capacity``: the batch, ``max_slots``, idle rows included, so the
 step's shapes stay static); ``ServeConfig.moe_expert_capacity`` optionally
@@ -143,12 +152,13 @@ def check_serve_config(cfg, config: ServeConfig) -> None:
 
 
 class _Slot:
-    __slots__ = ("state", "req", "input_tok", "input_pos", "tail", "tail_idx",
+    __slots__ = ("state", "req", "input_tok", "input_x", "input_pos", "tail", "tail_idx",
                  "out", "admit_vtime", "first_tok_vtime", "pages", "page_budget")
 
     def __init__(self):
         self.state = FREE
         self.req = None
+        self.input_x = None        # a prompt row being fed (stub frontends)
         self.pages = None          # paged layout: logical -> physical page ids
         self.page_budget = 0       # pages this slot may still allocate
 
@@ -187,10 +197,12 @@ class ServeEngine:
         # Without a streaming layer (full caches, recurrent states) the whole
         # prompt prefills at admission
         self._chunk = (cfg.lpsa.chunk if cfg.lpsa else 256) if has_stream else 1
+        self._uses_embeds = MD.uses_embeds(cfg)
 
         # ---- paged pool (layout="paged") --------------------------------
         self._paged = config.layout == "paged"
-        self._share = self._paged and config.prefix_sharing
+        # embedding prompts have no token ids to key the trie on
+        self._share = self._paged and config.prefix_sharing and not self._uses_embeds
         self._page_size = config.page_size
         # only full-attention layers become arenas; a pure ring config still
         # shares exact prefix states through the trie, with zero pages
@@ -235,6 +247,11 @@ class ServeEngine:
         self._pt_host = self._pt_np = self._pt = None
         if n_seq:
             self._pt_host, self._pt_np, self._pt = buffers((b, n_seq), torch.int32)
+        self._forced = self._forced_x = None
+        if self._uses_embeds:
+            self._forced_host, self._forced_np, self._forced = buffers((b,), torch.bool)
+            self._fx_host, self._fx_np, self._forced_x = buffers((b, cfg.d_model),
+                                                                 torch.float32)
         self._graph = None
         self._next = None
         self.launches_per_replay: dict[str, int] = {}
@@ -247,7 +264,8 @@ class ServeEngine:
         """The decode step over the static buffers -> greedy ids (B,)."""
         logits, _ = MD.decode_step(self.model, self.caches, self._tok, self._t,
                                    serve_sparse=self.serve_sparse,
-                                   page_table=self._pt)
+                                   page_table=self._pt, forced=self._forced,
+                                   forced_x=self._forced_x)
         return greedy(logits)
 
     def _capture(self) -> None:
@@ -283,6 +301,9 @@ class ServeEngine:
         self._t.copy_(self._t_host, non_blocking=True)
         if self._pt is not None:
             self._pt.copy_(self._pt_host, non_blocking=True)
+        if self._forced is not None:
+            self._forced.copy_(self._forced_host, non_blocking=True)
+            self._forced_x.copy_(self._fx_host, non_blocking=True)
         if self._graph is None:
             next_tok = self._step_fn()
         else:
@@ -305,7 +326,14 @@ class ServeEngine:
         if req.max_new_tokens < 1:
             raise ValueError(f"request {req.uid}: max_new_tokens must be >= 1")
         prompt = np.asarray(req.prompt)
-        if prompt.ndim != 1 or not np.issubdtype(prompt.dtype, np.integer) \
+        if self._uses_embeds:
+            d = self.cfg.d_model
+            if prompt.ndim != 2 or prompt.shape[1] != d \
+                    or not np.issubdtype(prompt.dtype, np.floating):
+                raise ValueError(f"request {req.uid}: {self.cfg.name} takes a prompt of "
+                                 f"float embeddings (P, {d}); got {prompt.dtype} "
+                                 f"{prompt.shape}")
+        elif prompt.ndim != 1 or not np.issubdtype(prompt.dtype, np.integer) \
                 or prompt.min() < 0 or prompt.max() >= self.cfg.vocab:
             raise ValueError(f"request {req.uid}: the prompt must be token ids "
                              f"in [0, {self.cfg.vocab})")
@@ -395,6 +423,7 @@ class ServeEngine:
         slot.req = req
         slot.admit_vtime = self.vtime
         slot.out = []
+        slot.input_x = None
         slot.first_tok_vtime = None
         if self._paged:
             ok = self._admit_paged(idx, slot, req, prefix)
@@ -411,11 +440,12 @@ class ServeEngine:
         return True
 
     def _prefill(self, req: Request, prefix: int):
-        """Batch-1 prefill of the prompt's first ``prefix`` tokens ->
-        (logits (V,), batch-1 caches)."""
-        tokens = torch.as_tensor(np.asarray(req.prompt[:prefix]), dtype=torch.long,
+        """Batch-1 prefill of the prompt's first ``prefix`` tokens (or
+        embedding rows, as float32) -> (logits (V,), batch-1 caches)."""
+        dtype = torch.float32 if self._uses_embeds else torch.long
+        inputs = torch.as_tensor(np.asarray(req.prompt[:prefix]), dtype=dtype,
                                  device=self.device)[None]
-        logits, small = MD.prefill(self.model, tokens, max_len=self.max_len,
+        logits, small = MD.prefill(self.model, inputs, max_len=self.max_len,
                                    serve_sparse=self.serve_sparse)
         self.stats.prefill_tokens += prefix
         return logits[0], small
@@ -433,10 +463,20 @@ class ServeEngine:
             self._deliver(idx, int(greedy(logits)))
         else:
             slot.state = PREFILL
-            slot.tail = [int(x) for x in np.asarray(req.prompt[absorbed:])]
+            rest = np.asarray(req.prompt[absorbed:])
+            slot.tail = (list(rest.astype(np.float32)) if self._uses_embeds
+                         else [int(x) for x in rest])
             slot.tail_idx = 1
             slot.input_pos = absorbed
-            slot.input_tok = slot.tail[0]
+            self._feed(slot, slot.tail[0])
+
+    def _feed(self, slot: _Slot, nxt) -> None:
+        """One tail element into the decode step's input: an embedding row
+        through ``forced_x``, a token id as the input token."""
+        if self._uses_embeds:
+            slot.input_tok, slot.input_x = 0, nxt
+        else:
+            slot.input_tok = nxt
 
     def _insert(self, idx: int, small: list) -> None:
         """Overwrite slot ``idx``'s rows of every per-slot layer with a
@@ -661,6 +701,8 @@ class ServeEngine:
         # the paged layout, which sends their writes to the null page
         self._tok_np[:] = 0
         self._t_np[:] = -1 if self._paged else 0
+        if self._forced is not None:
+            self._forced_np[:] = False
         active = 0
         for i, s in enumerate(self._slots):
             if s.state == FREE:
@@ -668,6 +710,9 @@ class ServeEngine:
             active += 1
             self._tok_np[i] = s.input_tok
             self._t_np[i] = s.input_pos
+            if s.input_x is not None:
+                self._forced_np[i] = True
+                self._fx_np[i] = s.input_x
         if self._pages_per_seq:
             self._ensure_writable_pages()
         next_tok = self._run_step()
@@ -679,11 +724,12 @@ class ServeEngine:
             if s.state == PREFILL:
                 if s.tail_idx < len(s.tail):
                     s.input_pos += 1
-                    s.input_tok = s.tail[s.tail_idx]
+                    self._feed(s, s.tail[s.tail_idx])
                     s.tail_idx += 1
                 else:
                     # the last prompt token went in this tick -> first sample
                     s.state = DECODE
+                    s.input_x = None
                     s.first_tok_vtime = self.vtime
                     self._deliver(i, int(next_tok[i]))
             elif s.state == DECODE:
@@ -723,6 +769,7 @@ class ServeEngine:
         s.state = FREE
         s.req = None
         s.tail = None
+        s.input_x = None
 
     # -- introspection ----------------------------------------------------
 

@@ -23,9 +23,11 @@ __all__ = ["Request", "FifoScheduler"]
 class Request:
     """One generation request.
 
-    prompt: (P,) integer token ids.  temperature 0 = greedy, the only
-    sampling the port serves yet.  priority: lower runs first (ties by
-    arrival, then submission order).  eos_id ends the request when sampled.
+    prompt: (P,) integer token ids, or (P, D) float embeddings for the
+    stub-frontend models (``prompt_len`` is P either way).  temperature 0
+    = greedy, the only sampling the port serves yet.  priority: lower runs
+    first (ties by arrival, then submission order).  eos_id ends the
+    request when sampled.
     """
     uid: int
     prompt: Any

@@ -901,3 +901,171 @@ def test_cuda_hybrid_graph_engine_matches_eager(cuda, layout):
         assert graph.stats.prefix_hits == eager.stats.prefix_hits > 0
     graph.submit(Request(uid=9, prompt=_stem_requests(cfg)[1].prompt, max_new_tokens=20))
     assert graph.run()[9].tokens.tolist() == results[0][1].tokens.tolist()
+
+
+# the stub-frontend models' projections (K, N), float32 rows: musicgen-medium's
+# q/k/v/o 1536 -> 1536, w_in 1536 -> 6144 and w_out 6144 -> 1536; pixtral-12b's
+# q/o 5120 -> 5120 (q_dim 32 x 160), k/v 5120 -> 1280, gate/up 5120 -> 14336,
+# down 14336 -> 5120
+FRONTEND_SHAPES = [(1536, 1536), (1536, 6144), (6144, 1536), (5120, 5120), (5120, 1280),
+                   (5120, 14336), (14336, 5120)]
+
+
+@pytest.mark.parametrize("k,n", FRONTEND_SHAPES)
+def test_cuda_frontend_projections_f32(cuda, rng, k, n):
+    """The float32 stream's projections: das_topk on float32 rows (exact),
+    plain and norm-fused with a float32 scale (the normed rows within 8
+    steps of rmsnorm, the DAS step of them exact), and das_ternary_gemm on
+    the float32 compaction (1e-4) at 4 decode rows (the decode class) and a
+    256-row pack (the FMA prefill class)."""
+    packed = _packed(rng, k, n, cuda)
+    scale = (2 / np.pi / k) ** 0.5
+    nscale = (0.5 * torch.from_numpy(rng.standard_normal(k).astype(np.float32))).to(cuda)
+    for m in (4, 256):
+        x = _rows(rng, m, k, torch.float32, False, cuda)
+        ca = ops.das_topk(x, keep=16, with_mask=False)
+        _assert_same(ca, ref.das_topk_ref(x, keep=16, block=32, with_mask=False))
+        fused = ops.das_topk(x, keep=16, norm_scale=nscale, with_mask=False, with_normed=True)
+        assert float(_steps(fused.normed, rmsnorm(nscale, x)).max()) <= 8
+        _assert_same(fused[:4], ref.das_topk_ref(fused.normed, keep=16, block=32,
+                                                 with_mask=False)[:4])
+        got = ops.das_ternary_gemm(ca.values, ca.indices, packed, scale, keep=16)
+        want = ref.das_ternary_gemm_ref(ca.values, ca.indices, packed, scale)
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+# (label, Lq, Lk, Hq, Hkv, dtype): pixtral-12b's head size 160 (32 over 8) in
+# every class: decode over a full ring in bf16 and f32, an LPSA pack on the
+# tensor cores in bf16 and on FMAs in f32
+HEAD_160_CASES = [("decode bf16 ring 1024", 1, 1024, 32, 8, torch.bfloat16),
+                  ("decode f32 ring 1024", 1, 1024, 32, 8, torch.float32),
+                  ("prefill bf16 pack", 256, 1280, 32, 8, torch.bfloat16),
+                  ("prefill f32 pack", 64, 1280, 8, 2, torch.float32)]
+
+
+@pytest.mark.parametrize("case", HEAD_160_CASES, ids=[c[0] for c in HEAD_160_CASES])
+def test_cuda_sparse_attention_head_160(cuda, rng, case):
+    """D = 160 (320-byte bf16 rows: 32-key tiles at decode, no padding on the
+    tensor cores) against the plain version (2e-2 bf16, 3e-4 float32), and
+    row 1 of a B = 2 call bitwise a B = 1 call on it."""
+    label, lq, lk, hq, hkv, dt = case
+    b, kw = 2, dict(sink=128, window=896)
+    mk = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(  # noqa: E731
+        cuda, dt)
+    q, k, v = mk(b, lq, hq, 160), mk(b, lk, hkv, 160), mk(b, lk, hkv, 160)
+    if lq == 1:
+        rows = [5000, 700]
+        qp = torch.tensor(rows, dtype=torch.int32, device=cuda)[:, None]
+        kp = _ring(rows, lk, 128, 896).to(cuda)
+    else:                   # packs at t0 = 2000 and 512, their first lq queries
+        qps, kps = zip(*(_pack_positions(t0) for t0 in (2000, 512)))
+        qp = torch.stack([p[:lq] for p in qps]).to(cuda)
+        kp = torch.stack(kps).to(cuda)
+        kw["round_scores"] = True
+    got = ops.sparse_attention(q, k, v, qp, kp, **kw)
+    tol = 2e-2 if dt == torch.bfloat16 else 3e-4
+    torch.testing.assert_close(got, ref.sparse_attention_ref(q, k, v, qp, kp, **kw),
+                               rtol=tol, atol=tol)
+    one = ops.sparse_attention(q[1:], k[1:], v[1:], qp[1:], kp[1:], **kw)
+    assert torch.equal(one, got[1:])
+
+
+@pytest.mark.parametrize("d,hq,hkv", [(64, 24, 24), (160, 32, 8)])
+def test_cuda_sparse_attention_f32_query_bf16_ring(cuda, rng, d, hq, hkv):
+    """The decode class on float32 queries over bfloat16 K/V (the float32
+    stream reading its bfloat16 ring: musicgen-medium's 24/24 heads of 64,
+    pixtral-12b's 32/8 of 160): a float32 output within 3e-4 of the plain
+    version (which upcasts the ring), each row bitwise a B = 1 call, and the
+    pair refused at Lq > 1."""
+    rows = [5000, 1023, 700, 5]
+    b = len(rows)
+    q = torch.from_numpy(rng.standard_normal((b, 1, hq, d)).astype(np.float32)).to(cuda)
+    k, v = (torch.from_numpy(rng.standard_normal((b, 1024, hkv, d)).astype(np.float32))
+            .to(cuda, torch.bfloat16) for _ in range(2))
+    qp = torch.tensor(rows, dtype=torch.int32, device=cuda)[:, None]
+    kp = _ring(rows, 1024, 128, 896).to(cuda)
+    kw = dict(sink=128, window=896)
+    got = ops.sparse_attention(q, k, v, qp, kp, **kw)
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got, ref.sparse_attention_ref(q, k, v, qp, kp, **kw),
+                               rtol=3e-4, atol=3e-4)
+    for i in range(b):
+        one = ops.sparse_attention(q[i:i + 1], k[i:i + 1], v[i:i + 1], qp[i:i + 1],
+                                   kp[i:i + 1], **kw)
+        assert torch.equal(one, got[i:i + 1]), i
+    with pytest.raises(ValueError, match="Lq = 1"):
+        ops.sparse_attention(q.expand(b, 2, hq, d).contiguous(), k, v,
+                             qp.expand(b, 2).contiguous(), kp, **kw)
+
+
+def _frontend_model(cuda, arch, dtype="bfloat16"):
+    return MD.init_serving(dataclasses.replace(reduced(get_config(arch)), dtype=dtype),
+                           seed=5, device=cuda)
+
+
+def _embed_requests(cfg, gen=6):
+    """Embedding prompts of 37, 21, 9 and 40 rows, 1 step apart."""
+    rng = np.random.default_rng(5)
+    return [Request(uid=i, prompt=rng.standard_normal((n, cfg.d_model)).astype(np.float32),
+                    max_new_tokens=gen, arrival=i) for i, n in enumerate((37, 21, 9, 40))]
+
+
+@pytest.mark.parametrize("arch", ["musicgen-medium", "pixtral-12b"])
+def test_cuda_frontend_model_matches_cpu(cuda, arch):
+    """Reduced musicgen-medium and pixtral-12b in float32: a 32-row
+    embedding prefill + 8 decode steps (3 forced rows, then tokens) through
+    the kernels agree with the same weights on the CPU within 2e-4, with
+    equal greedy tokens."""
+    cfg = reduced(get_config(arch))
+    m_cpu = MD.init_serving(cfg, seed=3, device="cpu")
+    m_gpu = copy.deepcopy(m_cpu).to(cuda)
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal((35, cfg.d_model))
+                         .astype(np.float32))
+    lg_c, c_c = MD.prefill(m_cpu, x[None, :32], max_len=48)
+    lg_g, c_g = MD.prefill(m_gpu, x[None, :32].to(cuda), max_len=48)
+    torch.testing.assert_close(lg_g.cpu(), lg_c, rtol=0, atol=2e-4)
+    tok = int(lg_c.argmax())
+    for i in range(8):
+        t, row = 32 + i, x[32 + i:33 + i] if 32 + i < 35 else torch.zeros((1, cfg.d_model))
+        forced = torch.tensor([32 + i < 35])
+        kw = dict(forced=forced, forced_x=row)
+        lg_c, _ = MD.decode_step(m_cpu, c_c, torch.tensor([tok]), torch.tensor([t]), **kw)
+        lg_g, _ = MD.decode_step(m_gpu, c_g, torch.tensor([tok], device=cuda),
+                                 torch.tensor([t], device=cuda),
+                                 **{k: v.to(cuda) for k, v in kw.items()})
+        torch.testing.assert_close(lg_g.cpu(), lg_c, rtol=0, atol=2e-4)
+        assert int(lg_g.argmax()) == int(lg_c.argmax())
+        tok = int(lg_c.argmax())
+
+
+@pytest.mark.parametrize("layout", ["auto", "paged"])
+@pytest.mark.parametrize("arch", ["musicgen-medium", "pixtral-12b"])
+def test_cuda_frontend_graph_engine_matches_eager(cuda, arch, layout):
+    """A bfloat16 config served from float32 embedding prompts: ``forced``
+    and ``forced_x`` inside the captured decode step (a buffer rebound in
+    place of written would freeze under replay), every step a replay, the
+    eager step's tokens bit for bit, a request re-served alone keeps them,
+    no prefix hit, and a replay counts one eager step's launches (4 das_topk
+    / 6 or 7 das_ternary_gemm / 1 sparse_attention a layer)."""
+    model = _frontend_model(cuda, arch)
+    cfg = model.cfg
+    sc = ServeConfig(max_slots=2, max_len=64, layout=layout, page_size=8)
+    graph = ServeEngine(model, sc, device="cuda")
+    eager = ServeEngine(model, sc, device="cuda", cuda_graph=False)
+    gemms = 6 if cfg.ffn_kind == "mlp" else 7
+    assert graph.launches_per_replay == {**{k: 0 for k in ops.KERNELS},
+                                         "das_topk": 4 * cfg.n_layers,
+                                         "das_ternary_gemm": gemms * cfg.n_layers,
+                                         "sparse_attention": cfg.n_layers}
+    results = []
+    for eng in (graph, eager):
+        for r in _embed_requests(cfg):
+            eng.submit(r)
+        results.append(eng.run())
+    assert graph.stats.graph_replays == graph.stats.decode_steps > 0
+    assert graph.stats.prefix_hits == 0
+    assert all(c["k"].dtype == torch.bfloat16 for c in graph.caches)
+    for uid, res in results[1].items():
+        assert results[0][uid].tokens.tolist() == res.tokens.tolist(), uid
+    graph.submit(Request(uid=9, prompt=_embed_requests(cfg)[0].prompt, max_new_tokens=6))
+    assert graph.run()[9].tokens.tolist() == results[0][0].tokens.tolist()

@@ -109,8 +109,8 @@ def test_cli_reduced_on_cpu(capsys):
     assert sorted(res) == [0, 1, 2]
     assert all(len(r.tokens) == 4 for r in res.values())
     assert "decode steps" in capsys.readouterr().out
-    with pytest.raises(SystemExit):
-        cli.main(["--arch", "musicgen-medium", "--device", "cpu"])
+    with pytest.raises(SystemExit):   # an id no registry has: get_config raises
+        cli.main(["--arch", "no-such-arch", "--device", "cpu"])
 
 
 @pytest.mark.parametrize("name", ["bitnet-reduced-int8", "baseline-reduced"])
