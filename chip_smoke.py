@@ -39,13 +39,33 @@ Phases:
            over 8 in every class (bf16 decode, float32 queries over bf16
            rings, also at 24/24 of 64, a bf16 and a float32 LPSA pack), each
            bitwise batch invariant
-  serve    full-width bitnet-1.3b (seeded random weights) on five paths, each
+  serve    full-width bitnet-1.3b (seeded random weights) on six paths, each
            driven with the launch counts at 0 and read after it; every
            engine captures its decode step into a CUDA graph after one
            warm-up step and every decode step must be a replay of it:
              packed      base-3 packed weights: a ServeEngine with 4 slots
                          serves 5 staggered greedy requests (one prompt wraps
                          the 1024-slot ring);
+             http        the packed model behind ServeHTTPServer (port 0, in
+                         this process, the engine on its own thread), top-k
+                         40, the deadline scheduler: the packed trace's five
+                         prompts sent at once, two greedy unary requests and
+                         three sampled at temperature 0.8 as SSE streams, one
+                         with an SLO; it fails unless (a) every request
+                         answers 200, (b) each stream carries one chunk a
+                         token then [DONE], (c) the greedy tokens are the
+                         packed path's, (d) every request's tokens are a fresh
+                         engine's run() of the same requests and uids, (e) the
+                         sampler's keys, bits and uniforms on the card equal
+                         its CPU run bitwise over a grid of (uid, counter),
+                         (f) the replayed graphs' sampled tokens equal an
+                         eager engine's, (g) /metrics counts what EngineStats
+                         counts, (h) the engine thread joins within 10 s of
+                         stop(), (i) a policy="wave" replay of the packed
+                         trace gives the continuous tokens in more decode
+                         steps; it prints the time to first SSE chunk, tok/s
+                         end to end through HTTP, and the ms/step of the
+                         greedy and the sampling graphs at 4 slots;
              paged-lpsa  the packed model under layout="paged": 5 prompts on
                          one 512-token stem, ring states shared through the
                          trie (prefix hits, fewer prefill tokens, the dense
@@ -172,6 +192,8 @@ Phases:
            decode over bf16 rings (library: SDPA on K/V upcast to float32)
   profile  (only when named) the packed and int8w decode steps and the
            admission under torch.profiler, as the serve phase profiles them
+  http     (only when named) the serve phase's packed path, then its http
+           path on the same model: ``--phases build,http`` drives (a)-(i)
 
   python3 chip_smoke.py --parent DIR   # then the times and profile phases on
                                        # DIR's package and on this tree's in
@@ -199,7 +221,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 PHASES = ("device", "build", "kernels", "serve", "times")
-OPTIONAL_PHASES = ("profile",)     # run only when named (--parent's turns)
+OPTIONAL_PHASES = ("profile", "http")   # run only when named
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, bf16 and f32 FLOP/s
 HBM_BYTES_PER_S = 3.35e12
@@ -1167,6 +1189,31 @@ class Smoke:
         self._profile_decode("int8w", MD.trits_from_packed(model, cfg8), sc, prompts)
         self._profile_admission(model, prompts[0], sc.max_len)
 
+    def _serve_packed(self, cfg, model, prompts, sc):
+        """Path "packed": the trace through the packed model, launch counts
+        exact -> (trace, packs, engine, results)."""
+        from repro_torch.serve import Request
+        chunk = cfg.lpsa.chunk
+        trace = [Request(uid=i, prompt=p, max_new_tokens=self.GEN_LEN, arrival=2 * i)
+                 for i, p in enumerate(prompts)]
+        packs = [p // chunk for p in self.PROMPT_LENS if p >= chunk]
+
+        # per decode step (the warm-up before the capture and every replay)
+        # 4/6/1/1 launches per layer; per prefill of n packs, per layer
+        # n+3 / 3n+3 / 1 / n (q/k/v per pack; o, gate/up, down once)
+        def want_packed(st):
+            return _packed_counts(cfg.n_layers, st.decode_steps + st.warmup_steps, packs)
+
+        _, eng, res = self._serve_path("packed", lambda: model, trace, sc, want_packed)
+        return trace, packs, eng, res
+
+    def phase_http(self):
+        """The packed path, then the http path on the same model, without
+        the rest of the serve phase (``--phases build,http``)."""
+        cfg, _, model, prompts, sc = self._packed_model()
+        trace, packs, eng, res = self._serve_packed(cfg, model, prompts, sc)
+        self._serve_http(model, trace, sc, res, eng.stats.decode_steps, packs)
+
     def phase_serve(self):
         torch = self.torch
         from repro_torch.models import model as MD
@@ -1175,25 +1222,19 @@ class Smoke:
         cfg, params, model, prompts, sc = self._packed_model()
         gen_len, chunk, n_l = self.GEN_LEN, cfg.lpsa.chunk, cfg.n_layers
         prompt_lens = self.PROMPT_LENS
-        trace = [Request(uid=i, prompt=p, max_new_tokens=gen_len, arrival=2 * i)
-                 for i, p in enumerate(prompts)]
-        packs = [p // chunk for p in prompt_lens if p >= chunk]
         zero = {name: 0 for name in KERNEL_INFO}
 
-        # path "packed": per decode step (the warm-up before the capture and
-        # every replay) 4/6/1/1 launches per layer; per prefill of n packs,
-        # per layer n+3 / 3n+3 / 1 / n (q/k/v per pack; o, gate/up, down once)
-        def want_packed(st):
-            return _packed_counts(n_l, st.decode_steps + st.warmup_steps, packs)
-
         t0 = time.perf_counter()
-        _, eng, res = self._serve_path("packed", lambda: model, trace, sc, want_packed)
+        trace, packs, eng, res = self._serve_packed(cfg, model, prompts, sc)
+        packed_steps = eng.stats.decode_steps      # before the re-served requests
         lg_packed = self._finite_logits("packed", model, prompts[2][:chunk], sc.max_len)
         self._batch_invariance("packed", eng, trace, res, (0, 3))
         del eng
         self._profile_admission(model, prompts[0], sc.max_len)
         self._reduced_parity("packed", cfg, prompts[0])
         t0 = _took("packed", t0)
+        self._serve_http(model, trace, sc, res, packed_steps, packs)
+        t0 = _took("http", t0)
         self._paged_lpsa(cfg, model)
         t0 = _took("paged-lpsa", t0)
         self._paged_full(cfg, model)
@@ -2131,6 +2172,240 @@ class Smoke:
             f"{[res[i].tokens.tolist() == dense[i].tolist() for i in other]} "
             f"(a diagnostic: the decode and prefill kernels sum in other orders)")
         self._batch_invariance("paged-full", eng, trace, res, (1, 3))
+
+    # the http path's requests: (index into the packed trace, temperature,
+    # streamed, slo_steps): two greedy unary, three sampled SSE streams
+    HTTP_REQUESTS = ((0, 0.0, False, None), (3, 0.0, False, None), (1, 0.8, True, 400),
+                     (2, 0.8, True, None), (4, 0.8, True, None))
+
+    def _serve_http(self, model, trace, sc, packed_res, packed_steps, packs):
+        """Path "http": the packed model behind ``ServeHTTPServer`` (port 0,
+        this process; the engine on its own thread), top-k 40, the deadline
+        scheduler, the packed trace's five prompts sent at once: two greedy
+        unary requests, three sampled at temperature 0.8 as SSE streams, one
+        with an SLO.  Launch counts at 0 just before, read just after; then
+        checks (a)-(i) (see the module docstring) and the greedy and sampling
+        graphs' ms/step at 4 slots."""
+        import asyncio
+
+        torch = self.torch
+        from repro_torch.kernels import ops
+        from repro_torch.serve import Request, ServeEngine
+        from repro_torch.serve import sampler as S
+        from repro_torch.serve.server import ServeHTTPServer
+        cfg, n = model.cfg, self.GEN_LEN
+
+        # (e) the sampler's integer part on the card against its CPU run
+        uids = torch.tensor([u for u in (0, 1, 7, 2 ** 31 - 1) for _ in range(3)])
+        ctrs = torch.tensor([c for _ in range(4) for c in (0, 1, 31)])
+        k_cpu = S.fold_keys(S.prng_key(self.seed), uids, ctrs)
+        k_gpu = S.fold_keys(S.prng_key(self.seed, self.dev), uids.to(self.dev),
+                            ctrs.to(self.dev))
+        w = cfg.vocab_padded
+        same = [torch.equal(a.cpu(), b) for a, b in (
+            (k_gpu, k_cpu), (S.random_bits(k_gpu, w), S.random_bits(k_cpu, w)),
+            (S.uniform(k_gpu, w), S.uniform(k_cpu, w)))]
+        g_cpu = S.gumbel(k_cpu, w)
+        g_err = ((S.gumbel(k_gpu, w).cpu() - g_cpu).abs() / g_cpu.abs().clamp_min(1)).max()
+        log(f"[serve] http (e): sampler keys / bits / uniforms over 12 (uid, counter) x {w} "
+            f"lanes, card vs CPU: bitwise {same}; gumbel within "
+            f"{g_err / torch.finfo(torch.float32).eps:.2f} ulps of max(|g|, 1)")
+        if not all(same):
+            raise AssertionError("http: the sampler's keys, bits or uniforms differ card vs CPU")
+
+        sc_h = sc.with_updates(top_k=40, scheduler="deadline")
+        torch.cuda.synchronize()
+        ops.reset_launches()                   # the path starts here
+        eng = ServeEngine(model, sc_h, device="cuda")
+        srv = ServeHTTPServer(eng, port=0, max_queue_depth=16)
+        bodies = [{"prompt": [int(x) for x in trace[i].prompt], "max_tokens": n,
+                   "temperature": temp, "stream": stream,
+                   **({} if slo is None else {"slo_steps": slo})}
+                  for i, temp, stream, slo in self.HTTP_REQUESTS]
+
+        async def post(body):
+            t_send = time.perf_counter()
+            reader, writer = await asyncio.open_connection("127.0.0.1", srv.port)
+            payload = json.dumps(body).encode()
+            writer.write(f"POST /v1/completions HTTP/1.1\r\nHost: smoke\r\n"
+                         f"Content-Type: application/json\r\nContent-Length: "
+                         f"{len(payload)}\r\n\r\n".encode() + payload)
+            await writer.drain()
+            head = await reader.readuntil(b"\r\n\r\n")
+            status, first = int(head.split(b" ")[1]), None
+            if body["stream"] and status == 200:
+                events = []
+                while not events or events[-1] != "[DONE]":
+                    chunk = (await reader.readuntil(b"\n\n")).decode().strip()
+                    first = first if first is not None else time.perf_counter() - t_send
+                    events.append(chunk[len("data: "):])
+                out = events
+            else:
+                out = (await reader.read()).decode()
+            writer.close()
+            return status, out, first, time.perf_counter() - t_send
+
+        async def get(path):
+            reader, writer = await asyncio.open_connection("127.0.0.1", srv.port)
+            writer.write(f"GET {path} HTTP/1.1\r\nHost: smoke\r\n\r\n".encode())
+            raw = await reader.read()
+            writer.close()
+            return json.loads(raw.partition(b"\r\n\r\n")[2])
+
+        async def scenario():
+            await srv.start()
+            t_0 = time.perf_counter()
+            answers = await asyncio.gather(*(post(b) for b in bodies))
+            wall = time.perf_counter() - t_0
+            snap = await get("/metrics")
+            t_stop = time.perf_counter()
+            await srv.stop()
+            return answers, wall, snap, time.perf_counter() - t_stop
+
+        answers, wall, snap, stop_s = asyncio.run(scenario())
+        torch.cuda.synchronize()
+        counts = dict(ops.launches)            # ... and ends here
+        st = eng.stats
+        want = _packed_counts(cfg.n_layers, st.decode_steps + st.warmup_steps, packs)
+        log(f"[serve] http: {len(answers)} requests, {st.decode_steps} decode steps "
+            f"({st.graph_replays} replays of the decode graph, {st.sampling_steps} of them "
+            f"with the sampler graph after it), {st.generated_tokens} tokens; launches on "
+            f"the path: {counts} (expected {want})")
+        if counts != want or st.graph_replays != st.decode_steps or not st.sampling_steps:
+            raise AssertionError("http: launch counts or replays differ from the path's "
+                                 "structure")
+        for name, k in counts.items():
+            self.launches[name] += k
+        # (a) every request 200; (b) one SSE chunk a token, then [DONE]
+        got = {}
+        for (i, temp, stream, slo), (status, out, first, secs) in zip(self.HTTP_REQUESTS,
+                                                                      answers):
+            if status != 200:
+                raise AssertionError(f"http (a): request {i} answered {status}: {out}")
+            if stream:
+                chunks = [json.loads(e) for e in out[:-1]]
+                toks = [c["choices"][0]["token_ids"] for c in chunks[:-1]]
+                if out[-1] != "[DONE]" or len(toks) != n or any(len(t) != 1 for t in toks) \
+                        or chunks[-1]["choices"][0]["finish_reason"] != "stop":
+                    raise AssertionError(f"http (b): request {i}'s stream is not one chunk "
+                                         f"a token, a finish chunk and [DONE]")
+                uid, toks = int(chunks[0]["id"].split("-")[1]), [t[0] for t in toks]
+                log(f"[serve] http req {i} (prompt {trace[i].prompt_len}, T {temp}, slo "
+                    f"{slo}, SSE): uid {uid}, first chunk {1e3 * first:.1f} ms, done "
+                    f"{secs:.3f} s, slo_met {chunks[-1]['usage']['slo_met']}, ids {toks[:8]}...")
+            else:
+                res = json.loads(out)
+                uid, toks = int(res["id"].split("-")[1]), res["choices"][0]["token_ids"]
+                log(f"[serve] http req {i} (prompt {trace[i].prompt_len}, greedy, unary): uid "
+                    f"{uid}, done {secs:.3f} s, ids {toks[:8]}...")
+            got[i] = (uid, temp, slo, toks)
+        log(f"[serve] http (a), (b): all 200, every stream one chunk a token then [DONE]; "
+            f"{_nvidia_smi()}: end to end {st.generated_tokens / wall:.1f} tok/s through HTTP "
+            f"({wall:.3f} s "
+            f"for {st.generated_tokens} tokens); time to first SSE chunk "
+            f"{[round(1e3 * a[2], 1) for a in answers if a[2] is not None]} ms")
+        # (c) greedy tokens: the packed path's
+        for i, (_, temp, _, toks) in got.items():
+            if temp == 0 and toks != packed_res[i].tokens.tolist():
+                raise AssertionError(f"http (c): greedy request {i} differs from the packed path")
+        log("[serve] http (c): greedy tokens equal the packed path's")
+        # (g) /metrics against EngineStats; (h) the engine thread joined
+        tot, eng_m = snap["totals"], snap["engine"]
+        if (tot["tokens_out"], tot["requests_finished"], eng_m["decode_steps"],
+                eng_m["preemptions"]) != (st.generated_tokens, 5, st.decode_steps,
+                                          st.preemptions):
+            raise AssertionError(f"http (g): /metrics {tot} {eng_m} disagrees with {st}")
+        if srv._thread.is_alive() or stop_s > 10:
+            raise AssertionError(f"http (h): the engine thread did not join ({stop_s:.1f} s)")
+        log(f"[serve] http (g): /metrics tokens {tot['tokens_out']}, decode steps "
+            f"{eng_m['decode_steps']} equal EngineStats; (h) engine thread joined "
+            f"{stop_s:.3f} s after stop()")
+        del eng, srv
+        # (d) a fresh engine's run() of the same requests and uids; (f) eager
+        reqs = [Request(uid=uid, prompt=trace[i].prompt, max_new_tokens=n, temperature=temp,
+                        slo_steps=slo) for i, (uid, temp, slo, _) in got.items()]
+        runs = {}
+        for label, kw in (("graph", {}), ("eager", {"cuda_graph": False})):
+            fresh = ServeEngine(model, sc_h, device="cuda", **kw)
+            for r in reqs:
+                fresh.submit(r)
+            runs[label] = {u: r.tokens.tolist() for u, r in fresh.run().items()}
+            if label == "graph":
+                timing_eng = fresh
+        want_toks = {uid: toks for uid, _, _, toks in got.values()}
+        log(f"[serve] http (d): a fresh engine's run() of the same uids gives the HTTP "
+            f"tokens: {runs['graph'] == want_toks}; (f) the eager engine "
+            f"(cuda_graph=False) the replayed graphs' sampled tokens: "
+            f"{runs['eager'] == runs['graph']}")
+        if runs["graph"] != want_toks or runs["eager"] != runs["graph"]:
+            raise AssertionError("http (d) or (f): sampled tokens differ")
+        # (i) the wave policy on the packed trace
+        wave = ServeEngine(model, sc.with_updates(policy="wave"), device="cuda")
+        for r in trace:
+            wave.submit(r)
+        wres = wave.run()
+        same = all(wres[r.uid].tokens.tolist() == packed_res[r.uid].tokens.tolist()
+                   for r in trace)
+        log(f"[serve] http (i): policy=wave on the packed trace: the continuous tokens "
+            f"{same}, in {wave.stats.decode_steps} decode steps against "
+            f"{packed_steps} continuous")
+        if not same or wave.stats.decode_steps <= packed_steps:
+            raise AssertionError("http (i): the wave replay differs or takes no more steps")
+        del wave
+        self._sampling_ms(timing_eng, trace)
+
+    def _sampling_ms(self, eng, trace):
+        """ms/step of a 4-slot decode-only trace (40-token prompts admitted
+        first, CUDA events around the run) greedy and with every row
+        sampled; then the device time of the decode graph's replay alone and
+        followed by the sampler graph's (CUDA events over 50 replays), and
+        the sampler graph's device kernels a replay."""
+        torch = self.torch
+        from repro_torch.serve import Request
+        ms = {}
+        for label, temp in (("greedy", 0.0), ("sampling", 0.8), ("greedy ", 0.0),
+                            ("sampling ", 0.8)):
+            for r in trace[:4]:
+                eng.submit(Request(uid=200 + r.uid, prompt=r.prompt[:40], max_new_tokens=24,
+                                   temperature=temp))
+            eng._admit_ready()
+            steps0 = eng.stats.decode_steps
+            ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            ev0.record()
+            eng.run()
+            ev1.record()
+            torch.cuda.synchronize()
+            ms.setdefault(label.strip(), []).append(
+                ev0.elapsed_time(ev1) / (eng.stats.decode_steps - steps0))
+        replay = {}
+        for label, graphs in (("decode graph", (eng._graph,)),
+                              ("decode + sampler graphs", (eng._graph, eng._sample_graph)),
+                              ("sampler graph", (eng._sample_graph,))):
+            ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            ev0.record()
+            for _ in range(50):
+                for g in graphs:
+                    g.replay()
+            ev1.record()
+            torch.cuda.synchronize()
+            replay[label] = ev0.elapsed_time(ev1) / 50
+        share = replay["sampler graph"] / replay["decode graph"]
+        # the sampler graph's device kernels a replay, counted under the profiler
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(4):
+                eng._sample_graph.replay()
+            torch.cuda.synchronize()
+        n_kernels = sum(e.count for e in prof.key_averages()
+                        if "CUDA" in str(getattr(e, "device_type", ""))) / 4
+        log(f"[serve] http sampler graph: {n_kernels:g} device kernels a replay "
+            f"(torch.profiler over 4 replays)")
+        log(f"[serve] http sampling cost ({_nvidia_smi()}): decode-only 4-slot trace, "
+            f"ms/step by CUDA events in turns: greedy {[round(x, 3) for x in ms['greedy']]}, "
+            f"every row sampled (T 0.8, top-k 40) {[round(x, 3) for x in ms['sampling']]}; "
+            f"graph replays, device ms each: " + ", ".join(
+                f"{k} {v:.4f}" for k, v in replay.items())
+            + f"; the sampler {100 * share:.1f} % of a decode replay")
 
     def _dense_tokens(self, model, trace, max_len, serve_sparse):
         """The dense (per-slot cache) engine's tokens on ``trace`` and its

@@ -14,17 +14,34 @@ fed one token per tick through the shared decode step while the other slots
 keep generating.  Every cache row carries its own positions, so slots at
 different depths share one batch.  Time is virtual: 1 unit == one decode
 step; requests carry arrival times in those units.  A request's tokens do
-not depend on its batch-mates: every kernel sums each row in a fixed order
-and sampling is greedy per row (batch invariance).
+not depend on its batch-mates: every kernel sums each row in a fixed order,
+and a row's sampling key is ``fold_in(fold_in(PRNGKey(seed), uid),
+counter)``, the JAX engine's, with counter the number of tokens the request
+has generated (batch invariance; serve/sampler.py).
 
-The decode step reads static buffers (token ids, positions, the page table)
-that each tick fills in place.  On CUDA the engine captures the step, greedy
-sampling included, into one ``torch.cuda.CUDAGraph`` at construction, after
-a warm-up step on a side stream, and every tick replays it; a capture that
-fails raises.  On the CPU the step runs eagerly.  The caches are allocated
-before the capture and only ever written in place, since the graph holds
-their storage.  A replay bumps no counter in ``kernels.ops``: the engine
-adds the launches of one capture (``launches_per_replay``) per replay.
+The decode step reads static buffers (token ids, positions, the page table;
+temperatures, uids and counters for sampling) that each tick fills in
+place.  On CUDA the engine captures the step with greedy sampling into a
+``torch.cuda.CUDAGraph`` at construction, after a warm-up step on a side
+stream, and every tick replays it; a capture that fails raises.  A second,
+small graph holds the temperature / top-k sampler over the first graph's
+logits (it shares the first graph's memory pool); a tick replays it after
+the first only when some active row has a temperature above 0, so a greedy
+tick replays exactly the one graph.  On the CPU the step runs eagerly and
+computes the same function.  The caches are allocated before the capture
+and only ever written in place, since the graph holds their storage.  A
+replay bumps no counter in ``kernels.ops``: the engine adds the launches of
+one capture (``launches_per_replay``) per replay.
+
+Admission follows ``ServeConfig.scheduler`` (FIFO with aging, or earliest
+deadline first over ``Request.slo_steps``); with ``preemption`` a slot over
+its own deadline is truncated to rescue a queue head that would miss its
+SLO.  ``policy="wave"`` degrades the same machinery to lock-step gang
+scheduling (admit only when every slot is free), the baseline.  The hooks
+``telemetry`` (a ``serve.metrics.Telemetry``), ``on_token`` and
+``on_finish`` let the HTTP front door (serve/server.py) stream tokens;
+``run_forever`` drives the engine from the server's engine thread, and a
+lock covers submission, admission and the results.
 
 ``ServeConfig(layout="paged")`` swaps the per-slot full caches for a
 block-paged KV pool: one refcounted page arena per full-attention layer,
@@ -63,13 +80,11 @@ MoE configs decode with the no-drop expert capacity (models/moe.py
 step's shapes stay static); ``ServeConfig.moe_expert_capacity`` optionally
 bounds the per-expert load of a tick by deferring admissions instead of
 dropping tokens.
-
-Sampling is greedy: a request with ``temperature > 0`` raises
-NotImplementedError (ROADMAP).
 """
 
 from __future__ import annotations
 
+import threading
 import time
 from dataclasses import dataclass
 
@@ -86,8 +101,8 @@ from repro_torch.models import transformer as T
 from repro_torch.models.model import TernaryLM
 from repro_torch.serve.config import ServeConfig
 from repro_torch.serve.kvpool import PagePool, PrefixEntry, RadixIndex
-from repro_torch.serve.sampler import greedy
-from repro_torch.serve.scheduler import FifoScheduler, Request
+from repro_torch.serve.sampler import fold_keys, greedy, make_sampler, prng_key
+from repro_torch.serve.scheduler import DeadlineScheduler, FifoScheduler, Request
 
 __all__ = ["ServeEngine", "EngineStats", "RequestResult", "check_serve_config"]
 
@@ -103,6 +118,10 @@ class RequestResult:
     admit_vtime: int
     first_token_vtime: int
     finish_vtime: int
+    admitted_with_active: int = 0  # slots already mid-stream at admission
+                                   # (admitted in an earlier tick)
+    slo_steps: int | None = None   # the deadline budget the request carried
+    preempted: bool = False        # truncated by the deadline rescue
 
     @property
     def latency_steps(self) -> int:
@@ -111,6 +130,18 @@ class RequestResult:
     @property
     def ttft_steps(self) -> int:
         return self.first_token_vtime - self.arrival
+
+    @property
+    def queue_wait_steps(self) -> int:
+        return self.admit_vtime - self.arrival
+
+    @property
+    def slo_met(self) -> bool:
+        """Finished within its deadline budget (a preempted request never
+        counts as met); a request without an SLO meets it vacuously."""
+        if self.slo_steps is None:
+            return True
+        return not self.preempted and self.latency_steps <= self.slo_steps
 
 
 @dataclass
@@ -125,6 +156,8 @@ class EngineStats:
                                   # in a device sync: the sampled ids)
     warmup_steps: int = 0         # eager steps run before the graph capture
     graph_replays: int = 0        # decode steps run as CUDA graph replays
+    sampling_steps: int = 0       # decode steps that ran the sampler (a row
+                                  # with temperature > 0)
     # paged-pool accounting (zero under the per-slot layout)
     prefix_hits: int = 0          # admissions that reused a cached prefix
     prompt_tokens_reused: int = 0  # prompt tokens absorbed via prefix reuse
@@ -134,6 +167,8 @@ class EngineStats:
     moe_capacity_deferrals: int = 0  # admissions deferred by the MoE
                                      # expert-capacity bound (ticks a ready
                                      # request waited for it)
+    preemptions: int = 0          # over-budget slots truncated to rescue a
+                                  # deadline-critical queued request
 
     @property
     def slot_utilization(self) -> float:
@@ -153,7 +188,8 @@ def check_serve_config(cfg, config: ServeConfig) -> None:
 
 class _Slot:
     __slots__ = ("state", "req", "input_tok", "input_x", "input_pos", "tail", "tail_idx",
-                 "out", "admit_vtime", "first_tok_vtime", "pages", "page_budget")
+                 "out", "admit_vtime", "first_tok_vtime", "admitted_with_active",
+                 "pages", "page_budget")
 
     def __init__(self):
         self.state = FREE
@@ -167,7 +203,9 @@ class ServeEngine:
     """Continuous-batching engine over a ``TernaryLM``.
 
     ``device`` must be the model's device, CUDA unless ``device="cpu"`` is
-    passed; ``serve_sparse=False`` serves global layers with full caches;
+    passed; ``config`` is a ``ServeConfig`` (slots, cache layout, top-k,
+    seed, policy, scheduler); ``serve_sparse=False`` serves global layers
+    with full caches;
     ``cuda_graph=False`` steps eagerly on CUDA too, the baseline that the
     card-only tests and chip_smoke.py hold the captured step against.
     """
@@ -184,8 +222,27 @@ class ServeEngine:
         self.device = model.device
         self.serve_sparse = serve_sparse
         self.max_slots, self.max_len = config.max_slots, config.max_len
-        self.scheduler = FifoScheduler(aging_steps=config.aging_steps)
+        self.policy = config.policy
+        if config.scheduler == "deadline":
+            self.scheduler = DeadlineScheduler(aging_steps=config.aging_steps,
+                                               default_slo=config.slo_default_steps)
+        else:
+            self.scheduler = FifoScheduler(aging_steps=config.aging_steps)
+        self._preempt = config.preemption
         self.stats = EngineStats(max_slots=config.max_slots)
+        # live-serving hooks: the HTTP front door streams tokens through
+        # on_token / on_finish; a metrics.Telemetry attached as .telemetry
+        # observes admissions, ticks and finishes
+        self.telemetry = None
+        self.on_token = None      # callable(uid, token_id) per sampled token
+        self.on_finish = None     # callable(RequestResult) at retirement
+        # submit / pop_result may run on another thread than run_forever's:
+        # the lock orders them against admission and retirement.  The HTTP
+        # front door makes every engine call on the engine thread; its event
+        # loop reads only single attributes (len(scheduler), num_active,
+        # vtime, the pool's counters) and takes no lock, so an admission's
+        # prefill, which runs under the lock, never stalls the event loop
+        self._lock = threading.RLock()
         self._moe_slot_cap = config.moe_expert_capacity if cfg.moe is not None else 0
         self.vtime = 0
         # over the attention layers only: a recurrent layer keeps O(1) state
@@ -252,8 +309,14 @@ class ServeEngine:
             self._forced_host, self._forced_np, self._forced = buffers((b,), torch.bool)
             self._fx_host, self._fx_np, self._forced_x = buffers((b, cfg.d_model),
                                                                  torch.float32)
-        self._graph = None
-        self._next = None
+        # sampling: a row's temperature, uid and generated-token count
+        self._temps_host, self._temps_np, self._temps = buffers((b,), torch.float32)
+        self._uids_host, self._uids_np, self._uids = buffers((b,), torch.int32)
+        self._ctr_host, self._ctr_np, self._ctr = buffers((b,), torch.int32)
+        self._base_key = prng_key(config.seed, self.device)
+        self._sampler = make_sampler(config.top_k)
+        self._graph = self._sample_graph = None
+        self._next = self._logits = self._sampled = None
         self.launches_per_replay: dict[str, int] = {}
         if self.device.type == "cuda" and cuda_graph:
             self._capture()
@@ -261,32 +324,47 @@ class ServeEngine:
     # -- the captured step ------------------------------------------------
 
     def _step_fn(self) -> torch.Tensor:
-        """The decode step over the static buffers -> greedy ids (B,)."""
+        """The decode step over the static buffers -> logits (B, V) float32."""
         logits, _ = MD.decode_step(self.model, self.caches, self._tok, self._t,
                                    serve_sparse=self.serve_sparse,
                                    page_table=self._pt, forced=self._forced,
                                    forced_x=self._forced_x)
-        return greedy(logits)
+        return logits
+
+    def _sample_fn(self, logits: torch.Tensor) -> torch.Tensor:
+        """Each row's token by its temperature (greedy at 0) over the static
+        sampling buffers -> ids (B,)."""
+        keys = fold_keys(self._base_key, self._uids, self._ctr)
+        return self._sampler(logits, keys, self._temps)
 
     def _capture(self) -> None:
-        """Warm the step up on a side stream (kernels built, allocator and
-        libraries settled), capture it into one CUDA graph, then empty the
-        caches again, since the warm-up wrote them."""
+        """Warm the step and the sampler up on a side stream (kernels built,
+        allocator and libraries settled), capture the step with greedy
+        sampling into one CUDA graph and the sampler over its logits into a
+        second one in the same memory pool, then empty the caches again,
+        since the warm-up wrote them."""
         self._t_np[:] = -1 if self._paged else 0
         self._t.copy_(self._t_host)
         main = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)
         side.wait_stream(main)
         with torch.cuda.stream(side):
-            self._step_fn()
+            logits = self._step_fn()
+            greedy(logits)
+            self._sample_fn(logits)
         main.wait_stream(side)
         self.stats.warmup_steps += 1
         graph = torch.cuda.CUDAGraph()
         with ops.launches_recorded() as per_replay:
             with torch.cuda.graph(graph):
-                self._next = self._step_fn()
+                self._logits = self._step_fn()
+                self._next = greedy(self._logits)
         self._graph = graph
         self.launches_per_replay = per_replay
+        sample_graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(sample_graph, pool=graph.pool()):
+            self._sampled = self._sample_fn(self._logits)
+        self._sample_graph = sample_graph
         for c in self.caches:
             for key, buf in c.items():
                 if key.startswith("pos"):
@@ -294,9 +372,10 @@ class ServeEngine:
                 else:
                     buf.zero_()
 
-    def _run_step(self) -> np.ndarray:
+    def _run_step(self, sampling: bool) -> np.ndarray:
         """Copy the host inputs to the static buffers, run the step (a graph
-        replay on CUDA) and return the sampled ids: the step's one sync."""
+        replay on CUDA) and return the ids, sampled when ``sampling`` (some
+        row has a temperature above 0) else greedy: the step's one sync."""
         self._tok.copy_(self._tok_host, non_blocking=True)
         self._t.copy_(self._t_host, non_blocking=True)
         if self._pt is not None:
@@ -304,23 +383,44 @@ class ServeEngine:
         if self._forced is not None:
             self._forced.copy_(self._forced_host, non_blocking=True)
             self._forced_x.copy_(self._fx_host, non_blocking=True)
+        if sampling:
+            self._temps.copy_(self._temps_host, non_blocking=True)
+            self._uids.copy_(self._uids_host, non_blocking=True)
+            self._ctr.copy_(self._ctr_host, non_blocking=True)
+            self.stats.sampling_steps += 1
         if self._graph is None:
-            next_tok = self._step_fn()
+            logits = self._step_fn()
+            next_tok = self._sample_fn(logits) if sampling else greedy(logits)
         else:
             self._graph.replay()
             ops.add_launches(self.launches_per_replay)
             self.stats.graph_replays += 1
             next_tok = self._next
+            if sampling:
+                self._sample_graph.replay()
+                next_tok = self._sampled
         return next_tok.cpu().numpy()
+
+    def _sample_first(self, logits: torch.Tensor, req: Request, counter: int) -> int:
+        """A request's token from one row of logits (V,) (a prefill's or a
+        stored entry's), keyed by its uid and ``counter``."""
+        if req.temperature <= 0:
+            return int(greedy(logits))
+        dev = self.device
+        keys = fold_keys(self._base_key, torch.tensor([req.uid], device=dev),
+                         torch.tensor([counter], device=dev))
+        temps = torch.tensor([req.temperature], dtype=torch.float32, device=dev)
+        return int(self._sampler(logits[None], keys, temps)[0])
 
     # -- public API -------------------------------------------------------
 
     def validate(self, req: Request) -> None:
-        """Raise when ``req`` cannot be served."""
-        if req.temperature > 0:
-            raise NotImplementedError(
-                f"request {req.uid}: temperature sampling is not ported yet; "
-                f"the port serves greedy requests (ROADMAP.md, queue 1)")
+        """Raise ValueError when ``req`` cannot be served.  Reads the request
+        and the engine's configuration only, so any thread may call it (the
+        HTTP front door answers 400 from its event loop)."""
+        if not -2 ** 31 <= req.uid < 2 ** 31:
+            raise ValueError(f"request uid {req.uid} does not fit int32 (the "
+                             f"sampling key folds it as int32)")
         if req.prompt_len < 1:
             raise ValueError(f"request {req.uid}: empty prompt")
         if req.max_new_tokens < 1:
@@ -352,45 +452,139 @@ class ServeEngine:
 
     def submit(self, req: Request) -> None:
         self.validate(req)
-        in_flight = {s.req.uid for s in self._slots if s.req is not None}
-        if req.uid in in_flight or req.uid in self._pending_uids:
-            raise ValueError(f"request uid {req.uid} already in flight")
-        if req.uid in self._results:
-            raise ValueError(f"request uid {req.uid} has an unclaimed result; "
-                             f"pop_result/drain_results it before resubmitting")
-        self._pending_uids.add(req.uid)
-        self.scheduler.add(req)
+        with self._lock:
+            # a duplicate uid in flight would collide in the results and share
+            # a sampling-key stream; an unclaimed result would be clobbered
+            in_flight = {s.req.uid for s in self._slots if s.req is not None}
+            if req.uid in in_flight or req.uid in self._pending_uids:
+                raise ValueError(f"request uid {req.uid} already in flight")
+            if req.uid in self._results:
+                raise ValueError(f"request uid {req.uid} has an unclaimed result; "
+                                 f"pop_result/drain_results it before resubmitting")
+            self._pending_uids.add(req.uid)
+            self.scheduler.add(req)
 
     def pop_result(self, uid: int) -> RequestResult | None:
-        """Claim (and remove) one finished result, releasing its uid."""
-        return self._results.pop(uid, None)
+        """Claim (and remove) one finished result, releasing its uid; None
+        when the uid has no finished result yet.  An always-on server pops
+        each result as it finishes, so the results stay bounded."""
+        with self._lock:
+            return self._results.pop(uid, None)
 
     def drain_results(self) -> dict[int, RequestResult]:
-        out, self._results = self._results, {}
-        return out
+        """Claim every finished result, releasing all their uids."""
+        with self._lock:
+            out, self._results = self._results, {}
+            return out
 
     @property
     def num_active(self) -> int:
         return sum(s.state != FREE for s in self._slots)
 
+    def reset_clock(self) -> None:
+        """Zero the virtual clock and the stats between traces (caches and
+        graphs survive: warm up before a timed replay).  Only valid when the
+        engine is drained."""
+        if self.num_active or self.scheduler:
+            raise RuntimeError("reset_clock on a non-drained engine")
+        self.vtime = 0
+        self.stats = EngineStats(max_slots=self.max_slots,
+                                 warmup_steps=self.stats.warmup_steps)
+
+    def timed_replay(self, trace) -> dict[int, RequestResult]:
+        """Replay ``trace`` twice, the first to warm up (allocator, kernel
+        builds), and return the second run's results; the stats cover the
+        second replay only."""
+        for r in trace:
+            self.submit(r)
+        self.run()
+        self.reset_clock()
+        for r in trace:
+            self.submit(r)
+        return self.run()
+
     def run(self) -> dict[int, RequestResult]:
         """Drain the queue; returns uid -> RequestResult."""
-        t0 = time.perf_counter()
-        while self.scheduler or self.num_active:
-            self._admit_ready()
-            if not self.num_active:
-                nxt = self.scheduler.next_arrival()
-                if nxt is None:
-                    break
-                self.vtime = max(self.vtime, nxt)   # idle fast-forward
-                continue
-            self.step_decode()
-        self.stats.wall_seconds += time.perf_counter() - t0
+        self.run_forever()
         return self.drain_results()
+
+    def run_forever(self, *, should_stop=None, poll=None, idle_wait=None) -> None:
+        """The engine's one step loop: ``run`` is this loop followed by
+        ``drain_results``; the HTTP front door runs it on its engine thread
+        and claims each result through ``on_finish`` / ``pop_result``.
+
+        should_stop: checked once an iteration; True exits the loop.
+        poll: called once an iteration before admission (the server moves
+            its inbox into ``submit`` here, on the engine thread).
+        idle_wait: called when nothing is active, admissible or
+            future-dated; it should block briefly for new work and return
+            False to exit.  None: an idle engine returns (``run``).
+
+        With nothing active, a future-dated arrival fast-forwards the
+        virtual clock to it."""
+        t0 = time.perf_counter()
+        try:
+            while True:
+                if should_stop is not None and should_stop():
+                    break
+                if poll is not None:
+                    poll()
+                self._admit_ready()
+                if self.num_active:
+                    self.step_decode()
+                    continue
+                nxt = self.scheduler.next_arrival()
+                if nxt is not None:
+                    if nxt > self.vtime:
+                        self.vtime = nxt   # idle fast-forward
+                    # else a deferred (paged-pool) admission retries at once
+                    continue
+                if idle_wait is None or idle_wait() is False:
+                    break
+        finally:
+            self.stats.wall_seconds += time.perf_counter() - t0
 
     # -- admission --------------------------------------------------------
 
     def _admit_ready(self) -> None:
+        with self._lock:
+            self._admit_ready_locked()
+
+    def _maybe_preempt(self) -> None:
+        """Deadline rescue: when every slot is busy and the queue head would
+        miss its SLO even if admitted now, truncate and retire the youngest
+        active slot whose own deadline has passed (its result is delivered
+        as it stands, ``preempted=True``).  Work that can still meet its SLO,
+        and requests without one, are never preempted."""
+        if self.num_active < self.max_slots:
+            return
+        head = self.scheduler.peek_ready(self.vtime)
+        if head is None or head.slo_steps is None:
+            return
+        slack = head.arrival + head.slo_steps - self.vtime
+        # steps to finish once admitted: the unabsorbed prompt tail feeds one
+        # token a tick, then one tick a generated token
+        prefix = (head.prompt_len // self._chunk) * self._chunk
+        needed = (head.prompt_len - prefix) + head.max_new_tokens
+        if slack > needed:
+            return   # still meetable without making room
+        victim = None
+        for i, s in enumerate(self._slots):
+            if s.state != DECODE or s.req is None or s.req.slo_steps is None:
+                continue
+            if self.vtime <= s.req.arrival + s.req.slo_steps:
+                continue   # within budget: not preemptible
+            if victim is None or s.admit_vtime > self._slots[victim].admit_vtime:
+                victim = i
+        if victim is not None:
+            self.stats.preemptions += 1
+            self._retire(victim, preempted=True)
+
+    def _admit_ready_locked(self) -> None:
+        if self.policy == "wave" and self.num_active:
+            return
+        if self._preempt:
+            self._maybe_preempt()
         for i, slot in enumerate(self._slots):
             if slot.state != FREE:
                 continue
@@ -420,6 +614,9 @@ class ServeEngine:
         slot = self._slots[idx]
         prefix = (req.prompt_len // self._chunk) * self._chunk
         self._pending_uids.discard(req.uid)
+        # slots already mid-stream (admitted in an earlier tick)
+        slot.admitted_with_active = sum(1 for s2 in self._slots
+                                        if s2.state != FREE and s2.admit_vtime < self.vtime)
         slot.req = req
         slot.admit_vtime = self.vtime
         slot.out = []
@@ -456,11 +653,13 @@ class ServeEngine:
         the whole prompt is absorbed, else feed the tail from ``absorbed``
         one token a tick."""
         p = req.prompt_len
+        if self.telemetry is not None:
+            self.telemetry.on_admit(req, self.vtime)
         if absorbed == p:
             slot.state = DECODE
             slot.first_tok_vtime = self.vtime
             slot.input_pos = p
-            self._deliver(idx, int(greedy(logits)))
+            self._deliver(idx, self._sample_first(logits, req, len(slot.out)))
         else:
             slot.state = PREFILL
             rest = np.asarray(req.prompt[absorbed:])
@@ -701,6 +900,9 @@ class ServeEngine:
         # the paged layout, which sends their writes to the null page
         self._tok_np[:] = 0
         self._t_np[:] = -1 if self._paged else 0
+        self._temps_np[:] = 0
+        self._uids_np[:] = 0
+        self._ctr_np[:] = 0
         if self._forced is not None:
             self._forced_np[:] = False
         active = 0
@@ -710,12 +912,15 @@ class ServeEngine:
             active += 1
             self._tok_np[i] = s.input_tok
             self._t_np[i] = s.input_pos
+            self._temps_np[i] = s.req.temperature
+            self._uids_np[i] = s.req.uid
+            self._ctr_np[i] = len(s.out)
             if s.input_x is not None:
                 self._forced_np[i] = True
                 self._fx_np[i] = s.input_x
         if self._pages_per_seq:
             self._ensure_writable_pages()
-        next_tok = self._run_step()
+        next_tok = self._run_step(sampling=bool((self._temps_np > 0).any()))
         self.stats.decode_seconds += time.perf_counter() - t0
         self.stats.decode_steps += 1
         self.stats.active_slot_steps += active
@@ -734,6 +939,8 @@ class ServeEngine:
                     self._deliver(i, int(next_tok[i]))
             elif s.state == DECODE:
                 self._deliver(i, int(next_tok[i]))
+        if self.telemetry is not None:
+            self.telemetry.on_tick(self, active, time.perf_counter() - t0)
 
     def _deliver(self, idx: int, tok: int) -> None:
         s = self._slots[idx]
@@ -741,6 +948,8 @@ class ServeEngine:
         s.input_tok = tok
         s.input_pos = s.req.prompt_len + len(s.out) - 1
         self.stats.generated_tokens += 1
+        if self.on_token is not None:
+            self.on_token(s.req.uid, tok)
         if self._finished(s, tok):
             self._retire(idx)
 
@@ -749,13 +958,17 @@ class ServeEngine:
         return (len(s.out) >= s.req.max_new_tokens
                 or (s.req.eos_id is not None and tok == s.req.eos_id))
 
-    def _retire(self, idx: int) -> None:
+    def _retire(self, idx: int, preempted: bool = False) -> None:
         s = self._slots[idx]
         r = s.req
-        self._results[r.uid] = RequestResult(
+        result = RequestResult(
             uid=r.uid, tokens=np.asarray(s.out, np.int32), prompt_len=r.prompt_len,
             arrival=r.arrival, admit_vtime=s.admit_vtime,
-            first_token_vtime=s.first_tok_vtime, finish_vtime=self.vtime)
+            first_token_vtime=s.first_tok_vtime, finish_vtime=self.vtime,
+            admitted_with_active=s.admitted_with_active, slo_steps=r.slo_steps,
+            preempted=preempted)
+        with self._lock:
+            self._results[r.uid] = result
         if self._paged and s.pages is not None:
             held = [pg for pg in s.pages if pg]
             if held:
@@ -770,6 +983,10 @@ class ServeEngine:
         s.req = None
         s.tail = None
         s.input_x = None
+        if self.telemetry is not None:
+            self.telemetry.on_finish(result, self)
+        if self.on_finish is not None:
+            self.on_finish(result)
 
     # -- introspection ----------------------------------------------------
 

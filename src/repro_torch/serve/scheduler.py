@@ -1,12 +1,18 @@
 """Request queue for the continuous-batching engine.
 
-A copy of the JAX package's ``serve/scheduler.py`` (pure Python) less the
-deadline scheduler, which waits for the serving-periphery slice.  Time is
-virtual: one unit = one batched decode step.  ``FifoScheduler`` orders by
-priority then arrival, with **aging**: a request's effective priority decays
-by one level per ``aging_steps`` of queue wait, which reduces to the static
-heap key ``priority * aging_steps + arrival`` (``aging_steps=0`` keeps the
-strict, starvation-prone order).
+A copy of the JAX package's ``serve/scheduler.py`` (pure Python).  Time is
+virtual: one unit = one batched decode step.  Two admission orders:
+
+* ``FifoScheduler`` orders by priority then arrival, with **aging**: a
+  request's effective priority decays by one level per ``aging_steps`` of
+  queue wait, which reduces to the static heap key
+  ``priority * aging_steps + arrival`` (``aging_steps=0`` keeps the strict,
+  starvation-prone order).
+* ``DeadlineScheduler``: earliest effective deadline first on the same
+  machinery.  A request with ``slo_steps`` must finish by
+  ``arrival + slo_steps``; one without gets a default budget plus an aging
+  penalty per priority level, so the static key encodes both urgency and
+  the anti-starvation decay.  The HTTP front door's default order.
 """
 
 from __future__ import annotations
@@ -16,7 +22,7 @@ import itertools
 from dataclasses import dataclass, field
 from typing import Any
 
-__all__ = ["Request", "FifoScheduler"]
+__all__ = ["Request", "FifoScheduler", "DeadlineScheduler"]
 
 
 @dataclass(frozen=True)
@@ -25,9 +31,12 @@ class Request:
 
     prompt: (P,) integer token ids, or (P, D) float embeddings for the
     stub-frontend models (``prompt_len`` is P either way).  temperature 0
-    = greedy, the only sampling the port serves yet.  priority: lower runs
-    first (ties by arrival, then submission order).  eos_id ends the
-    request when sampled.
+    = greedy; top_k applies as the engine's ``ServeConfig.top_k`` says.
+    priority: lower runs first (ties by arrival, then submission order).
+    eos_id ends the request when sampled.  slo_steps: an optional deadline,
+    the request should finish within this many virtual steps of its
+    arrival; the deadline scheduler orders admission by it and the engine
+    can preempt over-budget slots to rescue it (``ServeConfig.preemption``).
     """
     uid: int
     prompt: Any
@@ -36,10 +45,17 @@ class Request:
     eos_id: int | None = None
     arrival: int = 0
     priority: int = 0
+    slo_steps: int | None = None
 
     @property
     def prompt_len(self) -> int:
         return int(self.prompt.shape[0])
+
+    def deadline(self, default_slo: int, aging_steps: int) -> int:
+        """Effective completion deadline in virtual steps."""
+        if self.slo_steps is not None:
+            return self.arrival + self.slo_steps
+        return self.arrival + default_slo + self.priority * max(aging_steps, 1)
 
 
 @dataclass
@@ -103,6 +119,12 @@ class FifoScheduler:
             return req
         return None
 
+    def peek_ready(self, now: int) -> Request | None:
+        """Best admissible request without removing it (the engine's
+        preemption check inspects the head before deciding to make room)."""
+        self._migrate(now)
+        return self._ready[0][-1] if self._ready else None
+
     def next_arrival(self) -> int | None:
         """Earliest arrival among queued requests (for idle fast-forward).
 
@@ -123,3 +145,23 @@ class FifoScheduler:
 
     def __bool__(self) -> bool:
         return bool(self._future or self._ready)
+
+
+@dataclass
+class DeadlineScheduler(FifoScheduler):
+    """Earliest-effective-deadline-first admission (EDF).
+
+    Primary key: the request's effective deadline, ``arrival + slo_steps``
+    with an SLO, else ``arrival + default_slo + priority * aging_steps`` (the
+    aging term keeps low-priority work without an SLO from starving: its
+    deadline is fixed while fresh arrivals keep receiving later ones).  Ties
+    break by raw priority, then arrival.  The key is static per request, so
+    the heap never re-keys.
+    """
+    default_slo: int = 256
+
+    def deadline(self, req: Request) -> int:
+        return req.deadline(self.default_slo, self.aging_steps)
+
+    def _rank(self, req: Request) -> tuple:
+        return (self.deadline(req), req.priority, req.arrival)

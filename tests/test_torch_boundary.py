@@ -17,8 +17,11 @@ import importlib, pkgutil, sys
 import numpy as np
 import torch
 import repro_torch
-for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
-    importlib.import_module(m.name)
+names = {m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")}
+missing = {"repro_torch.serve." + m for m in ("sampler", "metrics", "server", "scheduler")} - names
+assert not missing, f"not walked: {missing}"
+for name in sorted(names):
+    importlib.import_module(name)
 import chip_smoke  # module-level imports only; main() is not run
 leaked = sorted(k for k in sys.modules
                 if k.split(".")[0] in ("jax", "jaxlib", "repro"))

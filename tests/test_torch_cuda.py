@@ -1069,3 +1069,73 @@ def test_cuda_frontend_graph_engine_matches_eager(cuda, arch, layout):
         assert results[0][uid].tokens.tolist() == res.tokens.tolist(), uid
     graph.submit(Request(uid=9, prompt=_embed_requests(cfg)[0].prompt, max_new_tokens=6))
     assert graph.run()[9].tokens.tolist() == results[0][0].tokens.tolist()
+
+
+# -- the sampler (serve/sampler.py) -------------------------------------------
+
+@pytest.mark.parametrize("width", [32000, 131072])
+def test_cuda_sampler_bits_match_cpu(cuda, width):
+    """Keys, random bits and uniforms on the card equal the CPU's bitwise
+    over a grid of (uid, counter); the gumbel noise (CUDA's logf against
+    the CPU's log) within 4 float32 ulps of max(|g|, 1)."""
+    from repro_torch.serve import sampler as S
+    uids = torch.tensor([u for u in (0, 1, 7, 2 ** 31 - 1) for _ in range(3)])
+    ctrs = torch.tensor([c for _ in range(4) for c in (0, 1, 31)])
+    for seed in (0, 2 ** 31 - 1):
+        k_cpu = S.fold_keys(S.prng_key(seed), uids, ctrs)
+        k_gpu = S.fold_keys(S.prng_key(seed, cuda), uids.to(cuda), ctrs.to(cuda))
+        assert torch.equal(k_gpu.cpu(), k_cpu)
+        assert torch.equal(S.random_bits(k_gpu, width).cpu(), S.random_bits(k_cpu, width))
+        assert torch.equal(S.uniform(k_gpu, width).cpu(), S.uniform(k_cpu, width))
+        g_cpu = S.gumbel(k_cpu, width)
+        err = ((S.gumbel(k_gpu, width).cpu() - g_cpu).abs() / g_cpu.abs().clamp_min(1)).max()
+        assert err <= 4 * torch.finfo(torch.float32).eps, err
+
+
+def _sampled_requests(cfg, gen=6):
+    """Greedy and sampled requests, one a whole pack (its first token drawn
+    from the prefill's logits), 1 step apart."""
+    rng = np.random.default_rng(7)
+    spec = [(20, 0.8), (16, 0.0), (7, 1.3), (33, 0.5)]
+    return [Request(uid=100 + 17 * i, prompt=rng.integers(0, cfg.vocab, p), max_new_tokens=gen,
+                    arrival=i, temperature=t) for i, (p, t) in enumerate(spec)]
+
+
+@pytest.mark.parametrize("layout", ["auto", "paged"])
+def test_cuda_sampling_graph_matches_eager(cuda, layout):
+    """Temperature and top-k sampling from the second captured graph: the
+    eager engine's tokens bit for bit, every step a replay of the decode
+    graph, a replay still counting one eager step's launches; each request
+    served alone on a fresh engine (the same uid) keeps its tokens, since
+    its keys depend on (uid, counter) only; a greedy-only run never
+    replays the sampler."""
+    model = _graph_model(cuda, "packed")
+    sc = ServeConfig(max_slots=2, max_len=64, layout=layout, page_size=8, top_k=40, seed=3)
+    graph = ServeEngine(model, sc, device="cuda")
+    eager = ServeEngine(model, sc, device="cuda", cuda_graph=False)
+    probe = ServeEngine(model, sc, device="cuda", cuda_graph=False)
+    probe.submit(Request(uid=0, prompt=np.arange(3), max_new_tokens=4, temperature=0.9))
+    probe._admit_ready()
+    ops.reset_launches()
+    probe.step_decode()                      # a sampling step counts no kernel launch
+    assert probe.stats.sampling_steps == 1
+    assert dict(ops.launches) == graph.launches_per_replay
+    results = []
+    for eng in (graph, eager):
+        for r in _sampled_requests(model.cfg):
+            eng.submit(r)
+        results.append(eng.run())
+    assert graph.stats.graph_replays == graph.stats.decode_steps > 0
+    assert graph.stats.sampling_steps == eager.stats.sampling_steps > 0
+    for uid, res in results[1].items():
+        assert results[0][uid].tokens.tolist() == res.tokens.tolist(), uid
+    for r in _sampled_requests(model.cfg):
+        solo = ServeEngine(model, sc, device="cuda")
+        solo.submit(dataclasses.replace(r, arrival=0))
+        assert solo.run()[r.uid].tokens.tolist() == results[0][r.uid].tokens.tolist(), r.uid
+    greedy = [dataclasses.replace(r, temperature=0.0) for r in _sampled_requests(model.cfg)]
+    for r in greedy:
+        graph.submit(r)
+    before = graph.stats.sampling_steps
+    graph.run()
+    assert graph.stats.sampling_steps == before

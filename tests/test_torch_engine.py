@@ -28,7 +28,8 @@ def _trace(cfg, request_cls, seed=0):
 
 @pytest.fixture(scope="module", params=sorted(CONFIGS))
 def served(request):
-    """(port cfg, port model, port results, jax results) for one config."""
+    """(port cfg, port model, port results, jax results, (jax cfg, jax
+    serving params, jax kernel mode)) for one config."""
     jcfg, sparams, tcfg, model, mode = jax_and_port(request.param)
     jeng = JServeEngine(jcfg, sparams, Runtime(),
                         config=JServeConfig(max_slots=2, max_len=64, kernel_mode=mode))
@@ -38,11 +39,11 @@ def served(request):
     eng = ServeEngine(model, ServeConfig(max_slots=2, max_len=64), device="cpu")
     for r in _trace(tcfg, Request):
         eng.submit(r)
-    return tcfg, model, eng.run(), jres
+    return tcfg, model, eng.run(), jres, (jcfg, sparams, mode)
 
 
 def test_engine_tokens_match_jax(served):
-    _, _, got, want = served
+    _, _, got, want, _ = served
     assert sorted(got) == sorted(want)
     for uid in want:
         np.testing.assert_array_equal(got[uid].tokens, want[uid].tokens,
@@ -52,7 +53,7 @@ def test_engine_tokens_match_jax(served):
 
 
 def test_engine_batch_invariance(served):
-    tcfg, model, batched, _ = served
+    tcfg, model, batched, _, _ = served
     eng = ServeEngine(model, ServeConfig(max_slots=2, max_len=64), device="cpu")
     for r in _trace(tcfg, Request):
         if r.uid != 1:
@@ -65,7 +66,7 @@ def test_engine_batch_invariance(served):
 def test_engine_eos_frees_slot(served):
     """EOS = a token whose first occurrence in the free run is at index >= 2,
     so an earlier copy of the same id cannot end the run first."""
-    tcfg, model, _, _ = served
+    tcfg, model, _, _, _ = served
     eng = ServeEngine(model, ServeConfig(max_slots=1, max_len=64), device="cpu")
     for seed in range(16):
         prompt = np.random.default_rng(100 + seed).integers(0, tcfg.vocab, 5)
@@ -87,11 +88,18 @@ def test_engine_eos_frees_slot(served):
 
 
 def test_engine_rejects_what_it_cannot_serve(served):
-    tcfg, model, _, _ = served
+    """A request at temperature 0.7 is served, its tokens the JAX engine's
+    (the same uid and seed); bad prompts, lengths and uids raise."""
+    tcfg, model, _, _, (jcfg, sparams, mode) = served
+    prompt = np.arange(4, dtype=np.int32)
+    jeng = JServeEngine(jcfg, sparams, Runtime(),
+                        config=JServeConfig(max_slots=1, max_len=16, kernel_mode=mode))
+    jeng.submit(JRequest(uid=0, prompt=prompt, max_new_tokens=6, temperature=0.7))
     eng = ServeEngine(model, ServeConfig(max_slots=1, max_len=16), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.submit(Request(uid=0, prompt=np.arange(4), max_new_tokens=2,
-                           temperature=0.7))
+    eng.submit(Request(uid=0, prompt=prompt, max_new_tokens=6, temperature=0.7))
+    np.testing.assert_array_equal(eng.run()[0].tokens, jeng.run()[0].tokens)
+    with pytest.raises(ValueError, match="int32"):
+        eng.submit(Request(uid=2 ** 31, prompt=prompt, max_new_tokens=2))
     with pytest.raises(ValueError):
         eng.submit(Request(uid=0, prompt=np.array([0, tcfg.vocab]), max_new_tokens=2))
     with pytest.raises(ValueError):
