@@ -9,7 +9,8 @@ Phases:
   kernels  hold each kernel against its plain PyTorch version on the card, at
            the serving paths' shapes and a few small GQA / soft-cap /
            empty-slot / int8 cases, each max error beside its tolerance;
-           das_topk also with the mask null, on unaligned rows, with its
+           das_topk also with the mask null, with the mask alone at the
+           train phase's 8192 rows (K = 2048, 5460), on unaligned rows, with its
            rmsnorm prologue (normed rows within a step, the DAS step exact)
            and bitwise invariant to M; sparse_attention's bf16 prefill class
            also at LPSA packs of three stream offsets, full causal attention
@@ -116,8 +117,8 @@ Phases:
                          scales that differ counted)
            then the SSM pair, each a model of its own (seeded random weights
            exported layer by layer, packed, bf16, DAS 16/32, no attention):
-             rwkv6-3b    full width and all 32 layers (40 heads of 64, d_ff
-                         8960, vocab 65536, untied);
+             rwkv6-3b    full width, 16 of its 32 layers (SSM_DEPTH; 40
+                         heads of 64, d_ff 8960, vocab 65536, untied);
              gla-1.3b    full width and all 24 layers (4 heads of 512, d_ff
                          5632, vocab 32000, untied);
            each serves the packed trace from the CUDA graph with its
@@ -156,8 +157,9 @@ Phases:
            DAS 16/32, LPSA 128 + 896:
              musicgen-medium  full width and all 48 layers (24 heads of 64,
                          the 2-matrix gelu MLP of 6144, vocab 2048, untied);
-             pixtral-12b full width and all 40 layers (32 heads of 160 over
-                         8, the gated silu FFN of 14336, vocab 131072,
+             pixtral-12b full width, 20 of its 40 layers (FRONTEND_DEPTH;
+                         32 heads of 160 over 8, the gated silu FFN of
+                         14336, vocab 131072,
                          untied: the logits read a float32 copy of the head
                          made once);
            each the packed trace of embedding rows (pack-aligned prefixes
@@ -169,6 +171,27 @@ Phases:
            the decode step under the profiler, replayed and eager, by class,
            beside the floor of its bytes; a 2-layer model at its widths on
            the card against the CPU (f32, DAS off, the embedding prompt)
+  train    QAT training of bitnet-1.3b at full width (d_model 2048, d_ff 5460,
+           vocab 32000, bf16 masters from the config, remat on; seeded random
+           weights, SyntheticLM batches of 4 x 2048 tokens, so LPSA's sink of
+           128 and window of 896 cut keys), through the port's train step
+           (models/model.py loss_fn under autograd, the STE fake-quants, the
+           DAS mask of every projection's input from das_topk with the mask
+           alone, AdamW, warmup 2 + cosine): first on a 2-layer cut, (c) one
+           step's DAS masks from the kernel equal the plain das_mask's on the
+           card exactly and the loss and every gradient leaf within 2e-2 of
+           the leaf's max (bitwise reported), (d) 2 steps, a checkpoint saved
+           and restored, 2 more steps equal to 4 straight steps bitwise
+           (params, moments, step); then all 24 layers for 4 steps: (a) every
+           loss and gradient norm finite, the rate the schedule's, (b)
+           das_topk launched 8 times a layer a step (4 forward, 4 in remat's
+           recompute) and no other kernel; ms/step (CUDA events), tok/s, peak
+           memory, the last step's device time by class under torch.profiler
+           (cuBLAS GEMMs of the linears and logits, of the float32 attention,
+           das_topk, attention glue, fake-quant and other elementwise, the
+           optimizer); das_topk's training calls timed alone; (e) the trained
+           model exported packed serves one greedy request of 16 tokens
+           through ServeEngine with the serving kernels launched
   times    each kernel at its decode shape: CUDA-event median beside its
            bound, its plain version and one PyTorch call of the same function;
            the packed GEMMs and das_gemv also at their other decode shapes
@@ -208,6 +231,7 @@ The script imports neither JAX nor the JAX package.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import dataclasses
 import json
@@ -220,7 +244,7 @@ import traceback
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ("device", "build", "kernels", "serve", "times")
+PHASES = ("device", "build", "kernels", "serve", "train", "times")
 OPTIONAL_PHASES = ("profile", "http")   # run only when named
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, bf16 and f32 FLOP/s
@@ -244,6 +268,8 @@ KERNEL_INFO = {
 }
 
 TOL_F32_GEMM, TOL_BF16, TOL_F32_ATTN = 1e-4, 2e-2, 3e-4
+TRAIN_BATCH, TRAIN_SEQ = 4, 2048            # the train phase's batch: 4 x 2048 tokens
+TRAIN_ROWS = TRAIN_BATCH * TRAIN_SEQ
 FULL_SINK = 1 << 30                     # the full-cache prefill's sink: every key
 
 
@@ -553,6 +579,13 @@ class Smoke:
         x = rows(5, 5460, bf16)[1:]     # starts 8 bytes past a 16-byte boundary
         same("bf16 (4,5460) from row 1", das_topk_cuda(x, keep=16, block=32),
              ref.das_topk_ref(x, keep=16, block=32))
+        for k in (2048, 5460):          # the training step's call: the mask alone
+            x = rows(TRAIN_ROWS, k, bf16)
+            got = das_topk_cuda(x, keep=16, block=32, with_compact=False)
+            same(f"training, mask only ({TRAIN_ROWS},{k})", got,
+                 ref.das_topk_ref(x, keep=16, block=32, with_compact=False))
+            if k % 32 and not bool((got.mask[:, k - k % 32:] == 1).all()):
+                raise AssertionError("das_topk: the dense tail lanes are not all kept")
 
         for m, k, dt in ((4, 2048, bf16), (256, 2048, bf16), (4, 5460, bf16),
                          (256, 5460, bf16), (3, 96, f32)):
@@ -1513,12 +1546,17 @@ class Smoke:
     # inside) and down
     SSM_LAUNCHES = {"rwkv": (8, 8), "gla": (4, 8)}
     SSM_C1_PROMPT = 997        # a prime above 56: the chunk rule's c = 1
+    # rwkv6-3b's depth, cut from 32 beside the train phase: with every path
+    # at full depth the whole run read 1149 s of its 1200 s limit, rwkv6-3b
+    # 120.2 s of it (its 997-token admission, one-token chunks, is
+    # host-bound and scales with depth); at 16 layers its path read 68-73 s
+    SSM_DEPTH = {"rwkv6-3b": 16}
 
     def _serve_ssm(self, arch):
-        """Path ``arch``: an attention-free model at full width and depth
-        (rwkv6-3b: 32 layers, 40 heads of 64, d_ff 8960, vocab 65536;
-        gla-1.3b: 24 layers, 4 heads of 512, d_ff 5632, vocab 32000; both
-        untied), seeded random weights exported layer by layer, base-3
+        """Path ``arch``: an attention-free model at full width (rwkv6-3b:
+        SSM_DEPTH's 16 of its 32 layers, 40 heads of 64, d_ff 8960, vocab
+        65536; gla-1.3b: all 24 layers, 4 heads of 512, d_ff 5632, vocab
+        32000; both untied), seeded random weights exported layer by layer, base-3
         packed, bf16, DAS 16/32, served from the CUDA graph with its
         recurrent slot states: bitnet-1.3b's packed trace (each prompt
         prefilled whole at admission), exact launch counts, every decode
@@ -1533,6 +1571,10 @@ class Smoke:
         from repro_torch.serve import Request, ServeConfig
         t_path = time.perf_counter()
         cfg = get_config(arch)
+        cut = ""
+        if arch in self.SSM_DEPTH:
+            cfg = dataclasses.replace(cfg, n_layers=self.SSM_DEPTH[arch])
+            cut = f" (cut from {get_config(arch).n_layers})"
         kind, n_l = cfg.layer_pattern[0], cfg.n_layers
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -1540,8 +1582,8 @@ class Smoke:
         torch.cuda.synchronize()
         nbytes = sum(b.numel() * b.element_size() for b in model.state_dict().values())
         state = sum(b.nbytes for b in MD.init_caches(cfg, 1, 1, device="meta")[0].values())
-        log(f"[serve] {arch}: {n_l} {kind} layers, d_model {cfg.d_model}, {cfg.n_heads} heads of "
-            f"{cfg.head_dim_}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
+        log(f"[serve] {arch}: {n_l} {kind} layers{cut}, d_model {cfg.d_model}, {cfg.n_heads} "
+            f"heads of {cfg.head_dim_}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
             f"{'tied' if cfg.tie_embeddings else 'untied'}; serving weights {nbytes / 1e9:.3f} GB, "
             f"recurrent state {state * n_l / 1e6:.1f} MB a slot (float32); init+export layer by "
             f"layer {time.perf_counter() - t0:.1f} s, peak memory "
@@ -1751,14 +1793,19 @@ class Smoke:
         _took(arch, t_path)
 
     FRONTEND_ARCHS = ("musicgen-medium", "pixtral-12b")
+    # pixtral-12b's depth, cut from 40 beside the train phase (the whole run
+    # read 1149 s of its 1200 s limit with every path at full depth,
+    # pixtral-12b 105.9 s of it; its serving, admission and profiles scale
+    # with depth, its 2-layer width check does not)
+    FRONTEND_DEPTH = {"pixtral-12b": 20}
     FRONTEND_PAGED = "musicgen-medium"      # the one served again under layout="paged"
 
     def _serve_frontend(self, arch):
-        """Path ``arch``, a stub-frontend model at full width and depth
-        (musicgen-medium: 48 layers, 24 heads of 64 over 24, the 2-matrix gelu
-        MLP of 6144, vocab 2048; pixtral-12b: 40 layers, 32 heads of 160 over
-        8, the gated silu FFN of 14336, vocab 131072, RoPE theta 1e6; both
-        untied), seeded random weights exported layer by layer, base-3
+        """Path ``arch``, a stub-frontend model at full width (musicgen-medium:
+        all 48 layers, 24 heads of 64 over 24, the 2-matrix gelu MLP of 6144,
+        vocab 2048; pixtral-12b: FRONTEND_DEPTH's 20 of its 40 layers, 32
+        heads of 160 over 8, the gated silu FFN of 14336, vocab 131072, RoPE
+        theta 1e6; both untied), seeded random weights exported layer by layer, base-3
         packed, bf16, DAS 16/32, LPSA 128 + 896, served from the CUDA graph
         on prompts of float32 embeddings: the packed trace (pack-aligned
         prefixes prefilled, tails fed a row a tick through ``forced_x``), so
@@ -1778,6 +1825,10 @@ class Smoke:
         from repro_torch.serve import Request, ServeConfig
         t_path = time.perf_counter()
         cfg = get_config(arch)
+        cut = ""
+        if arch in self.FRONTEND_DEPTH:
+            cfg = dataclasses.replace(cfg, n_layers=self.FRONTEND_DEPTH[arch])
+            cut = f" (cut from {get_config(arch).n_layers})"
         n_l, chunk = cfg.n_layers, cfg.lpsa.chunk
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -1788,8 +1839,8 @@ class Smoke:
         head32 = cfg.d_model * cfg.vocab_padded * 4       # the head the float32 logits read
         step_bytes = packed + head32 + 4 * n_l * ring
         floor_ms = step_bytes / HBM_BYTES_PER_S * 1e3
-        log(f"[serve] {arch}: {n_l} layers, d_model {cfg.d_model}, {cfg.n_heads} heads of "
-            f"{cfg.head_dim_} over {cfg.n_kv_heads}, {cfg.ffn_kind} FFN of {cfg.d_ff} ({cfg.act})"
+        log(f"[serve] {arch}: {n_l} layers{cut}, d_model {cfg.d_model}, {cfg.n_heads} heads "
+            f"of {cfg.head_dim_} over {cfg.n_kv_heads}, {cfg.ffn_kind} FFN of {cfg.d_ff} ({cfg.act})"
             f", vocab {cfg.vocab}, untied, frontend {cfg.frontend!r}: prompts of float32 "
             f"embeddings, so the residual stream is float32 over bf16 weights and rings; "
             f"packed ternary weights {packed / 1e9:.3f} GB, head {head32 / 2e9:.3f} GB in bf16 "
@@ -2703,6 +2754,352 @@ class Smoke:
         for name, dt in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
             log(f"[profile]   {dt / 1e3:8.4f} ms  {name[:90]}")
 
+    # -- train ---------------------------------------------------------------
+
+    TRAIN_ARCH = "bitnet-1.3b"
+    TRAIN_STEPS = 4          # the cosine schedule's total, the last step profiled
+    TRAIN_WARMUP, TRAIN_LR = 2, 3e-4
+    TRAIN_CUT = 2            # the depth of checks (c) and (d)
+
+    def phase_train(self):
+        """QAT training of bitnet-1.3b at full width (bf16 masters, remat):
+        checks (c) and (d) on a 2-layer cut, then all 24 layers for
+        TRAIN_STEPS steps of 4 x 2048 tokens (checks (a) and (b), ms/step,
+        tok/s, peak memory, device busy by class of the last step under the
+        profiler), das_topk's training calls timed alone, and check (e): the
+        trained model exported and served."""
+        torch = self.torch
+        from repro_torch.configs import get_config
+        cfg = get_config(self.TRAIN_ARCH)
+        cut = dataclasses.replace(cfg, n_layers=self.TRAIN_CUT)
+        smi = _nvidia_smi()
+        log(f"[train] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, d_ff {cfg.d_ff}, "
+            f"vocab {cfg.vocab}, {cfg.dtype} masters, remat {cfg.remat}, DAS "
+            f"{cfg.ternary.das.keep}/{cfg.ternary.das.block}, LPSA {cfg.lpsa.sink} + "
+            f"{cfg.lpsa.window}; batches of {TRAIN_BATCH} x {TRAIN_SEQ} tokens; {smi}")
+        t0 = time.perf_counter()
+        self._train_parity(cut)
+        t0 = _took("cut: kernel vs plain", t0, "train")
+        self._train_resume(cut)
+        t0 = _took("cut: checkpoint and resume", t0, "train")
+        params = self._train_run(cfg, smi)
+        t0 = _took("24 layers", t0, "train")
+        self._train_topk_times(smi)
+        self._train_serve(cfg, params)
+        _took("the trained model served", t0, "train")
+
+    def _train_batches(self, cfg, steps, seed=None):
+        from repro_torch.data.pipeline import SyntheticLM
+        data = SyntheticLM(vocab=cfg.vocab, seq_len=TRAIN_SEQ, batch=TRAIN_BATCH,
+                           seed=self.seed if seed is None else seed)
+        return [{k: self.torch.as_tensor(v, device=self.dev) for k, v in
+                 data.batch_at(s).items()} for s in range(steps)]
+
+    def _train_step_fn(self, cfg, total):
+        from repro_torch.launch import train as TR
+        return TR.make_train_step(cfg, TR.make_runtime(),
+                                  peak_lr=self.TRAIN_LR, warmup=self.TRAIN_WARMUP, total=total)
+
+    def _train_parity(self, cut):
+        """Check (c): one step's loss and gradients with the DAS masks from
+        the das_topk kernel and from the plain das_mask on the card: every
+        mask equal, the loss and each gradient leaf within 2e-2 of the
+        leaf's max (bitwise expected).  Launches made here do not count."""
+        torch = self.torch
+        from repro_torch.core import das as das_lib
+        from repro_torch.models import model as MD
+        from repro_torch.models import ternary_linear as TL
+        from repro_torch.tree import leaves, leaves_with_paths, unflatten
+        params = MD.init_params(cut, seed=self.seed + 5, device=self.dev)
+        batch = self._train_batches(cut, 1)[0]
+        masks = {"kernel": [], "plain": []}
+        orig = TL.das_train_mask
+        fns = {"kernel": orig,
+               "plain": lambda x, tc: das_lib.das_mask(x.detach(), block_size=tc.das.block,
+                                                       keep=tc.das.keep)}
+        runs = {}
+        try:
+            for mode, fn in fns.items():
+                def recorded(x, tc, fn=fn, mode=mode):
+                    m = fn(x, tc)
+                    masks[mode].append(m.to(torch.int8))
+                    return m
+                TL.das_train_mask = recorded
+                flat = [p.detach().requires_grad_() for p in leaves(params)]
+                loss, _ = MD.loss_fn(unflatten(params, flat), cut, batch, MD.Runtime())
+                runs[mode] = (loss.detach(), torch.autograd.grad(loss, flat))
+        finally:
+            TL.das_train_mask = orig
+        mk, mp = masks["kernel"], masks["plain"]
+        if len(mk) != len(mp) or not mk:
+            raise AssertionError(f"train parity: {len(mk)} kernel masks, {len(mp)} plain")
+        for i, (a, b) in enumerate(zip(mk, mp)):
+            if a.shape != b.shape or not torch.equal(a, b):
+                raise AssertionError(f"train parity: DAS mask {i} {tuple(a.shape)} differs "
+                                     f"(kernel vs plain)")
+        (lk, gk), (lp, gp) = runs["kernel"], runs["plain"]
+        worst, bitwise = 0.0, bool(torch.equal(lk, lp))
+        for (path, _), a, b in zip(leaves_with_paths(params), gk, gp):
+            scale = float(b.float().abs().max()) or 1.0
+            err = float((a.float() - b.float()).abs().max()) / scale
+            worst = max(worst, err)
+            bitwise = bitwise and bool(torch.equal(a, b))
+            if not (torch.isfinite(a).all() and err <= TOL_BF16):
+                raise AssertionError(f"train parity: {path} off by {err:.3e} of its max")
+        if abs(float(lk) - float(lp)) > TOL_BF16 * abs(float(lp)):
+            raise AssertionError(f"train parity: loss {float(lk)} vs {float(lp)}")
+        log(f"[train] (c) {cut.n_layers}-layer cut, one step, kernel vs plain DAS masks on the "
+            f"card: {len(mk)} masks ({', '.join(sorted({str(tuple(m.shape)) for m in mk}))}, "
+            f"the forward and remat's recompute) equal exactly; loss {float(lk):.6f} vs "
+            f"{float(lp):.6f}; gradients worst {worst:.3e} of a leaf's max (tol {TOL_BF16}); "
+            f"loss and every gradient {'bitwise equal' if bitwise else 'NOT bitwise equal'}")
+
+    def _train_resume(self, cut):
+        """Check (d): 2 steps, a checkpoint saved and restored, 2 more steps
+        give the params and moments of 4 straight steps bitwise."""
+        torch = self.torch
+        import shutil
+        from repro_torch import checkpoint as ckpt
+        from repro_torch.models import model as MD
+        from repro_torch.optim import adamw
+        from repro_torch.tree import leaves
+        step_fn = self._train_step_fn(cut, 4)
+        batches = self._train_batches(cut, 4, seed=self.seed + 7)
+
+        def fresh():
+            p = MD.init_params(cut, seed=self.seed + 6, device=self.dev)
+            return p, adamw.adamw_init(p)
+
+        p, o = fresh()
+        for s in range(4):
+            p, o, _ = step_fn(p, o, batches[s])
+        straight = {"params": p, "opt": o}
+        d = ROOT / "build" / "train_ckpt"
+        shutil.rmtree(d, ignore_errors=True)
+        p, o = fresh()
+        for s in range(2):
+            p, o, _ = step_fn(p, o, batches[s])
+        t0 = time.perf_counter()
+        ckpt.save_checkpoint(str(d), 2, {"params": p, "opt": o})
+        del p, o
+        tree, step = ckpt.restore_checkpoint(str(d), device=self.dev)
+        t_ck = time.perf_counter() - t0
+        p, o = tree["params"], tree["opt"]
+        for s in range(step, 4):
+            p, o, _ = step_fn(p, o, batches[s])
+        shutil.rmtree(d, ignore_errors=True)
+        resumed = {"params": p, "opt": o}
+        a, b = leaves(straight), leaves(resumed)
+        same = len(a) == len(b) and all(x.dtype == y.dtype and torch.equal(x, y)
+                                        for x, y in zip(a, b))
+        log(f"[train] (d) {cut.n_layers}-layer cut: 2 steps, checkpoint at step {step} saved "
+            f"and restored ({t_ck:.1f} s), 2 more steps vs 4 straight: {len(a)} leaves (params, "
+            f"m, v, step) {'bitwise equal' if same else 'DIFFER'}")
+        if not same:
+            raise AssertionError("train resume: the restored run differs from the straight run")
+
+    def _train_run(self, cfg, smi):
+        """Checks (a) and (b) over TRAIN_STEPS steps at full depth, the
+        launch counts at 0 just before and read just after; ms/step (CUDA
+        events, the first step and the profiled last step left out), tok/s,
+        peak memory; the last step's device time by class."""
+        torch = self.torch
+        from repro_torch.kernels import ops
+        from repro_torch.models import model as MD
+        from repro_torch.optim import adamw
+        from repro_torch.tree import leaves
+        steps = self.TRAIN_STEPS
+        t0 = time.perf_counter()
+        params = MD.init_params(cfg, seed=self.seed, device=self.dev)
+        opt = adamw.adamw_init(params)
+        n_params = sum(p.numel() for p in leaves(params))
+        step_fn = self._train_step_fn(cfg, steps)
+        batches = self._train_batches(cfg, steps)
+        torch.cuda.synchronize()
+        log(f"[train] {n_params / 1e9:.3f} B params ({cfg.dtype}), AdamW moments float32; "
+            f"init {time.perf_counter() - t0:.1f} s")
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()                   # the path starts here
+        ms, metrics, prof = [], [], None
+        for s in range(steps):
+            ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            last = s == steps - 1
+            with (torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                     torch.profiler.ProfilerActivity.CUDA])
+                  if last else contextlib.nullcontext()) as p:
+                ev0.record()
+                params, opt, m = step_fn(params, opt, batches[s])
+                ev1.record()
+                torch.cuda.synchronize()
+            prof = p if last else prof
+            ms.append(ev0.elapsed_time(ev1))
+            metrics.append({k: float(v) for k, v in m.items()})
+            log(f"[train] step {s}: loss {metrics[-1]['loss']:.4f}, lr {metrics[-1]['lr']:.3e}, "
+                f"grad norm {metrics[-1]['grad_norm']:.4f}, {ms[-1]:.1f} ms"
+                f"{' (profiled)' if s == steps - 1 else ''}")
+        counts = dict(ops.launches)            # ... and ends here
+        peak = torch.cuda.max_memory_allocated()
+        # (a) finite losses and gradient norms; the rate follows warmup + cosine
+        for s, m in enumerate(metrics):
+            want = self._cosine(s, steps)
+            if not (math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])):
+                raise AssertionError(f"train step {s}: loss or grad norm not finite: {m}")
+            if abs(m["lr"] - want) > 1e-6 * self.TRAIN_LR:
+                raise AssertionError(f"train step {s}: lr {m['lr']} off the schedule's {want}")
+        # (b) das_topk: 4 calls a layer forward (q/k/v, o, gate/up, down), and
+        # remat runs every layer's forward again in the backward
+        per_layer = 4 * (2 if cfg.remat else 1)
+        want = {**{name: 0 for name in KERNEL_INFO}, "das_topk": steps * cfg.n_layers * per_layer}
+        log(f"[train] launches on the path: {counts} (expected {want}: {per_layer} das_topk a "
+            f"layer a step x {cfg.n_layers} layers x {steps} steps)")
+        if counts != want or counts["das_topk"] <= 0:
+            raise AssertionError("train: launch counts differ from the path's structure")
+        for name, n in counts.items():
+            self.launches[name] += n
+        step_ms = statistics.median(ms[1:-1])
+        tokens = TRAIN_BATCH * TRAIN_SEQ
+        log(f"[train] (a) losses {[round(m['loss'], 4) for m in metrics]}, grad norms "
+            f"{[round(m['grad_norm'], 4) for m in metrics]} finite; lr "
+            f"{[round(m['lr'], 8) for m in metrics]} = warmup {self.TRAIN_WARMUP} + cosine "
+            f"over {steps}")
+        log(f"[train] step time {step_ms:.1f} ms/step (CUDA events, median of steps 1-{steps - 2};"
+            f" step 0 {ms[0]:.1f} ms), {tokens / (step_ms / 1e3):.0f} tok/s, peak device memory "
+            f"{peak / 1e9:.2f} GB; {smi}")
+        self._train_busy(prof, ms[-1], smi)
+        return params
+
+    def _cosine(self, s, total):
+        """The warmup + cosine schedule in plain Python (float64)."""
+        w, peak = self.TRAIN_WARMUP, self.TRAIN_LR
+        if s < w:
+            return peak * s / max(w, 1)
+        prog = min(max((s - w) / max(total - w, 1), 0.0), 1.0)
+        return peak * (0.1 + 0.9 * 0.5 * (1 + math.cos(math.pi * prog)))
+
+    def _train_busy(self, prof, step_ms, smi):
+        """The profiled step's device time by class.  A kernel is placed by
+        its name (cuBLAS, das_topk), else by the profiler ranges above the
+        op that launched it (``adamw_step``, ``flash_masked``); a backward
+        op takes the ranges of the forward op it differentiates (the same
+        sequence number and forward thread)."""
+        t0 = time.perf_counter()
+        events = prof.events()
+        fwd = {}
+        for e in events:
+            if getattr(e, "sequence_nr", -1) >= 0 and not getattr(e, "is_async", False) and \
+                    "Backward" not in e.name and not e.name.startswith("autograd::"):
+                fwd.setdefault((e.thread, e.sequence_nr), e)
+
+        def context(e, depth=0):
+            while e is not None:
+                if e.name == "adamw_step":
+                    return "optimizer"
+                if e.name == "flash_masked":
+                    return "attention"
+                if depth < 4 and getattr(e, "sequence_nr", -1) >= 0 and (
+                        "Backward" in e.name or e.name.startswith("autograd::")):
+                    f = fwd.get((getattr(e, "fwd_thread", e.thread), e.sequence_nr))
+                    if f is not None and f is not e:
+                        return context(f, depth + 1)
+                e = e.cpu_parent
+            return "other"
+
+        classes = {c: 0.0 for c in TRAIN_CLASSES}
+        n_kernels = 0
+        for e in events:
+            for k in getattr(e, "kernels", ()):
+                n_kernels += 1
+                dur = k.duration / 1e3                      # us -> ms
+                ctx = context(e)
+                if "das_topk" in k.name:
+                    cls = "das_topk"
+                elif _is_gemm(k.name):
+                    cls = ("cuBLAS GEMMs, attention (float32)" if ctx == "attention"
+                           else "cuBLAS GEMMs, linears and logits")
+                else:
+                    cls = {"optimizer": "optimizer", "attention": "attention glue"}.get(
+                        ctx, "fake-quant and other elementwise")
+                classes[cls] += dur
+        busy = sum(classes.values())
+        log(f"[train] device busy by class, the profiled step ({n_kernels} kernels, "
+            f"{busy:.1f} ms busy of {step_ms:.1f} ms, idle share {1 - busy / step_ms:.3f}): "
+            + ", ".join(f"{c} {v:.1f} ms" for c, v in classes.items())
+            + f" (aggregated in {time.perf_counter() - t0:.1f} s); {smi}")
+
+    def _train_topk_times(self, smi):
+        """das_topk's training calls (the mask alone) at 8192 x 2048 and 8192
+        x 5460 bf16: CUDA-event median beside the bound (x read, the int8
+        mask written) and the plain version."""
+        torch = self.torch
+        from repro_torch.kernels import ref
+        from repro_torch.kernels.topk_mask import das_topk_cuda
+        g = self.gen(self.seed + 9)
+        for k in (2048, 5460):
+            x = torch.randn((TRAIN_ROWS, k), generator=g, device=self.dev).to(torch.bfloat16)
+            ms = self._t_ms(lambda: das_topk_cuda(x, keep=16, block=32, with_compact=False))
+            plain = self._t_ms(lambda: ref.das_topk_ref(x, keep=16, block=32,
+                                                       with_compact=False), reps=5)
+            bound = TRAIN_ROWS * k * 3 / HBM_BYTES_PER_S * 1e3
+            log(f"[times] das_topk training call, mask only ({TRAIN_ROWS},{k}) bf16: "
+                f"{ms * 1e3:.1f} us, bound {bound * 1e3:.2f} us (bytes), plain {plain * 1e3:.1f} "
+                f"us; {smi}")
+
+    def _train_serve(self, cfg, params):
+        """Check (e): the trained masters exported base-3 packed, one greedy
+        request of 16 tokens through ServeEngine, the serving kernels
+        launched."""
+        torch = self.torch
+        from repro_torch.kernels import ops
+        from repro_torch.models import model as MD
+        from repro_torch.serve import Request, ServeConfig, ServeEngine
+        model = MD.export_serving(params, cfg)
+        del params
+        torch.cuda.empty_cache()
+        prompt = torch.randint(0, cfg.vocab, (296,),
+                               generator=torch.Generator().manual_seed(self.seed + 13)).numpy()
+        sc = ServeConfig(max_slots=1, max_len=len(prompt) + 16, seed=self.seed)
+        ops.reset_launches()                   # the path starts here
+        eng = ServeEngine(model, sc, device="cuda")
+        eng.submit(Request(uid=0, prompt=prompt, max_new_tokens=16))
+        res = eng.run()
+        torch.cuda.synchronize()
+        counts = dict(ops.launches)            # ... and ends here
+        toks = res[0].tokens
+        log(f"[train] (e) the trained model, exported packed, served one greedy request "
+            f"(prompt {len(prompt)}): {len(toks)} tokens {toks.tolist()}; launches {counts}")
+        if len(toks) != 16 or not all(0 <= int(t) < cfg.vocab for t in toks):
+            raise AssertionError("train (e): the trained model did not serve 16 tokens")
+        for name in ("das_topk", "das_ternary_gemm", "ternary_gemm", "sparse_attention"):
+            if counts[name] <= 0:
+                raise AssertionError(f"train (e): {name} was not launched while serving")
+        for name, n in counts.items():
+            self.launches[name] += n
+        del eng, model
+        torch.cuda.empty_cache()
+
+    def _t_ms(self, fn, reps=25):
+        """Median CUDA-event time of one call, L2 flushed before each.
+
+        A spin of ~5 ms queued ahead keeps the card busy while the host
+        enqueues the call, so the events bracket device time only."""
+        torch = self.torch
+        if getattr(self, "_flush", None) is None:
+            self._flush = torch.empty(64 << 20, dtype=torch.uint8, device=self.dev)  # > 50 MB L2
+        for _ in range(3):
+            fn()
+        times = []
+        for _ in range(reps):
+            self._flush.zero_()
+            torch.cuda._sleep(10_000_000)
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            fn()
+            e1.record()
+            e1.synchronize()
+            times.append(e0.elapsed_time(e1))
+        return statistics.median(times)
+
     def phase_times(self):
         torch = self.torch
         from repro_torch.core import das as das_lib
@@ -2717,28 +3114,8 @@ class Smoke:
         from repro_torch.kernels.twd_decode import twd_decode_cuda
         g = self.gen(self.seed + 2)
         bf16 = torch.bfloat16
-        flush = torch.empty(64 << 20, dtype=torch.uint8, device=self.dev)  # > 50 MB L2
         scale = torch.tensor(0.37, device=self.dev)
-
-        def t_ms(fn, reps=25):
-            """Median CUDA-event time of one call, L2 flushed before each.
-
-            A spin of ~5 ms queued ahead keeps the card busy while the host
-            enqueues the call, so the events bracket device time only."""
-            for _ in range(3):
-                fn()
-            times = []
-            for _ in range(reps):
-                flush.zero_()
-                torch.cuda._sleep(10_000_000)
-                e0 = torch.cuda.Event(enable_timing=True)
-                e1 = torch.cuda.Event(enable_timing=True)
-                e0.record()
-                fn()
-                e1.record()
-                e1.synchronize()
-                times.append(e0.elapsed_time(e1))
-            return statistics.median(times)
+        t_ms = self._t_ms
 
         def row(name, fn, plain, library, nbytes, flops, dtype, shape):
             ms, plain_ms = t_ms(fn), t_ms(plain)
@@ -3429,10 +3806,10 @@ def _frontend_counts(n_l: int, steps: int, packs, mlp: bool) -> dict:
     return counts
 
 
-def _took(label: str, t0: float) -> float:
-    """Log the seconds since t0 that a path of the serve phase took; returns now."""
+def _took(label: str, t0: float, phase: str = "serve") -> float:
+    """Log the seconds since t0 that a path of a phase took; returns now."""
     now = time.perf_counter()
-    log(f"[serve] {label} path done in {now - t0:.1f} s")
+    log(f"[{phase}] {label} path done in {now - t0:.1f} s")
     return now
 
 
@@ -3573,6 +3950,17 @@ def _by_class(by_name: dict, classes: str) -> dict:
     (_ssm_class)."""
     cls, cats = CLASSES[classes]
     return {cat: sum(dt for name, dt in by_name.items() if cls(name) == cat) for cat in cats}
+
+
+# the training step's device kernels by class (Smoke._train_busy)
+TRAIN_CLASSES = ("cuBLAS GEMMs, linears and logits", "cuBLAS GEMMs, attention (float32)",
+                 "das_topk", "attention glue", "fake-quant and other elementwise", "optimizer")
+
+
+def _is_gemm(kernel_name: str) -> bool:
+    """Whether a device kernel is one of cuBLAS's matmuls (named by their
+    tile configurations: sm90_xmma_gemm_*, nvjet_*, cutlass kernels)."""
+    return any(k in kernel_name for k in ("gemm", "gemv", "nvjet", "xmma", "cutlass", "splitK"))
 
 
 def _is_attention(kernel_name: str) -> bool:

@@ -1,4 +1,5 @@
-"""Load the JAX package's serving weights into a TernaryLM.
+"""Load the JAX package's serving weights into a TernaryLM, and its master
+weights and optimizer state into the port's training trees.
 
 The input is the tree that the JAX package's ``export_serving`` returns,
 with every leaf converted to a numpy array: dict/tuple nesting,
@@ -10,6 +11,12 @@ packed (E, R, N) or trits (E, K, N) + per-expert ``scale`` (E, 1, 1).  bfloat16
 leaves (numpy dtype named "bfloat16") are reinterpreted bit for bit.  This
 is how the tests run both packages on the same weights; the port itself
 never imports the JAX package.
+
+``load_master_tree`` takes the JAX package's ``init_params`` tree (numpy
+leaves, the same nesting; scan-stacked groups kept stacked, as
+``transformer.stack_train`` runs them) to tensors on a device with
+``requires_grad`` set, or its ``AdamWState`` (a NamedTuple of step, m and v)
+to the port's.
 """
 
 from __future__ import annotations
@@ -17,10 +24,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.model import TernaryLM
+from repro_torch.optim.adamw import AdamWState
+from repro_torch.tree import leaves, tree_map
 
-__all__ = ["to_torch", "load_serving_tree"]
+__all__ = ["to_torch", "load_serving_tree", "load_master_tree"]
 
 
 def to_torch(a: np.ndarray) -> torch.Tensor:
@@ -31,16 +41,35 @@ def to_torch(a: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
-def _convert(tree):
-    if isinstance(tree, dict):
-        return {k: _convert(v) for k, v in tree.items()}
-    if isinstance(tree, (tuple, list)):
-        return tuple(_convert(v) for v in tree)
-    if tree is None:
-        return None
-    return to_torch(tree)
-
-
 def load_serving_tree(tree: dict, cfg: ModelConfig, device=None) -> TernaryLM:
     """The numpy serving tree as a TernaryLM on ``device`` (CUDA unless "cpu")."""
-    return TernaryLM.from_tree(_convert(tree), cfg, device)
+    return TernaryLM.from_tree(tree_map(to_torch, tree), cfg, device)
+
+
+def _on(tree, device, grad: bool):
+    """A numpy tree as tensors on ``device``, floating ones requiring grad
+    when ``grad``."""
+    def leaf(a):
+        t = to_torch(a).to(device)
+        return t.requires_grad_() if grad and t.is_floating_point() else t
+    return tree_map(leaf, tree)
+
+
+def load_master_tree(tree, cfg: ModelConfig, device=None):
+    """The JAX package's master params (numpy leaves) as tensors on
+    ``device`` (CUDA unless "cpu"), floating leaves with ``requires_grad``;
+    or its AdamWState (fields step, m, v) as the port's, without."""
+    device = resolve_device(device)
+    if getattr(tree, "_fields", None) == ("step", "m", "v"):
+        return AdamWState(step=_on(tree.step, device, False), m=_on(tree.m, device, False),
+                          v=_on(tree.v, device, False))
+    embed = tuple(np.shape(tree["embed"]))
+    if embed != (cfg.vocab_padded, cfg.d_model):
+        raise ValueError(f"embed {embed}: {cfg.name} wants ({cfg.vocab_padded}, {cfg.d_model})")
+    lay = tree["layers"]
+    stacked = lay.get("stacked")
+    n = len(lay["tail"]) + (0 if stacked is None else
+                            len(stacked) * np.shape(leaves(stacked[0])[0])[0])
+    if n != cfg.n_layers:
+        raise ValueError(f"tree holds {n} layers, {cfg.name} has {cfg.n_layers}")
+    return _on(tree, device, True)

@@ -1,0 +1,220 @@
+"""Checkpoints of training trees: an npz payload, a JSON manifest, async save.
+
+Layout (the JAX package's, with the port's own manifest):
+
+  <dir>/step_<N>/payload.npz     leaf_i: the i-th leaf in jax.tree order
+  <dir>/step_<N>/manifest.json   the tree's structure, each leaf's path,
+                                 shape and dtype, the step
+  <dir>/step_<N>/DONE            commit marker
+
+A step is written to ``step_<N>.tmp`` and renamed once complete, so a crash
+leaves no half-written step that ``latest_step`` would take.  bfloat16
+leaves are stored as their uint16 bits and marked "bfloat16" in the
+manifest.  ``async_save`` hands the write to a daemon thread after the
+leaves are copied to the host; ``wait_pending`` joins it (and raises what it
+raised), as every save and restore does first.
+
+``restore_repro_checkpoint`` reads a step written by the JAX package's
+``save_checkpoint`` from its ``payload.npz`` alone: leaf_i is the i-th leaf
+of a tree of the same structure given as ``like``, in ``jax.tree.flatten``'s
+order (tree.py), and a bfloat16 leaf, saved by numpy as 2-byte void
+("|V2"), is read back bit for bit.  Its ``manifest.pkl`` pickles a JAX
+treedef and is never opened.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import threading
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.optim.adamw import AdamWState
+from repro_torch.tree import is_leaf, leaves, leaves_with_paths, unflatten
+
+__all__ = ["save_checkpoint", "restore_checkpoint", "restore_repro_checkpoint",
+           "latest_step", "wait_pending"]
+
+_PENDING: list[threading.Thread] = []
+_FAILED: list[BaseException] = []      # what an async write raised, for wait_pending
+NAMED_TUPLES = {"AdamWState": AdamWState}    # what a manifest may name
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch.float16,
+           "int64": torch.int64, "int32": torch.int32, "int8": torch.int8,
+           "uint8": torch.uint8, "bool": torch.bool}
+
+
+def _step_dir(directory: str, step: int) -> str:
+    return os.path.join(directory, f"step_{step:08d}")
+
+
+def _structure(tree):
+    """The tree's containers as JSON (leaves as "L")."""
+    if tree is None:
+        return None
+    if is_leaf(tree):
+        return "L"
+    if isinstance(tree, dict):
+        return {"dict": {str(k): _structure(v) for k, v in tree.items()}}
+    if hasattr(tree, "_fields"):
+        name = type(tree).__name__
+        if NAMED_TUPLES.get(name) is not type(tree):
+            raise TypeError(f"a checkpoint holds no NamedTuple {name!r}")
+        return {"namedtuple": name, "items": [_structure(v) for v in tree]}
+    return {"tuple" if isinstance(tree, tuple) else "list": [_structure(v) for v in tree]}
+
+
+def _skeleton(spec):
+    """A tree of the manifest's structure with placeholder leaves."""
+    if spec is None:
+        return None
+    if spec == "L":
+        return 0
+    if "dict" in spec:
+        return {k: _skeleton(v) for k, v in spec["dict"].items()}
+    if "namedtuple" in spec:
+        return NAMED_TUPLES[spec["namedtuple"]](*(_skeleton(v) for v in spec["items"]))
+    if "tuple" in spec:
+        return tuple(_skeleton(v) for v in spec["tuple"])
+    return [_skeleton(v) for v in spec["list"]]
+
+
+def _host(x) -> tuple[np.ndarray, str]:
+    """A leaf as a host array to store (bfloat16 as its uint16 bits) and its
+    dtype's name."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu()
+        name = str(x.dtype).removeprefix("torch.")
+        if x.dtype == torch.bfloat16:
+            return x.view(torch.int16).numpy().view(np.uint16).copy(), name
+        return x.numpy().copy(), name
+    a = np.asarray(x)
+    return a.copy(), a.dtype.name
+
+
+def _tensor(a: np.ndarray, dtype: str, device) -> torch.Tensor:
+    a = np.array(a, order="C")                # a writable copy; keeps 0-d shapes
+    if dtype == "bfloat16":
+        t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
+    return t.to(device)
+
+
+def _write(directory: str, step: int, arrays: list, manifest: dict) -> None:
+    d = _step_dir(directory, step)
+    tmp = d + ".tmp"
+    if os.path.isdir(tmp):
+        shutil.rmtree(tmp)
+    os.makedirs(tmp)
+    np.savez(os.path.join(tmp, "payload.npz"),
+             **{f"leaf_{i}": a for i, a in enumerate(arrays)})
+    with open(os.path.join(tmp, "manifest.json"), "w") as f:
+        json.dump(manifest, f)
+    with open(os.path.join(tmp, "DONE"), "w") as f:
+        f.write("ok")
+    if os.path.isdir(d):
+        shutil.rmtree(d)
+    os.rename(tmp, d)
+
+
+def _write_async(*args) -> None:
+    try:
+        _write(*args)
+    except BaseException as e:   # handed to the caller of wait_pending
+        _FAILED.append(e)
+
+
+def wait_pending() -> None:
+    """Join every async save; raise what one of them raised."""
+    while _PENDING:
+        _PENDING.pop().join()
+    if _FAILED:
+        err = _FAILED.pop(0)
+        _FAILED.clear()
+        raise RuntimeError("an async checkpoint save failed") from err
+
+
+def save_checkpoint(directory: str, step: int, tree: Any, *, async_save: bool = False) -> str:
+    """Persist a tree of tensors (dicts, tuples, AdamWState, None).
+    Returns the step directory."""
+    wait_pending()
+    flat = leaves_with_paths(tree)
+    host = [_host(x) for _, x in flat]
+    manifest = {"step": step, "structure": _structure(tree),
+                "leaves": [{"path": p, "shape": list(a.shape), "dtype": dt}
+                           for (p, _), (a, dt) in zip(flat, host)]}
+    args = (directory, step, [a for a, _ in host], manifest)
+    if async_save:
+        t = threading.Thread(target=_write_async, args=args, daemon=True)
+        t.start()
+        _PENDING.append(t)
+    else:
+        _write(*args)
+    return _step_dir(directory, step)
+
+
+def latest_step(directory: str) -> int | None:
+    """The highest committed step (a DONE marker, not a .tmp), or None."""
+    if not os.path.isdir(directory):
+        return None
+    steps = []
+    for name in os.listdir(directory):
+        if name.startswith("step_") and not name.endswith(".tmp") and \
+                os.path.exists(os.path.join(directory, name, "DONE")):
+            steps.append(int(name[len("step_"):]))
+    return max(steps) if steps else None
+
+
+def _resolve_step(directory: str, step: int | None) -> tuple[str, int]:
+    wait_pending()
+    if step is None:
+        step = latest_step(directory)
+        if step is None:
+            raise FileNotFoundError(f"no checkpoint under {directory}")
+    return _step_dir(directory, step), step
+
+
+def restore_checkpoint(directory: str, step: int | None = None, *,
+                       device=None) -> tuple[Any, int]:
+    """Load the tree of the given (default: the latest committed) step onto
+    ``device`` (CUDA unless "cpu") -> (tree, step)."""
+    device = resolve_device(device)
+    d, step = _resolve_step(directory, step)
+    with open(os.path.join(d, "manifest.json")) as f:
+        man = json.load(f)
+    with np.load(os.path.join(d, "payload.npz")) as payload:
+        flat = [_tensor(payload[f"leaf_{i}"], leaf["dtype"], device)
+                for i, leaf in enumerate(man["leaves"])]
+    return unflatten(_skeleton(man["structure"]), flat), step
+
+
+def restore_repro_checkpoint(directory: str, like: Any, step: int | None = None, *,
+                             device=None) -> tuple[Any, int]:
+    """Load a step written by the JAX package's ``save_checkpoint`` into a
+    tree shaped as ``like`` (the same structure, e.g. {"params", "opt"} of
+    the port's), each leaf checked against ``like``'s shape and dtype."""
+    device = resolve_device(device)
+    d, step = _resolve_step(directory, step)
+    want = leaves(like)
+    out = []
+    with np.load(os.path.join(d, "payload.npz")) as payload:
+        if len(payload.files) != len(want):
+            raise ValueError(f"{d} holds {len(payload.files)} leaves, the tree "
+                             f"{len(want)}")
+        for i, w in enumerate(want):
+            a = payload[f"leaf_{i}"]
+            if a.dtype.kind == "V" and a.dtype.itemsize == 2:
+                dtype = "bfloat16"
+            else:
+                dtype = a.dtype.name
+            wdt = str(w.dtype).removeprefix("torch.")
+            if tuple(a.shape) != tuple(w.shape) or dtype != wdt:
+                raise ValueError(f"leaf_{i}: {tuple(a.shape)} {dtype}, the tree has "
+                                 f"{tuple(w.shape)} {wdt}")
+            out.append(_tensor(a.view(np.uint16) if dtype == "bfloat16" else a, dtype, device))
+    return unflatten(like, out), step

@@ -67,7 +67,9 @@ def das_mask(x: torch.Tensor, *, block_size: int = DEFAULT_BLOCK,
 
 
 def das_apply(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """Masked activations (dropped lanes zeroed)."""
+    """Masked activations (dropped lanes zeroed).  Under autograd the
+    gradient flows through the surviving lanes only: the mask (bool or int8
+    0/1) is a constant, as in the paper's sparsify-then-quantize QAT."""
     return x * mask.to(x.dtype)
 
 

@@ -1,15 +1,19 @@
-"""Ternary (1.58-bit) weight quantization used by the serving export, and
-the int8 activation quantization of the MoE experts' inputs.
+"""Ternary (1.58-bit) weight quantization, int8 activation quantization,
+and their straight-through fake-quants for quantization-aware training.
 
-``Q_1.58(W)``: absmean scale gamma = mean(|W|) + eps, trits =
-round_clip(W / gamma, -1, 1) (BitNet b1.58).  The arithmetic stays in W's
-dtype as the JAX package does (the mean accumulates in float32 and is cast
-back); round is half-to-even in both frameworks.
+``Q_1.58(W)``: absmean scale gamma = mean(|W|) + eps (per tensor, or per
+output column with ``per_channel``), trits = round_clip(W / gamma, -1, 1)
+(BitNet b1.58).  The arithmetic stays in W's dtype as the JAX package does
+(the mean accumulates in float32 and is cast back); round is half-to-even in
+both frameworks.
 
 ``Q_int8(x)``: per-token absmax, scale = amax / 127 + eps computed in x's
 dtype and held in float32, values = round_clip(x / scale, -127, 127).
-Forward only: the straight-through fake-quants for training wait for the
-training slice.
+
+The fake-quants (``ternary_fake_quant``, ``int8_fake_quant``,
+``ternary_fake_quant_stacked``) are ``torch.autograd.Function``s: forward
+quantizes and dequantizes in the input's dtype, backward passes the
+gradient through unchanged, as the JAX package's ``custom_vjp``s do.
 """
 
 from __future__ import annotations
@@ -19,15 +23,16 @@ from typing import NamedTuple
 import torch
 
 __all__ = ["EPS", "TernaryWeight", "QuantizedActivation", "absmean_scale",
-           "ternary_quantize", "int8_quantize", "int8_dequantize",
-           "int8_fake_quant"]
+           "ternary_quantize", "ternary_dequantize", "ternary_fake_quant",
+           "ternary_fake_quant_stacked", "int8_quantize", "int8_dequantize",
+           "int8_fake_quant", "ternary_matmul_ref"]
 
 EPS = 1e-6
 
 
 class TernaryWeight(NamedTuple):
     values: torch.Tensor   # int8 in {-1, 0, 1}, the weight's shape
-    scale: torch.Tensor    # float32 scalar
+    scale: torch.Tensor    # float32, broadcastable to values
 
 
 class QuantizedActivation(NamedTuple):
@@ -35,15 +40,23 @@ class QuantizedActivation(NamedTuple):
     scale: torch.Tensor    # float32, the quantized axis kept with size 1
 
 
-def absmean_scale(w: torch.Tensor) -> torch.Tensor:
-    """Per-tensor gamma = mean(|W|) + eps, in W's dtype."""
+def absmean_scale(w: torch.Tensor, *, per_channel: bool = False) -> torch.Tensor:
+    """gamma = mean(|W|) + eps in W's dtype: per tensor, or with
+    ``per_channel`` per output column of a (..., in, out) weight."""
+    if per_channel:
+        dims = tuple(range(w.ndim - 1))
+        return w.abs().mean(dim=dims, keepdim=True, dtype=torch.float32).to(w.dtype) + EPS
     return w.abs().mean(dtype=torch.float32).to(w.dtype) + EPS
 
 
-def ternary_quantize(w: torch.Tensor) -> TernaryWeight:
-    gamma = absmean_scale(w)
+def ternary_quantize(w: torch.Tensor, *, per_channel: bool = False) -> TernaryWeight:
+    gamma = absmean_scale(w, per_channel=per_channel)
     q = torch.clamp(torch.round(w / gamma), -1.0, 1.0)
     return TernaryWeight(values=q.to(torch.int8), scale=gamma.float())
+
+
+def ternary_dequantize(tw: TernaryWeight, dtype=torch.float32) -> torch.Tensor:
+    return tw.values.to(dtype) * tw.scale.to(dtype)
 
 
 def int8_quantize(x: torch.Tensor, *, dim: int = -1) -> QuantizedActivation:
@@ -58,6 +71,59 @@ def int8_dequantize(qa: QuantizedActivation, dtype=torch.float32) -> torch.Tenso
     return qa.values.to(dtype) * qa.scale.to(dtype)
 
 
+class _TernaryFakeQuant(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, w):
+        return ternary_dequantize(ternary_quantize(w), dtype=w.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+class _Int8FakeQuant(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return int8_dequantize(int8_quantize(x), dtype=x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+class _TernaryFakeQuantStacked(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, w):
+        dims = tuple(range(1, w.ndim))
+        gamma = w.abs().mean(dim=dims, keepdim=True, dtype=torch.float32).to(w.dtype) + EPS
+        q = torch.clamp(torch.round(w / gamma), -1.0, 1.0)
+        return (q * gamma).to(w.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+def ternary_fake_quant(w: torch.Tensor) -> torch.Tensor:
+    """STE ternary fake-quant (QAT): forward dequantize(quantize(w)) in w's
+    dtype with a per-tensor scale, backward the identity."""
+    return _TernaryFakeQuant.apply(w)
+
+
 def int8_fake_quant(x: torch.Tensor) -> torch.Tensor:
-    """x quantized to int8 and back, in x's dtype."""
-    return int8_dequantize(int8_quantize(x), dtype=x.dtype)
+    """STE int8 fake-quant: x quantized per token and back, in x's dtype;
+    backward the identity."""
+    return _Int8FakeQuant.apply(x)
+
+
+def ternary_fake_quant_stacked(w: torch.Tensor) -> torch.Tensor:
+    """STE ternary fake-quant with one absmean scale per slab of the leading
+    (expert) axis; backward the identity."""
+    return _TernaryFakeQuantStacked.apply(w)
+
+
+def ternary_matmul_ref(x: torch.Tensor, tw_values: torch.Tensor, tw_scale: torch.Tensor,
+                       out_dtype=torch.float32) -> torch.Tensor:
+    """x @ (values * scale), computed in ``out_dtype``."""
+    w = tw_values.to(out_dtype) * tw_scale.to(out_dtype)
+    return torch.matmul(x.to(out_dtype), w)

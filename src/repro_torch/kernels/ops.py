@@ -82,16 +82,19 @@ def _scale(s, like: torch.Tensor) -> torch.Tensor:
 def das_topk(x: torch.Tensor, *, keep: int, block: int = 32,
              norm_scale: torch.Tensor | None = None, eps: float = 1e-6,
              with_mask: bool = True, with_normed: bool = False,
-             with_dense: bool = False) -> DasTopK:
+             with_dense: bool = False, with_compact: bool = True) -> DasTopK:
     """(..., K) -> DasTopK over the flattened rows (M, K) of x, or of
     ``rmsnorm(norm_scale, x, eps)`` (models/layers.py) when a norm scale
     (K,) is given; the mask (M, K), the normed rows and, when the block
-    divides K, the masked dense rows beside the compaction only on request."""
+    divides K, the masked dense rows beside the compaction only on request.
+    ``with_compact=False`` writes neither the compaction nor the masked
+    dense rows (the training step's call: the mask alone)."""
     if with_normed and norm_scale is None:
         raise ValueError("normed rows need a norm scale")
     x2 = x.reshape(-1, x.shape[-1])
     kw = dict(keep=keep, block=block, norm_scale=norm_scale, eps=eps,
-              with_mask=with_mask, with_normed=with_normed, with_dense=with_dense)
+              with_mask=with_mask, with_normed=with_normed, with_dense=with_dense,
+              with_compact=with_compact)
     if not _on_cuda(x2, norm_scale):
         return ref.das_topk_ref(x2, **kw)
     out = das_topk_cuda(x2.contiguous(), **kw)

@@ -40,19 +40,20 @@ class DasTopK(NamedTuple):
 def das_topk_ref(x: torch.Tensor, *, keep: int, block: int,
                  norm_scale: torch.Tensor | None = None, eps: float = 1e-6,
                  with_mask: bool = True, with_normed: bool = False,
-                 with_dense: bool = False) -> DasTopK:
+                 with_dense: bool = False, with_compact: bool = True) -> DasTopK:
     """x (M, K) -> DasTopK, the semantics of core.das on one flat batch; with
     ``norm_scale``, of ``rmsnorm(norm_scale, x, eps)`` (models/layers.py);
-    ``with_dense`` gives the masked dense rows beside the compaction."""
+    ``with_dense`` gives the masked dense rows beside the compaction;
+    ``with_compact=False`` neither (the mask and normed rows alone)."""
     normed = None
     if norm_scale is not None:
         x = normed = rmsnorm(norm_scale, x, eps)
     mask = das_lib.das_mask(x, block_size=block, keep=keep)
     values = indices = dense = None
-    if x.shape[-1] % block == 0:
+    if with_compact and x.shape[-1] % block == 0:
         ca = das_lib.das_compact(x, block_size=block, keep=keep)
         values, indices = ca.values, ca.indices
-    if x.shape[-1] % block or with_dense:
+    if with_compact and (x.shape[-1] % block or with_dense):
         dense = das_lib.das_apply(x, mask)
     return DasTopK(mask.to(torch.int8) if with_mask else None, values, indices, dense,
                    normed if with_normed else None)

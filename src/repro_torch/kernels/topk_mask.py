@@ -23,10 +23,12 @@ __all__ = ["das_topk_cuda"]
 def das_topk_cuda(x: torch.Tensor, *, keep: int, block: int,
                   norm_scale: torch.Tensor | None = None, eps: float = 1e-6,
                   with_mask: bool = True, with_normed: bool = False,
-                  with_dense: bool = False) -> DasTopK:
+                  with_dense: bool = False, with_compact: bool = True) -> DasTopK:
     """x (M, K) -> DasTopK of x, or of rmsnorm(norm_scale, x, eps) when a
     scale (K,) is given: compaction when 32 divides K, else masked dense;
-    ``with_dense`` writes the masked dense rows beside the compaction."""
+    ``with_dense`` writes the masked dense rows beside the compaction;
+    ``with_compact=False`` writes neither (every output pointer of the
+    kernel may be null)."""
     if block != 32:
         raise ValueError(f"the das_topk kernel ranks 32-lane blocks; got block={block}")
     if not 0 < keep <= block:
@@ -51,11 +53,13 @@ def das_topk_cuda(x: torch.Tensor, *, keep: int, block: int,
     mask = new((m, k), torch.int8) if with_mask else None
     normed = new((m, k), x.dtype) if with_normed else None
     values = indices = dense = None
-    if k % block == 0:
+    if with_compact and k % block == 0:
         kc = k // block * keep
         values, indices = new((m, kc), x.dtype), new((m, kc), torch.int32)
-    if k % block or with_dense:
+    if with_compact and (k % block or with_dense):
         dense = new((m, k), x.dtype)
+    if not (with_mask or with_normed or values is not None or dense is not None):
+        raise ValueError("das_topk asked to write nothing")
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     err = build.library().tenet_das_topk(
         x.data_ptr(), build.dtype_code(x), m, k, keep, ptr(norm_scale), eps, ptr(mask),

@@ -1,0 +1,145 @@
+"""Training entry point of the port: the step builder and a runnable main.
+
+``make_train_step`` returns the step (params, opt, batch) -> (params, opt,
+metrics): the loss and its gradient by autograd over the master tree
+(models/model.py ``loss_fn``), the learning rate from the schedule at the
+optimizer's step, then AdamW.  ``main`` runs a training job on seeded
+random weights and synthetic data, with checkpoints, fault-tolerant restart
+and straggler monitoring, the JAX package's loop.  It trains the dense
+models (attn / local blocks with their FFN); any other arch is refused.
+
+Usage:
+  python -m repro_torch.launch.train --arch bitnet-1.3b --reduced --steps 50 \\
+      --batch 8 --seq 128 [--device cpu] [--inject-failure 17] [--ckpt-dir DIR]
+
+Runs on the CUDA device unless ``--device cpu``, where the DAS masks come
+from the plain PyTorch version of the ``das_topk`` kernel.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch import checkpoint as ckpt_lib
+from repro_torch.configs import get_config, reduced as reduced_cfg
+from repro_torch.data.pipeline import SyntheticLM
+from repro_torch.distributed import fault
+from repro_torch.models import model as MD
+from repro_torch.models import transformer as T
+from repro_torch.optim import adamw, schedule
+from repro_torch.tree import leaves, unflatten
+
+__all__ = ["make_runtime", "make_train_step", "main"]
+
+
+def make_runtime() -> T.Runtime:
+    """The step's Runtime on one device: the JAX package's no-mesh branch
+    (the sharded trainer waits for the distributed slice, ROADMAP queue 1,
+    item 2)."""
+    return T.Runtime()
+
+
+def make_train_step(cfg, rt: T.Runtime, *, peak_lr: float = 3e-4, warmup: int = 100,
+                    total: int = 10_000, sched: str = "cosine", weight_decay: float = 0.1):
+    """The step (params, opt, batch) -> (params, opt, {"loss", "lr",
+    "grad_norm"}) for a master tree ``params`` on one device; ``batch``
+    {"inputs", "labels"} may be numpy and is moved to the params' device."""
+    sched_fn = schedule.wsd_schedule if sched == "wsd" else schedule.cosine_schedule
+
+    def train_step(params, opt: adamw.AdamWState, batch):
+        flat = [p.detach().requires_grad_() for p in leaves(params)]
+        dev = flat[0].device
+        b = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        loss, _ = MD.loss_fn(unflatten(params, flat), cfg, b, rt)
+        grads = torch.autograd.grad(loss, flat, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(flat, grads)]
+        lr = sched_fn(opt.step, peak_lr=peak_lr, warmup=warmup, total=total)
+        params, opt, info = adamw.adamw_step(params, unflatten(params, grads), opt, lr=lr,
+                                             weight_decay=weight_decay)
+        return params, opt, {"loss": loss.detach(), "lr": lr, **info}
+
+    return train_step
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description="Train a dense ternary model (repro_torch).")
+    ap.add_argument("--arch", default="bitnet-1.3b")
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--sched", choices=("cosine", "wsd"), default="cosine")
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=10)
+    ap.add_argument("--inject-failure", type=int, action="append", default=[])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--device", default=None,
+                    help="cuda (the default) or cpu (the kernels' plain versions)")
+    args = ap.parse_args(argv)
+
+    try:
+        cfg = get_config(args.arch)
+    except KeyError as e:
+        ap.error(str(e))
+    if args.reduced:
+        cfg = reduced_cfg(cfg)
+    why = T.trainable(cfg)
+    if why is not None:
+        ap.error(f"--arch {args.arch}: {why}")
+    device = resolve_device(args.device)
+    # minicpm trains with WSD per its paper
+    sched = "wsd" if (args.arch.startswith("minicpm") and args.sched == "cosine") \
+        else args.sched
+    step_fn = make_train_step(cfg, make_runtime(), peak_lr=args.lr,
+                              warmup=10, total=args.steps, sched=sched)
+    data = SyntheticLM(vocab=cfg.vocab, seq_len=args.seq, batch=args.batch, seed=args.seed)
+    params = MD.init_params(cfg, seed=args.seed, device=device)
+    opt = adamw.adamw_init(params)
+    n_params = sum(p.numel() for p in leaves(params))
+    print(f"[train] {cfg.name}: {n_params / 1e6:.1f}M params on {device}, "
+          f"{args.steps} steps, batch {args.batch} x seq {args.seq}, {sched}")
+
+    monitor = fault.StragglerMonitor()
+    injector = fault.FaultInjector(tuple(args.inject_failure))
+    losses: list[float] = []
+
+    def one_step(state, step):
+        params, opt = state
+        params, opt, m = step_fn(params, opt, data.batch_at(step))
+        loss = float(m["loss"])
+        losses.append(loss)
+        if step % args.log_every == 0:
+            print(f"  step {step:5d} loss {loss:.4f} lr {float(m['lr']):.2e} "
+                  f"gnorm {float(m['grad_norm']):.3f}")
+        return params, opt
+
+    if args.ckpt_dir:
+        def save(st, s):
+            ckpt_lib.save_checkpoint(args.ckpt_dir, s, {"params": st[0], "opt": st[1]})
+
+        def restore():
+            tree, s = ckpt_lib.restore_checkpoint(args.ckpt_dir, device=device)
+            print(f"  [fault] restored step {s}")
+            return (tree["params"], tree["opt"]), s
+
+        state, stats = fault.resilient_loop(
+            init_state=(params, opt), step_fn=one_step, n_steps=args.steps,
+            save_fn=save, restore_fn=restore, ckpt_every=args.ckpt_every,
+            injector=injector, monitor=monitor)
+        print(f"[train] done. restarts={stats['restarts']} "
+              f"stragglers={len(stats['stragglers'])}")
+    else:
+        state = (params, opt)
+        for s in range(args.steps):
+            state = one_step(state, s)
+    print(f"[train] final loss {losses[-1]:.4f} (first {losses[0]:.4f})")
+    return losses
+
+
+if __name__ == "__main__":
+    main()

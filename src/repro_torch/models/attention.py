@@ -1,5 +1,8 @@
 """GQA attention with ternary projections: streaming (LPSA) prefill, full
-prefill and one-token decode, all through the ``sparse_attention`` kernel.
+prefill and one-token decode, all through the ``sparse_attention`` kernel;
+and the training pass over master weights (``attn_train``), whose attention
+is ``flash_masked``: the JAX package's chunked flash attention, plain
+PyTorch under autograd.
 
 Layer kinds: "attn" — global attention, sink + window under LPSA or full
 causal; "local" — sliding window (sink 0, window ``cfg.window``).  Tensor
@@ -19,13 +22,15 @@ from repro_torch.core import lpsa as lpsa_lib
 from repro_torch.kernels import ops
 from repro_torch.models import kvcache as KV
 from repro_torch.models import layers as L
-from repro_torch.models.ternary_linear import TernaryLinear, tlin_norm_input
+from repro_torch.models.ternary_linear import (TernaryLinear, tlin_norm_input, tlin_train,
+                                               tlin_train_input)
 
-__all__ = ["FULL_SINK", "Attention", "kind_sink_window", "qkv_project",
+__all__ = ["FULL_SINK", "NEG_INF", "Attention", "kind_sink_window", "qkv_project",
            "attn_prefill_streaming", "attn_prefill_full", "DecodeStep",
-           "decode_step_inputs", "attn_decode"]
+           "decode_step_inputs", "attn_decode", "flash_masked", "attn_train"]
 
 FULL_SINK = 1 << 30   # a sink beyond any position == full causal attention
+NEG_INF = -1e30
 
 
 class Attention(nn.Module):
@@ -158,3 +163,82 @@ def attn_decode(p: Attention, cfg: ModelConfig, x: torch.Tensor,
     o = ops.sparse_attention(q, k_all, v_all, step.q_pos, k_pos, sink=sink,
                              window=window, softcap=cfg.attn_softcap)
     return p.wo(o.reshape(b, 1, cfg.q_dim))
+
+
+def flash_masked(q, k, v, q_pos, k_pos, *, sink: int, window: int,
+                 softcap: float | None = None, kv_chunk: int = 512) -> torch.Tensor:
+    """Differentiable chunked attention with the LPSA mask family, the JAX
+    package's ``flash_masked``: keys in chunks of ``kv_chunk`` (one chunk
+    when it does not divide Lk), an online softmax in float32, GQA by
+    repeating each kv head over its query heads, the soft-cap on the scaled
+    scores, keys at negative positions empty.  q (B, Lq, Hq, D); k, v (B,
+    Lk, Hkv, D); positions (Lq,) / (Lk,) or per sequence (B, Lq) / (B, Lk).
+    Rows with no allowed key give 0.  Returns (B, Lq, Hq, D) in q's dtype.
+    The kv heads are repeated by a broadcast, whose backward is a sum (the
+    backward of ``repeat_interleave`` adds with atomics on the card, in no
+    fixed order).  Its forward runs in a profiler range "flash_masked"."""
+    with torch.profiler.record_function("flash_masked"):
+        return _flash_masked(q, k, v, q_pos, k_pos, sink, window, softcap, kv_chunk)
+
+
+def _flash_masked(q, k, v, q_pos, k_pos, sink, window, softcap, kv_chunk):
+    b, lq, hq, d = q.shape
+    lk, hkv = k.shape[1], k.shape[2]
+    n_rep = hq // hkv
+    c = min(kv_chunk, lk)
+    if lk % c:
+        c = lk
+    scale = d ** -0.5
+    q_pos = torch.broadcast_to(torch.atleast_2d(q_pos), (b, lq))
+    k_pos = torch.broadcast_to(torch.atleast_2d(k_pos), (b, lk))
+    qh = q.transpose(1, 2).float()                                  # (B, Hq, Lq, D)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    m = torch.full((b, hq, lq, 1), NEG_INF, **f32)
+    l = torch.zeros((b, hq, lq, 1), **f32)
+    acc = torch.zeros((b, hq, lq, d), **f32)
+
+    def heads(t):          # (B, c, Hkv, D) -> (B, Hq, c, D) float32, kv head h // n_rep
+        t = t.transpose(1, 2).float()
+        if n_rep == 1:
+            return t
+        return t[:, :, None].expand(b, hkv, n_rep, *t.shape[2:]).reshape(b, hq, *t.shape[2:])
+
+    for j in range(0, lk, c):
+        kb, vb = heads(k[:, j:j + c]), heads(v[:, j:j + c])
+        kp = k_pos[:, j:j + c]
+        s = torch.matmul(qh, kb.transpose(-1, -2)) * scale
+        if softcap is not None:
+            s = torch.tanh(s / softcap) * softcap
+        mask = lpsa_lib.lpsa_allowed(q_pos[:, :, None], kp[:, None, :], sink, window)
+        mask = (mask & (kp >= 0)[:, None, :])[:, None]             # (B, 1, Lq, c)
+        s = torch.where(mask, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        m_safe = torch.where(m_new <= NEG_INF, 0.0, m_new)
+        p = torch.where(mask, torch.exp(s - m_safe), 0.0)
+        alpha = torch.where(m <= NEG_INF, 0.0, torch.exp(m - m_safe))
+        l = alpha * l + p.sum(-1, keepdim=True)
+        acc = acc * alpha + torch.matmul(p, vb)
+        m = m_new
+    out = acc / torch.where(l == 0.0, 1.0, l)
+    return out.transpose(1, 2).to(q.dtype)
+
+
+def attn_train(p: dict, cfg: ModelConfig, x: torch.Tensor, kind: str, rt) -> torch.Tensor:
+    """Training attention over whole sequences x (B, L, D), already normed,
+    on master weights {wq, wk, wv, wo}: q/k/v take one DAS step and one
+    int8 fake-quant of x, RoPE at positions 0..L-1, ``flash_masked`` with
+    the layer kind's sink and window (LPSA on global layers when
+    ``rt.serve_sparse``), then wo."""
+    b, l, _ = x.shape
+    tc, hd = cfg.ternary, cfg.head_dim_
+    sink, window = kind_sink_window(cfg, kind, rt.serve_sparse)
+    xq = tlin_train_input(x, tc)
+    q = tlin_train(p["wq"], xq, tc).reshape(b, l, cfg.n_heads, hd)
+    k = tlin_train(p["wk"], xq, tc).reshape(b, l, cfg.n_kv_heads, hd)
+    v = tlin_train(p["wv"], xq, tc).reshape(b, l, cfg.n_kv_heads, hd)
+    pos = torch.arange(l, device=x.device)
+    rp = _rope_fn(cfg)
+    q, k = rp(q, pos), rp(k, pos)
+    o = flash_masked(q, k, v, pos, pos, sink=sink, window=window, softcap=cfg.attn_softcap)
+    o = o.reshape(b, l, cfg.q_dim)
+    return tlin_train(p["wo"], tlin_train_input(o, tc), tc)

@@ -198,8 +198,10 @@ def take_embed(embed: torch.Tensor, tokens: torch.Tensor, *,
                scale: bool = False) -> torch.Tensor:
     """Rows of ``embed`` for ``tokens``; ``scale`` multiplies them by
     sqrt(d) rounded to their dtype (gemma's input scaling: 48.0 at d = 2304
-    and 34.0 at d = 1152 in bfloat16)."""
-    x = embed[tokens]
+    and 34.0 at d = 1152 in bfloat16).  ``F.embedding``: its backward sums
+    a row's gradients in a fixed order on the card, where indexing's
+    backward may add with atomics."""
+    x = F.embedding(tokens, embed)
     if scale:
         x = x * _const(x.shape[-1] ** 0.5, x.dtype)
     return x

@@ -23,6 +23,11 @@ a float32 prompt runs a float32 residual stream under a bfloat16 config
 (ternary weights, bfloat16 norm scales, embeddings and head, bfloat16 slot
 caches).  Their decode steps take token ids with an optional ``forced``
 mask and its float32 rows, as the JAX engine's step builds its input.
+
+Training: ``forward`` and ``loss_fn`` run a master tree (``init_params``,
+or the JAX package's through ``bridge.load_master_tree``) under autograd,
+from token ids or float embeddings, through ``transformer.stack_train``
+(the dense models: attn / local blocks and their FFN).
 """
 
 from __future__ import annotations
@@ -43,9 +48,13 @@ from repro_torch.models import rwkv6 as R
 from repro_torch.models import transformer as T
 from repro_torch.models.ternary_linear import (TRITS_FORMATS, TernaryLinear,
                                                export_tlin, tlin_init)
+from repro_torch.tree import leaves, tree_map
 
-__all__ = ["TernaryLM", "uses_embeds", "init_params", "export_serving", "init_serving",
-           "trits_from_packed", "flatten_tree", "prefill", "decode_step", "init_caches"]
+__all__ = ["TernaryLM", "Runtime", "embed_scale", "uses_embeds", "init_params", "export_serving",
+           "init_serving", "trits_from_packed", "flatten_tree", "prefill", "decode_step",
+           "init_caches", "forward", "loss_fn"]
+
+Runtime = T.Runtime
 
 
 class TernaryLM(nn.Module):
@@ -60,8 +69,7 @@ class TernaryLM(nn.Module):
         dt = L.torch_dtype(cfg.dtype)
         device = resolve_device(device)
         self.cfg = cfg
-        # the JAX package scales a dense gemma model's input embeddings
-        self.embed_scale = cfg.family == "dense" and cfg.name.startswith("gemma")
+        self.embed_scale = embed_scale(cfg)
         self.register_buffer("embed", torch.zeros((cfg.vocab_padded, cfg.d_model),
                                                   dtype=dt, device=device))
         if not cfg.tie_embeddings:
@@ -107,6 +115,12 @@ class TernaryLM(nn.Module):
         return model
 
 
+def embed_scale(cfg: ModelConfig) -> bool:
+    """Whether token embeddings are scaled by sqrt(d): the JAX package
+    scales a dense gemma model's."""
+    return cfg.family == "dense" and cfg.name.startswith("gemma")
+
+
 def uses_embeds(cfg: ModelConfig) -> bool:
     """Whether the config's prompts are float embeddings (a stub frontend)."""
     return cfg.frontend != "none"
@@ -139,10 +153,10 @@ def flatten_tree(tree: dict, cfg: ModelConfig) -> dict:
     blocks: list = []
     if lay.get("stacked") is not None:
         per_pos = lay["stacked"]
-        groups = _leaves(per_pos[0])[0].shape[0]
+        groups = leaves(per_pos[0])[0].shape[0]
         for g in range(groups):
             for pos_tree in per_pos:
-                blocks.append(_map(lambda a, g=g: a[g], pos_tree))
+                blocks.append(tree_map(lambda a, g=g: a[g], pos_tree))
     blocks.extend(lay["tail"])
     if len(blocks) != cfg.n_layers:
         raise ValueError(f"tree holds {len(blocks)} layers, {cfg.name} has "
@@ -164,18 +178,6 @@ def _flatten(tree, prefix: str, out: dict) -> None:
             _flatten(v, f"{prefix}{k}.", out)
     elif tree is not None:
         out[prefix[:-1]] = tree
-
-
-def _leaves(tree) -> list:
-    if isinstance(tree, dict):
-        return [x for v in tree.values() for x in _leaves(v)]
-    return [tree]
-
-
-def _map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _map(fn, v) for k, v in tree.items()}
-    return fn(tree)
 
 
 def _generator(seed: int, device) -> torch.Generator:
@@ -262,10 +264,11 @@ def _export(tree, cfg: ModelConfig):
     return tree
 
 
+@torch.no_grad()
 def export_serving(params: dict, cfg: ModelConfig) -> TernaryLM:
     """Master weights -> a TernaryLM whose ternary linears and expert stacks
     take the config's serve format (TWD-packed or int8 trits), on the
-    master weights' device."""
+    master weights' device (a trained tree too: outside autograd)."""
     return TernaryLM.from_tree(_export(params, cfg), cfg, params["embed"].device)
 
 
@@ -383,3 +386,54 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, *, device=None,
                                                   page_size=page_size,
                                                   num_pages=num_pages), device)
             for kind in cfg.layer_kinds()]
+
+
+# --------------------------------------------------------------------------
+# training
+# --------------------------------------------------------------------------
+
+def _inputs_to_x(p: dict, cfg: ModelConfig, batch_in: torch.Tensor) -> torch.Tensor:
+    """Token ids -> their embeddings (gemma's scaled); float embeddings (a
+    stub frontend's) pass through in their own dtype."""
+    if batch_in.is_floating_point():
+        return batch_in
+    return L.take_embed(p["embed"], batch_in, scale=embed_scale(cfg))
+
+
+def _train_logits(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """The final norm, the tied embedding's or the untied head's product in
+    x's dtype, float32, soft-capped, the padded vocab at -1e30."""
+    x = L.rmsnorm(p["final_norm"]["scale"], x)
+    if cfg.tie_embeddings:
+        lg = L.logits_from_embed(p["embed"], x, cfg.logit_softcap)
+    else:
+        lg = L.softcap(torch.matmul(x, p["head"].to(x.dtype)).float(), cfg.logit_softcap)
+    if cfg.vocab_padded > cfg.vocab:
+        pad = torch.arange(cfg.vocab_padded, device=lg.device) >= cfg.vocab
+        lg = lg + torch.where(pad, -1e30, 0.0)
+    return lg
+
+
+def forward(p: dict, cfg: ModelConfig, batch_in: torch.Tensor,
+            rt: T.Runtime = T.Runtime()) -> torch.Tensor:
+    """Whole-sequence training forward of a master tree: token ids (B, S)
+    or float embeddings (B, S, D) -> logits (B, S, V) float32."""
+    x = _inputs_to_x(p, cfg, batch_in)
+    x = T.stack_train(p["layers"], cfg, x, rt)
+    return _train_logits(p, cfg, x)
+
+
+def loss_fn(p: dict, cfg: ModelConfig, batch: dict, rt: T.Runtime = T.Runtime()):
+    """Next-token cross entropy of batch {"inputs", "labels"} (labels -1
+    masked), logsumexp in float32, averaged over max(tokens, 1) -> (loss,
+    {"loss", "tokens"})."""
+    logits = forward(p, cfg, batch["inputs"], rt)
+    labels = batch["labels"]
+    mask = labels >= 0
+    lab = torch.where(mask, labels, 0).long()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, lab[..., None])[..., 0]
+    nll = (lse - gold) * mask
+    denom = torch.clamp(mask.sum(), min=1)
+    loss = nll.sum() / denom
+    return loss, {"loss": loss, "tokens": denom}

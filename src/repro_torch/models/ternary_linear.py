@@ -1,4 +1,5 @@
-"""TernaryLinear, serving half: ternary weights behind the DAS kernels.
+"""TernaryLinear: ternary weights behind the DAS kernels (serving), and
+the master-weight QAT path (training).
 
 Two serving forms, chosen by ``TernaryConfig.serve_format``:
 
@@ -30,6 +31,15 @@ to x's dtype.  The trits form applies the scale rounded to x's dtype, as
 the JAX package multiplies ``trits.astype(x.dtype) * scale.astype(x.dtype)``;
 the packed form keeps the float32 scale, as the JAX package's packed path
 does.
+
+Training (master {"w"} leaves; the JAX package's ``tlin_apply`` on "w"):
+``tlin_train_input`` takes x through the DAS mask (a constant: the gradient
+flows through the surviving lanes only) and the int8 STE fake-quant, once
+for every projection that shares x; ``tlin_train`` multiplies that by the
+STE ternary fake-quant of w, in x's dtype (``torch.matmul``: the JAX
+package's einsum, outside any kernel).  The mask comes from the
+``das_topk`` kernel (mask only) where x lies on the card, from its plain
+version on the CPU.
 """
 
 from __future__ import annotations
@@ -38,13 +48,15 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import TernaryConfig
+from repro_torch.core import das as das_lib
 from repro_torch.core import ternary as tq
 from repro_torch.core import twd
 from repro_torch.kernels import ops
 from repro_torch.models.layers import rmsnorm
 
-__all__ = ["ROW_ALIGN", "TRITS_FORMATS", "TernaryLinear", "check_format", "tlin_init",
-           "export_tlin", "tlin_compact", "tlin_norm_input", "tlin_apply"]
+__all__ = ["ROW_ALIGN", "TRITS_FORMATS", "TernaryLinear", "check_format",
+           "tlin_init", "export_tlin", "tlin_compact", "tlin_norm_input", "tlin_apply",
+           "das_train_mask", "tlin_train_input", "tlin_train"]
 
 ROW_ALIGN = 16   # packed rows of an export are a multiple of this
 TRITS_FORMATS = ("int8", "bf16")   # serve formats that hold int8 trits
@@ -151,3 +163,29 @@ def tlin_apply(lin: TernaryLinear, x: torch.Tensor,
         else:
             y = ops.das_gemv(ca.dense, None, lin.trits, scale)
     return y.reshape(*lead, y.shape[-1]).to(x.dtype)
+
+
+def das_train_mask(x: torch.Tensor, tc: TernaryConfig) -> torch.Tensor:
+    """The DAS keep-mask of x (..., K), int8 0/1, outside autograd."""
+    step = ops.das_topk(x.detach(), keep=tc.das.keep, block=tc.das.block, with_compact=False)
+    return step.mask.reshape(x.shape)
+
+
+def tlin_train_input(x: torch.Tensor, tc: TernaryConfig) -> torch.Tensor:
+    """What the master projections of x multiply: x DAS-masked (with DAS
+    on) and int8 fake-quantized; x itself with the ternary stack off."""
+    if not tc.enabled:
+        return x
+    if tc.das is not None:
+        x = das_lib.das_apply(x, das_train_mask(x, tc))
+    return tq.int8_fake_quant(x)
+
+
+def tlin_train(p: dict, xq: torch.Tensor, tc: TernaryConfig) -> torch.Tensor:
+    """xq (..., K) from ``tlin_train_input`` times the STE ternary
+    fake-quant of the master weight p["w"] (K, N), in xq's dtype; with the
+    ternary stack off, times the weight itself."""
+    if not tc.enabled:
+        w = p["w"] if "w" in p else p["w_hp"]
+        return torch.matmul(xq, w.to(xq.dtype))
+    return torch.matmul(xq, tq.ternary_fake_quant(p["w"]).to(xq.dtype))

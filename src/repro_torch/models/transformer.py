@@ -16,12 +16,24 @@ the model and passed to every attention block, each of which keeps its own
 norms and FFN.  The JAX package scans stacked layer groups; here the stack
 is a loop over the model's ``ModuleList``, whatever the pattern and its
 tail (gemma3's 26 layers = 4 x 6 + 2).
+
+Training runs on master-weight trees in the JAX package's layout (plain
+dicts of tensors, ``models.model.init_params``): ``block_train`` is the
+"attn" / "local" block over whole sequences, ``stack_train`` runs the
+scan-stacked groups (a leading group axis on every leaf) and then the tail,
+in the JAX package's order, each group or tail layer under
+``torch.utils.checkpoint`` when ``cfg.remat`` (non-reentrant: the forward is
+run again in the backward).  The mamba, rwkv, gla and MoE blocks have no
+training pass in the port yet (ROADMAP queue 1, item 1) and raise.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as A
@@ -31,16 +43,41 @@ from repro_torch.models import mamba2 as M
 from repro_torch.models import moe as MOE
 from repro_torch.models import rwkv6 as R
 from repro_torch.models.layers import ACT, RMSNorm, rmsnorm
-from repro_torch.models.ternary_linear import TernaryLinear, tlin_norm_input
+from repro_torch.models.ternary_linear import (TernaryLinear, tlin_norm_input,
+                                               tlin_train, tlin_train_input)
+from repro_torch.tree import leaves, tree_map
 
 __all__ = ["ATTN_KINDS", "RECURRENT_KINDS", "FFN_KINDS", "FFN", "Block", "ffn_apply", "block_prefill",
-           "block_decode", "layer_cache_spec", "stack_prefill", "stack_decode"]
+           "block_decode", "layer_cache_spec", "stack_prefill", "stack_decode",
+           "Runtime", "trainable", "ffn_train", "block_train", "stack_train"]
 
 ATTN_KINDS = ("attn", "local")
 RECURRENT_KINDS = ("mamba", "rwkv", "gla")   # the recurrent kinds the port serves
 
 
 FFN_KINDS = ("gated", "mlp")
+
+
+@dataclass(frozen=True)
+class Runtime:
+    """What the training pass runs on: ``serve_sparse`` puts LPSA on the
+    global layers, as the JAX package's ``Runtime`` does by default."""
+    serve_sparse: bool = True
+
+
+def trainable(cfg: ModelConfig) -> str | None:
+    """None when the port trains ``cfg`` (attn / local blocks, a dense FFN),
+    else why not."""
+    kinds = sorted(set(cfg.layer_kinds()) - set(ATTN_KINDS))
+    if kinds:
+        return (f"{cfg.name}: the port trains attn / local blocks only, not {kinds} "
+                "(ROADMAP queue 1, item 1: the recurrent and hybrid training paths)")
+    if cfg.moe is not None:
+        return (f"{cfg.name}: the port has no MoE training yet (ROADMAP queue 1, item 1: "
+                "ternary_fake_quant_stacked on the master stacks)")
+    if cfg.ffn_kind not in FFN_KINDS or cfg.act not in ACT:
+        return f"{cfg.name}: ffn_kind {cfg.ffn_kind!r}, act {cfg.act!r}"
+    return None
 
 
 class FFN(nn.Module):
@@ -207,4 +244,61 @@ def stack_decode(layers: nn.ModuleList, cfg: ModelConfig, x: torch.Tensor,
            else None)
     for bp, c in zip(layers, caches):
         x = block_decode(bp, cfg, x, c, step, ssd, serve_sparse=serve_sparse, shared=shared)
+    return x
+
+
+# --------------------------------------------------------------------------
+# training
+# --------------------------------------------------------------------------
+
+def ffn_train(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """The FFN on master weights over the normed x: gate and up share one
+    DAS step and fake-quant of x (the MLP's w_in takes it alone), the down
+    projection its own of h."""
+    act, tc = ACT[cfg.act], cfg.ternary
+    xq = tlin_train_input(x, tc)
+    if "w_gate" in p:
+        h = act(tlin_train(p["w_gate"], xq, tc)) * tlin_train(p["w_in"], xq, tc)
+    else:
+        h = act(tlin_train(p["w_in"], xq, tc))
+    return tlin_train(p["w_out"], tlin_train_input(h, tc), tc)
+
+
+def block_train(bp: dict, cfg: ModelConfig, x: torch.Tensor, kind: str, shared,
+                rt: Runtime) -> torch.Tensor:
+    """One "attn" or "local" block over whole sequences on master weights:
+    rmsnorm -> attention -> residual -> rmsnorm -> FFN -> residual."""
+    ap = bp["attn"] if "attn" in bp else shared
+    x = x + A.attn_train(ap, cfg, rmsnorm(bp["norm1"]["scale"], x), kind, rt)
+    return x + ffn_train(bp["ffn"], cfg, rmsnorm(bp["norm2"]["scale"], x))
+
+
+def stack_train(layers: dict, cfg: ModelConfig, x: torch.Tensor, rt: Runtime) -> torch.Tensor:
+    """The layers {stacked, tail, shared} over x: the stacked groups first
+    (group g runs the pattern's blocks on leaf slices [g]), then the tail;
+    with ``cfg.remat``, each group and each tail layer is recomputed in the
+    backward.  A config with another block raises (``trainable``)."""
+    why = trainable(cfg)
+    if why is not None:
+        raise NotImplementedError(why)
+    pat, shared = cfg.layer_pattern, layers.get("shared")
+
+    def run(f, x):
+        return checkpoint(f, x, use_reentrant=False) if cfg.remat else f(x)
+
+    stacked = layers.get("stacked")
+    if stacked is not None:
+        for g in range(leaves(stacked[0])[0].shape[0]):
+            gp = tuple(tree_map(lambda a, g=g: a[g], t) for t in stacked)
+
+            def group(x_, gp=gp):
+                for j, kind in enumerate(pat):
+                    x_ = block_train(gp[j], cfg, x_, kind, shared, rt)
+                return x_
+            x = run(group, x)
+    kinds = cfg.layer_kinds()
+    start = cfg.n_layers - len(layers["tail"])
+    for i, bp in enumerate(layers["tail"]):
+        x = run(lambda x_, bp=bp, kind=kinds[start + i]:
+                block_train(bp, cfg, x_, kind, shared, rt), x)
     return x

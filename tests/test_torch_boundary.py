@@ -1,9 +1,11 @@
 """The package boundary of the port, checked in a fresh interpreter.
 
-Importing every ``repro_torch`` module and chip_smoke.py's module-level
-imports must pull in neither JAX nor any module of the JAX package, and
-without a CUDA device the entry points must refuse to start unless the
-caller asks for the CPU.
+Importing every ``repro_torch`` module (the trainer's too: optim, data,
+checkpoint, distributed.fault, launch.train) and chip_smoke.py's
+module-level imports must pull in neither JAX nor any module of the JAX
+package, and without a CUDA device the entry points (the serving ones, the
+train CLI, a checkpoint restore) must refuse to start unless the caller
+asks for the CPU.
 """
 import os
 import subprocess
@@ -18,7 +20,11 @@ import numpy as np
 import torch
 import repro_torch
 names = {m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")}
-missing = {"repro_torch.serve." + m for m in ("sampler", "metrics", "server", "scheduler")} - names
+missing = {"repro_torch.serve." + m for m in ("sampler", "metrics", "server", "scheduler")}
+missing |= {"repro_torch." + m for m in (
+    "tree", "optim.adamw", "optim.schedule", "optim.grad", "data.pipeline",
+    "checkpoint.ckpt", "distributed.fault", "launch.train")}
+missing -= names
 assert not missing, f"not walked: {missing}"
 for name in sorted(names):
     importlib.import_module(name)
@@ -34,6 +40,16 @@ from repro_torch.serve import ServeEngine
 cfg = reduced(get_config("bitnet-1.3b"))
 for call in (lambda: MD.TernaryLM(cfg), lambda: MD.init_params(cfg),
              lambda: ServeEngine(MD.TernaryLM(cfg, "cpu"))):
+    try:
+        call()
+    except RuntimeError as e:
+        assert "device='cpu'" in str(e), e
+    else:
+        raise AssertionError("started without CUDA and without device='cpu'")
+from repro_torch.launch import train
+from repro_torch.checkpoint import restore_checkpoint
+for call in (lambda: train.main(["--reduced", "--steps", "1"]),
+             lambda: restore_checkpoint("no-such-dir")):
     try:
         call()
     except RuntimeError as e:

@@ -1139,3 +1139,55 @@ def test_cuda_sampling_graph_matches_eager(cuda, layout):
     before = graph.stats.sampling_steps
     graph.run()
     assert graph.stats.sampling_steps == before
+
+
+# --------------------------------------------------------------------------
+# training (bitnet-1.3b's QAT step)
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("k", [2048, 5460])
+def test_cuda_das_topk_training_mask(cuda, rng, k):
+    """The training step's call, the mask alone, at 4 x 2048 rows in bf16:
+    exact against the plain version, nothing else written, and the 20
+    tail lanes of K = 5460 all kept."""
+    x = _rows(rng, 8192, k, torch.bfloat16, False, cuda)
+    got = ops.das_topk(x, keep=16, block=32, with_compact=False)
+    assert got.values is None and got.indices is None and got.dense is None
+    want = ref.das_topk_ref(x, keep=16, block=32, with_compact=False)
+    assert torch.equal(got.mask, want.mask)
+    assert torch.equal(got.mask, das.das_mask(x, keep=16).to(torch.int8))
+    assert bool((got.mask[:, k - k % 32:] == 1).all())
+    assert int(got.mask[:, :k - k % 32].sum()) == 8192 * (k // 32) * 16
+
+
+def test_cuda_train_step_kernel_matches_plain(cuda, monkeypatch):
+    """A 2-layer cut of bitnet-1.3b at a reduced width (d_model 256, bf16,
+    remat on), one step's loss and gradients with the DAS masks from the
+    das_topk kernel and from the plain das_mask: bitwise, and das_topk
+    launched 8 times a layer (4 forward, 4 in remat's recompute)."""
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch import train as TR
+    from repro_torch.models import ternary_linear as TL
+    from repro_torch.optim import adamw
+    from repro_torch.tree import leaves
+    cfg = dataclasses.replace(reduced(get_config("bitnet-1.3b"), n_layers=2, d_model=256),
+                              dtype="bfloat16", remat=True)
+    data = SyntheticLM(vocab=cfg.vocab, seq_len=128, batch=2)
+    batch = {k: torch.as_tensor(v, device=cuda) for k, v in data.batch_at(0).items()}
+    plain = lambda x, tc: das.das_mask(x.detach(), block_size=tc.das.block, keep=tc.das.keep)  # noqa: E731
+    runs = []
+    for mode in ("kernel", "plain"):
+        if mode == "plain":
+            monkeypatch.setattr(TL, "das_train_mask", plain)
+        p = MD.init_params(cfg, seed=3, device=cuda)
+        ops.reset_launches()
+        step = TR.make_train_step(cfg, TR.make_runtime(), total=4)
+        p, o, m = step(p, adamw.adamw_init(p), batch)
+        runs.append((dict(ops.launches), m, leaves(p), leaves(o)))
+    (lk, mk, pk, ok), (lp, mp, pp, op) = runs
+    assert lk["das_topk"] == 2 * 8 and lp["das_topk"] == 0
+    assert all(n == 0 for name, n in lk.items() if name != "das_topk")
+    assert float(mk["loss"]) == float(mp["loss"]) and torch.isfinite(mk["loss"])
+    assert float(mk["grad_norm"]) == float(mp["grad_norm"])
+    for a, b in zip(pk + ok, pp + op):
+        assert torch.equal(a, b)
