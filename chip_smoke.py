@@ -10,7 +10,8 @@ Phases:
            the serving paths' shapes and a few small GQA / soft-cap /
            empty-slot / int8 cases, each max error beside its tolerance;
            das_topk also with the mask null, with the mask alone at the
-           train phase's 8192 rows (K = 2048, 5460), on unaligned rows, with its
+           train phase's 8192 rows (K = 2048, 5460, and the other train
+           paths' 2560, 5120, 5632, 8960, 10240), on unaligned rows, with its
            rmsnorm prologue (normed rows within a step, the DAS step exact)
            and bitwise invariant to M; sparse_attention's bf16 prefill class
            also at LPSA packs of three stream offsets, full causal attention
@@ -191,7 +192,29 @@ Phases:
            das_topk, attention glue, fake-quant and other elementwise, the
            optimizer); das_topk's training calls timed alone; (e) the trained
            model exported packed serves one greedy request of 16 tokens
-           through ServeEngine with the serving kernels launched
+           through ServeEngine with the serving kernels launched; then the
+           other block kinds at full width (TRAIN_PATHS), each 3 steps of
+           4 x 2048 tokens, bf16 masters, remat, warmup 2 + cosine, the
+           last profiled:
+             qwen3-moe-30b-a3b  2 of 48 layers (what one H100 holds:
+                         0.61 B parameters a layer, the untied head and
+                         embedding 0.62 B), the experts' fake-quant with
+                         one scale an expert, the router, the dispatch at
+                         the training capacity;
+             zamba2-2.7b 12 layers (10 mamba, the shared attention at two
+                         positions);
+             gla-1.3b, rwkv6-3b  4 layers each;
+           each (c) on a cut (2 layers; zamba2 one pattern period of 6):
+           the kernel's masks equal the plain das_mask's, and the loss,
+           every gradient and every updated param bitwise; the MoE (d): 2
+           steps, its checkpoint saved and restored, 2 more equal 4
+           straight bitwise (its dispatch's backward has no atomics); (a)
+           finite losses and gradient norms, the schedule's rates; (b)
+           das_topk launched once a DAS input a layer forward, twice with
+           remat (MoE 3 a layer, mamba 2, gla 4, rwkv 8, zamba2's attention
+           block 4), no other kernel; ms/step, tok/s, peak memory, busy by
+           class (chunk scans and the MoE's dispatch apart); the MoE's
+           dropped copies a layer at the training capacity
   times    each kernel at its decode shape: CUDA-event median beside its
            bound, its plain version and one PyTorch call of the same function;
            the packed GEMMs and das_gemv also at their other decode shapes
@@ -270,6 +293,9 @@ KERNEL_INFO = {
 TOL_F32_GEMM, TOL_BF16, TOL_F32_ATTN = 1e-4, 2e-2, 3e-4
 TRAIN_BATCH, TRAIN_SEQ = 4, 2048            # the train phase's batch: 4 x 2048 tokens
 TRAIN_ROWS = TRAIN_BATCH * TRAIN_SEQ
+# the K of every DAS input on the train paths: bitnet-1.3b's 2048 and 5460,
+# zamba2-2.7b's 2560 / 5120 / 10240, gla-1.3b's 5632, rwkv6-3b's 8960
+TRAIN_TOPK_K = (2048, 5460, 2560, 5120, 5632, 8960, 10240)
 FULL_SINK = 1 << 30                     # the full-cache prefill's sink: every key
 
 
@@ -579,7 +605,7 @@ class Smoke:
         x = rows(5, 5460, bf16)[1:]     # starts 8 bytes past a 16-byte boundary
         same("bf16 (4,5460) from row 1", das_topk_cuda(x, keep=16, block=32),
              ref.das_topk_ref(x, keep=16, block=32))
-        for k in (2048, 5460):          # the training step's call: the mask alone
+        for k in TRAIN_TOPK_K:          # the training step's call: the mask alone
             x = rows(TRAIN_ROWS, k, bf16)
             got = das_topk_cuda(x, keep=16, block=32, with_compact=False)
             same(f"training, mask only ({TRAIN_ROWS},{k})", got,
@@ -1667,7 +1693,7 @@ class Smoke:
                 T.block_prefill(model.layers[0], cfg, x, serve_sparse=True, max_len=n + 1)
                 torch.cuda.synchronize()
             scope, times = f"layer 0 alone x {cfg.n_layers} layers", cfg.n_layers
-        by_name = _device_times(prof.key_averages())
+        by_name = _Trace(prof).device_times()
         busy_us = sum(by_name.values()) * times
         if not busy_us:
             log(f"[profile] {arch} admission: the profiler recorded no device time: not measured")
@@ -2447,8 +2473,7 @@ class Smoke:
             for _ in range(4):
                 eng._sample_graph.replay()
             torch.cuda.synchronize()
-        n_kernels = sum(e.count for e in prof.key_averages()
-                        if "CUDA" in str(getattr(e, "device_type", ""))) / 4
+        n_kernels = len(_Trace(prof).kernels) / 4
         log(f"[serve] http sampler graph: {n_kernels:g} device kernels a replay "
             f"(torch.profiler over 4 replays)")
         log(f"[serve] http sampling cost ({_nvidia_smi()}): decode-only 4-slot trace, "
@@ -2663,11 +2688,12 @@ class Smoke:
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         steps = eng.stats.decode_steps - steps1        # the profiled run's steps
-        averages = prof.key_averages()             # once: it walks every event
-        by_name = _device_times(averages)
+        trace = _Trace(prof)
+        by_name = trace.device_times()
         busy_us = sum(by_name.values())
-        calls = {e.key: e.count / steps for e in averages
-                 if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC", "cudaGraphLaunch")}
+        host = trace.host_self()
+        calls = {name: host[name][1] / steps for name in
+                 ("cudaLaunchKernel", "cudaLaunchKernelExC", "cudaGraphLaunch") if name in host}
         n_launch = sum(calls.values())
         if not busy_us:
             log(f"[profile] {label}: the profiler recorded no device time: not measured")
@@ -2682,7 +2708,7 @@ class Smoke:
             log(f"[profile]   {dt / 1e3 / steps:8.4f} ms/step  {name[:90]}")
         log(f"[profile] {label} device ms/step by {classes} class: " + ", ".join(
             f"{cat} {us / 1e3 / steps:.4f}" for cat, us in _by_class(by_name, classes).items()))
-        host = sorted(((e.self_cpu_time_total, e.count, e.key) for e in averages),
+        host = sorted(((dt, count, name) for name, (dt, count) in host.items()),
                       reverse=True)[:12]
         log("[profile] host: self CPU time per step, calls per step")
         for dt, count, name in host:
@@ -2704,13 +2730,12 @@ class Smoke:
             loaded = MD.trits_from_packed(model, cfg8)
             torch.cuda.synchronize()
         del loaded
-        averages = prof.key_averages()
-        us = sum(dt for name, dt in _device_times(averages).items() if "twd_decode" in name)
+        trace = _Trace(prof)
+        us = sum(dt for name, dt in trace.device_times().items() if "twd_decode" in name)
         if not us:
             log("[profile] int8w model load: the profiler recorded no twd_decode: not measured")
             return
-        n = sum(e.count for e in averages if "twd_decode_kernel" in e.key
-                and "CUDA" in str(getattr(e, "device_type", "")))
+        n = sum(1 for name, _, _ in trace.kernels if "twd_decode_kernel" in name)
         log(f"[profile] int8w model load: {n} twd_decode launches, {us / 1e3:.3f} ms of "
             f"device time")
 
@@ -2736,7 +2761,7 @@ class Smoke:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             MD.prefill(model, tok, max_len=max_len)
             torch.cuda.synchronize()
-        by_name = _device_times(prof.key_averages())
+        by_name = _Trace(prof).device_times()
         busy_us = sum(by_name.values())
         if not busy_us:
             log("[profile] admission: the profiler recorded no device time: not measured")
@@ -2760,6 +2785,16 @@ class Smoke:
     TRAIN_STEPS = 4          # the cosine schedule's total, the last step profiled
     TRAIN_WARMUP, TRAIN_LR = 2, 3e-4
     TRAIN_CUT = 2            # the depth of checks (c) and (d)
+    # the other block kinds, at full width: (arch, depth of the run, depth
+    # of check (c)); qwen3-moe-30b-a3b at the depth one H100 holds (~0.61 B
+    # parameters a layer), zamba2-2.7b over two positions of its shared
+    # attention, its cut one pattern period
+    TRAIN_PATHS = (("qwen3-moe-30b-a3b", 2, 2), ("zamba2-2.7b", 12, 6),
+                   ("gla-1.3b", 4, 2), ("rwkv6-3b", 4, 2))
+    TRAIN_PATH_STEPS = 3     # each new path's steps, the last profiled
+    # the MoE's check (d) at 1 layer: at 2, its 18.5 GB checkpoint (params,
+    # m, v) took 77 s to save and restore on the H100's host
+    TRAIN_RESUME_MOE = 1
 
     def phase_train(self):
         """QAT training of bitnet-1.3b at full width (bf16 masters, remat):
@@ -2767,7 +2802,8 @@ class Smoke:
         TRAIN_STEPS steps of 4 x 2048 tokens (checks (a) and (b), ms/step,
         tok/s, peak memory, device busy by class of the last step under the
         profiler), das_topk's training calls timed alone, and check (e): the
-        trained model exported and served."""
+        trained model exported and served; then each of TRAIN_PATHS
+        (``_train_path``)."""
         torch = self.torch
         from repro_torch.configs import get_config
         cfg = get_config(self.TRAIN_ARCH)
@@ -2782,11 +2818,15 @@ class Smoke:
         t0 = _took("cut: kernel vs plain", t0, "train")
         self._train_resume(cut)
         t0 = _took("cut: checkpoint and resume", t0, "train")
-        params = self._train_run(cfg, smi)
+        params = self._train_run(cfg, smi, self.TRAIN_STEPS)
         t0 = _took("24 layers", t0, "train")
         self._train_topk_times(smi)
         self._train_serve(cfg, params)
+        del params
+        torch.cuda.empty_cache()
         _took("the trained model served", t0, "train")
+        for arch, depth, cut in self.TRAIN_PATHS:
+            self._train_path(arch, depth, cut, smi)
 
     def _train_batches(self, cfg, steps, seed=None):
         from repro_torch.data.pipeline import SyntheticLM
@@ -2801,14 +2841,16 @@ class Smoke:
                                   peak_lr=self.TRAIN_LR, warmup=self.TRAIN_WARMUP, total=total)
 
     def _train_parity(self, cut):
-        """Check (c): one step's loss and gradients with the DAS masks from
-        the das_topk kernel and from the plain das_mask on the card: every
-        mask equal, the loss and each gradient leaf within 2e-2 of the
-        leaf's max (bitwise expected).  Launches made here do not count."""
+        """Check (c): one step with the DAS masks from the das_topk kernel
+        and with the plain das_mask on the card: every mask equal, the loss,
+        each gradient leaf and each updated param (AdamW at the peak rate)
+        within 2e-2 of the leaf's max (bitwise expected).  Launches made here
+        do not count."""
         torch = self.torch
         from repro_torch.core import das as das_lib
         from repro_torch.models import model as MD
         from repro_torch.models import ternary_linear as TL
+        from repro_torch.optim import adamw
         from repro_torch.tree import leaves, leaves_with_paths, unflatten
         params = MD.init_params(cut, seed=self.seed + 5, device=self.dev)
         batch = self._train_batches(cut, 1)[0]
@@ -2827,7 +2869,11 @@ class Smoke:
                 TL.das_train_mask = recorded
                 flat = [p.detach().requires_grad_() for p in leaves(params)]
                 loss, _ = MD.loss_fn(unflatten(params, flat), cut, batch, MD.Runtime())
-                runs[mode] = (loss.detach(), torch.autograd.grad(loss, flat))
+                grads = torch.autograd.grad(loss, flat)
+                new, _, _ = adamw.adamw_step(params, unflatten(params, list(grads)),
+                                             adamw.adamw_init(params), lr=self.TRAIN_LR)
+                runs[mode] = (loss.detach(), grads, leaves(new))
+                del flat, loss
         finally:
             TL.das_train_mask = orig
         mk, mp = masks["kernel"], masks["plain"]
@@ -2837,9 +2883,11 @@ class Smoke:
             if a.shape != b.shape or not torch.equal(a, b):
                 raise AssertionError(f"train parity: DAS mask {i} {tuple(a.shape)} differs "
                                      f"(kernel vs plain)")
-        (lk, gk), (lp, gp) = runs["kernel"], runs["plain"]
+        (lk, gk, nk), (lp, gp, np_) = runs["kernel"], runs["plain"]
         worst, bitwise = 0.0, bool(torch.equal(lk, lp))
-        for (path, _), a, b in zip(leaves_with_paths(params), gk, gp):
+        paths = [path for path, _ in leaves_with_paths(params)]
+        for path, a, b in zip(paths + [f"{q} (updated)" for q in paths], gk + tuple(nk),
+                              gp + tuple(np_)):
             scale = float(b.float().abs().max()) or 1.0
             err = float((a.float() - b.float()).abs().max()) / scale
             worst = max(worst, err)
@@ -2848,15 +2896,19 @@ class Smoke:
                 raise AssertionError(f"train parity: {path} off by {err:.3e} of its max")
         if abs(float(lk) - float(lp)) > TOL_BF16 * abs(float(lp)):
             raise AssertionError(f"train parity: loss {float(lk)} vs {float(lp)}")
-        log(f"[train] (c) {cut.n_layers}-layer cut, one step, kernel vs plain DAS masks on the "
-            f"card: {len(mk)} masks ({', '.join(sorted({str(tuple(m.shape)) for m in mk}))}, "
-            f"the forward and remat's recompute) equal exactly; loss {float(lk):.6f} vs "
-            f"{float(lp):.6f}; gradients worst {worst:.3e} of a leaf's max (tol {TOL_BF16}); "
-            f"loss and every gradient {'bitwise equal' if bitwise else 'NOT bitwise equal'}")
+        log(f"[train] (c) {cut.name} {cut.n_layers}-layer cut, one step, kernel vs plain DAS "
+            f"masks on the card: {len(mk)} masks "
+            f"({', '.join(sorted({str(tuple(m.shape)) for m in mk}))}, the forward and remat's "
+            f"recompute) equal exactly; loss {float(lk):.6f} vs {float(lp):.6f}; gradients and "
+            f"updated params worst {worst:.3e} of a leaf's max (tol {TOL_BF16}); loss, every "
+            f"gradient and every updated param {'bitwise equal' if bitwise else 'NOT bitwise equal'}")
+        del runs, params
+        torch.cuda.empty_cache()
 
     def _train_resume(self, cut):
-        """Check (d): 2 steps, a checkpoint saved and restored, 2 more steps
-        give the params and moments of 4 straight steps bitwise."""
+        """Check (d): 2 steps and a checkpoint; the run goes on 2 more steps
+        (the straight run); the checkpoint restored, 2 more steps give its
+        params and moments bitwise."""
         torch = self.torch
         import shutil
         from repro_torch import checkpoint as ckpt
@@ -2865,50 +2917,54 @@ class Smoke:
         from repro_torch.tree import leaves
         step_fn = self._train_step_fn(cut, 4)
         batches = self._train_batches(cut, 4, seed=self.seed + 7)
-
-        def fresh():
-            p = MD.init_params(cut, seed=self.seed + 6, device=self.dev)
-            return p, adamw.adamw_init(p)
-
-        p, o = fresh()
-        for s in range(4):
-            p, o, _ = step_fn(p, o, batches[s])
-        straight = {"params": p, "opt": o}
         d = ROOT / "build" / "train_ckpt"
         shutil.rmtree(d, ignore_errors=True)
-        p, o = fresh()
+        p = MD.init_params(cut, seed=self.seed + 6, device=self.dev)
+        o = adamw.adamw_init(p)
         for s in range(2):
             p, o, _ = step_fn(p, o, batches[s])
         t0 = time.perf_counter()
         ckpt.save_checkpoint(str(d), 2, {"params": p, "opt": o})
+        t_save = time.perf_counter() - t0
+        for s in range(2, 4):
+            p, o, _ = step_fn(p, o, batches[s])
+        straight = leaves({"params": p, "opt": o})
         del p, o
+        t0 = time.perf_counter()
         tree, step = ckpt.restore_checkpoint(str(d), device=self.dev)
-        t_ck = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        shutil.rmtree(d, ignore_errors=True)
+        n_bytes = sum(x.numel() * x.element_size() for x in leaves(tree))
         p, o = tree["params"], tree["opt"]
+        del tree
         for s in range(step, 4):
             p, o, _ = step_fn(p, o, batches[s])
-        shutil.rmtree(d, ignore_errors=True)
-        resumed = {"params": p, "opt": o}
-        a, b = leaves(straight), leaves(resumed)
+        a, b = straight, leaves({"params": p, "opt": o})
         same = len(a) == len(b) and all(x.dtype == y.dtype and torch.equal(x, y)
                                         for x, y in zip(a, b))
-        log(f"[train] (d) {cut.n_layers}-layer cut: 2 steps, checkpoint at step {step} saved "
-            f"and restored ({t_ck:.1f} s), 2 more steps vs 4 straight: {len(a)} leaves (params, "
-            f"m, v, step) {'bitwise equal' if same else 'DIFFER'}")
+        n_leaves = len(a)
+        del p, o, a, b, straight
+        torch.cuda.empty_cache()
+        log(f"[train] (d) {cut.name} {cut.n_layers}-layer cut: 2 steps, checkpoint at step "
+            f"{step} ({n_bytes / 1e9:.2f} GB) saved in {t_save:.1f} s and restored in "
+            f"{t_load:.1f} s, 2 more steps vs the run that went on (4 straight): {n_leaves} "
+            f"leaves (params, m, v, step) {'bitwise equal' if same else 'DIFFER'}")
         if not same:
             raise AssertionError("train resume: the restored run differs from the straight run")
 
-    def _train_run(self, cfg, smi):
-        """Checks (a) and (b) over TRAIN_STEPS steps at full depth, the
-        launch counts at 0 just before and read just after; ms/step (CUDA
-        events, the first step and the profiled last step left out), tok/s,
-        peak memory; the last step's device time by class."""
+    def _train_run(self, cfg, smi, steps):
+        """Checks (a) and (b) over ``steps`` steps of ``cfg``, the launch
+        counts at 0 just before and read just after; ms/step (CUDA events,
+        the first step and the profiled last step left out), tok/s, peak
+        memory; the last step's device time by class; for a MoE, the copies
+        each layer dropped at the training capacity in the first step."""
         torch = self.torch
         from repro_torch.kernels import ops
         from repro_torch.models import model as MD
+        from repro_torch.models import moe as MOE
         from repro_torch.optim import adamw
         from repro_torch.tree import leaves
-        steps = self.TRAIN_STEPS
         t0 = time.perf_counter()
         params = MD.init_params(cfg, seed=self.seed, device=self.dev)
         opt = adamw.adamw_init(params)
@@ -2916,28 +2972,42 @@ class Smoke:
         step_fn = self._train_step_fn(cfg, steps)
         batches = self._train_batches(cfg, steps)
         torch.cuda.synchronize()
-        log(f"[train] {n_params / 1e9:.3f} B params ({cfg.dtype}), AdamW moments float32; "
-            f"init {time.perf_counter() - t0:.1f} s")
+        log(f"[train] {cfg.name}: {n_params / 1e9:.3f} B params ({cfg.dtype}), AdamW moments "
+            f"float32; init {time.perf_counter() - t0:.1f} s")
+        routed = []                             # (counts, capacity) of each MoE call
+        dispatch = MOE.dispatch_compute
+
+        def counting(x_tok, x_in, weights, router, cfg_, capacity):
+            out, counts = dispatch(x_tok, x_in, weights, router, cfg_, capacity)
+            routed.append((counts, capacity))
+            return out, counts
+
+        MOE.dispatch_compute = counting
         torch.cuda.reset_peak_memory_stats()
-        ops.reset_launches()                   # the path starts here
-        ms, metrics, prof = [], [], None
-        for s in range(steps):
-            ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            last = s == steps - 1
-            with (torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                                     torch.profiler.ProfilerActivity.CUDA])
-                  if last else contextlib.nullcontext()) as p:
-                ev0.record()
-                params, opt, m = step_fn(params, opt, batches[s])
-                ev1.record()
-                torch.cuda.synchronize()
-            prof = p if last else prof
-            ms.append(ev0.elapsed_time(ev1))
-            metrics.append({k: float(v) for k, v in m.items()})
-            log(f"[train] step {s}: loss {metrics[-1]['loss']:.4f}, lr {metrics[-1]['lr']:.3e}, "
-                f"grad norm {metrics[-1]['grad_norm']:.4f}, {ms[-1]:.1f} ms"
-                f"{' (profiled)' if s == steps - 1 else ''}")
-        counts = dict(ops.launches)            # ... and ends here
+        try:
+            ops.reset_launches()                # the path starts here
+            ms, metrics, prof = [], [], None
+            for s in range(steps):
+                ev0 = torch.cuda.Event(enable_timing=True)
+                ev1 = torch.cuda.Event(enable_timing=True)
+                last = s == steps - 1
+                with (torch.profiler.profile(
+                        activities=[torch.profiler.ProfilerActivity.CPU,
+                                    torch.profiler.ProfilerActivity.CUDA])
+                      if last else contextlib.nullcontext()) as p:
+                    ev0.record()
+                    params, opt, m = step_fn(params, opt, batches[s])
+                    ev1.record()
+                    torch.cuda.synchronize()
+                prof = p if last else prof
+                ms.append(ev0.elapsed_time(ev1))
+                metrics.append({k: float(v) for k, v in m.items()})
+                log(f"[train] {cfg.name} step {s}: loss {metrics[-1]['loss']:.4f}, lr "
+                    f"{metrics[-1]['lr']:.3e}, grad norm {metrics[-1]['grad_norm']:.4f}, "
+                    f"{ms[-1]:.1f} ms{' (profiled)' if last else ''}")
+            counts = dict(ops.launches)         # ... and ends here
+        finally:
+            MOE.dispatch_compute = dispatch
         peak = torch.cuda.max_memory_allocated()
         # (a) finite losses and gradient norms; the rate follows warmup + cosine
         for s, m in enumerate(metrics):
@@ -2946,27 +3016,63 @@ class Smoke:
                 raise AssertionError(f"train step {s}: loss or grad norm not finite: {m}")
             if abs(m["lr"] - want) > 1e-6 * self.TRAIN_LR:
                 raise AssertionError(f"train step {s}: lr {m['lr']} off the schedule's {want}")
-        # (b) das_topk: 4 calls a layer forward (q/k/v, o, gate/up, down), and
+        # (b) das_topk once a DAS input a layer forward (_das_inputs), and
         # remat runs every layer's forward again in the backward
-        per_layer = 4 * (2 if cfg.remat else 1)
-        want = {**{name: 0 for name in KERNEL_INFO}, "das_topk": steps * cfg.n_layers * per_layer}
-        log(f"[train] launches on the path: {counts} (expected {want}: {per_layer} das_topk a "
-            f"layer a step x {cfg.n_layers} layers x {steps} steps)")
+        per_step = sum(_das_inputs(cfg, kind) for kind in cfg.layer_kinds())
+        per_step *= 2 if cfg.remat else 1
+        want = {**{name: 0 for name in KERNEL_INFO}, "das_topk": steps * per_step}
+        kinds = sorted(set(cfg.layer_kinds()))
+        log(f"[train] {cfg.name} launches on the path: {counts} (expected {want}: das_topk "
+            f"{', '.join(f'{_das_inputs(cfg, k)} a {k} layer' for k in kinds)} forward, x "
+            f"{2 if cfg.remat else 1} (remat) = {per_step} a step x {steps} steps)")
         if counts != want or counts["das_topk"] <= 0:
             raise AssertionError("train: launch counts differ from the path's structure")
         for name, n in counts.items():
             self.launches[name] += n
         step_ms = statistics.median(ms[1:-1])
         tokens = TRAIN_BATCH * TRAIN_SEQ
-        log(f"[train] (a) losses {[round(m['loss'], 4) for m in metrics]}, grad norms "
+        log(f"[train] (a) {cfg.name} losses {[round(m['loss'], 4) for m in metrics]}, grad norms "
             f"{[round(m['grad_norm'], 4) for m in metrics]} finite; lr "
             f"{[round(m['lr'], 8) for m in metrics]} = warmup {self.TRAIN_WARMUP} + cosine "
             f"over {steps}")
-        log(f"[train] step time {step_ms:.1f} ms/step (CUDA events, median of steps 1-{steps - 2};"
-            f" step 0 {ms[0]:.1f} ms), {tokens / (step_ms / 1e3):.0f} tok/s, peak device memory "
-            f"{peak / 1e9:.2f} GB; {smi}")
-        self._train_busy(prof, ms[-1], smi)
+        log(f"[train] {cfg.name} step time {step_ms:.1f} ms/step (CUDA events, median of steps "
+            f"1-{steps - 2}; step 0 {ms[0]:.1f} ms), {tokens / (step_ms / 1e3):.0f} tok/s, peak "
+            f"device memory {peak / 1e9:.2f} GB; {smi}")
+        if routed:
+            n_moe = sum(1 for k in cfg.layer_kinds() if k in ("attn", "local", "gla"))
+            first = routed[:n_moe]              # step 0's forward, layer by layer
+            drops = [int((c - cap).clamp(min=0).sum()) for c, cap in first]
+            t = TRAIN_BATCH * TRAIN_SEQ
+            log(f"[train] {cfg.name} training capacity {first[0][1]} a expert ({t} tokens x "
+                f"top-{cfg.moe.top_k} over {cfg.moe.n_experts} experts, capacity factor "
+                f"{cfg.moe.capacity_factor}); dropped copies a layer, step 0: {drops} of "
+                f"{t * cfg.moe.top_k}")
+        self._train_busy(prof, ms[-1], smi, cfg.name)
         return params
+
+    def _train_path(self, arch, depth, cut_depth, smi):
+        """One more block kind at full width: check (c) on a cut, (d) for a
+        MoE (the dispatch's backward has no atomics, so a resumed run is
+        bitwise), then (a), (b) and the costs over TRAIN_PATH_STEPS steps."""
+        torch = self.torch
+        from repro_torch.configs import get_config
+        cfg = dataclasses.replace(get_config(arch), n_layers=depth)
+        cut = dataclasses.replace(cfg, n_layers=cut_depth)
+        log(f"[train] {arch}: {depth} of {get_config(arch).n_layers} layers "
+            f"({', '.join(f'{cfg.layer_kinds().count(k)} {k}' for k in sorted(set(cfg.layer_kinds())))}), "
+            f"d_model {cfg.d_model}, vocab {cfg.vocab}, {cfg.dtype} masters, remat {cfg.remat}, "
+            f"DAS {cfg.ternary.das.keep}/{cfg.ternary.das.block}; batches of {TRAIN_BATCH} x "
+            f"{TRAIN_SEQ} tokens; {smi}")
+        t0 = time.perf_counter()
+        self._train_parity(cut)
+        t0 = _took(f"{arch} cut: kernel vs plain", t0, "train")
+        if cfg.moe is not None:       # a 1-layer cut: its checkpoint is 12.4 GB
+            self._train_resume(dataclasses.replace(cfg, n_layers=self.TRAIN_RESUME_MOE))
+            t0 = _took(f"{arch} cut: checkpoint and resume", t0, "train")
+        params = self._train_run(cfg, smi, self.TRAIN_PATH_STEPS)
+        del params
+        torch.cuda.empty_cache()
+        _took(f"{arch} {depth} layers", t0, "train")
 
     def _cosine(self, s, total):
         """The warmup + cosine schedule in plain Python (float64)."""
@@ -2976,65 +3082,51 @@ class Smoke:
         prog = min(max((s - w) / max(total - w, 1), 0.0), 1.0)
         return peak * (0.1 + 0.9 * 0.5 * (1 + math.cos(math.pi * prog)))
 
-    def _train_busy(self, prof, step_ms, smi):
+    def _train_busy(self, prof, step_ms, smi, label):
         """The profiled step's device time by class.  A kernel is placed by
         its name (cuBLAS, das_topk), else by the profiler ranges above the
-        op that launched it (``adamw_step``, ``flash_masked``); a backward
-        op takes the ranges of the forward op it differentiates (the same
-        sequence number and forward thread)."""
+        op that launched it (``TRAIN_RANGES``: the optimizer, the attention,
+        the chunked scans of the linear attention and of the SSD, the MoE's
+        dispatch); a backward op takes the ranges of the forward op it
+        differentiates (the same sequence number and forward thread).
+        Classes with no time are left out."""
         t0 = time.perf_counter()
-        events = prof.events()
-        fwd = {}
-        for e in events:
-            if getattr(e, "sequence_nr", -1) >= 0 and not getattr(e, "is_async", False) and \
-                    "Backward" not in e.name and not e.name.startswith("autograd::"):
-                fwd.setdefault((e.thread, e.sequence_nr), e)
-
-        def context(e, depth=0):
-            while e is not None:
-                if e.name == "adamw_step":
-                    return "optimizer"
-                if e.name == "flash_masked":
-                    return "attention"
-                if depth < 4 and getattr(e, "sequence_nr", -1) >= 0 and (
-                        "Backward" in e.name or e.name.startswith("autograd::")):
-                    f = fwd.get((getattr(e, "fwd_thread", e.thread), e.sequence_nr))
-                    if f is not None and f is not e:
-                        return context(f, depth + 1)
-                e = e.cpu_parent
-            return "other"
-
+        trace = _Trace(prof)
         classes = {c: 0.0 for c in TRAIN_CLASSES}
-        n_kernels = 0
-        for e in events:
-            for k in getattr(e, "kernels", ()):
-                n_kernels += 1
-                dur = k.duration / 1e3                      # us -> ms
-                ctx = context(e)
-                if "das_topk" in k.name:
-                    cls = "das_topk"
-                elif _is_gemm(k.name):
-                    cls = ("cuBLAS GEMMs, attention (float32)" if ctx == "attention"
-                           else "cuBLAS GEMMs, linears and logits")
-                else:
-                    cls = {"optimizer": "optimizer", "attention": "attention glue"}.get(
-                        ctx, "fake-quant and other elementwise")
-                classes[cls] += dur
+        unlinked: dict = {}           # device events no op launched (as events() leaves them)
+        memo: dict = {}
+        for name, us, op in trace.kernels:
+            launcher = trace.ops.get(op)
+            if launcher is None:
+                unlinked[name] = unlinked.get(name, 0.0) + us / 1e3
+                continue
+            ctx = trace.context(launcher, TRAIN_RANGES, memo)
+            if "das_topk" in name:
+                cls = "das_topk"
+            elif _is_gemm(name):
+                cls = TRAIN_GEMM_CLASS.get(ctx, "cuBLAS GEMMs, linears and logits")
+            else:
+                cls = TRAIN_GLUE_CLASS.get(ctx, "fake-quant and other elementwise")
+            classes[cls] += us / 1e3
         busy = sum(classes.values())
-        log(f"[train] device busy by class, the profiled step ({n_kernels} kernels, "
+        n_linked = len(trace.kernels) - sum(1 for _, _, op in trace.kernels if op not in trace.ops)
+        top = sorted(unlinked.items(), key=lambda kv: -kv[1])[:3]
+        log(f"[train] {label} device busy by class, the profiled step ({n_linked} kernels, "
             f"{busy:.1f} ms busy of {step_ms:.1f} ms, idle share {1 - busy / step_ms:.3f}): "
-            + ", ".join(f"{c} {v:.1f} ms" for c, v in classes.items())
+            + ", ".join(f"{c} {v:.1f} ms" for c, v in classes.items() if v)
+            + f"; device events no op launched, left out: {sum(unlinked.values()):.1f} ms "
+            + f"({', '.join(f'{n[:40]} {v:.1f}' for n, v in top) or 'none'})"
             + f" (aggregated in {time.perf_counter() - t0:.1f} s); {smi}")
 
     def _train_topk_times(self, smi):
-        """das_topk's training calls (the mask alone) at 8192 x 2048 and 8192
-        x 5460 bf16: CUDA-event median beside the bound (x read, the int8
-        mask written) and the plain version."""
+        """das_topk's training calls (the mask alone) at 8192 rows x every K
+        of the train paths, bf16: CUDA-event median beside the bound (x
+        read, the int8 mask written) and the plain version."""
         torch = self.torch
         from repro_torch.kernels import ref
         from repro_torch.kernels.topk_mask import das_topk_cuda
         g = self.gen(self.seed + 9)
-        for k in (2048, 5460):
+        for k in TRAIN_TOPK_K:
             x = torch.randn((TRAIN_ROWS, k), generator=g, device=self.dev).to(torch.bfloat16)
             ms = self._t_ms(lambda: das_topk_cuda(x, keep=16, block=32, with_compact=False))
             plain = self._t_ms(lambda: ref.das_topk_ref(x, keep=16, block=32,
@@ -3813,20 +3905,119 @@ def _took(label: str, t0: float, phase: str = "serve") -> float:
     return now
 
 
-def _device_times(averages) -> dict:
-    """Device time (us) by kernel name from a torch.profiler run's
-    ``key_averages()``: device kernels only, since a CPU op's device time
-    repeats its kernels'."""
-    by_name = {}
-    for e in averages:
-        if "CUDA" not in str(getattr(e, "device_type", "")):
-            continue
-        dt = getattr(e, "self_device_time_total", None)
-        if dt is None:
-            dt = getattr(e, "self_cuda_time_total", 0.0)
-        if dt > 0:
-            by_name[e.key] = by_name.get(e.key, 0.0) + dt
-    return by_name
+# host events that torch's own profiler tables leave out
+_HIDDEN_EVENTS = frozenset((
+    "[memory]", "[OutOfMemory]", "profiler::_record_function_enter",
+    "profiler::_record_function_enter_new", "profiler::_record_function_exit",
+    "aten::is_leaf", "aten::output_nr", "aten::_version"))
+
+
+class _Trace:
+    """A torch.profiler run read once from its raw (kineto) events.
+
+    ``key_averages()`` and ``events()`` build a Python object a record and
+    a tree of them: ~1 min for an eager decode trace or a training step of
+    ~40000 kernels.  This reads what the script needs in one pass, with the
+    same rules: device kernels by (demangled) name with their time and the
+    op that launched each (its correlation id), but not the device-side
+    spans of ``record_function`` ranges, which ``key_averages()`` counts as
+    device time (a range over 20 ms of kernels adds 20 ms); host events nested by
+    thread, time inside time (a launch on the thread of the op it serves,
+    async events left out), each one's parent and self time (its time less
+    its children's), a child that repeats its only-child parent's name
+    counted once, as the profiler's tables merge them."""
+
+    def __init__(self, prof):
+        import torch
+        demangle = getattr(torch._C, "_demangle", lambda n: n)
+        cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
+        names: dict = {}
+        self.kernels = []             # (name, us, the launching op's correlation id)
+        self.annotations = 0          # device-side spans of record_function ranges, left out
+        host = []                     # records, below
+        for e in prof.profiler.kineto_results.events():
+            raw = e.name()
+            if raw in _HIDDEN_EVENTS:
+                continue
+            name = names.get(raw)
+            if name is None:
+                name = names[raw] = demangle(raw) if len(raw) > 1 else raw
+            start = e.start_ns()
+            end = start + e.duration_ns()
+            dev = e.device_type()
+            if dev == cuda:
+                if e.is_user_annotation():    # a record_function range's span
+                    self.annotations += 1
+                    continue
+                self.kernels.append((name, (end - start) / 1e3, e.linked_correlation_id()))
+            elif dev == cpu and not e.is_async() and e.start_thread_id() == e.end_thread_id():
+                # name, thread, start, end, sequence nr, forward thread, id,
+                # linked id, parent, children's time, children
+                host.append([name, e.start_thread_id(), start, end, e.sequence_nr(),
+                             e.fwd_thread_id(), e.correlation_id(), e.linked_correlation_id(),
+                             None, 0, 0])
+        self.ops = {r[6]: r for r in host if r[7] == 0}
+        for r in host:
+            if r[7] > 0 and r[7] in self.ops:
+                r[1] = self.ops[r[7]][1]
+        host.sort(key=lambda r: (r[1], r[2], -r[3]))
+        stack: list = []
+        for r in host:
+            while stack and (stack[-1][1] != r[1] or r[2] >= stack[-1][3]
+                             or r[3] > stack[-1][3]):
+                stack.pop()
+            if stack:
+                r[8] = stack[-1]
+                stack[-1][9] += r[3] - r[2]
+                stack[-1][10] += 1
+            stack.append(r)
+        self.host = host
+        self.forward = {}             # (thread, sequence nr) -> the forward op
+        for r in sorted(host, key=lambda r: r[2]):
+            if r[4] >= 0 and "Backward" not in r[0] and not r[0].startswith("autograd::"):
+                self.forward.setdefault((r[1], r[4]), r)
+
+    def device_times(self) -> dict:
+        """Device time (us) by kernel name."""
+        by_name: dict = {}
+        for name, us, _ in self.kernels:
+            by_name[name] = by_name.get(name, 0.0) + us
+        return by_name
+
+    def host_self(self) -> dict:
+        """{host event name: (self time us, count)}."""
+        out: dict = {}
+        for r in self.host:
+            t, n = out.get(r[0], (0.0, 0))
+            dup = r[8] is not None and r[8][0] == r[0] and r[8][10] == 1
+            out[r[0]] = (t + (r[3] - r[2] - r[9]) / 1e3, n + (0 if dup else 1))
+        return out
+
+    def context(self, r, ranges: dict, memo: dict, depth: int = 0) -> str:
+        """The context of host record r: the first of ``ranges`` met going up
+        from r, a backward op taking its forward op's (the same sequence
+        number on the forward thread), else "other"."""
+        key = (id(r), depth)
+        if key in memo:
+            return memo[key]
+        chain, out = [], "other"
+        while r is not None:
+            if (id(r), depth) in memo:
+                out = memo[(id(r), depth)]
+                break
+            chain.append(id(r))
+            if r[0] in ranges:
+                out = ranges[r[0]]
+                break
+            if depth < 4 and r[4] >= 0 and ("Backward" in r[0] or r[0].startswith("autograd::")):
+                f = self.forward.get((r[5], r[4]))
+                if f is not None and f is not r:
+                    out = self.context(f, ranges, memo, depth + 1)
+                    break
+            r = r[8]
+        for i in chain:
+            memo[(i, depth)] = out
+        return out
 
 
 # device kernels by class: the port's own (namespace tenet) and PyTorch's glue
@@ -3954,7 +4145,36 @@ def _by_class(by_name: dict, classes: str) -> dict:
 
 # the training step's device kernels by class (Smoke._train_busy)
 TRAIN_CLASSES = ("cuBLAS GEMMs, linears and logits", "cuBLAS GEMMs, attention (float32)",
-                 "das_topk", "attention glue", "fake-quant and other elementwise", "optimizer")
+                 "cuBLAS GEMMs, chunk scans (float32)", "cuBLAS GEMMs, experts", "das_topk",
+                 "attention glue", "chunk-scan glue", "MoE routing, dispatch and combine",
+                 "fake-quant and other elementwise", "optimizer")
+# the profiler ranges of the training step (record_function in the port) and
+# what they hold: a kernel launched under one, or by the backward of an op
+# launched under one, is that context's
+TRAIN_RANGES = {"adamw_step": "optimizer", "flash_masked": "attention",
+                "chunked_linear_attn": "scan", "mamba_ssd": "scan", "moe_dispatch": "moe"}
+TRAIN_GEMM_CLASS = {"attention": "cuBLAS GEMMs, attention (float32)",
+                    "scan": "cuBLAS GEMMs, chunk scans (float32)",
+                    "moe": "cuBLAS GEMMs, experts"}
+TRAIN_GLUE_CLASS = {"optimizer": "optimizer", "attention": "attention glue",
+                    "scan": "chunk-scan glue", "moe": "MoE routing, dispatch and combine"}
+
+
+def _das_inputs(cfg, kind: str) -> int:
+    """The DAS inputs of one training block of ``kind``, each one das_topk
+    call forward: q/k/v and o, then gate/up and down (a MLP's w_in and
+    w_out) or the MoE's experts' input (its shared expert's gate and up
+    share it; its down is one more); gla's q/k/v/g and wo, then the same
+    FFN or MoE; mamba's wz/wx and wo; rwkv's r, k, v, g, wo, ck, cv, cr."""
+    if kind == "mamba":
+        return 2
+    if kind == "rwkv":
+        return 8
+    if cfg.moe is None:
+        ffn = 2
+    else:
+        ffn = 1 + (1 if cfg.moe.n_shared else 0)
+    return 2 + ffn
 
 
 def _is_gemm(kernel_name: str) -> bool:

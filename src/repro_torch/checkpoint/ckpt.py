@@ -84,20 +84,26 @@ def _skeleton(spec):
 
 
 def _host(x) -> tuple[np.ndarray, str]:
-    """A leaf as a host array to store (bfloat16 as its uint16 bits) and its
-    dtype's name."""
+    """A leaf as a host array of its own to store (bfloat16 as its uint16
+    bits) and its dtype's name: a device tensor's copy to the host is
+    already its own, a host tensor is copied (an async save must not see
+    later updates)."""
     if isinstance(x, torch.Tensor):
+        own = x.device.type != "cpu"
         x = x.detach().cpu()
         name = str(x.dtype).removeprefix("torch.")
-        if x.dtype == torch.bfloat16:
-            return x.view(torch.int16).numpy().view(np.uint16).copy(), name
-        return x.numpy().copy(), name
+        a = x.view(torch.int16).numpy().view(np.uint16) if x.dtype == torch.bfloat16 \
+            else x.numpy()
+        return (a if own else a.copy()), name
     a = np.asarray(x)
     return a.copy(), a.dtype.name
 
 
 def _tensor(a: np.ndarray, dtype: str, device) -> torch.Tensor:
-    a = np.array(a, order="C")                # a writable copy; keeps 0-d shapes
+    # np.load gives a fresh C array of its own; anything else is copied
+    # (keeping 0-d shapes), so the tensor may share its memory
+    if not (a.flags.c_contiguous and a.flags.writeable and a.flags.owndata):
+        a = np.array(a, order="C")
     if dtype == "bfloat16":
         t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
     else:

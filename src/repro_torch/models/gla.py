@@ -20,9 +20,9 @@ from repro_torch.kernels import ops
 from repro_torch.models.layers import (GroupNorm, full_f32, group_norm, log_sigmoid,
                                        rmsnorm, silu)
 from repro_torch.models.linear_attn import CHUNK, chunked_linear_attn, linear_attn_step
-from repro_torch.models.ternary_linear import TernaryLinear, tlin_init
+from repro_torch.models.ternary_linear import TernaryLinear, tlin_init, tlin_train, tlin_train_input
 
-__all__ = ["GATE_LORA", "TAU", "GLA", "gla_init", "gla_prefill", "gla_decode"]
+__all__ = ["GATE_LORA", "TAU", "GLA", "gla_init", "gla_prefill", "gla_decode", "gla_train"]
 
 GATE_LORA = 16
 TAU = 16.0
@@ -73,16 +73,27 @@ def _proj(p: GLA, cfg: ModelConfig, x: torch.Tensor, norm_scale: torch.Tensor):
     k = p.wk(xin, ca).reshape(b, l, h, hd)
     v = p.wv(xin, ca).reshape(b, l, h, hd)
     g = p.wg(xin, ca)
+    return q, k, v, g, _log_decay(p.wa1, p.wa2, normed).reshape(b, l, h, hd)
+
+
+def _log_decay(wa1: torch.Tensor, wa2: torch.Tensor, normed: torch.Tensor) -> torch.Tensor:
+    """log alpha = log_sigmoid(x Wa1 Wa2) / TAU of the normed rows, float32
+    with TF32 off -> (B*L, H*hd)."""
     with full_f32():
-        la = log_sigmoid(normed.reshape(b * l, -1).float() @ p.wa1.float()
-                         @ p.wa2.float()) / TAU
-    return q, k, v, g, la.reshape(b, l, h, hd)
+        return log_sigmoid(normed.reshape(-1, normed.shape[-1]).float() @ wa1.float()
+                           @ wa2.float()) / TAU
+
+
+def _gated(ln: dict, cfg: ModelConfig, o: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """What wo takes: the head norm of o (B, L, H, hd) in g's dtype times
+    silu(g)."""
+    b, l = o.shape[0], o.shape[1]
+    return group_norm(ln["scale"], ln["bias"], o.reshape(b, l, -1), cfg.n_heads,
+                      g.dtype) * silu(g)
 
 
 def _out(p: GLA, cfg: ModelConfig, o: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    b, l = o.shape[0], o.shape[1]
-    y = group_norm(p.ln_x, o.reshape(b, l, -1), cfg.n_heads, g.dtype)
-    return p.wo(y * silu(g))
+    return p.wo(_gated({"scale": p.ln_x.scale, "bias": p.ln_x.bias}, cfg, o, g))
 
 
 def gla_prefill(p: GLA, cfg: ModelConfig, x: torch.Tensor, norm_scale: torch.Tensor):
@@ -100,3 +111,16 @@ def gla_decode(p: GLA, cfg: ModelConfig, x: torch.Tensor, norm_scale: torch.Tens
     o, s_new = linear_attn_step(q[:, 0], k[:, 0], v[:, 0], la[:, 0], state["s"], mode="gla")
     state["s"].copy_(s_new)
     return _out(p, cfg, o[:, None], g)
+
+
+def gla_train(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """The mixer over whole sequences on master weights ``p`` (the JAX
+    package's tree), x (B, L, D) already normed -> y (B, L, D)."""
+    b, l, _ = x.shape
+    h, hd, tc = cfg.n_heads, cfg.head_dim_, cfg.ternary
+    xq = tlin_train_input(x, tc)
+    q, k, v = (tlin_train(p[n], xq, tc).reshape(b, l, h, hd) for n in ("wq", "wk", "wv"))
+    g = tlin_train(p["wg"], xq, tc)
+    la = _log_decay(p["wa1"], p["wa2"], x).reshape(b, l, h, hd)
+    o, _ = chunked_linear_attn(q, k, v, la, chunk=CHUNK, mode="gla")
+    return tlin_train(p["wo"], tlin_train_input(_gated(p["ln_x"], cfg, o, g), tc), tc)

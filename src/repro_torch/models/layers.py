@@ -70,8 +70,8 @@ class GroupNorm(nn.Module):
         self.register_buffer("bias", torch.zeros(d, dtype=dtype, device=device))
 
 
-def group_norm(p: GroupNorm, x: torch.Tensor, n_heads: int, out_dtype: torch.dtype,
-               eps: float = 1e-5) -> torch.Tensor:
+def group_norm(scale: torch.Tensor, bias: torch.Tensor, x: torch.Tensor, n_heads: int,
+               out_dtype: torch.dtype, eps: float = 1e-5) -> torch.Tensor:
     """x (B, L, H*hd) normed per head in float32 with the biased variance
     (``jnp.var``; torch.var's default is the unbiased one), then y * scale
     + bias (not the rmsnorm's 1 + scale), cast to ``out_dtype``."""
@@ -80,7 +80,7 @@ def group_norm(p: GroupNorm, x: torch.Tensor, n_heads: int, out_dtype: torch.dty
     mu = xh.mean(-1, keepdim=True)
     var = xh.var(-1, keepdim=True, correction=0)
     y = ((xh - mu) * torch.rsqrt(var + eps)).reshape(b, l, d)
-    return (y * p.scale.float() + p.bias.float()).to(out_dtype)
+    return (y * scale.float() + bias.float()).to(out_dtype)
 
 
 def softcap(x: torch.Tensor, cap: float | None) -> torch.Tensor:
@@ -113,13 +113,31 @@ def _const(value: float, dtype: torch.dtype) -> float:
     return torch.tensor(value, dtype=dtype).item()
 
 
+class _Sigmoid(torch.autograd.Function):
+    """1 / (1 + exp(-x)) step by step; backward g * (s * (1 - s)), the
+    JAX package's derivative of ``jax.nn.sigmoid`` (autograd through the
+    formula multiplies s^2 by exp(-x), which overflows to inf * 0 = nan
+    below x = -88 in float32 and bfloat16)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        s = torch.reciprocal(1 + torch.exp(-x))
+        ctx.save_for_backward(s)
+        return s
+
+    @staticmethod
+    def backward(ctx, g):
+        (s,) = ctx.saved_tensors
+        return g * (s * (1 - s))
+
+
 def sigmoid(x: torch.Tensor) -> torch.Tensor:
     """1 / (1 + exp(-x)) with every step rounded to x's dtype: the formula
     that XLA lowers ``jax.nn.sigmoid`` to (``torch.sigmoid`` rounds once,
     and differs from it in ~1.7 % of bfloat16 values).  All bfloat16 values
     agree but -87.5, -88 and -88.5, where XLA's exp overflows and the port's
-    reciprocal gives a subnormal."""
-    return torch.reciprocal(1 + torch.exp(-x))
+    reciprocal gives a subnormal.  Its gradient is ``_Sigmoid``'s."""
+    return _Sigmoid.apply(x)
 
 
 def silu(g: torch.Tensor) -> torch.Tensor:
@@ -141,11 +159,28 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return x * (0.5 * (1 + torch.tanh(c * (x + a * cube))))
 
 
+class _Softplus(torch.autograd.Function):
+    """max(x, 0) + log1p(exp(-|x|)); backward g * exp(x - softplus(x)),
+    the derivative ``jnp.logaddexp`` defines (0.5 at x = 0, where autograd
+    through max and |x| gives 1)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        out = torch.clamp(x, min=0) + torch.log1p(torch.exp(-x.abs()))
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, out = ctx.saved_tensors
+        return g * torch.exp(x - out)
+
+
 def softplus(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.softplus``'s formula: logaddexp(x, 0) = max(x, 0) +
-    log1p(exp(-|x|)).  ``F.softplus`` is another float32 formula (up to
-    ~1e-6 away)."""
-    return torch.clamp(x, min=0) + torch.log1p(torch.exp(-x.abs()))
+    log1p(exp(-|x|)), and its derivative.  ``F.softplus`` is another
+    float32 formula (up to ~1e-6 away)."""
+    return _Softplus.apply(x)
 
 
 def log_sigmoid(x: torch.Tensor) -> torch.Tensor:

@@ -18,7 +18,11 @@ GLA (RWKV's self term is the u bonus).  The JAX package computes this with
 a ``lax.scan`` of einsums outside any Pallas kernel; here the scan is a
 loop over chunks, the same einsums in float32 with TF32 off on the card
 (``layers.full_f32``).  ``chunk_size`` is the JAX package's chunk rule, so
-both sum over the same chunks.  ``linear_attn_step`` is the exact one-token
+both sum over the same chunks.  The prefill and the training pass run the
+same function; under autograd every chunk's tensors are new (nothing saved
+is written in place), and the decay floor is ``torch.maximum``, whose
+gradient splits at a tie as ``jnp.maximum``'s does (``torch.clamp`` passes
+it whole).  ``linear_attn_step`` is the exact one-token
 recurrence; it returns the new state for the caller to write in place.
 """
 
@@ -69,11 +73,12 @@ def chunked_linear_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     causal = torch.ones((c, c), dtype=torch.bool, device=q.device).tril(
         0 if mode == "gla" else -1)
     uf = u.float() if u is not None else None
+    floor = torch.full((), LOG_A_MIN, device=q.device)
     outs = []
-    with full_f32():
+    with full_f32(), torch.profiler.record_function("chunked_linear_attn"):
         for i in range(n):
             qb, kb, vb = qc[i], kc[i], vc[i]
-            la = torch.clamp(lac[i], min=LOG_A_MIN)
+            la = torch.maximum(lac[i], floor)   # half the gradient at a tie, as jnp.maximum
             cla = torch.cumsum(la, dim=-2)               # inclusive (B, H, c, D)
             q_eff = qb * torch.exp(cla - la if mode == "rwkv" else cla)
             k_eff = kb * torch.exp(-cla)

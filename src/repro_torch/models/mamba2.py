@@ -28,6 +28,12 @@ float32 order the port takes it: the cumulative sums
 (``layers.xla_cumsum``), the decode conv's multiply-add a tap
 (``_conv_taps``), softplus's formula.  The module's buffers are named as
 the JAX tree's leaves.
+
+``mamba_train`` is the training pass over whole sequences on a master tree
+(the JAX package's ``mamba_train`` without ``return_state``): the prefill's
+conv, chunk grid and gated norm (``_ssd``, ``_gated_norm``: one copy of the
+math for both) under autograd, with the projections on master weights
+through the STE fake-quants.
 """
 
 from __future__ import annotations
@@ -41,10 +47,10 @@ from torch.nn import functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.layers import RMSNorm, full_f32, rmsnorm, silu, softplus, xla_cumsum
-from repro_torch.models.ternary_linear import TernaryLinear, tlin_init
+from repro_torch.models.ternary_linear import TernaryLinear, tlin_init, tlin_train, tlin_train_input
 
-__all__ = ["Mamba2", "mamba_dims", "mamba_init", "init_state", "mamba_prefill", "SsdStep",
-           "ssd_step_inputs", "ssd_write", "ssd_row", "ssd_fold", "mamba_decode"]
+__all__ = ["Mamba2", "mamba_dims", "mamba_init", "init_state", "mamba_prefill", "mamba_train",
+           "SsdStep", "ssd_step_inputs", "ssd_write", "ssd_row", "ssd_fold", "mamba_decode"]
 
 
 def mamba_dims(cfg: ModelConfig) -> tuple[int, int]:
@@ -127,24 +133,31 @@ def _proj(p: Mamba2, cfg: ModelConfig, x: torch.Tensor, norm_scale: torch.Tensor
                           with_mask=False, with_normed=True)
         xin, normed = x, ca.normed.reshape(b, l, d)
     z, xs = p.wz(xin, ca), p.wx(xin, ca)
+    return (z, xs, *_dense_proj(p.wb, p.wc, p.wdt, p.dt_bias, normed))
+
+
+def _dense_proj(wb, wc, wdt, dt_bias, normed: torch.Tensor):
+    """B, C (B, L, N) in the normed rows' dtype and dt = softplus(x Wdt +
+    bias) (B, L, nh) float32, TF32 off."""
     with full_f32():
-        bmat = normed @ p.wb.to(x.dtype)
-        cmat = normed @ p.wc.to(x.dtype)
-        dt = softplus(normed.float() @ p.wdt.float() + p.dt_bias.float())
-    return z, xs, bmat, cmat, dt
+        bmat = normed @ wb.to(normed.dtype)
+        cmat = normed @ wc.to(normed.dtype)
+        dt = softplus(normed.float() @ wdt.float() + dt_bias.float())
+    return bmat, cmat, dt
 
 
-def _out(p: Mamba2, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
-    """The gated rmsnorm over d_inner, then wo: y, z (B, L, d_inner) in x's
-    dtype -> (B, L, D)."""
-    return p.wo(rmsnorm(p.norm.scale, y * silu(z)))
+def _gated_norm(norm_scale: torch.Tensor, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """The gated rmsnorm over d_inner, wo's input: y, z (B, L, d_inner) in
+    x's dtype."""
+    return rmsnorm(norm_scale, y * silu(z))
 
 
-def _conv_prefill(p: Mamba2, xs: torch.Tensor) -> torch.Tensor:
-    """The causal depthwise conv over xs (B, L, d_inner) from a zero past,
-    in float32: the taps' products added one at a time, as the JAX package
-    sums them; silu in float32, cast to xs's dtype."""
-    w = p.conv.float()
+def _conv_prefill(conv: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
+    """The causal depthwise conv (taps ``conv`` (cw, d_inner)) over xs (B,
+    L, d_inner) from a zero past, in float32: the taps' products added one at
+    a time, as the JAX package sums them; silu in float32, cast to xs's
+    dtype."""
+    w = conv.float()
     cw, l = w.shape[0], xs.shape[1]
     xp = F.pad(xs.float(), (0, 0, cw - 1, 0))
     out = xp[:, :l] * w[0]
@@ -172,8 +185,10 @@ def _ssd_chunk(s_in, xb, bb, cb, dtb, la, causal):
     (B, c, nh, hd), the carry after the chunk)."""
     cla = xla_cumsum(la, 1)
     # pairwise decay exp(cla_t - cla_s), the difference clamped at 0 so the
-    # masked t < s entries cannot overflow
-    decay = torch.exp(torch.clamp(cla[:, :, None, :] - cla[:, None, :, :], max=0.0))
+    # masked t < s entries cannot overflow (torch.minimum: the gradient
+    # splits at the diagonal's tie, as jnp.minimum's)
+    decay = torch.exp(torch.minimum(cla[:, :, None, :] - cla[:, None, :, :],
+                                    torch.zeros((), device=cla.device)))
     scores = torch.einsum("btn,bsn->bts", cb, bb)[..., None] * decay
     scores = torch.where(causal[None, :, :, None], scores, 0.0) * dtb[:, None]
     y = torch.einsum("btsh,bshd->bthd", scores, xb)
@@ -197,44 +212,81 @@ def _run_chunks(s, seq, c: int):
     return torch.cat(ys, 1), s
 
 
+def _chunk_grid(seq, chunk: int, s0: torch.Tensor):
+    """The JAX package's chunk grid over ``seq`` (xh, B, C, dt, log a; each
+    (B, L, ...) float32) from the carry s0: without a full chunk, or
+    without a remainder, one grid of width min(chunk, L); else L // chunk
+    full chunks, then one chunk of the remainder.  -> (y (B, L, nh, hd),
+    the carry at the last full chunk boundary: s0 when there is none)."""
+    l = seq[0].shape[1]
+    n_full, rem = divmod(l, chunk)
+    with full_f32():
+        if n_full == 0 or rem == 0:
+            y, s_fin = _run_chunks(s0, seq, min(chunk, l))
+            return y, (s_fin if n_full else s0)
+        split = n_full * chunk
+        y_full, s_bound = _run_chunks(s0, [t[:, :split] for t in seq], chunk)
+        y_rem, _ = _run_chunks(s_bound, [t[:, split:] for t in seq], rem)
+    return torch.cat([y_full, y_rem], 1), s_bound
+
+
+def _ssd(cfg: ModelConfig, conv, a_log, d_skip, xs: torch.Tensor, bmat: torch.Tensor,
+         cmat: torch.Tensor, dt: torch.Tensor, s0: torch.Tensor):
+    """The conv, the chunk grid from the carry s0 and the D skip over a
+    sequence -> (y (B, L, d_inner) float32, seq (xh, B, C, dt, log a) float32,
+    the carry at the last full chunk boundary)."""
+    b, l, di = xs.shape
+    s = cfg.ssm
+    nh = di // s.head_dim
+    with torch.profiler.record_function("mamba_ssd"):
+        xh = _conv_prefill(conv, xs).reshape(b, l, nh, s.head_dim)
+        a = -torch.exp(a_log.float())
+        seq = (xh.float(), bmat.float(), cmat.float(), dt, dt * a)
+        y, s_bound = _chunk_grid(seq, s.chunk, s0)
+        y = y + d_skip.float()[:, None] * seq[0]
+    return y.reshape(b, l, di), seq, s_bound
+
+
 def mamba_prefill(p: Mamba2, cfg: ModelConfig, x: torch.Tensor, norm_scale: torch.Tensor):
     """The mixer over a prompt from the zero state: the residual x (B, L, D)
     normed by ``norm_scale`` -> (y (B, L, D), the decode state).
 
-    The chunk grid is the JAX package's: without a full chunk, or without a
-    remainder, the prompt is one grid of width min(chunk, L); else L //
-    chunk full chunks, then one chunk of the remainder.  The state (the
+    The chunk grid is the JAX package's (``_chunk_grid``).  The state (the
     ``mamba`` cache layout) holds the conv's last cw - 1 inputs (zeros
     before the prompt's start), the carry at the last full chunk boundary,
     and the remainder's rows in the buffers, which is what the decode step
     continues from at position L."""
     s = cfg.ssm
-    b, l, _ = x.shape
-    di, nh = mamba_dims(cfg)
+    l = x.shape[1]
     z, xs, bmat, cmat, dt = _proj(p, cfg, x, norm_scale)
-    xh = _conv_prefill(p, xs).reshape(b, l, nh, s.head_dim)
-    a = -torch.exp(p.a_log.float())
-    seq = (xh.float(), bmat.float(), cmat.float(), dt, dt * a)
-    state = init_state(cfg, b, x.device)
-    n_full, rem = divmod(l, s.chunk)
-    with full_f32():
-        if n_full == 0 or rem == 0:
-            y, s_fin = _run_chunks(state["ssm"], seq, min(s.chunk, l))
-            if n_full:
-                state["ssm"].copy_(s_fin)
-        else:
-            split = n_full * s.chunk
-            y_full, s_bound = _run_chunks(state["ssm"], [t[:, :split] for t in seq], s.chunk)
-            y_rem, _ = _run_chunks(s_bound, [t[:, split:] for t in seq], rem)
-            y = torch.cat([y_full, y_rem], 1)
-            state["ssm"].copy_(s_bound)
-    y = y + p.d_skip.float()[:, None] * seq[0]
-    out = _out(p, y.reshape(b, l, di).to(x.dtype), z)
+    state = init_state(cfg, x.shape[0], x.device)
+    y, seq, s_bound = _ssd(cfg, p.conv, p.a_log, p.d_skip, xs, bmat, cmat, dt, state["ssm"])
+    state["ssm"].copy_(s_bound)
+    out = p.wo(_gated_norm(p.norm.scale, y.to(x.dtype), z))
     tail = min(l, s.conv_width - 1)
     state["conv"][:, s.conv_width - 1 - tail:] = xs[:, l - tail:]
+    rem = l % s.chunk
     for key, t in zip(("ssd_x", "ssd_b", "ssd_c", "ssd_dt"), seq):
         state[key][:, :rem] = t[:, l - rem:]
     return out, state
+
+
+def mamba_train(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """The mixer over whole sequences on master weights ``p`` (the JAX
+    package's tree), x (B, L, D) already normed -> y (B, L, D): wz and wx
+    share one DAS mask and int8 fake-quant of x, wb and wc run in x's
+    dtype and wdt in float32, then the prefill's conv, chunk grid (from the
+    zero carry), D skip and gated rmsnorm, and wo."""
+    tc, (b, l, _) = cfg.ternary, x.shape
+    di, nh = mamba_dims(cfg)
+    xq = tlin_train_input(x, tc)
+    z, xs = tlin_train(p["wz"], xq, tc), tlin_train(p["wx"], xq, tc)
+    bmat, cmat, dt = _dense_proj(p["wb"], p["wc"], p["wdt"], p["dt_bias"], x)
+    s0 = torch.zeros((b, nh, cfg.ssm.head_dim, cfg.ssm.state_dim), dtype=torch.float32,
+                     device=x.device)
+    y, _, _ = _ssd(cfg, p["conv"], p["a_log"], p["d_skip"], xs, bmat, cmat, dt, s0)
+    h = _gated_norm(p["norm"]["scale"], y.to(x.dtype), z)
+    return tlin_train(p["wo"], tlin_train_input(h, tc), tc)
 
 
 class SsdStep(NamedTuple):
@@ -319,4 +371,4 @@ def mamba_decode(p: Mamba2, cfg: ModelConfig, x: torch.Tensor, norm_scale: torch
     y, cla = ssd_row(state, step, -torch.exp(p.a_log.float()))
     ssd_fold(state, step, cla)
     y = y + p.d_skip.float()[:, None] * xh
-    return _out(p, y.reshape(b, 1, di).to(x.dtype), z)
+    return p.wo(_gated_norm(p.norm.scale, y.reshape(b, 1, di).to(x.dtype), z))

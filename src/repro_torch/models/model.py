@@ -27,7 +27,7 @@ mask and its float32 rows, as the JAX engine's step builds its input.
 Training: ``forward`` and ``loss_fn`` run a master tree (``init_params``,
 or the JAX package's through ``bridge.load_master_tree``) under autograd,
 from token ids or float embeddings, through ``transformer.stack_train``
-(the dense models: attn / local blocks and their FFN).
+(every block kind: attention, MoE, rwkv, gla, mamba).
 """
 
 from __future__ import annotations

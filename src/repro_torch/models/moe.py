@@ -22,12 +22,21 @@ with ``scatter_add_`` (``bincount`` sizes its output from the data), and the
 combine adds a token's k contributions one after another onto zeros (no
 atomics, so the sum does not depend on the batch).
 
+``moe_train`` is the training pass on a master tree, through the same
+``route`` and ``dispatch_compute``: the dispatch and the combine are
+gathers through the slot <-> copy maps whose backward is the inverse
+gather (a token's k copies summed in routing order, a dropped copy's
+gradient exactly zero), so no gradient is summed with atomics and a
+resumed run stays bitwise.
+
 Expert parallelism (the JAX package's ``shard_map`` branch, experts sharded
 over the model axis) waits for the distributed slice (ROADMAP queue 1,
-item 4); ``moe_apply`` is the single-device branch.
+item 2); ``moe_apply`` is the single-device branch.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 from torch import nn
@@ -38,11 +47,12 @@ from repro_torch.core import twd
 from repro_torch.kernels import ops
 from repro_torch.models.layers import full_f32, rmsnorm, silu
 from repro_torch.models.ternary_linear import (ROW_ALIGN, TernaryLinear, check_format,
-                                               export_tlin, tlin_init)
+                                               export_tlin, tlin_init, tlin_train,
+                                               tlin_train_input)
 
 __all__ = ["EXPERT_STACKS", "SHARED", "ExpertStack", "MoE", "moe_init", "export_moe",
-           "pack_stack", "expert_weights", "dispatch_compute", "shared_ffn",
-           "decode_capacity", "prefill_capacity", "moe_apply"]
+           "pack_stack", "expert_weights", "Route", "route", "dispatch_compute", "shared_ffn",
+           "decode_capacity", "prefill_capacity", "moe_apply", "moe_train"]
 
 EXPERT_STACKS = ("experts_gate", "experts_in", "experts_out")
 SHARED = ("shared_gate", "shared_in", "shared_out")
@@ -167,15 +177,25 @@ def expert_weights(p: MoE, x_dtype: torch.dtype) -> list[torch.Tensor]:
     return out
 
 
-def dispatch_compute(x_tok: torch.Tensor, x_in: torch.Tensor, weights, router: torch.Tensor,
-                     cfg: ModelConfig, capacity: int):
-    """Route the (T, D) normed rows ``x_tok``, run every expert on its kept
-    copies of the expert inputs ``x_in`` (T, D), and combine -> ((T, D) in
-    x_in's dtype, the routed copies of each expert (E,), drops included)."""
+class Route(NamedTuple):
+    """One call's routing of T tokens to k experts each (the copies in
+    routing order: copy c is token c // k's j = c % k-th choice)."""
+    gate: torch.Tensor     # (T*k,) the renormalised gates, 0 for a dropped copy
+    slot: torch.Tensor     # (T*k,) each copy's buffer row, E*C for a dropped copy
+    source: torch.Tensor   # (E*C,) each buffer row's token, T for an empty row
+    copy: torch.Tensor     # (E*C,) each buffer row's copy, T*k for an empty row
+    counts: torch.Tensor   # (E,) the routed copies of each expert, drops included
+
+
+def route(x_tok: torch.Tensor, router: torch.Tensor, cfg: ModelConfig, capacity: int) -> Route:
+    """Route the (T, D) normed rows: float32 logits (TF32 off), softmax,
+    top-k, the gates renormalised over the k chosen; a stable argsort of
+    the copies' experts ranks each copy in its expert, and a copy whose
+    rank is not below ``capacity`` is dropped.  The gates carry the
+    router's gradient; the maps are integers."""
     e = cfg.moe
-    t, d = x_tok.shape
+    t = x_tok.shape[0]
     n_e, k, dev = e.n_experts, e.top_k, x_tok.device
-    wg, wi, wo = weights
     with full_f32():
         logits = x_tok.float() @ router.float()
     probs = torch.softmax(logits, dim=-1)                        # (T, E)
@@ -189,26 +209,84 @@ def dispatch_compute(x_tok: torch.Tensor, x_in: torch.Tensor, weights, router: t
     counts = torch.zeros(n_e, dtype=flat_e.dtype, device=dev).scatter_add_(
         0, flat_e, torch.ones_like(flat_e))
     starts = torch.cumsum(counts, dim=0) - counts
-    pos_sorted = torch.arange(t * k, device=dev) - starts[flat_e[order]]
+    copies = torch.arange(t * k, device=dev)
+    pos_sorted = copies - starts[flat_e[order]]
     pos = torch.empty_like(flat_e).scatter_(0, order, pos_sorted)  # rank in expert
     ok = pos < capacity
     dump = n_e * capacity
     slot = torch.where(ok, flat_e * capacity + pos, dump)
+    # the inverse map; every dropped copy writes the dump row, cut off after
+    copy = torch.full((dump + 1,), t * k, dtype=slot.dtype, device=dev).scatter_(
+        0, slot, copies)[:dump]
+    source = torch.where(copy < t * k, copy // k, t)
+    return Route(torch.where(ok, gate.reshape(-1), 0.0), slot, source, copy, counts)
 
-    tok_idx = torch.arange(t * k, device=dev) // k             # copy -> its token
-    buf = x_in.new_zeros((dump + 1, d))
-    buf[slot] = x_in[tok_idx]             # the drops all land on the dump row
-    buf = buf[:-1].view(n_e, capacity, d)
-    h = silu(torch.bmm(buf, wg)) * torch.bmm(buf, wi)
-    y = torch.bmm(h, wo).view(dump, d)
 
-    y_flat = torch.cat([y, y.new_zeros((1, d))])
-    g = torch.where(ok, gate.reshape(-1), 0.0).to(y.dtype)
-    contrib = (y_flat[slot] * g[:, None]).view(t, k, d)
-    out = torch.zeros((t, d), dtype=y.dtype, device=dev)
-    for j in range(k):                    # a token's copies in routing order
-        out = out + contrib[:, j]
-    return out, counts
+def _pad_row(x: torch.Tensor) -> torch.Tensor:
+    """x (N, D) with a zero row appended: what an index of N reads."""
+    return torch.cat([x, x.new_zeros((1, x.shape[1]))])
+
+
+class _Dispatch(torch.autograd.Function):
+    """buf[r] = x[source[r]] (a zero row where r is empty): the experts'
+    buffer from the (T, D) inputs.  Backward, with no atomics: each copy
+    reads its row's gradient (a dropped copy zero), and a token sums its k
+    copies in routing order."""
+
+    @staticmethod
+    def forward(ctx, x, source, slot, k):
+        ctx.save_for_backward(slot)
+        ctx.k = k
+        return _pad_row(x)[source]
+
+    @staticmethod
+    def backward(ctx, g):
+        (slot,) = ctx.saved_tensors
+        per_copy = _pad_row(g)[slot].view(-1, ctx.k, g.shape[1])
+        out = per_copy[:, 0]
+        for c in per_copy.unbind(1)[1:]:
+            out = out + c
+        return out, None, None, None
+
+
+class _Combine(torch.autograd.Function):
+    """y_copy[c] = y[slot[c]] (a zero row for a dropped copy): each copy's
+    expert output.  Backward: each buffer row reads the gradient of the one
+    copy it holds (zero where it is empty), a gather with no atomics."""
+
+    @staticmethod
+    def forward(ctx, y, slot, copy):
+        ctx.save_for_backward(copy)
+        return _pad_row(y)[slot]
+
+    @staticmethod
+    def backward(ctx, g):
+        (copy,) = ctx.saved_tensors
+        return _pad_row(g)[copy], None, None
+
+
+def dispatch_compute(x_tok: torch.Tensor, x_in: torch.Tensor, weights, router: torch.Tensor,
+                     cfg: ModelConfig, capacity: int):
+    """Route the (T, D) normed rows ``x_tok``, run every expert on its kept
+    copies of the expert inputs ``x_in`` (T, D), and combine -> ((T, D) in
+    x_in's dtype, the routed copies of each expert (E,), drops included).
+    The same code serves and trains: under autograd the dispatch and the
+    combine are gathers through the slot <-> copy maps whose backward is the
+    inverse gather, so no gradient is summed with atomics."""
+    e = cfg.moe
+    t, d = x_tok.shape
+    n_e, k = e.n_experts, e.top_k
+    wg, wi, wo = weights
+    with torch.profiler.record_function("moe_dispatch"):
+        r = route(x_tok, router, cfg, capacity)
+        buf = _Dispatch.apply(x_in, r.source, r.slot, k).view(n_e, capacity, d)
+        h = silu(torch.bmm(buf, wg)) * torch.bmm(buf, wi)
+        y = torch.bmm(h, wo).view(n_e * capacity, d)
+        contrib = _Combine.apply(y, r.slot, r.copy) * r.gate.to(y.dtype)[:, None]
+        out = torch.zeros((t, d), dtype=y.dtype, device=y.device)
+        for c in contrib.view(t, k, d).unbind(1):   # a token's copies in routing order
+            out = out + c
+    return out, r.counts
 
 
 def shared_ffn(p: MoE, x: torch.Tensor, ca: ops.DasTopK | None) -> torch.Tensor:
@@ -257,4 +335,26 @@ def moe_apply(p: MoE, cfg: ModelConfig, x: torch.Tensor, norm_scale: torch.Tenso
                                  expert_weights(p, x.dtype), p.router, cfg, cap)
     if cfg.moe.n_shared:
         y = y + shared_ffn(p, normed, ca)
+    return y.reshape(b, s, d)
+
+
+def moe_train(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """The MoE FFN over whole sequences on master weights ``p`` (the JAX
+    package's tree), x (B, S, D) the normed rows -> (B, S, D) in x's dtype:
+    the JAX package's no-mesh branch under autograd, at the training
+    capacity ``prefill_capacity(cfg, B*S)``.  Every expert stack is the
+    STE fake-quant with one scale an expert, in x's dtype; the experts'
+    input (and the shared expert's gate and up) is x DAS-masked and int8
+    fake-quantized (``tlin_train_input``); the router's gradient flows
+    through the gates."""
+    b, s, d = x.shape
+    t, tc = b * s, cfg.ternary
+    xt = x.reshape(t, d)
+    xq = tlin_train_input(xt, tc)
+    weights = [(tq.ternary_fake_quant_stacked(p[n]["w"]) if tc.enabled else p[n]["w"])
+               .to(x.dtype) for n in EXPERT_STACKS]
+    y, _ = dispatch_compute(xt, xq, weights, p["router"], cfg, prefill_capacity(cfg, t))
+    if cfg.moe.n_shared:
+        h = silu(tlin_train(p["shared_gate"], xq, tc)) * tlin_train(p["shared_in"], xq, tc)
+        y = y + tlin_train(p["shared_out"], tlin_train_input(h, tc), tc)
     return y.reshape(b, s, d)

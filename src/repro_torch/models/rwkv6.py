@@ -10,6 +10,12 @@ float32 with TF32 off.  Each of the 8 projections takes its own DAS step
 (the mixes come after the rmsnorm, so no norm folds into ``das_topk``).
 The step forms write the slot states ``wkv``, ``shift_t`` and ``shift_c``
 in place: the engine's CUDA graph holds their storage.
+
+``time_mix_train`` and ``channel_mix_train`` are the training passes over
+whole sequences on a master tree (the JAX package's ``rwkv_time_mix`` and
+``rwkv_channel_mix`` from a zero past): the same code as the prefill, each
+projection taking its input's DAS mask and int8 fake-quant
+(``tlin_train_input``) and the STE ternary fake-quant of its master weight.
 """
 
 from __future__ import annotations
@@ -20,10 +26,10 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import GroupNorm, full_f32, group_norm, sigmoid, silu
 from repro_torch.models.linear_attn import CHUNK, chunked_linear_attn, linear_attn_step
-from repro_torch.models.ternary_linear import TernaryLinear, tlin_init
+from repro_torch.models.ternary_linear import TernaryLinear, tlin_init, tlin_train, tlin_train_input
 
 __all__ = ["DECAY_LORA", "RWKV", "rwkv_init", "time_mix", "channel_mix",
-           "time_mix_step", "channel_mix_step"]
+           "time_mix_step", "channel_mix_step", "time_mix_train", "channel_mix_train"]
 
 DECAY_LORA = 64
 
@@ -90,67 +96,111 @@ def _mix(x: torch.Tensor, x_prev: torch.Tensor, m: torch.Tensor) -> torch.Tensor
     return x * m + x_prev * (1 - m)
 
 
-def _decay_log(p: RWKV, xr: torch.Tensor) -> torch.Tensor:
-    """log w_t = -exp(clip(w0 + tanh(x Wd1) Wd2, -8, 4)) in float32 (<= 0)."""
+def _decay_log(w1: torch.Tensor, w2: torch.Tensor, w0: torch.Tensor,
+               xr: torch.Tensor) -> torch.Tensor:
+    """log w_t = -exp(clip(w0 + tanh(x Wd1) Wd2, -8, 4)) in float32 (<= 0);
+    the clip as ``jnp.clip`` computes it, max then min, so a tie splits its
+    gradient as the JAX package's does (``torch.clamp`` passes it whole)."""
     with full_f32():
-        lora = torch.tanh(xr.float() @ p.w_decay1.float())
-        lw = p.w0.float() + lora @ p.w_decay2.float()
-    return -torch.exp(torch.clamp(lw, -8.0, 4.0))
+        lora = torch.tanh(xr.float() @ w1.float())
+        lw = w0.float() + lora @ w2.float()
+    lo, hi = (torch.full((), v, device=lw.device) for v in (-8.0, 4.0))
+    return -torch.exp(torch.minimum(torch.maximum(lw, lo), hi))
 
 
-def _time_mix_proj(p: RWKV, cfg: ModelConfig, x: torch.Tensor, x_prev: torch.Tensor):
+def _serve_lin(p: RWKV):
+    """name, x -> the module's ternary linear ``name`` of x."""
+    return lambda name, x: getattr(p, name)(x)
+
+
+def _train_lin(p: dict, tc):
+    """name, x -> x DAS-masked and int8 fake-quantized, times the STE
+    ternary fake-quant of the master weight ``name``."""
+    return lambda name, x: tlin_train(p[name], tlin_train_input(x, tc), tc)
+
+
+def _time_mix_proj(lin, p, cfg: ModelConfig, x: torch.Tensor, x_prev: torch.Tensor):
+    """r, k, v, log w (B, L, H, hd) and g (B, L, H*hd) of the four token-shift
+    mixes, each through its own projection (``lin``); ``p`` holds the mixes
+    and the decay LoRA (the master tree, or a module's ``_leaves``)."""
     b, l, _ = x.shape
     h, hd = cfg.n_heads, cfg.head_dim_
-    mix = p.mix_t.to(x.dtype)
+    mix = p["mix_t"].to(x.dtype)
     xr, xk, xv, xg = (_mix(x, x_prev, mix[i]) for i in range(4))
-    r = p.wr(xr).reshape(b, l, h, hd)
-    k = p.wk(xk).reshape(b, l, h, hd)
-    v = p.wv(xv).reshape(b, l, h, hd)
-    g = p.wg(xg)
-    return r, k, v, g, _decay_log(p, xr).reshape(b, l, h, hd)
+    r = lin("wr", xr).reshape(b, l, h, hd)
+    k = lin("wk", xk).reshape(b, l, h, hd)
+    v = lin("wv", xv).reshape(b, l, h, hd)
+    g = lin("wg", xg)
+    la = _decay_log(p["w_decay1"], p["w_decay2"], p["w0"], xr)
+    return r, k, v, g, la.reshape(b, l, h, hd)
 
 
-def _time_mix_out(p: RWKV, cfg: ModelConfig, o: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+def _time_mix_out(lin, p, cfg: ModelConfig, o: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     b, l = o.shape[0], o.shape[1]
-    o = group_norm(p.ln_x, o.reshape(b, l, -1), cfg.n_heads, o.dtype)
-    return p.wo(o * silu(g))
+    o = group_norm(p["ln_x"]["scale"], p["ln_x"]["bias"], o.reshape(b, l, -1), cfg.n_heads,
+                   o.dtype)
+    return lin("wo", o * silu(g))
 
 
-def _channel_mix(p: RWKV, x: torch.Tensor, x_prev: torch.Tensor) -> torch.Tensor:
-    mix = p.mix_c.to(x.dtype)
-    k = p.ck(_mix(x, x_prev, mix[0]))
-    kv = p.cv(torch.square(torch.relu(k)))
-    r = p.cr(_mix(x, x_prev, mix[1]))
+def _channel_mix(lin, mix_c: torch.Tensor, x: torch.Tensor, x_prev: torch.Tensor) -> torch.Tensor:
+    mix = mix_c.to(x.dtype)
+    k = lin("ck", _mix(x, x_prev, mix[0]))
+    kv = lin("cv", torch.square(torch.relu(k)))
+    r = lin("cr", _mix(x, x_prev, mix[1]))
     return sigmoid(r) * kv
+
+
+def _leaves(p: RWKV) -> dict:
+    """The module's mixes, LoRA and head norm as the master tree names them."""
+    return {"mix_t": p.mix_t, "w_decay1": p.w_decay1, "w_decay2": p.w_decay2, "w0": p.w0,
+            "ln_x": {"scale": p.ln_x.scale, "bias": p.ln_x.bias}}
 
 
 def time_mix(p: RWKV, cfg: ModelConfig, x: torch.Tensor):
     """Time-mix over a prompt from the zero state.  x (B, L, D), normed.
     Returns (y, {"wkv", "shift_t"}), the states float32."""
-    r, k, v, g, la = _time_mix_proj(p, cfg, x, _shift(x, None))
+    lin, leaves = _serve_lin(p), _leaves(p)
+    r, k, v, g, la = _time_mix_proj(lin, leaves, cfg, x, _shift(x, None))
     o, s_fin = chunked_linear_attn(r, k, v, la, chunk=CHUNK, mode="rwkv", u=p.u)
-    return _time_mix_out(p, cfg, o, g), {"wkv": s_fin, "shift_t": x[:, -1:].float().clone()}
+    return (_time_mix_out(lin, leaves, cfg, o, g),
+            {"wkv": s_fin, "shift_t": x[:, -1:].float().clone()})
 
 
 def channel_mix(p: RWKV, x: torch.Tensor):
     """Channel-mix over a prompt.  Returns (y, shift_c (B, 1, D) float32)."""
-    return _channel_mix(p, x, _shift(x, None)), x[:, -1:].float().clone()
+    return _channel_mix(_serve_lin(p), p.mix_c, x, _shift(x, None)), x[:, -1:].float().clone()
 
 
 def time_mix_step(p: RWKV, cfg: ModelConfig, x: torch.Tensor, state: dict) -> torch.Tensor:
     """One-token time-mix, x (B, 1, D); ``state``'s ``wkv`` and ``shift_t``
     are read, then overwritten in place."""
-    r, k, v, g, la = _time_mix_proj(p, cfg, x, state["shift_t"].to(x.dtype))
+    lin, leaves = _serve_lin(p), _leaves(p)
+    r, k, v, g, la = _time_mix_proj(lin, leaves, cfg, x, state["shift_t"].to(x.dtype))
     o, s_new = linear_attn_step(r[:, 0], k[:, 0], v[:, 0], la[:, 0], state["wkv"],
                                 mode="rwkv", u=p.u)
     state["wkv"].copy_(s_new)
     state["shift_t"].copy_(x)
-    return _time_mix_out(p, cfg, o[:, None], g)
+    return _time_mix_out(lin, leaves, cfg, o[:, None], g)
 
 
 def channel_mix_step(p: RWKV, x: torch.Tensor, state: dict) -> torch.Tensor:
     """One-token channel-mix; ``state["shift_c"]`` is read, then
     overwritten in place."""
-    y = _channel_mix(p, x, state["shift_c"].to(x.dtype))
+    y = _channel_mix(_serve_lin(p), p.mix_c, x, state["shift_c"].to(x.dtype))
     state["shift_c"].copy_(x)
     return y
+
+
+def time_mix_train(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """The time-mix over whole sequences on master weights ``p`` (the JAX
+    package's tree), x (B, L, D) normed, the token shift from a zero past:
+    r, k, v and g each take their own DAS mask and int8 fake-quant."""
+    lin = _train_lin(p, cfg.ternary)
+    r, k, v, g, la = _time_mix_proj(lin, p, cfg, x, _shift(x, None))
+    o, _ = chunked_linear_attn(r, k, v, la, chunk=CHUNK, mode="rwkv", u=p["u"])
+    return _time_mix_out(lin, p, cfg, o, g)
+
+
+def channel_mix_train(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """The channel-mix over whole sequences on master weights, x normed."""
+    return _channel_mix(_train_lin(p, cfg.ternary), p["mix_c"], x, _shift(x, None))

@@ -18,13 +18,17 @@ is a loop over the model's ``ModuleList``, whatever the pattern and its
 tail (gemma3's 26 layers = 4 x 6 + 2).
 
 Training runs on master-weight trees in the JAX package's layout (plain
-dicts of tensors, ``models.model.init_params``): ``block_train`` is the
-"attn" / "local" block over whole sequences, ``stack_train`` runs the
-scan-stacked groups (a leading group axis on every leaf) and then the tail,
-in the JAX package's order, each group or tail layer under
-``torch.utils.checkpoint`` when ``cfg.remat`` (non-reentrant: the forward is
-run again in the backward).  The mamba, rwkv, gla and MoE blocks have no
-training pass in the port yet (ROADMAP queue 1, item 1) and raise.
+dicts of tensors, ``models.model.init_params``): ``block_train`` is any
+block over whole sequences, in the JAX package's order: an "attn" / "local"
+block (its own attention or zamba2's shared one, whose gradient autograd
+sums over every position that runs it), then its FFN or MoE
+(``moe.moe_train``); a "gla" block (``gla.gla_train``) and its FFN or MoE;
+an "rwkv" block, the time-mix then the channel-mix, each after its rmsnorm
+(``rwkv6.time_mix_train``, ``channel_mix_train``); a "mamba" block
+(``mamba2.mamba_train``).  ``stack_train`` runs the scan-stacked groups (a
+leading group axis on every leaf) and then the tail, each group or tail
+layer under ``torch.utils.checkpoint`` when ``cfg.remat`` (non-reentrant:
+the forward is run again in the backward).
 """
 
 from __future__ import annotations
@@ -49,7 +53,7 @@ from repro_torch.tree import leaves, tree_map
 
 __all__ = ["ATTN_KINDS", "RECURRENT_KINDS", "FFN_KINDS", "FFN", "Block", "ffn_apply", "block_prefill",
            "block_decode", "layer_cache_spec", "stack_prefill", "stack_decode",
-           "Runtime", "trainable", "ffn_train", "block_train", "stack_train"]
+           "Runtime", "ffn_train", "block_train", "stack_train"]
 
 ATTN_KINDS = ("attn", "local")
 RECURRENT_KINDS = ("mamba", "rwkv", "gla")   # the recurrent kinds the port serves
@@ -63,21 +67,6 @@ class Runtime:
     """What the training pass runs on: ``serve_sparse`` puts LPSA on the
     global layers, as the JAX package's ``Runtime`` does by default."""
     serve_sparse: bool = True
-
-
-def trainable(cfg: ModelConfig) -> str | None:
-    """None when the port trains ``cfg`` (attn / local blocks, a dense FFN),
-    else why not."""
-    kinds = sorted(set(cfg.layer_kinds()) - set(ATTN_KINDS))
-    if kinds:
-        return (f"{cfg.name}: the port trains attn / local blocks only, not {kinds} "
-                "(ROADMAP queue 1, item 1: the recurrent and hybrid training paths)")
-    if cfg.moe is not None:
-        return (f"{cfg.name}: the port has no MoE training yet (ROADMAP queue 1, item 1: "
-                "ternary_fake_quant_stacked on the master stacks)")
-    if cfg.ffn_kind not in FFN_KINDS or cfg.act not in ACT:
-        return f"{cfg.name}: ffn_kind {cfg.ffn_kind!r}, act {cfg.act!r}"
-    return None
 
 
 class FFN(nn.Module):
@@ -264,23 +253,38 @@ def ffn_train(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return tlin_train(p["w_out"], tlin_train_input(h, tc), tc)
 
 
+def _mixer_ffn_train(bp: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """The FFN or MoE half of an attention or gla block on the normed x."""
+    if cfg.moe is not None:
+        return MOE.moe_train(bp["moe"], cfg, x)
+    return ffn_train(bp["ffn"], cfg, x)
+
+
 def block_train(bp: dict, cfg: ModelConfig, x: torch.Tensor, kind: str, shared,
                 rt: Runtime) -> torch.Tensor:
-    """One "attn" or "local" block over whole sequences on master weights:
-    rmsnorm -> attention -> residual -> rmsnorm -> FFN -> residual."""
-    ap = bp["attn"] if "attn" in bp else shared
-    x = x + A.attn_train(ap, cfg, rmsnorm(bp["norm1"]["scale"], x), kind, rt)
-    return x + ffn_train(bp["ffn"], cfg, rmsnorm(bp["norm2"]["scale"], x))
+    """One block of any kind over whole sequences on master weights, each
+    mixer and FFN after its rmsnorm, each added to the residual."""
+    n1 = bp["norm1"]["scale"]
+    if kind == "mamba":
+        return x + M.mamba_train(bp["mamba"], cfg, rmsnorm(n1, x))
+    if kind == "rwkv":
+        x = x + R.time_mix_train(bp["rwkv"], cfg, rmsnorm(n1, x))
+        return x + R.channel_mix_train(bp["rwkv"], cfg, rmsnorm(bp["norm2"]["scale"], x))
+    if kind == "gla":
+        x = x + G.gla_train(bp["gla"], cfg, rmsnorm(n1, x))
+    elif kind in ATTN_KINDS:
+        ap = bp["attn"] if "attn" in bp else shared
+        x = x + A.attn_train(ap, cfg, rmsnorm(n1, x), kind, rt)
+    else:
+        raise ValueError(f"unknown layer kind {kind!r}")
+    return x + _mixer_ffn_train(bp, cfg, rmsnorm(bp["norm2"]["scale"], x))
 
 
 def stack_train(layers: dict, cfg: ModelConfig, x: torch.Tensor, rt: Runtime) -> torch.Tensor:
     """The layers {stacked, tail, shared} over x: the stacked groups first
     (group g runs the pattern's blocks on leaf slices [g]), then the tail;
     with ``cfg.remat``, each group and each tail layer is recomputed in the
-    backward.  A config with another block raises (``trainable``)."""
-    why = trainable(cfg)
-    if why is not None:
-        raise NotImplementedError(why)
+    backward."""
     pat, shared = cfg.layer_pattern, layers.get("shared")
 
     def run(f, x):

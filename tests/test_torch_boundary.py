@@ -3,9 +3,10 @@
 Importing every ``repro_torch`` module (the trainer's too: optim, data,
 checkpoint, distributed.fault, launch.train) and chip_smoke.py's
 module-level imports must pull in neither JAX nor any module of the JAX
-package, and without a CUDA device the entry points (the serving ones, the
-train CLI, a checkpoint restore) must refuse to start unless the caller
-asks for the CPU.
+package, nor may running the training pass of every block kind (the MoE,
+rwkv, gla, mamba and the shared attention) on the CPU; and without a CUDA
+device the entry points (the serving ones, the train CLI, a checkpoint
+restore) must refuse to start unless the caller asks for the CPU.
 """
 import os
 import subprocess
@@ -58,6 +59,21 @@ for call in (lambda: train.main(["--reduced", "--steps", "1"]),
         raise AssertionError("started without CUDA and without device='cpu'")
 eng = ServeEngine(MD.TernaryLM(cfg, "cpu"), device="cpu")
 assert eng.device.type == "cpu"
+# the training passes of every block kind, run once (each may import lazily)
+from repro_torch.models import gla, mamba2, moe, rwkv6
+from repro_torch.tree import leaves
+assert all(map(callable, (moe.moe_train, mamba2.mamba_train, gla.gla_train,
+                          rwkv6.time_mix_train, rwkv6.channel_mix_train)))
+ids = torch.zeros((1, 16), dtype=torch.long)
+for arch in ("qwen3-moe-30b-a3b", "kimi-k2-1t-a32b", "rwkv6-3b", "gla-1.3b", "zamba2-2.7b"):
+    c = reduced(get_config(arch))
+    params = MD.init_params(c, device="cpu")
+    for t in leaves(params):
+        t.requires_grad_()
+    MD.loss_fn(params, c, {"inputs": ids, "labels": ids})[0].backward()
+leaked = sorted(k for k in sys.modules
+                if k.split(".")[0] in ("jax", "jaxlib", "repro"))
+assert not leaked, f"the port's training passes imported {leaked}"
 print("BOUNDARY-OK")
 """
 

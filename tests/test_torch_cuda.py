@@ -1145,11 +1145,13 @@ def test_cuda_sampling_graph_matches_eager(cuda, layout):
 # training (bitnet-1.3b's QAT step)
 # --------------------------------------------------------------------------
 
-@pytest.mark.parametrize("k", [2048, 5460])
+@pytest.mark.parametrize("k", [2048, 5460, 2560, 5120, 5632, 8960, 10240])
 def test_cuda_das_topk_training_mask(cuda, rng, k):
-    """The training step's call, the mask alone, at 4 x 2048 rows in bf16:
-    exact against the plain version, nothing else written, and the 20
-    tail lanes of K = 5460 all kept."""
+    """The training step's call, the mask alone, at 4 x 2048 rows in bf16
+    and every K of the train paths (bitnet-1.3b's, zamba2-2.7b's 2560, 5120
+    and 10240, gla-1.3b's 5632, rwkv6-3b's 8960): exact against the plain
+    version, nothing else written, and the 20 tail lanes of K = 5460 all
+    kept."""
     x = _rows(rng, 8192, k, torch.bfloat16, False, cuda)
     got = ops.das_topk(x, keep=16, block=32, with_compact=False)
     assert got.values is None and got.indices is None and got.dense is None
@@ -1190,4 +1192,96 @@ def test_cuda_train_step_kernel_matches_plain(cuda, monkeypatch):
     assert float(mk["loss"]) == float(mp["loss"]) and torch.isfinite(mk["loss"])
     assert float(mk["grad_norm"]) == float(mp["grad_norm"])
     for a, b in zip(pk + ok, pp + op):
+        assert torch.equal(a, b)
+
+
+# --------------------------------------------------------------------------
+# training, the other block kinds
+# --------------------------------------------------------------------------
+
+TRAIN_KINDS = {"qwen3-moe-30b-a3b": (2, 3), "gla-1.3b": (2, 4), "rwkv6-3b": (2, 8),
+               "zamba2-2.7b": (6, None)}   # (layers, das_topk a layer forward)
+
+
+def _train_cfg(arch, n_layers, **moe):
+    cfg = dataclasses.replace(reduced(get_config(arch), n_layers=n_layers, d_model=256),
+                              dtype="bfloat16", remat=True)
+    if moe:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, **moe))
+    return cfg
+
+
+def _train_batch(cfg, cuda):
+    from repro_torch.data.pipeline import SyntheticLM
+    data = SyntheticLM(vocab=cfg.vocab, seq_len=128, batch=2)
+    return {k: torch.as_tensor(v, device=cuda) for k, v in data.batch_at(0).items()}
+
+
+@pytest.mark.parametrize("arch", sorted(TRAIN_KINDS))
+def test_cuda_train_step_every_kind_kernel_matches_plain(cuda, monkeypatch, arch):
+    """A cut of each other block kind at a reduced width (d_model 256, bf16,
+    remat on: the MoE, gla and rwkv 2 layers, zamba2 one pattern period of
+    6), one step with the DAS masks from das_topk and from the plain
+    das_mask: loss, gradient norm, updated params and moments bitwise, and
+    das_topk launched twice a DAS input a layer (zamba2: 2 a mamba layer, 4
+    its attention block)."""
+    from repro_torch.launch import train as TR
+    from repro_torch.models import ternary_linear as TL
+    from repro_torch.optim import adamw
+    from repro_torch.tree import leaves
+    n_layers, per_layer = TRAIN_KINDS[arch]
+    cfg = _train_cfg(arch, n_layers)
+    batch = _train_batch(cfg, cuda)
+    plain = lambda x, tc: das.das_mask(x.detach(), block_size=tc.das.block, keep=tc.das.keep)  # noqa: E731
+    runs = []
+    for mode in ("kernel", "plain"):
+        if mode == "plain":
+            monkeypatch.setattr(TL, "das_train_mask", plain)
+        p = MD.init_params(cfg, seed=3, device=cuda)
+        ops.reset_launches()
+        step = TR.make_train_step(cfg, TR.make_runtime(), total=4)
+        p, o, m = step(p, adamw.adamw_init(p), batch)
+        runs.append((dict(ops.launches), m, leaves(p), leaves(o)))
+    (lk, mk, pk, ok), (lp, mp, pp, op) = runs
+    forward = (n_layers * per_layer if per_layer is not None else
+               sum(2 if k == "mamba" else 4 for k in cfg.layer_kinds()))
+    assert lk["das_topk"] == 2 * forward and lp["das_topk"] == 0
+    assert all(n == 0 for name, n in lk.items() if name != "das_topk")
+    assert float(mk["loss"]) == float(mp["loss"]) and torch.isfinite(mk["loss"])
+    assert float(mk["grad_norm"]) == float(mp["grad_norm"])
+    for a, b in zip(pk + ok, pp + op):
+        assert torch.equal(a, b)
+
+
+def test_cuda_moe_train_grads_bitwise_across_runs(cuda):
+    """The MoE step's gradients, at capacity factor 1.0 (copies drop), are
+    bitwise the same in two runs: the dispatch and the combine sum nothing
+    with atomics."""
+    from repro_torch.models import moe as MOE
+    from repro_torch.tree import leaves
+    cfg = _train_cfg("qwen3-moe-30b-a3b", 2, capacity_factor=1.0)
+    batch = _train_batch(cfg, cuda)
+    drops, runs = [], []
+    orig = MOE.dispatch_compute
+
+    def counting(*args):
+        out, counts = orig(*args)
+        drops.append(int((counts - args[-1]).clamp(min=0).sum()))
+        return out, counts
+
+    MOE.dispatch_compute = counting
+    try:
+        for _ in range(2):
+            p = MD.init_params(cfg, seed=4, device=cuda)
+            flat = leaves(p)
+            for t in flat:
+                t.requires_grad_()
+            loss, _ = MD.loss_fn(p, cfg, batch)
+            runs.append((loss.detach(), torch.autograd.grad(loss, flat)))
+    finally:
+        MOE.dispatch_compute = orig
+    assert any(n > 0 for n in drops), drops
+    (la, ga), (lb, gb) = runs
+    assert torch.equal(la, lb)
+    for a, b in zip(ga, gb):
         assert torch.equal(a, b)

@@ -210,7 +210,7 @@ def test_group_norm_matches_jax(which):
     p = L.GroupNorm(h * hd, torch.float32)
     p.scale.copy_(torch.from_numpy(scale))
     p.bias.copy_(torch.from_numpy(bias))
-    got = L.group_norm(p, torch.from_numpy(x), h, torch.float32).numpy()
+    got = L.group_norm(p.scale, p.bias, torch.from_numpy(x), h, torch.float32).numpy()
     if which == "rwkv":
         want = JR._groupnorm({"scale": jnp.asarray(scale), "bias": jnp.asarray(bias)},
                              jnp.asarray(x), h, hd)

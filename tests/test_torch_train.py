@@ -24,8 +24,10 @@ of each other (relative), an int8 value whose |x / scale| lies within
 count above 0.01 % of the decisions.  Seen: 11 of 163840 on
 musicgen-medium, 2 on gemma2-2b, 1 int8 value on bitnet-1.3b with DAS off,
 0 with it on; the farthest from its tie 7.6e-6 (|x / scale| = 3.50003,
-bitnet-1.3b with DAS and LPSA off).  Everything else is compared at the
-tolerances above.
+bitnet-1.3b with DAS and LPSA off).  ``Decisions`` also replays the MoE's
+expert-stack trits and takes a DAS lane within 1e-5 of zero (relative to
+its row's max) as a tie with zero (tests/test_torch_train_moe.py,
+_ssm.py).  Everything else is compared at the tolerances above.
 
 Also: the STE fake-quants (forward equal, identity backward), remat on and
 off bitwise, a scan-stacked tree, ``flash_masked`` alone (chunks, GQA,
@@ -63,26 +65,29 @@ TIE_RTOL = 1e-5            # a decision the port takes from JAX lies this near a
 MAX_FORCED = 1e-4          # and at most this share of decisions is taken
 
 
-def cfg_pair(arch, *, das=True, **kw):
-    """(jax cfg, port cfg) of the reduced arch, ``kw`` replaced on both."""
+def cfg_pair(arch, *, das=True, moe=None, **kw):
+    """(jax cfg, port cfg) of the reduced arch, ``kw`` replaced on both, and
+    the fields in ``moe`` on both MoE configs."""
     out = []
     for base, get in ((jbase, jget_config), (tbase, get_config)):
         cfg = base.reduced(get(arch))
         if not das:
             cfg = dataclasses.replace(cfg, ternary=dataclasses.replace(cfg.ternary, das=None))
+        if moe:
+            cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, **moe))
         out.append(dataclasses.replace(cfg, **kw))
     return tuple(out)
 
 
-def make_batch(cfg, seed=0):
+def make_batch(cfg, seed=0, seq=S):
     """Token ids (or float32 embeddings for a stub frontend) and next-token
     labels, a few of them -1."""
     rng = np.random.default_rng(seed)
-    toks = rng.integers(0, cfg.vocab, (B, S + 1)).astype(np.int32)
+    toks = rng.integers(0, cfg.vocab, (B, seq + 1)).astype(np.int32)
     labels = toks[:, 1:].copy()
     labels[0, :5] = -1
     if JMD.uses_embeds(cfg):
-        inputs = rng.standard_normal((B, S, cfg.d_model)).astype(np.float32)
+        inputs = rng.standard_normal((B, seq, cfg.d_model)).astype(np.float32)
     else:
         inputs = toks[:, :-1]
     return {"inputs": inputs, "labels": labels}
@@ -101,13 +106,28 @@ def port_loss_grads(tcfg, tparams, batch, rt=None):
     return float(loss.detach()), grads
 
 
+def near_zero(x, block_size):
+    """Per lane of x's blocks (N, block_size), whether |x| is within 1e-5
+    of zero relative to its row's max |x|: relu(k)^2 of a k whose sign the
+    two packages' float32 sums set apart (the rwkv channel-mix) is 1e-16 on
+    one side and 0 on the other, which no relative gap can measure."""
+    a = x.detach().abs().float()
+    row = a.reshape(-1, a.shape[-1]).amax(-1, keepdim=True)
+    main = a.shape[-1] - a.shape[-1] % block_size
+    flat = a.reshape(-1, a.shape[-1])[:, :main]
+    return (flat <= TIE_RTOL * row).reshape(-1, block_size)
+
+
 def das_gaps(x, diff, block_size, keep):
     """Per block where the two masks differ, the gap between the keep-th
-    and the next largest |x| relative to the keep-th."""
+    and the next largest |x| relative to the keep-th, lanes near zero
+    (``near_zero``) taken as 0: a block whose keep-th lane is one of them
+    is at a tie with zero."""
     k = x.shape[-1]
     main = k - k % block_size
     assert not diff[..., main:].any(), "a dense tail lane differs"
     a = x.detach()[..., :main].abs().float().reshape(-1, block_size)
+    a = torch.where(near_zero(x, block_size), 0.0, a)
     d = diff[..., :main].reshape(-1, block_size).any(-1)
     top = a[d].sort(-1, descending=True).values
     return (top[:, keep - 1] - top[:, keep]) / top[:, keep - 1].clamp_min(1e-30)
@@ -120,18 +140,47 @@ def int8_gaps(x, scale, diff):
     return ((r - r.floor()) - 0.5).abs() / r
 
 
+def ternary_gaps(w, gamma, diff):
+    """Per differing trit, how far |w / gamma| lies from the .5 boundary,
+    relative to |w / gamma| (the one boundary the clip to [-1, 1] keeps)."""
+    r = (w.detach().float() / gamma.float()).abs()[diff]
+    return (r - 0.5).abs() / r
+
+
+class _Forced(torch.autograd.Function):
+    """A fake-quant's forced value forward, the identity backward (the STE)."""
+
+    @staticmethod
+    def forward(ctx, w, value):
+        return value
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
 class Decisions:
-    """The DAS masks and int8 values that jitted JAX steps decided, replayed
-    into the port's next step where the port decides otherwise at a near
-    tie of its own input (``at_tie``).  Records
-    are kept in call order, one per distinct input: the JAX package masks
-    and quantizes the shared input of q/k/v and of gate/up once per
-    projection, the port once."""
+    """The DAS masks, int8 values and expert-stack trits that jitted JAX
+    steps decided, replayed into the port's next step where the port decides
+    otherwise at a near tie of its own input (``at_tie``).  Records are kept
+    in call order, one queue a kind, one record per distinct input (its
+values, whatever its shape: the MoE's shared expert masks the rows the
+routed experts' dispatch masked, in another shape): the JAX
+    package masks and quantizes the shared input of q/k/v and of gate/up
+    once per projection, the port once; and where the port meets an input
+    again (rwkv's four token-shift mixes are equal while the mix weights
+    are), it takes the decision it took the first time.  The trits of an
+    expert stack (``ternary_fake_quant_stacked``) are a decision too: its
+    per-expert absmean scale is a float32 mean whose summation order differs
+    by an ulp between XLA and torch, which moves a |w / scale| at .5."""
+
+    KINDS = ("das", "int8", "ternary")
 
     def __init__(self, monkeypatch):
         self.mp, self.records, self.forced, self.total = monkeypatch, [], 0, 0
-        self.queue = iter(())
-        self._orig = (tdas.das_mask, ttq.int8_quantize)
+        self.zero_ties = 0          # DAS lanes near zero taken from JAX (``near_zero``)
+        self.queue, self.seen = {}, {}
+        self._orig = (tdas.das_mask, ttq.int8_quantize, ttq.ternary_fake_quant_stacked)
         self._forcing = False
         self.worst_gap = 0.0
 
@@ -140,60 +189,93 @@ class Decisions:
         def tap(kind, fn):
             def wrapped(x, **kw):
                 out = fn(x, **kw)
-                val = out if kind == "das" else out.values
+                val = {"das": lambda o: o, "int8": lambda o: o.values,
+                       "ternary": jnp.sign}[kind](out)
                 jax.debug.callback(lambda xv, v: self.records.append(
                     (kind, np.asarray(xv), np.asarray(v))), x, val, ordered=True)
                 return out
             return wrapped
         self.mp.setattr(jdas, "das_mask", tap("das", jdas.das_mask))
         self.mp.setattr(jtq, "int8_quantize", tap("int8", jtq.int8_quantize))
+        self.mp.setattr(jtq, "ternary_fake_quant_stacked",
+                        tap("ternary", jtq.ternary_fake_quant_stacked))
 
     def _distinct(self):
-        out, seen = [], set()
+        out, seen = {k: [] for k in self.KINDS}, set()
         for kind, x, v in self.records:
-            key = (kind, x.shape, x.tobytes())
+            key = (kind, x.dtype.str, x.tobytes())
             if key not in seen:
                 seen.add(key)
-                out.append((kind, v))
+                out[kind].append(v)
         return out
 
     def force_port(self):
         """The port's next step takes the decisions recorded since the last
         call."""
         jax.effects_barrier()
-        self.queue, self.records = iter(self._distinct()), []
+        self.queue = {k: iter(v) for k, v in self._distinct().items()}
+        self.records, self.seen = [], {}
         if self._forcing:
             return
         self._forcing = True
-        orig_mask, orig_q = self._orig
+        orig_mask, orig_q, orig_t = self._orig
 
-        def want(kind, like):
-            got_kind, v = next(self.queue)
-            assert got_kind == kind, f"the port's {kind} step met JAX's {got_kind}"
-            return torch.from_numpy(np.array(v)).reshape(like.shape)
+        def want(kind, x, like):
+            """JAX's decision for the port's call on x; a call on an input
+            the port met before in this step takes that decision again, as
+            the records keep one per distinct input."""
+            x = x.detach().numpy()
+            key = (kind, x.dtype.str, x.tobytes())
+            if key not in self.seen:
+                v = next(self.queue[kind], None)
+                assert v is not None, f"the port made a {kind} decision JAX did not"
+                self.seen[key] = torch.from_numpy(np.array(v)).reshape(like.shape)
+            return self.seen[key]
+
+        def count(kind, diff, gaps):
+            if diff.any():
+                self.at_tie(kind, gaps())
+            self.forced += int(diff.sum())
+            self.total += diff.numel()
 
         def mask(x, *, block_size=tdas.DEFAULT_BLOCK, keep=tdas.DEFAULT_BLOCK // 2):
             own = orig_mask(x, block_size=block_size, keep=keep)
-            w = want("das", own)
+            w = want("das", x, own)
             diff = own != w
             if diff.any():
                 self.at_tie("DAS", das_gaps(x, diff, block_size, keep))
-            self.forced += int(diff.sum())
-            self.total += own.numel()
+            # a lane near zero kept or dropped leaves x * mask within 1e-5
+            # of its row's scale: counted apart
+            main = x.shape[-1] - x.shape[-1] % block_size
+            zero = torch.zeros_like(diff)
+            zero[..., :main] = near_zero(x, block_size).reshape(zero[..., :main].shape)
+            self.forced += int((diff & ~zero).sum())
+            self.zero_ties += int((diff & zero).sum())
+            self.total += diff.numel()
             return w
 
         def quant(x, **kw):
             own = orig_q(x, **kw)
-            w = want("int8", own.values)
+            w = want("int8", x, own.values)
             diff = own.values != w
-            if diff.any():
-                self.at_tie("int8", int8_gaps(x, own.scale, diff))
-            self.forced += int(diff.sum())
-            self.total += own.values.numel()
+            count("int8", diff, lambda: int8_gaps(x, own.scale, diff))
             return ttq.QuantizedActivation(w, own.scale)
+
+        def stacked(w):
+            own = orig_t(w)
+            gamma = w.detach().abs().mean(dim=tuple(range(1, w.ndim)), keepdim=True,
+                                          dtype=torch.float32).to(w.dtype) + ttq.EPS
+            q = torch.sign(own.detach())
+            q_want = want("ternary", w, q).to(q.dtype)
+            diff = q != q_want
+            count("ternary", diff, lambda: ternary_gaps(w, gamma, diff))
+            if not diff.any():
+                return own
+            return _Forced.apply(w, (q_want * gamma).to(w.dtype))
 
         self.mp.setattr(tdas, "das_mask", mask)
         self.mp.setattr(ttq, "int8_quantize", quant)
+        self.mp.setattr(ttq, "ternary_fake_quant_stacked", stacked)
 
     def at_tie(self, kind, gaps):
         """Every decision that differs lies at a near tie of the port's input."""
@@ -203,9 +285,11 @@ class Decisions:
         self.worst_gap = max(self.worst_gap, worst)
 
     def check(self):
-        assert self.total > 0 and next(self.queue, None) is None
+        assert self.total > 0
+        assert all(next(q, None) is None for q in self.queue.values()), \
+            "JAX made a decision the port did not"
         assert self.forced <= MAX_FORCED * self.total, \
-            f"{self.forced} of {self.total} DAS / int8 decisions differ from JAX's"
+            f"{self.forced} of {self.total} DAS / int8 / trit decisions differ from JAX's"
 
 
 def compare(label, jloss, jgrads, tloss, tgrads, tparams, loss_rtol=LOSS_RTOL, tol=GRAD_TOL):
@@ -220,13 +304,13 @@ def compare(label, jloss, jgrads, tloss, tgrads, tparams, loss_rtol=LOSS_RTOL, t
         assert err <= tol * scale, f"{label}: {path} off by {err / scale:.2e} of its max"
 
 
-def matches_jax(arch, monkeypatch, *, das=True, lpsa=True, **kw):
-    """Loss and every master leaf's gradient of the reduced arch in f32,
-    the port's DAS / int8 decisions taken from the jitted JAX step where
-    they differ."""
+def matches_jax(arch, monkeypatch, *, das=True, lpsa=True, seq=S, **kw):
+    """Loss and every master leaf's gradient of the reduced arch in f32 over
+    sequences of ``seq`` tokens, the port's DAS / int8 decisions taken from
+    the jitted JAX step where they differ."""
     jcfg, tcfg = cfg_pair(arch, das=das, **kw)
     jp = jax_params(jcfg)
-    batch = make_batch(jcfg)
+    batch = make_batch(jcfg, seq=seq)
     dec = Decisions(monkeypatch)
     dec.record_jax()
     (jl, _), jg = jax.jit(jax.value_and_grad(
@@ -361,25 +445,17 @@ def test_remat_gives_the_same_grads():
         assert torch.equal(a, b)
 
 
-def test_non_dense_blocks_raise():
-    for arch in ("qwen3-moe-30b-a3b", "rwkv6-3b", "zamba2-2.7b"):
-        tcfg = tbase.reduced(get_config(arch))
-        p = MD.init_params(tcfg, device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 1"):
-            MD.forward(p, tcfg, torch.zeros((1, 8), dtype=torch.long))
-
-
 # --------------------------------------------------------------------------
 # bfloat16
 # --------------------------------------------------------------------------
 
-def test_bf16_bitnet_matches_eager_jax():
-    """Reduced bitnet-1.3b with bfloat16 masters: loss and gradients
-    against the JAX package run eagerly (jitted, XLA skips bfloat16
-    roundings inside its fusions) within 2e-2 of each leaf's max."""
-    jcfg, tcfg = cfg_pair("bitnet-1.3b", dtype="bfloat16")
+def bf16_matches_eager_jax(arch, *, seq=S, **kw):
+    """The reduced arch with bfloat16 masters: loss and gradients against
+    the JAX package run eagerly (jitted, XLA skips bfloat16 roundings inside
+    its fusions) within 2e-2 of each leaf's max."""
+    jcfg, tcfg = cfg_pair(arch, dtype="bfloat16", **kw)
     jp = jax_params(jcfg)
-    batch = make_batch(jcfg)
+    batch = make_batch(jcfg, seq=seq)
     with jax.disable_jit():
         (jl, _), jg = jax.value_and_grad(lambda p: JMD.loss_fn(
             p, jcfg, jax.tree.map(jnp.asarray, batch), JRuntime()), has_aux=True)(jp)
@@ -387,4 +463,9 @@ def test_bf16_bitnet_matches_eager_jax():
     assert all(p.dtype == torch.bfloat16 for p in leaves(tp))
     tl, tg = port_loss_grads(tcfg, tp, batch)
     assert all(g.dtype == torch.bfloat16 for g in tg)
-    compare("bf16", float(jl), jg, tl, tg, tp, loss_rtol=BF16_TOL, tol=BF16_TOL)
+    compare(f"{arch} bf16", float(jl), jg, tl, tg, tp, loss_rtol=BF16_TOL, tol=BF16_TOL)
+
+
+def test_bf16_bitnet_matches_eager_jax():
+    """Reduced bitnet-1.3b with bfloat16 masters against eager ``repro``."""
+    bf16_matches_eager_jax("bitnet-1.3b")
