@@ -172,6 +172,33 @@ Phases:
            the decode step under the profiler, replayed and eager, by class,
            beside the floor of its bytes; a 2-layer model at its widths on
            the card against the CPU (f32, DAS off, the embedding prompt)
+  dist     SPMD serving over ranks spawned on cuda:0 (one card: NCCL refuses
+           two ranks on one device) that talk over gloo, each loading the
+           kernels the build phase built and launching them on its shard;
+           one world of 4 ranks, the parent printing the backend and the
+           world size: (a) bitnet-1.3b at full width and depth,
+           Topology(dp=2, tp=2), the packed trace: every rank samples the
+           same tokens and launches das_topk, das_ternary_gemm and
+           sparse_attention, and ternary_gemm where its down shard holds
+           d_ff's dense tail (ranks 1 and 3), and only there (each shard
+           takes its own K's route); the tokens and request 2 teacher-forced
+           beside the packed path's (reported with each first difference and
+           the one-rank top-2 margin there: a row-parallel sum rounds in
+           another order and a DAS decision at a tie turns on it); the same
+           model in float32 with DAS off, requests 0, 2 and 4 teacher-forced
+           (each prompt's pack-aligned prefix: 4, 1 and 2 packs, the ring
+           wrapped at 1024, then 8 steps), within 1e-4 of the one-rank max;
+           ms a step, the card's idle share and the collectives a step over
+           8 full decode steps (ranks sharing one card over gloo: not a
+           multi-card time); (b) the same with 2 ranks lost before decode
+           step 3: one reshard, Topology(dp=1, tp=2), (a)'s tokens exactly;
+           (c) qwen3-moe-30b-a3b at full width, 2 of 48 layers,
+           Topology(tp=2) on ranks 0 and 1: 64 experts a rank, twd_decode
+           on each, the tokens and a teacher-forced request beside a
+           one-rank run; requests 0, 2 and 4 in float32 with DAS off as in
+           (a), within 1e-4 with the experts' int8 fake-quant the identity
+           on both sides, and as served (reported: the fake-quant is a
+           discontinuity too)
   train    QAT training of bitnet-1.3b at full width (d_model 2048, d_ff 5460,
            vocab 32000, bf16 masters from the config, remat on; seeded random
            weights, SyntheticLM batches of 4 x 2048 tokens, so LPSA's sink of
@@ -203,7 +230,7 @@ Phases:
                          the training capacity;
              zamba2-2.7b 12 layers (10 mamba, the shared attention at two
                          positions);
-             gla-1.3b, rwkv6-3b  4 layers each;
+             gla-1.3b, rwkv6-3b  2 layers each;
            each (c) on a cut (2 layers; zamba2 one pattern period of 6):
            the kernel's masks equal the plain das_mask's, and the loss,
            every gradient and every updated param bitwise; the MoE (d): 2
@@ -235,7 +262,9 @@ Phases:
            float32 shapes (das_ternary_gemm and das_topk at 4 and 256 rows,
            ternary_gemm at 1 and 512), sparse_attention at 32/8 heads of 160
            (bf16 decode, bf16 and float32 LPSA packs) and the float32-query
-           decode over bf16 rings (library: SDPA on K/V upcast to float32)
+           decode over bf16 rings (library: SDPA on K/V upcast to float32);
+           bitnet-1.3b's tp = 2 shard shapes at a rank's 2 decode rows
+           (das_topk, the packed GEMMs, sparse_attention over 16 heads)
   profile  (only when named) the packed and int8w decode steps and the
            admission under torch.profiler, as the serve phase profiles them
   http     (only when named) the serve phase's packed path, then its http
@@ -267,7 +296,7 @@ import traceback
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ("device", "build", "kernels", "serve", "train", "times")
+PHASES = ("device", "build", "kernels", "serve", "dist", "train", "times")
 OPTIONAL_PHASES = ("profile", "http")   # run only when named
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, bf16 and f32 FLOP/s
@@ -1264,6 +1293,7 @@ class Smoke:
             return _packed_counts(cfg.n_layers, st.decode_steps + st.warmup_steps, packs)
 
         _, eng, res = self._serve_path("packed", lambda: model, trace, sc, want_packed)
+        self.packed_tokens = {uid: r.tokens.tolist() for uid, r in res.items()}  # dist's reference
         return trace, packs, eng, res
 
     def phase_http(self):
@@ -1469,6 +1499,321 @@ class Smoke:
         del model
         torch.cuda.empty_cache()
         _took(arch, t_path)
+
+    # -- dist: SPMD serving over ranks that share the card ------------------
+
+    DIST_TEACHER = 2        # the packed trace's request teacher-forced: prompt 256, one pack
+    DIST_EXACT = (0, 2, 4)  # the requests teacher-forced in float32, DAS off: 4, 1 and 2 packs
+    DIST_MOE_DEPTH = 2      # qwen3-moe-30b-a3b's depth in the dist phase, of 48
+    DIST_EXACT_STEPS = 8    # decode steps of the float32, DAS-off teacher-forced checks
+    # what every rank of (a) and of (c) must launch; each shard takes the
+    # DAS route of its own K, so (a)'s ranks launch ternary_gemm (masked
+    # dense rows) where their down shard holds d_ff's dense tail, and only
+    # there
+    DIST_KERNELS = ("das_topk", "das_ternary_gemm", "sparse_attention")
+    DIST_TAIL_KERNELS = ("ternary_gemm",)
+    DIST_MOE_KERNELS = ("twd_decode",)
+
+    @staticmethod
+    def _smooth(cfg):
+        """``cfg`` in float32 with DAS off: no discontinuity between the
+        sharded sums and the one-rank ones (a DAS top-k decision is one)."""
+        return dataclasses.replace(cfg, dtype="float32",
+                                   ternary=dataclasses.replace(cfg.ternary, das=None))
+
+    def phase_dist(self):
+        """SPMD serving: ranks spawned on cuda:0 (one card: NCCL refuses two
+        ranks on one device) over gloo, each loading the kernels the build
+        phase built and serving its shard through them.  (a) bitnet-1.3b at
+        full width and depth, Topology(dp=2, tp=2), 4 ranks, the packed
+        trace: every rank samples the same tokens and launches das_topk,
+        das_ternary_gemm and sparse_attention, and ternary_gemm where its
+        down shard holds the dense tail, and only there; its tokens and a
+        teacher-forced request (2) are set beside the packed path's, with
+        the first difference and the one-rank top-2 margin there (reported:
+        a row-parallel sum rounds in another order, and a DAS top-k decision
+        at a tie turns on that, so bf16 with DAS on need not follow the one
+        rank token for token); the same model in float32 with DAS off
+        (no discontinuity), requests DIST_EXACT teacher-forced over their
+        pack-aligned prefixes and 8 steps, within 1e-4 of the one-rank max;
+        ms a step and the card's idle share over 8 full decode steps.  (b) the same with a loss of 2 ranks before
+        decode step 3: one reshard, Topology(dp=1, tp=2), (a)'s tokens
+        exactly.  (c) qwen3-moe-30b-a3b at full width, DIST_MOE_DEPTH
+        layers, Topology(tp=2): each rank 64 of the 128 experts, twd_decode
+        on each rank, tokens and logits beside a one-rank run, and in
+        float32 with DAS off as in (a), within 1e-4 with the experts' int8
+        fake-quant the identity (reported as served)."""
+        import tempfile
+
+        torch = self.torch
+        from repro_torch.distributed.launch import run_ranks
+        from repro_torch.distributed.plan import Topology
+        from repro_torch.launch import serve as cli
+        from repro_torch.models import model as MD
+        from repro_torch.serve import Request
+        cfg, _, model, prompts, sc = self._packed_model()
+        ref = getattr(self, "packed_tokens", None)
+        if ref is None:                      # the serve phase did not run here
+            self._serve_packed(cfg, model, prompts, sc)
+            ref = self.packed_tokens
+        trace = tuple(Request(uid=i, prompt=p, max_new_tokens=self.GEN_LEN, arrival=2 * i)
+                      for i, p in enumerate(prompts))
+        (ROOT / "build").mkdir(exist_ok=True)
+        tmp = Path(tempfile.mkdtemp(prefix="dist_", dir=ROOT / "build"))
+        try:
+            t0 = time.perf_counter()
+            path, path32 = str(tmp / "bitnet.pt"), str(tmp / "bitnet_f32.pt")
+            torch.save(model.state_dict(), path)
+            teach = self.DIST_TEACHER
+            forced = ref[teach][:-1]
+            one_rank = cli.teacher_forced(model, prompts[teach], forced, max_len=sc.max_len)
+            del model
+            cfg32 = self._smooth(cfg)
+            m32 = MD.init_serving(cfg32, seed=self.seed, device=self.dev)
+            torch.save(m32.state_dict(), path32)
+            feeds = self._exact_feeds(cfg32, prompts)
+            one32 = {u: cli.teacher_forced(m32, *f, max_len=sc.max_len) for u, f in feeds.items()}
+            del m32
+            torch.cuda.empty_cache()
+            topo = Topology(dp=2, tp=2)
+            sc_d = dataclasses.replace(sc, topology=topo)
+            dev = self.dev.type
+            jobs = [cli.RankJob(cfg, sc_d, dev, path, trace,
+                                teacher=(prompts[teach], forced), profile_steps=8),
+                    cli.RankJob(cfg, sc_d, dev, path, trace, fail_at=(3,), lost=2)]
+            jobs += [cli.RankJob(cfg32, sc_d, dev, path32, teacher=f) for f in feeds.values()]
+            log(f"[dist] {cfg.name}: Topology(dp=2, tp=2); d_ff {cfg.d_ff} cut "
+                f"{[hi - lo for lo, hi in MD.model_bounds(cfg, 2)['ff']]}; references and "
+                f"weights in {time.perf_counter() - t0:.1f} s")
+            moe_jobs, moe_check = self._dist_moe_jobs(tmp)
+            t0 = time.perf_counter()
+            log(f"[dist] {topo.n_devices} ranks spawned on cuda:0, backend gloo, world size "
+                f"{topo.n_devices}: (a), (b), (a) in float32 (requests {self.DIST_EXACT}), then "
+                f"(c) on ranks 0 and 1")
+            outs = run_ranks(_dist_world, topo.n_devices,
+                             [(j, False) for j in jobs] + moe_jobs, backend="gloo")
+            log(f"[dist] the ranks' world took {time.perf_counter() - t0:.1f} s (spawn, CUDA "
+                f"init, every job's load, cut and run)")
+            tails = [(hi - lo) % cfg.ternary.das.block != 0
+                     for lo, hi in MD.model_bounds(cfg, topo.tp)["ff"]]
+            need = [self.DIST_KERNELS + self.DIST_TAIL_KERNELS * tails[r % topo.tp]
+                    for r in range(topo.n_devices)]
+            self._dist_report("a", cfg, trace, ref, [o[0] for o in outs], one_rank, need,
+                              path, sc.max_len)
+            n = len(jobs)
+            self._dist_exact("a", f"{cfg.name} in float32, DAS off, {cfg.n_layers} layers",
+                             {u: (len(f[0]), [o[2 + i] for o in outs], one32[u])
+                              for i, (u, f) in enumerate(feeds.items())})
+            prof = [o[0]["profile"] for o in outs]
+            wall = max(p["ms_step"] for p in prof)
+            busy = sum(p["busy_ms_step"] for p in prof)
+            log(f"[dist] (a) ranks sharing one card, gloo: {prof[0]['steps']} decode steps of 4 "
+                f"active rows, {wall:.3f} ms a step (host clock, the slowest rank), device busy "
+                f"{busy:.3f} ms a step over the 4 ranks "
+                f"({[round(p['busy_ms_step'], 3) for p in prof]}), card idle share "
+                f"{max(0.0, 1 - busy / wall):.3f}; collectives a step on rank 0: "
+                f"{prof[0]['all_reduce_step']:.1f} all-reduces, {prof[0]['collective_ms_step']:.3f}"
+                f" ms on the host clock, {prof[0]['wait_ms_step']:.3f} of it waiting for the "
+                f"rank's kernels ({_nvidia_smi()}; not a multi-card time)")
+            a_tokens = outs[0][0]["tokens"]
+            for rank, o in enumerate(outs):
+                b = o[1]
+                if rank >= 2:
+                    if b is not None:
+                        raise AssertionError(f"(b) rank {rank} served on after its loss")
+                    continue
+                if (b["stats"]["reshards"], b["topology"]) != (1, Topology(dp=1, tp=2)) \
+                        or b["tokens"] != a_tokens:
+                    raise AssertionError(f"(b) rank {rank}: reshards {b['stats']['reshards']}, "
+                                         f"{b['topology']}, tokens equal to (a)'s "
+                                         f"{b['tokens'] == a_tokens}")
+            st = outs[0][1]["stats"]
+            log(f"[dist] (b) a loss of 2 ranks before decode step 3: reshards "
+                f"{st['reshards']}, topology after {outs[0][1]['topology']}, recovery_seconds "
+                f"{st['recovery_seconds']:.3f} (rank 0; {outs[1][1]['stats']['recovery_seconds']:.3f}"
+                f" rank 1), the tokens (a)'s exactly; ranks 2 and 3 retired; rank 0's host "
+                f"seconds {self._secs(outs[0][1])}")
+            moe_check([o[n:] for o in outs])
+        finally:
+            for f in tmp.glob("*"):
+                f.unlink()
+            tmp.rmdir()
+
+    @staticmethod
+    def _secs(out):
+        return {k: round(v, 1) for k, v in out["seconds"].items()}
+
+    def _dist_report(self, label, cfg, trace, ref, outs, one_rank, kernels, path, max_len):
+        """Every rank sampled the same tokens and launched each of its
+        ``kernels[rank]``, and none of DIST_TAIL_KERNELS outside them
+        (checked); the tokens and the teacher-forced logits
+        beside the one-rank run's, with the first difference of each request
+        and the one-rank top-2 margin there (reported)."""
+        torch = self.torch
+        from repro_torch.launch import serve as cli
+        from repro_torch.models import model as MD
+        for rank, o in enumerate(outs):
+            if o["tokens"] != outs[0]["tokens"]:
+                raise AssertionError(f"({label}) rank {rank} sampled other tokens than rank 0")
+        got, chunk = outs[0]["tokens"], cfg.lpsa.chunk
+        model = None
+        for r in trace:
+            a, b = ref[r.uid], got[r.uid]
+            if a == b:
+                continue
+            if model is None:
+                model = MD.TernaryLM(cfg, self.dev)
+                model.load_state_dict(torch.load(path, map_location=self.dev))
+            j = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+            prefix = r.prompt_len // chunk * chunk
+            feed = [int(t) for t in r.prompt[prefix:]] + a[:j]
+            lg = torch.from_numpy(cli.teacher_forced(model, r.prompt[:prefix], feed,
+                                                     max_len=max_len)[-1])
+            top = torch.topk(lg, 2)
+            margin, bar = float(top.values[0] - top.values[1]), TOL_BF16 * max(
+                1.0, abs(float(top.values[0])))
+            log(f"[dist] ({label}) req {r.uid}: first difference from the one-rank tokens at "
+                f"token {j} ({a[j]} one rank, {b[j]} sharded); the one-rank top-2 margin there "
+                f"{margin:.4g} ({'within' if margin <= bar else 'beyond'} the bf16 tolerance "
+                f"{bar:.4g}), the sharded token's one-rank logit {float(lg[b[j]]):.4g} against "
+                f"{float(top.values[0]):.4g}")
+        del model
+        log(f"[dist] ({label}) tokens: {sum(ref[u] == got[u] for u in ref)} of {len(ref)} "
+            f"requests token for token the one-rank run's; every rank the same")
+        rels = [float(abs(g - w).max() / abs(w).max()) for g, w in zip(outs[0]["teacher"],
+                                                                     one_rank)]
+        log(f"[dist] ({label}) teacher-forced request: max |diff| / one-rank max |logit| by "
+            f"step {[round(v, 4) for v in rels]} (bf16 tolerance {TOL_BF16})")
+        for rank, o in enumerate(outs):
+            n = o["launches"]
+            log(f"[dist] ({label}) rank {rank}: launches {n}; host seconds {self._secs(o)}; "
+                f"{o['stats']['decode_steps']} decode steps, "
+                f"{1e3 * o['stats']['decode_seconds'] / max(1, o['stats']['decode_steps']):.1f} "
+                f"ms a step; collectives {o['collectives']}")
+            missing = [k for k in kernels[rank] if n[k] <= 0]
+            stray = [k for k in self.DIST_TAIL_KERNELS if k not in kernels[rank] and n[k]]
+            if missing or stray:
+                raise AssertionError(f"({label}) rank {rank} never launched {missing}, and "
+                                     f"launched {stray} off its shard's route")
+            for name, c in n.items():
+                self.launches[name] += c
+
+    def _exact_feeds(self, cfg, prompts):
+        """{uid: (prompt, tokens)} of the DIST_EXACT requests for
+        ``teacher_forced``: the pack-aligned prefix of the request's prompt,
+        then DIST_EXACT_STEPS tokens, the rest of its prompt and then
+        request 3's."""
+        chunk, n = cfg.lpsa.chunk, self.DIST_EXACT_STEPS
+        out = {}
+        for u in self.DIST_EXACT:
+            p = prompts[u]
+            prefix = len(p) // chunk * chunk
+            out[u] = (p[:prefix], [int(t) for t in list(p[prefix:]) + list(prompts[3])][:n])
+        return out
+
+    def _dist_exact(self, label, what, runs, tol=TOL_F32_GEMM):
+        """The float32 teacher-forced logits of every rank within ``tol``
+        (the float32 GEMM tolerance) of the one-rank max at every step, for
+        each request of ``runs`` {uid: (its prefix's tokens, the ranks'
+        outputs, the one-rank logits)}; ``tol`` None: reported only."""
+        bad = []
+        for uid, (prefix, outs, one_rank) in runs.items():
+            outs = [o for o in outs if o is not None]
+            worst = max(float(abs(g - w).max() / abs(w).max())
+                        for o in outs for g, w in zip(o["teacher"], one_rank))
+            log(f"[dist] ({label}) {what}, request {uid}: a prefill of {prefix} tokens and "
+                f"{len(one_rank) - 1} steps teacher-forced on {len(outs)} ranks, max |diff| / "
+                f"one-rank max |logit| {worst:.3e} ({'reported' if tol is None else f'bar {tol}'})")
+            if tol is not None and not worst <= tol:
+                bad.append(f"request {uid}: {worst:.3g}")
+        if bad:
+            raise AssertionError(f"({label}) float32 sharded logits off the one-rank run's "
+                                 f"max by {bad}")
+
+    def _dist_moe_jobs(self, tmp):
+        """(c): qwen3-moe-30b-a3b at DIST_MOE_DEPTH layers, Topology(tp=2):
+        its one-rank references and weights, the ranks' jobs (ranks 0 and 1
+        serve them, 2 and 3 sit outside the mesh) as (job, smooth) pairs for
+        ``_dist_world``, and the check of their outputs -> (jobs, check(each
+        rank's outputs of these jobs)).  In float32 with DAS off the
+        experts' int8 fake-quant is still a discontinuity: the DIST_EXACT
+        requests are held within 1e-4 with it the identity on both sides,
+        and reported as served."""
+        torch = self.torch
+        from repro_torch.configs import get_config
+        from repro_torch.distributed.plan import Topology
+        from repro_torch.launch import serve as cli
+        from repro_torch.models import model as MD
+        from repro_torch.serve import Request, ServeConfig, ServeEngine
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(get_config(self.MOE_ARCH), n_layers=self.DIST_MOE_DEPTH)
+        rng = torch.Generator().manual_seed(self.seed + 13)
+        prompts = [torch.randint(0, cfg.vocab, (p,), generator=rng).numpy()
+                   for p in self.PROMPT_LENS]
+        trace = tuple(Request(uid=i, prompt=p, max_new_tokens=self.GEN_LEN, arrival=2 * i)
+                      for i, p in enumerate(prompts))
+        sc = ServeConfig(max_slots=4, max_len=max(self.PROMPT_LENS) + self.GEN_LEN,
+                         seed=self.seed)
+        teach = self.DIST_TEACHER
+        model = MD.init_serving(cfg, seed=self.seed, device=self.dev)
+        path, path32 = str(tmp / "moe.pt"), str(tmp / "moe_f32.pt")
+        torch.save(model.state_dict(), path)
+        eng = ServeEngine(model, sc, device=self.dev)
+        for r in trace:
+            eng.submit(r)
+        ref = {uid: r.tokens.tolist() for uid, r in eng.run().items()}
+        del eng
+        forced = ref[teach][:-1]
+        one_rank = cli.teacher_forced(model, prompts[teach], forced, max_len=sc.max_len)
+        del model
+        cfg32 = self._smooth(cfg)
+        m32 = MD.init_serving(cfg32, seed=self.seed, device=self.dev)
+        torch.save(m32.state_dict(), path32)
+        feeds = self._exact_feeds(cfg32, prompts)
+        one32 = {u: cli.teacher_forced(m32, *f, max_len=sc.max_len) for u, f in feeds.items()}
+        from repro_torch.core import ternary as tq
+        quant = tq.int8_fake_quant
+        try:
+            tq.int8_fake_quant = lambda x: x
+            smooth = {u: cli.teacher_forced(m32, *f, max_len=sc.max_len)
+                      for u, f in feeds.items()}
+        finally:
+            tq.int8_fake_quant = quant
+        del m32
+        torch.cuda.empty_cache()
+        sc_t = dataclasses.replace(sc, topology=Topology(tp=2))
+        dev = self.dev.type
+        jobs = [(cli.RankJob(cfg, sc_t, dev, path, trace, teacher=(prompts[teach], forced)),
+                 False)]
+        jobs += [(cli.RankJob(cfg32, sc_t, dev, path32, teacher=f), ident)
+                 for ident in (True, False) for f in feeds.values()]
+        log(f"[dist] (c) {cfg.name} at {cfg.n_layers} of {get_config(self.MOE_ARCH).n_layers} "
+            f"layers, Topology(tp=2): references and weights in "
+            f"{time.perf_counter() - t0:.1f} s")
+
+        def check(outs):
+            if any(o is not None for o in outs[2] + outs[3]):
+                raise AssertionError("(c) ranks 2 and 3 served outside Topology(tp=2)")
+            outs = outs[:2]
+            self._dist_report("c", cfg, trace, ref, [o[0] for o in outs], one_rank,
+                              [self.DIST_MOE_KERNELS] * 2, path, sc.max_len)
+            k = len(feeds)
+            for off, one, what, tol in (
+                    (1, smooth, "the experts' int8 fake-quant the identity", TOL_F32_GEMM),
+                    (1 + k, one32, "as served", None)):
+                self._dist_exact("c", f"{cfg.name} in float32, DAS off, {cfg.n_layers} layers, "
+                                 f"{what}", {u: (len(f[0]), [o[off + i] for o in outs], one[u])
+                                             for i, (u, f) in enumerate(feeds.items())}, tol)
+            e = cfg.moe.n_experts
+            for rank, o in enumerate(outs):
+                o = o[0]
+                e0, e1 = o["experts"]
+                if (e0, e1) != (rank * e // 2, (rank + 1) * e // 2):
+                    raise AssertionError(f"(c) rank {rank} holds experts {o['experts']}")
+                log(f"[dist] (c) rank {rank}: experts [{e0}, {e1}), so each twd_decode launch "
+                    f"decodes {e1 - e0} of the {e} stacks one rank decodes "
+                    f"({o['launches']['twd_decode']} launches)")
+        return jobs, check
 
     MOE_ARCH = "qwen3-moe-30b-a3b"
     # the MoE path's depth, cut from 48 to keep the whole run within the
@@ -2788,9 +3133,10 @@ class Smoke:
     # the other block kinds, at full width: (arch, depth of the run, depth
     # of check (c)); qwen3-moe-30b-a3b at the depth one H100 holds (~0.61 B
     # parameters a layer), zamba2-2.7b over two positions of its shared
-    # attention, its cut one pattern period
+    # attention, its cut one pattern period; gla-1.3b and rwkv6-3b at 2
+    # (4 before the dist phase: their host-bound steps scale with depth)
     TRAIN_PATHS = (("qwen3-moe-30b-a3b", 2, 2), ("zamba2-2.7b", 12, 6),
-                   ("gla-1.3b", 4, 2), ("rwkv6-3b", 4, 2))
+                   ("gla-1.3b", 2, 2), ("rwkv6-3b", 2, 2))
     TRAIN_PATH_STEPS = 3     # each new path's steps, the last profiled
     # the MoE's check (d) at 1 layer: at 2, its 18.5 GB checkpoint (params,
     # m, v) took 77 s to save and restore on the H100's host
@@ -3466,6 +3812,94 @@ class Smoke:
         self._hybrid_times(t_ms, attn_row, g)
         if 160 in sparse_attn.HEAD_DIMS:      # a tree before the frontends has no D = 160
             self._frontend_times(t_ms, attn_row, g)
+        self._tp2_times(t_ms, g)
+
+    def _tp2_times(self, t_ms, g):
+        """bitnet-1.3b's tp = 2 shard shapes at a rank's decode step (2 rows:
+        dp 2 halves the 4 slots), each beside its bound, plain version and
+        library call: das_topk at the shards' K (2048 the replicated q/k/v
+        and gate/up input, 1024 wo's, 2720 / 2740 the down's on rank 0 / 1),
+        das_ternary_gemm at q/k/v (2048 -> 1024), o (1024 -> 2048), gate/up
+        (2048 -> 2720 / 2740) and rank 0's down (2720 -> 2048), ternary_gemm
+        at rank 1's down on masked dense rows (2740, the dense tail, ->
+        2048), sparse_attention over 16 heads."""
+        torch = self.torch
+        from repro_torch.core import das as das_lib
+        from repro_torch.core import twd
+        from repro_torch.kernels import ref
+        from repro_torch.kernels.das_gemm import das_ternary_gemm_cuda
+        from repro_torch.kernels.sparse_attn import sparse_attention_cuda
+        from repro_torch.kernels.ternary_gemm import ternary_gemm_cuda
+        from repro_torch.kernels.topk_mask import das_topk_cuda
+        bf16, m, dev = torch.bfloat16, 2, self.dev
+        scale = torch.tensor(0.37, device=dev)
+        line = self._time_line
+        for k in (2048, 1024, 2720, 2740):
+            x = torch.randn((m, k), generator=g, device=dev).to(bf16)
+            out = m * k // 32 * 16 * 6 if k % 32 == 0 else m * k * 2
+            line(t_ms, f"tp2 das_topk ({m},{k}) bf16, mask null",
+                 lambda x=x: das_topk_cuda(x, keep=16, block=32, with_mask=False),
+                 lambda x=x: ref.das_topk_ref(x, keep=16, block=32, with_mask=False), None,
+                 m * k * 2 + out, 32 * m * k)
+        for k, n, what in ((2048, 1024, "q/k/v"), (1024, 2048, "o"), (2048, 2720, "gate/up r0"),
+                           (2048, 2740, "gate/up r1"), (2720, 2048, "down r0")):
+            x = torch.randn((m, k), generator=g, device=dev).to(bf16)
+            ca = das_lib.das_compact(x, block_size=32, keep=16)
+            packed = twd.pack_ternary(torch.randint(-1, 2, (k, n), generator=g, device=dev),
+                                      row_align=16)
+            w = (twd.unpack_ternary_arith(packed, packed.shape[0] * 5).float() * 0.37).to(bf16)
+            dense = torch.zeros((m, w.shape[0]), dtype=bf16, device=dev)
+            dense.scatter_(1, ca.indices.long(), ca.values)
+            kc = k // 2
+            line(t_ms, f"tp2 das_ternary_gemm ({m},{kc} of {k}) x packed {tuple(packed.shape)} "
+                 f"({what})",
+                 lambda ca=ca, p=packed: das_ternary_gemm_cuda(ca.values, ca.indices, p, scale,
+                                                               keep=16),
+                 lambda ca=ca, p=packed: ref.das_ternary_gemm_ref(ca.values, ca.indices, p,
+                                                                  scale),
+                 lambda d=dense, w=w: torch.matmul(d, w),
+                 m * kc * 6 + packed.numel() + m * n * 4 + 4, 2 * m * kc * n)
+        for k in (2740,):
+            x = torch.randn((m, k), generator=g, device=dev).to(bf16)
+            xd = das_lib.das_apply(x, das_lib.das_mask(x, keep=16))
+            packed = twd.pack_ternary(torch.randint(-1, 2, (k, 2048), generator=g, device=dev),
+                                      row_align=16)
+            w = (twd.unpack_ternary_arith(packed, k).float() * 0.37).to(bf16)
+            nnz = int((xd != 0).sum())
+            line(t_ms, f"tp2 ternary_gemm ({m},{k}) masked dense x packed {tuple(packed.shape)} "
+                 f"(down r1)",
+                 lambda xd=xd, p=packed: ternary_gemm_cuda(xd, p, scale),
+                 lambda xd=xd, p=packed: ref.ternary_gemm_ref(xd, p, scale),
+                 lambda xd=xd, w=w: torch.matmul(xd, w),
+                 m * k * 2 + packed.numel() + m * 2048 * 4 + 4, 2 * nnz * 2048)
+        h, d, s = 16, 64, 1024
+        q = torch.randn((m, 1, h, d), generator=g, device=dev).to(bf16)
+        kk = torch.randn((m, s, h, d), generator=g, device=dev).to(bf16)
+        vv = torch.randn((m, s, h, d), generator=g, device=dev).to(bf16)
+        qp = torch.full((m, 1), 2000, dtype=torch.int32, device=dev)
+        kp = torch.cat([torch.arange(128), 2000 - 895 + torch.arange(896)]).to(
+            torch.int32).to(dev)[None].repeat(m, 1)
+        allowed = ((kp >= 0) & (kp <= qp) & ((kp < 128) | (qp - kp < 896)))[:, None, None, :]
+        n_keys = int(allowed.sum())
+        line(t_ms, f"tp2 sparse_attention decode q ({m},1,{h},{d}) over a {s}-slot ring bf16",
+             lambda: sparse_attention_cuda(q, kk, vv, qp, kp, sink=128, window=896),
+             lambda: ref.sparse_attention_ref(q, kk, vv, qp, kp, sink=128, window=896),
+             lambda: torch.nn.functional.scaled_dot_product_attention(
+                 q.transpose(1, 2), kk.transpose(1, 2), vv.transpose(1, 2), attn_mask=allowed),
+             2 * n_keys * h * d * 2 + m * h * d * 2 * 2 + m * s * 4 + m * 4, 4 * n_keys * h * d)
+        # qwen3-moe-30b-a3b at tp 2: each rank decodes the stacks of its 64
+        # experts in one launch (bytes as _moe_times counts them)
+        from repro_torch.kernels.twd_decode import twd_decode_cuda
+        for e, k, n in self.MOE_STACKS:
+            e //= 2
+            r = twd.packed_rows(k, 16)
+            packed = torch.randint(0, 243, (e, r, n), generator=g, device=dev).to(torch.uint8)
+            flat = packed.view(e * r, n)
+            line(t_ms, f"tp2 twd_decode expert stack ({e}x{r},{n}) -> ({e}x{5 * r},{n}) (one "
+                 f"launch, 64 of 128 experts)",
+                 lambda flat=flat, e=e, r=r: twd_decode_cuda(flat, 5 * e * r),
+                 lambda packed=packed, k=k: ref.twd_decode_stack_ref(packed, k), None,
+                 e * -(-k // 5) * n + e * k * n, 0)
 
     def _moe_times(self, t_ms, attn_row, g):
         """qwen3-moe-30b-a3b's shapes beside their bounds: twd_decode over each
@@ -4188,6 +4622,22 @@ def _is_attention(kernel_name: str) -> bool:
     single class of trees before them)."""
     return any(k in kernel_name for k in ("attn_prefill", "split_decode_kernel",
                                           "sparse_attn_kernel"))
+
+
+def _dist_world(rank: int, jobs) -> list:
+    """One rank of the dist phase's world: ``serve_rank`` of each (job,
+    smooth) of ``jobs`` in turn, the MoE experts' int8 fake-quant the
+    identity where ``smooth`` (as ``Smoke._moe_width_parity`` makes it)."""
+    from repro_torch.core import ternary as tq
+    from repro_torch.launch import serve as cli
+    quant, out = tq.int8_fake_quant, []
+    try:
+        for job, smooth in jobs:
+            tq.int8_fake_quant = (lambda x: x) if smooth else quant
+            out.append(cli.serve_rank(rank, job))
+    finally:
+        tq.int8_fake_quant = quant
+    return out
 
 
 def _nvidia_smi() -> str:

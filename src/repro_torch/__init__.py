@@ -24,6 +24,6 @@ def resolve_device(device=None) -> torch.device:
             "repro_torch runs on a CUDA device by default and none is "
             "available; pass device='cpu' (CLI: --device cpu) to run the "
             "plain PyTorch versions of the kernels on the CPU")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):   # meta: shapes only (ShardingPlan)
         raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
     return dev

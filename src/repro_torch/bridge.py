@@ -12,6 +12,10 @@ leaves (numpy dtype named "bfloat16") are reinterpreted bit for bit.  This
 is how the tests run both packages on the same weights; the port itself
 never imports the JAX package.
 
+``load_serving_shard`` carries the same tree to one rank's local model
+under a Topology: the full tree through ``load_serving_tree`` on the CPU
+(the host copy), then ``models.model.shard_model``'s cut.
+
 ``load_master_tree`` takes the JAX package's ``init_params`` tree (numpy
 leaves, the same nesting; scan-stacked groups kept stacked, as
 ``transformer.stack_train`` runs them) to tensors on a device with
@@ -26,11 +30,11 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.model import TernaryLM
+from repro_torch.models.model import TernaryLM, shard_model
 from repro_torch.optim.adamw import AdamWState
 from repro_torch.tree import leaves, tree_map
 
-__all__ = ["to_torch", "load_serving_tree", "load_master_tree"]
+__all__ = ["to_torch", "load_serving_tree", "load_serving_shard", "load_master_tree"]
 
 
 def to_torch(a: np.ndarray) -> torch.Tensor:
@@ -44,6 +48,12 @@ def to_torch(a: np.ndarray) -> torch.Tensor:
 def load_serving_tree(tree: dict, cfg: ModelConfig, device=None) -> TernaryLM:
     """The numpy serving tree as a TernaryLM on ``device`` (CUDA unless "cpu")."""
     return TernaryLM.from_tree(tree_map(to_torch, tree), cfg, device)
+
+
+def load_serving_shard(tree: dict, cfg: ModelConfig, mesh, device=None) -> TernaryLM:
+    """The numpy serving tree cut to the shard of ``mesh``'s rank (a
+    ``distributed.plan.Mesh``), on ``device`` (CUDA unless "cpu")."""
+    return shard_model(load_serving_tree(tree, cfg, "cpu"), mesh, resolve_device(device))
 
 
 def _on(tree, device, grad: bool):

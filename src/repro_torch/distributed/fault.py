@@ -1,5 +1,7 @@
-"""Fault tolerance of the trainer: checkpoint/restart loop, failure
-injection, stragglers.
+"""Fault tolerance: the trainer's checkpoint/restart loop, failure
+injection, stragglers; the serving engine raises the same ``WorkerFailure``
+from a ``FaultInjector`` at the top of a decode step and survives it by
+``ServeEngine.recover`` (``fault_lost_devices`` ranks lost a failure).
 
 The port's own copy of the JAX package's ``distributed/fault.py`` (pure
 Python).  The job survives by (i) periodic checkpoints

@@ -19,7 +19,7 @@ from torch.nn import functional as F
 
 __all__ = ["torch_dtype", "full_f32", "RMSNorm", "rmsnorm", "GroupNorm", "group_norm",
            "softcap", "rope", "apply_rope", "sigmoid", "silu", "gelu", "softplus", "log_sigmoid",
-           "ACT", "xla_cumsum", "take_embed", "logits_from_embed"]
+           "ACT", "xla_cumsum", "take_embed", "scale_embed", "logits_from_embed"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -237,9 +237,12 @@ def take_embed(embed: torch.Tensor, tokens: torch.Tensor, *,
     a row's gradients in a fixed order on the card, where indexing's
     backward may add with atomics."""
     x = F.embedding(tokens, embed)
-    if scale:
-        x = x * _const(x.shape[-1] ** 0.5, x.dtype)
-    return x
+    return scale_embed(x) if scale else x
+
+
+def scale_embed(x: torch.Tensor) -> torch.Tensor:
+    """Embedding rows times sqrt(d) rounded to their dtype (gemma's)."""
+    return x * _const(x.shape[-1] ** 0.5, x.dtype)
 
 
 def logits_from_embed(embed: torch.Tensor, x: torch.Tensor,

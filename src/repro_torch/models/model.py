@@ -16,6 +16,18 @@ that layout — the port's own export, or the JAX package's through
 turns a packed model into the int8-resident form on its device, through the
 ``twd_decode`` kernel.
 
+Tensor and expert parallelism: ``shard_model`` cuts a full model (the
+host copy of the serving weights) into one rank's local model under a
+``distributed.plan.Topology``: q / k / v heads and the FFN's gate / up
+columns (column-parallel, no collective), wo's and the FFN down's rows
+(row-parallel: the float32 partial summed over "model" before the cast),
+the vocab rows of the embedding and the untied head's columns, the experts
+of every MoE block.  The local model's embedding lookup takes its own rows
+and zeros elsewhere, then the sum over "model"; its logits are gathered to
+(B, V) float32 on every rank of "model" before the sampler.  Its config is
+the full one with the local head counts and d_ff, so the attention, its
+caches and the FFN run unchanged on their shards.
+
 The stub-frontend models (musicgen-medium, pixtral-12b; ``uses_embeds``)
 take float embeddings in place of token ids: ``prefill`` passes them
 through in their own dtype, as the JAX package's ``_inputs_to_x`` does, so
@@ -32,11 +44,17 @@ from token ids or float embeddings, through ``transformer.stack_train``
 
 from __future__ import annotations
 
+import dataclasses
+from dataclasses import dataclass
+
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import collectives
+from repro_torch.distributed.plan import ShardingPlan, shard_bounds
 from repro_torch.kernels import ops
 from repro_torch.models import attention as A
 from repro_torch.models import gla as G
@@ -47,14 +65,25 @@ from repro_torch.models import moe as MOE
 from repro_torch.models import rwkv6 as R
 from repro_torch.models import transformer as T
 from repro_torch.models.ternary_linear import (TRITS_FORMATS, TernaryLinear,
-                                               export_tlin, tlin_init)
+                                               export_tlin, shard_tlin, tlin_init)
 from repro_torch.tree import leaves, tree_map
 
-__all__ = ["TernaryLM", "Runtime", "embed_scale", "uses_embeds", "init_params", "export_serving",
-           "init_serving", "trits_from_packed", "flatten_tree", "prefill", "decode_step",
+__all__ = ["TernaryLM", "RankShard", "Runtime", "embed_scale", "uses_embeds", "init_params",
+           "export_serving", "init_serving", "trits_from_packed", "flatten_tree",
+           "check_shardable", "model_bounds", "shard_model", "prefill", "decode_step",
            "init_caches", "forward", "loss_fn"]
 
 Runtime = T.Runtime
+
+
+@dataclass(frozen=True)
+class RankShard:
+    """What one rank of a Topology holds of a model: its ``plan.Mesh``, the
+    vocab rows [lo, hi) of the embedding (the untied head's columns), and
+    the experts [e0, e1) of every MoE block (None without MoE)."""
+    mesh: object
+    vocab: tuple
+    experts: tuple | None = None
 
 
 class TernaryLM(nn.Module):
@@ -62,21 +91,26 @@ class TernaryLM(nn.Module):
     on the CUDA device unless ``device="cpu"``: the embedding, the untied
     dense ``head`` (d_model, vocab_padded) where the config has one, the
     blocks (each with its mixer and its FFN or MoE), the one ``shared``
-    attention of a ``shared_attn`` config, and the final norm."""
+    attention of a ``shared_attn`` config, and the final norm.  With a
+    ``shard`` (a ``RankShard``, ``shard_model``'s) it holds that rank's
+    vocab rows and experts only."""
 
-    def __init__(self, cfg: ModelConfig, device=None):
+    def __init__(self, cfg: ModelConfig, device=None, shard: RankShard | None = None):
         super().__init__()
         dt = L.torch_dtype(cfg.dtype)
         device = resolve_device(device)
         self.cfg = cfg
+        self.shard = shard
         self.embed_scale = embed_scale(cfg)
-        self.register_buffer("embed", torch.zeros((cfg.vocab_padded, cfg.d_model),
-                                                  dtype=dt, device=device))
+        rows = cfg.vocab_padded if shard is None else shard.vocab[1] - shard.vocab[0]
+        self.register_buffer("embed", torch.zeros((rows, cfg.d_model), dtype=dt,
+                                                  device=device))
         if not cfg.tie_embeddings:
-            self.register_buffer("head", torch.zeros((cfg.d_model, cfg.vocab_padded),
-                                                     dtype=dt, device=device))
+            self.register_buffer("head", torch.zeros((cfg.d_model, rows), dtype=dt,
+                                                     device=device))
         self.final_norm = L.RMSNorm(cfg.d_model, dt, device)
-        self.layers = nn.ModuleList(T.Block(cfg, kind, dt, device)
+        experts = None if shard is None else shard.experts
+        self.layers = nn.ModuleList(T.Block(cfg, kind, dt, device, experts)
                                     for kind in cfg.layer_kinds())
         # one set of buffers, which every attention block runs
         self.shared = A.Attention(cfg, device) if _has_shared(cfg) else None
@@ -322,10 +356,124 @@ def trits_from_packed(packed: TernaryLM, cfg: ModelConfig) -> TernaryLM:
     return out
 
 
+# --------------------------------------------------------------------------
+# tensor and expert parallelism
+# --------------------------------------------------------------------------
+
+# the logical dim each sharded leaf's module cuts (model_bounds' keys)
+_ROLE = {"wq": "q", "wo": "q", "wk": "kv", "wv": "kv", "w_gate": "ff", "w_in": "ff",
+         "w_out": "ff", "shared_gate": "shared", "shared_in": "shared", "shared_out": "shared",
+         "embed": "vocab", "head": "vocab", "experts_gate": "experts",
+         "experts_in": "experts", "experts_out": "experts"}
+
+
+def check_shardable(cfg: ModelConfig, tp: int) -> None:
+    """Raise ValueError where the port cannot serve ``cfg`` at ``tp`` ways."""
+    kinds = set(cfg.layer_kinds())
+    if not kinds <= set(T.ATTN_KINDS) or uses_embeds(cfg) or cfg.shared_attn:
+        raise ValueError(
+            f"{cfg.name} ({', '.join(sorted(kinds))} blocks"
+            f"{', a stub frontend' if uses_embeds(cfg) else ''}) does not serve under a "
+            f"Topology yet: the port shards the attention, FFN and MoE blocks of token "
+            f"models; the SSM, hybrid and frontend models wait for ROADMAP queue 1, item 2")
+    bad = [f"{n}={v}" for n, v in (("n_heads", cfg.n_heads), ("n_kv_heads", cfg.n_kv_heads),
+                                   ("vocab_padded", cfg.vocab_padded)) if v % tp]
+    if cfg.moe is not None and cfg.moe.n_experts % tp:
+        bad.append(f"moe.n_experts={cfg.moe.n_experts}")
+    if bad:
+        raise ValueError(f"tp={tp} does not divide {cfg.name}'s {', '.join(bad)}")
+    das = cfg.ternary.das
+    if das is not None and (cfg.q_dim // tp) % das.block:
+        raise ValueError(
+            f"tp={tp}: {cfg.n_heads // tp} heads of {cfg.head_dim_} a rank put a DAS block "
+            f"of {das.block} lanes of wo's input across two ranks")
+
+
+def model_bounds(cfg: ModelConfig, tp: int) -> dict:
+    """Each rank's [lo, hi) along every sharded logical dim of ``cfg`` at
+    ``tp`` ways (``plan.shard_bounds``): "q" / "kv" (q_dim / kv_dim, whole
+    heads), "ff" (d_ff) and "shared" (a shared expert's width) on whole DAS
+    blocks with the dense tail on the last rank, "vocab" (vocab_padded) and
+    "experts" evenly."""
+    das = cfg.ternary.das
+    unit = das.block if das is not None else 1
+    hd = cfg.head_dim_
+    out = {"q": shard_bounds(cfg.q_dim, tp, unit=hd), "kv": shard_bounds(cfg.kv_dim, tp, unit=hd),
+           "vocab": shard_bounds(cfg.vocab_padded, tp)}
+    if cfg.moe is None:
+        out["ff"] = shard_bounds(cfg.d_ff, tp, unit=unit)
+    else:
+        out["experts"] = shard_bounds(cfg.moe.n_experts, tp)
+        if cfg.moe.n_shared:
+            out["shared"] = shard_bounds(cfg.moe.d_expert * cfg.moe.n_shared, tp, unit=unit)
+    return out
+
+
+@torch.no_grad()
+def shard_model(full: TernaryLM, mesh, device=None) -> TernaryLM:
+    """One rank's local model, cut from ``full`` (a serving model, e.g. the
+    host copy on the CPU) for the rank's place in ``mesh`` (a
+    ``plan.Mesh``), on ``device``.  ``ShardingPlan`` says which axis of each
+    leaf the "model" axis splits and ``model_bounds`` where; a packed K cut
+    is repacked from its trits (``shard_tlin``).  Raises ValueError for a
+    config the port does not shard (SSM, hybrid, frontend) or a tp that
+    does not divide its heads, vocab or experts."""
+    cfg, tp = full.cfg, mesh.topology.tp
+    check_shardable(cfg, tp)
+    b = {k: v[mesh.model_index] for k, v in model_bounds(cfg, tp).items()}
+    lcfg = dataclasses.replace(cfg, n_heads=cfg.n_heads // tp, n_kv_heads=cfg.n_kv_heads // tp,
+                               head_dim=cfg.head_dim_,
+                               d_ff=b["ff"][1] - b["ff"][0] if "ff" in b else cfg.d_ff)
+    model = TernaryLM(lcfg, device, RankShard(mesh, b["vocab"], b.get("experts")))
+    if "shared" in b:   # the shared expert's local width
+        fs = b["shared"][1] - b["shared"][0]
+        for blk in model.layers:
+            d, tc, dev = cfg.d_model, cfg.ternary, model.device
+            blk.moe.shared_gate = TernaryLinear(d, fs, tc, dev)
+            blk.moe.shared_in = TernaryLinear(d, fs, tc, dev)
+            blk.moe.shared_out = TernaryLinear(fs, d, tc, dev)
+    specs = ShardingPlan.for_tree(full, mesh.topology, validate=False).params
+    src, mods = full.state_dict(), dict(full.named_modules())
+    for name, buf in model.state_dict().items():
+        spec, val = specs[name], src[name]
+        if "model" in spec:
+            axis = spec.index("model")
+            mod, _, leaf = name.rpartition(".")
+            lo, hi = b[_ROLE[next(n for n in reversed(name.split(".")) if n in _ROLE)]]
+            if isinstance(mods.get(mod), TernaryLinear):   # a K cut repacks on the device
+                val = shard_tlin(mods[mod], axis, lo, hi, model.device)[leaf]
+            else:
+                val = val.narrow(axis, lo, hi - lo)
+        if tuple(val.shape) != tuple(buf.shape):
+            raise ValueError(f"{name}: the cut gives {tuple(val.shape)}, the local model "
+                             f"wants {tuple(buf.shape)}")
+        buf.copy_(val)
+    key = "packed" if cfg.ternary.serve_format == "packed" else "trits"
+    for name, mod in model.named_modules():
+        if isinstance(mod, TernaryLinear) and specs[f"{name}.{key}"][:1] == ("model",):
+            mod.mesh = mesh   # row-parallel (K sharded): the partial sums over "model"
+        elif isinstance(mod, MOE.MoE):
+            mod.mesh = mesh
+    return model
+
+
+def _take_embed(model: TernaryLM, tokens: torch.Tensor) -> torch.Tensor:
+    """The embedding rows of ``tokens``; a rank's shard looks up its own
+    vocab rows, zeros elsewhere, and sums them over "model" (exact)."""
+    if model.shard is None:
+        return L.take_embed(model.embed, tokens, scale=model.embed_scale)
+    lo, hi = model.shard.vocab
+    inside = (tokens >= lo) & (tokens < hi)
+    rows = F.embedding(torch.where(inside, tokens - lo, 0), model.embed)
+    rows = torch.where(inside[..., None], rows, 0).float()
+    x = collectives.psum(rows, model.shard.mesh, "model").to(model.embed.dtype)
+    return L.scale_embed(x) if model.embed_scale else x
+
+
 def _logits(model: TernaryLM, x: torch.Tensor) -> torch.Tensor:
     """The final norm, then the tied embedding's or the untied head's
     product in x's dtype (TF32 off), float32, soft-capped, the padded vocab
-    masked."""
+    masked; a rank's shard gathers its vocab columns over "model"."""
     cfg = model.cfg
     x = model.final_norm(x)
     if cfg.tie_embeddings:
@@ -333,6 +481,9 @@ def _logits(model: TernaryLM, x: torch.Tensor) -> torch.Tensor:
     else:
         with L.full_f32():
             lg = L.softcap((x @ model.head_as(x.dtype)).float(), cfg.logit_softcap)
+    if model.shard is not None:
+        lg = collectives.gather(lg, model.shard.mesh, "model", lg.ndim - 1,
+                                model.shard.vocab[0], cfg.vocab_padded)
     if cfg.vocab_padded > cfg.vocab:
         lg = lg + model.vocab_bias
     return lg
@@ -343,8 +494,7 @@ def prefill(model: TernaryLM, inputs: torch.Tensor, *, max_len: int | None = Non
     """Token ids (B, S), or float embeddings (B, S, D), which pass through
     in their own dtype -> (last-position logits (B, V) float32, caches)."""
     s = inputs.shape[1]
-    x = (inputs if inputs.is_floating_point()
-         else L.take_embed(model.embed, inputs, scale=model.embed_scale))
+    x = inputs if inputs.is_floating_point() else _take_embed(model, inputs)
     x, caches = T.stack_prefill(model.layers, model.cfg, x, serve_sparse=serve_sparse,
                                 max_len=max_len if max_len is not None else s + 1,
                                 shared=model.shared)
@@ -369,7 +519,7 @@ def decode_step(model: TernaryLM, caches: list, tokens: torch.Tensor,
         emb = model.embed[tokens].to(forced_x.dtype)
         x = torch.where(forced[:, None], forced_x, emb)[:, None]
     else:
-        x = L.take_embed(model.embed, tokens, scale=model.embed_scale)[:, None]
+        x = _take_embed(model, tokens)[:, None]
     x = T.stack_decode(model.layers, model.cfg, x, caches, t,
                        serve_sparse=serve_sparse, page_table=page_table, shared=model.shared)
     return _logits(model, x)[:, 0], caches

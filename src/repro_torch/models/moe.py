@@ -29,9 +29,15 @@ gather (a token's k copies summed in routing order, a dropped copy's
 gradient exactly zero), so no gradient is summed with atomics and a
 resumed run stays bitwise.
 
-Expert parallelism (the JAX package's ``shard_map`` branch, experts sharded
-over the model axis) waits for the distributed slice (ROADMAP queue 1,
-item 2); ``moe_apply`` is the single-device branch.
+Expert parallelism, the JAX package's mesh branch: a MoE built with
+``experts=(e0, e1)`` holds the stacks of experts [e0, e1) only (the
+experts shard on a Topology's "model" axis).  Every rank routes its tokens
+over all experts with the replicated router, runs ``dispatch_compute`` over
+its own experts (the copies routed elsewhere go to the dump row, as drops
+do), and the partial combines are summed over "model" in float32; the
+shared expert follows the column / row rules of the dense linears.  The
+capacity comes from the rank's own tokens, as the JAX package's
+``t_local = (b // dp) * s``.
 """
 
 from __future__ import annotations
@@ -44,6 +50,7 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig, TernaryConfig
 from repro_torch.core import ternary as tq
 from repro_torch.core import twd
+from repro_torch.distributed import collectives
 from repro_torch.kernels import ops
 from repro_torch.models.layers import full_f32, rmsnorm, silu
 from repro_torch.models.ternary_linear import (ROW_ALIGN, TernaryLinear, check_format,
@@ -93,16 +100,22 @@ class MoE(nn.Module):
     After each call ``load`` holds the routed copies each expert received
     (E,) and ``capacity`` the call's per-expert capacity; ``dropped`` is the
     copies over it (a 0-d tensor on the model's device, read without a
-    sync)."""
+    sync).  ``experts`` (e0, e1) holds the stacks of those experts only
+    (expert parallelism; ``mesh`` is then the rank's ``plan.Mesh``, over
+    whose "model" axis the partial combines are summed)."""
 
-    def __init__(self, cfg: ModelConfig, dtype: torch.dtype, device=None):
+    def __init__(self, cfg: ModelConfig, dtype: torch.dtype, device=None,
+                 experts: tuple[int, int] | None = None):
         super().__init__()
         e, d, tc = cfg.moe, cfg.d_model, cfg.ternary
+        self.experts = experts if experts is not None else (0, e.n_experts)
+        self.mesh = None
+        n = self.experts[1] - self.experts[0]
         self.register_buffer("router", torch.zeros((d, e.n_experts), dtype=dtype,
                                                    device=device))
-        self.experts_gate = ExpertStack(e.n_experts, d, e.d_expert, tc, device)
-        self.experts_in = ExpertStack(e.n_experts, d, e.d_expert, tc, device)
-        self.experts_out = ExpertStack(e.n_experts, e.d_expert, d, tc, device)
+        self.experts_gate = ExpertStack(n, d, e.d_expert, tc, device)
+        self.experts_in = ExpertStack(n, d, e.d_expert, tc, device)
+        self.experts_out = ExpertStack(n, e.d_expert, d, tc, device)
         if e.n_shared:
             fs = e.d_expert * e.n_shared
             self.shared_gate = TernaryLinear(d, fs, tc, device)
@@ -187,15 +200,19 @@ class Route(NamedTuple):
     counts: torch.Tensor   # (E,) the routed copies of each expert, drops included
 
 
-def route(x_tok: torch.Tensor, router: torch.Tensor, cfg: ModelConfig, capacity: int) -> Route:
+def route(x_tok: torch.Tensor, router: torch.Tensor, cfg: ModelConfig, capacity: int,
+          experts: tuple[int, int] | None = None) -> Route:
     """Route the (T, D) normed rows: float32 logits (TF32 off), softmax,
     top-k, the gates renormalised over the k chosen; a stable argsort of
     the copies' experts ranks each copy in its expert, and a copy whose
-    rank is not below ``capacity`` is dropped.  The gates carry the
+    rank is not below ``capacity`` is dropped.  With ``experts`` (e0, e1)
+    the buffer holds those experts' rows only, and a copy routed to another
+    expert goes to the dump row as a drop does.  The gates carry the
     router's gradient; the maps are integers."""
     e = cfg.moe
     t = x_tok.shape[0]
     n_e, k, dev = e.n_experts, e.top_k, x_tok.device
+    e0, e1 = experts if experts is not None else (0, n_e)
     with full_f32():
         logits = x_tok.float() @ router.float()
     probs = torch.softmax(logits, dim=-1)                        # (T, E)
@@ -212,9 +229,9 @@ def route(x_tok: torch.Tensor, router: torch.Tensor, cfg: ModelConfig, capacity:
     copies = torch.arange(t * k, device=dev)
     pos_sorted = copies - starts[flat_e[order]]
     pos = torch.empty_like(flat_e).scatter_(0, order, pos_sorted)  # rank in expert
-    ok = pos < capacity
-    dump = n_e * capacity
-    slot = torch.where(ok, flat_e * capacity + pos, dump)
+    ok = (pos < capacity) & (flat_e >= e0) & (flat_e < e1)
+    dump = (e1 - e0) * capacity
+    slot = torch.where(ok, (flat_e - e0) * capacity + pos, dump)
     # the inverse map; every dropped copy writes the dump row, cut off after
     copy = torch.full((dump + 1,), t * k, dtype=slot.dtype, device=dev).scatter_(
         0, slot, copies)[:dump]
@@ -266,19 +283,22 @@ class _Combine(torch.autograd.Function):
 
 
 def dispatch_compute(x_tok: torch.Tensor, x_in: torch.Tensor, weights, router: torch.Tensor,
-                     cfg: ModelConfig, capacity: int):
-    """Route the (T, D) normed rows ``x_tok``, run every expert on its kept
-    copies of the expert inputs ``x_in`` (T, D), and combine -> ((T, D) in
-    x_in's dtype, the routed copies of each expert (E,), drops included).
+                     cfg: ModelConfig, capacity: int, experts: tuple[int, int] | None = None):
+    """Route the (T, D) normed rows ``x_tok``, run every expert (of
+    ``experts`` (e0, e1) only, whose stacks ``weights`` holds; default all)
+    on its kept copies of the expert inputs ``x_in`` (T, D), and combine ->
+    ((T, D) in x_in's dtype, the routed copies of each expert (E,), drops
+    included).
     The same code serves and trains: under autograd the dispatch and the
     combine are gathers through the slot <-> copy maps whose backward is the
     inverse gather, so no gradient is summed with atomics."""
     e = cfg.moe
     t, d = x_tok.shape
-    n_e, k = e.n_experts, e.top_k
+    k = e.top_k
+    n_e = weights[0].shape[0]   # the experts whose stacks are here
     wg, wi, wo = weights
     with torch.profiler.record_function("moe_dispatch"):
-        r = route(x_tok, router, cfg, capacity)
+        r = route(x_tok, router, cfg, capacity, experts)
         buf = _Dispatch.apply(x_in, r.source, r.slot, k).view(n_e, capacity, d)
         h = silu(torch.bmm(buf, wg)) * torch.bmm(buf, wi)
         y = torch.bmm(h, wo).view(n_e * capacity, d)
@@ -332,7 +352,9 @@ def moe_apply(p: MoE, cfg: ModelConfig, x: torch.Tensor, norm_scale: torch.Tenso
         normed, x_in = ca.normed, ca.dense
     p.capacity = cap
     y, p.load = dispatch_compute(normed, tq.int8_fake_quant(x_in),
-                                 expert_weights(p, x.dtype), p.router, cfg, cap)
+                                 expert_weights(p, x.dtype), p.router, cfg, cap, p.experts)
+    if p.mesh is not None:   # the partial combines of every rank's experts
+        y = collectives.psum(y.float(), p.mesh, "model").to(y.dtype)
     if cfg.moe.n_shared:
         y = y + shared_ffn(p, normed, ca)
     return y.reshape(b, s, d)

@@ -23,7 +23,13 @@ Serving dispatch (``tlin_apply``), with DAS on:
   * else:    DAS-mask with the dense tail (``das_topk``) -> ``ternary_gemm``
              (packed) or ``das_gemv`` on dense rows (trits);
 
-and the same GEMMs on the raw activations with DAS off.  ``tlin_compact``
+and the same GEMMs on the raw activations with DAS off.  A row-parallel
+shard (``mesh`` set: wo, w_out or a shared expert's down projection under a
+Topology's "model" axis) sums its float32 partial over that axis before
+the cast to x's dtype, so a bfloat16 output is rounded once, as on one
+device; ``shard_tlin`` cuts a linear's shard, and each shard takes the
+route of its own K (bitnet-1.3b's down projection at tp 2: rank 0's 2720
+lanes compact, rank 1's 2740 carry the dense tail).  ``tlin_compact``
 runs the DAS step once for projections that share an input (q/k/v,
 gate/up); ``tlin_norm_input`` does it for projections fed by an rmsnorm,
 with the norm run inside the ``das_topk`` kernel.  The output is cast back
@@ -51,11 +57,12 @@ from repro_torch.configs.base import TernaryConfig
 from repro_torch.core import das as das_lib
 from repro_torch.core import ternary as tq
 from repro_torch.core import twd
+from repro_torch.distributed import collectives
 from repro_torch.kernels import ops
 from repro_torch.models.layers import rmsnorm
 
-__all__ = ["ROW_ALIGN", "TRITS_FORMATS", "TernaryLinear", "check_format",
-           "tlin_init", "export_tlin", "tlin_compact", "tlin_norm_input", "tlin_apply",
+__all__ = ["ROW_ALIGN", "TRITS_FORMATS", "TernaryLinear", "check_format", "tlin_init",
+           "export_tlin", "shard_tlin", "tlin_compact", "tlin_norm_input", "tlin_apply",
            "das_train_mask", "tlin_train_input", "tlin_train"]
 
 ROW_ALIGN = 16   # packed rows of an export are a multiple of this
@@ -72,12 +79,15 @@ def check_format(tc: TernaryConfig) -> None:
 class TernaryLinear(nn.Module):
     """Serving form of one ternary linear for a logical (d_in, d_out)
     weight: ``packed`` (R, N) uint8 or ``trits`` (d_in, d_out) int8, by the
-    config's serve format, and the float32 ``scale``."""
+    config's serve format, and the float32 ``scale``.  ``mesh`` (a
+    ``distributed.plan.Mesh``) marks a row-parallel shard, whose output is
+    summed over the mesh's "model" axis."""
 
     def __init__(self, d_in: int, d_out: int, tc: TernaryConfig, device=None):
         super().__init__()
         check_format(tc)
         self.d_in, self.d_out, self.tc = d_in, d_out, tc
+        self.mesh = None
         if tc.serve_format == "packed":
             rows = twd.packed_rows(d_in, ROW_ALIGN)
             self.register_buffer("packed", torch.zeros((rows, d_out), dtype=torch.uint8,
@@ -110,6 +120,25 @@ def export_tlin(p: dict, tc: TernaryConfig) -> dict:
         return {"packed": twd.pack_ternary(tw.values, row_align=ROW_ALIGN),
                 "scale": tw.scale}
     return {"trits": tw.values, "scale": tw.scale}
+
+
+def shard_tlin(lin: TernaryLinear, axis: int, lo: int, hi: int, device=None) -> dict:
+    """The serving leaves of ``lin``'s logical weight cut to ``[lo, hi)``
+    along ``axis`` (0: K, a row-parallel shard; 1: N, a column-parallel
+    one), on ``device`` (default lin's).  An N cut of a packed slab is a
+    slice (bytes pack along K); a K cut is decoded to trits, sliced and
+    packed again with its rows padded to ROW_ALIGN, which is exact (packing
+    is lossless) where a slice of the slab would split bytes.  The scale is
+    the whole weight's."""
+    key = "packed" if lin.tc.serve_format == "packed" else "trits"
+    w = getattr(lin, key).to(device)
+    if axis == 1:
+        cut = w[:, lo:hi]
+    elif key == "trits":
+        cut = w[lo:hi]
+    else:
+        cut = twd.pack_ternary(twd.unpack_ternary(w, lin.d_in)[lo:hi], row_align=ROW_ALIGN)
+    return {key: cut.contiguous(), "scale": lin.scale.to(device, copy=True)}
 
 
 def tlin_compact(x: torch.Tensor, tc: TernaryConfig,
@@ -162,6 +191,8 @@ def tlin_apply(lin: TernaryLinear, x: torch.Tensor,
                              keep=lin.tc.das.keep, block=lin.tc.das.block)
         else:
             y = ops.das_gemv(ca.dense, None, lin.trits, scale)
+    if lin.mesh is not None:
+        y = collectives.psum(y, lin.mesh, "model")
     return y.reshape(*lead, y.shape[-1]).to(x.dtype)
 
 

@@ -87,8 +87,11 @@ class FFN(nn.Module):
 
 
 class Block(nn.Module):
+    """One block of ``kind``; ``experts`` (e0, e1) builds a MoE block with
+    those experts' stacks only (expert parallelism)."""
+
     def __init__(self, cfg: ModelConfig, kind: str, dtype: torch.dtype,
-                 device=None):
+                 device=None, experts: tuple[int, int] | None = None):
         super().__init__()
         if kind not in ATTN_KINDS + RECURRENT_KINDS:
             raise NotImplementedError(
@@ -108,7 +111,7 @@ class Block(nn.Module):
         if kind == "rwkv":
             return
         if cfg.moe is not None:
-            self.moe = MOE.MoE(cfg, dtype, device)
+            self.moe = MOE.MoE(cfg, dtype, device, experts)
         else:
             self.ffn = FFN(cfg, device)
 

@@ -1,8 +1,8 @@
 """Gradient accumulation over microbatches (one device).
 
 The JAX package's ``compressed_crosspod_mean`` (the int8 error-feedback
-exchange across pods) waits for the port's distributed slice (ROADMAP
-queue 1, item 2).
+exchange across pods) waits for the training half of the distributed
+slice (ROADMAP queue 1, item 2).
 """
 
 from __future__ import annotations

@@ -1,14 +1,16 @@
 """ServeConfig: the validated engine configuration of the port.
 
 The JAX package's ``ServeConfig`` with its defaults and validation
-messages, less ``topology`` and ``kernel_mode``, which wait for the
-distributed and tuning slices (ROADMAP).
+messages, less ``kernel_mode``, which waits for the tuning slice (ROADMAP
+queue 1, item 4).
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
+
+from repro_torch.distributed.plan import Topology
 
 __all__ = ["ServeConfig"]
 
@@ -44,7 +46,11 @@ class ServeConfig:
     ``slo_default_steps`` plus an aging penalty per priority level).
     ``preemption`` (deadline scheduler only) lets the engine truncate and
     retire the youngest active slot that has blown its own deadline when the
-    queue head would otherwise miss its SLO (``RequestResult.preempted``)."""
+    queue head would otherwise miss its SLO (``RequestResult.preempted``).
+
+    ``topology`` (a ``distributed.plan.Topology``) serves SPMD: the engine
+    is one rank of a dp x tp ``torch.distributed`` world and cuts its shard
+    of the model; None serves on one device."""
     max_slots: int = 4
     max_len: int = 512
     layout: str = "auto"
@@ -59,8 +65,12 @@ class ServeConfig:
     aging_steps: int = 64
     slo_default_steps: int = 256
     preemption: bool = False
+    topology: Topology | None = None
 
     def __post_init__(self):
+        if self.topology is not None and not isinstance(self.topology, Topology):
+            raise ValueError(f"topology must be a distributed.plan.Topology "
+                             f"or None, got {type(self.topology).__name__}")
         if self.max_slots < 1:
             raise ValueError(f"max_slots must be >= 1, got {self.max_slots}")
         if self.max_len < 1:

@@ -80,6 +80,33 @@ MoE configs decode with the no-drop expert capacity (models/moe.py
 step's shapes stay static); ``ServeConfig.moe_expert_capacity`` optionally
 bounds the per-expert load of a tick by deferring admissions instead of
 dropping tokens.
+
+SPMD serving: under ``ServeConfig.topology`` (a ``distributed.plan.
+Topology``) the engine is one rank of a ``torch.distributed`` world of dp x
+tp processes, every one running the same host scheduler over the same host
+state.  The engine takes the full serving model as a host copy and cuts its
+rank's local model from it (``models.model.shard_model``): every
+projection, DAS step and attention launches the port's kernels on the
+rank's shard, with one sum over "model" a block half.  The slot rows shard
+over the data axes (when ``max_slots`` divides by dp; else every data group
+runs every row); a tick's logits are gathered to (B, V) on every rank
+before the sampler, so every rank samples the same tokens.  An admission's
+prefill runs on every rank (replicated over data, as the paged arena is),
+and each data group keeps the rows of its own slots.  Such a step runs
+eagerly: a gloo collective cannot be captured in a CUDA graph.
+
+Recovery (the JAX package's elastic recovery): a ``fault.WorkerFailure``
+in a tick (``fault_injector``, checked at the top of every step) makes the
+run loops call ``recover``: every active slot is snapshotted (its request
+and the tokens generated so far), the topology shrinks by
+``fault_lost_devices`` (``Topology.shrink``: tp kept while it divides the
+survivors), the ranks build the shrunk mesh's process groups over the first
+survivors, the lost ranks leave (``retired``), the survivors cut their
+shards anew from the host copy, and the snapshots are admitted again before
+any fresh request: the prompt prefix prefills, the rest of the prompt and
+the generated tokens are fed back through the decode step, and sampling
+resumes at the request's own counter, so its tokens continue unchanged.
+Without a topology, recovery rebuilds the device state in place.
 """
 
 from __future__ import annotations
@@ -92,6 +119,8 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.distributed import collectives, fault
+from repro_torch.distributed.plan import ShardingPlan
 from repro_torch.kernels import ops
 from repro_torch.models import attention as A
 from repro_torch.models import kvcache as KV
@@ -169,6 +198,9 @@ class EngineStats:
                                      # request waited for it)
     preemptions: int = 0          # over-budget slots truncated to rescue a
                                   # deadline-critical queued request
+    # elastic recovery (zero unless a WorkerFailure was survived)
+    reshards: int = 0             # snapshot -> mesh shrink -> reshard cycles
+    recovery_seconds: float = 0.0  # wall time spent rebuilding device state
 
     @property
     def slot_utilization(self) -> float:
@@ -204,22 +236,24 @@ class ServeEngine:
 
     ``device`` must be the model's device, CUDA unless ``device="cpu"`` is
     passed; ``config`` is a ``ServeConfig`` (slots, cache layout, top-k,
-    seed, policy, scheduler); ``serve_sparse=False`` serves global layers
-    with full caches;
+    seed, policy, scheduler, topology); ``serve_sparse=False`` serves
+    global layers with full caches;
     ``cuda_graph=False`` steps eagerly on CUDA too, the baseline that the
     card-only tests and chip_smoke.py hold the captured step against.
+    Under a topology ``model`` is the full serving model, a host copy on
+    any device, and ``device`` the rank's own: the engine cuts its shard.
     """
 
     def __init__(self, model: TernaryLM, config: ServeConfig | None = None, *,
                  device=None, serve_sparse: bool = True, cuda_graph: bool = True):
         dev = resolve_device(device)
-        if model.device.type != dev.type:
-            raise ValueError(f"model lies on {model.device}, engine asked for {dev}")
         config = config or ServeConfig()
+        if config.topology is None and model.device.type != dev.type:
+            raise ValueError(f"model lies on {model.device}, engine asked for {dev}")
         cfg = model.cfg
         check_serve_config(cfg, config)
         self.model, self.cfg, self.config = model, cfg, config
-        self.device = model.device
+        self.device = model.device if config.topology is None else dev
         self.serve_sparse = serve_sparse
         self.max_slots, self.max_len = config.max_slots, config.max_len
         self.policy = config.policy
@@ -264,71 +298,113 @@ class ServeEngine:
         # only full-attention layers become arenas; a pure ring config still
         # shares exact prefix states through the trie, with zero pages
         self._pages_per_seq = config.pages_per_seq if self._has_full else 0
-        n_seq = self._pages_per_seq
-        num_pages = config.resolved_num_pages() if n_seq else 0
-        self._pool = PagePool(num_pages, self._page_size) if n_seq else None
+        self._num_pages = config.resolved_num_pages() if self._pages_per_seq else 0
+        self._slots = [_Slot() for _ in range(self.max_slots)]
+        self._results: dict[int, RequestResult] = {}
+        self._pending_uids: set[int] = set()
+        self._base_key = prng_key(config.seed, self.device)
+        self._sampler = make_sampler(config.top_k)
+        self._cuda_graph = cuda_graph
+        self.launches_per_replay: dict[str, int] = {}
+
+        # ---- SPMD / elastic-recovery state ------------------------------
+        self.host_model = model if config.topology is not None else None   # full weights
+        self._topology = config.topology   # live: shrinks on recovery
+        self._mesh = None
+        self._replays: list[dict] = []     # slot snapshots awaiting re-admission
+        self.retired = False               # a rank lost in a recovery: serves no more
+        # a fault.FaultInjector checked at the top of each tick; a failure it
+        # triggers costs fault_lost_devices ranks
+        self.fault_injector = None
+        self.fault_lost_devices = 1
+        self._build_device_state()
+
+    def _build_device_state(self) -> None:
+        """(Re)build what lives on the device: under a topology the mesh's
+        process groups and this rank's local model; the KV pool,
+        radix index and page table; the caches (this rank's slot rows); the
+        step's static buffers; and on CUDA without a topology the captured
+        graphs.  Called at construction and again by ``recover``."""
+        cfg, b, n_seq = self.cfg, self.max_slots, self._pages_per_seq
+        self._rows = (0, b)
+        self._pool = PagePool(self._num_pages, self._page_size) if n_seq else None
         self._radix = RadixIndex() if self._share else None
+        if self._topology is not None:
+            ranks = None if self._mesh is None else self._mesh.ranks
+            self._mesh = self._topology.build_mesh(ranks)
+            if not self._mesh.member:
+                self.retired = True
+                self.model = self.caches = None
+                return
+            self.model = MD.shard_model(self.host_model, self._mesh, self.device)
+            dpx = self._topology.dp_extent
+            if b % dpx == 0:
+                d = self._mesh.data_index
+                self._rows = (d * b // dpx, (d + 1) * b // dpx)
 
         # the per-layer slot-state union, the caches' source of truth
         # (layout_summary): paged / full / ring KV for the attention layers,
-        # rwkv / gla recurrent states
-        self._layer_specs = [T.layer_cache_spec(cfg, kind, self.max_slots, self.max_len,
+        # rwkv / gla recurrent states; a rank's caches hold its own slot rows
+        # and kv heads
+        lcfg, nb = self.model.cfg, self._rows[1] - self._rows[0]
+        self._layer_specs = [T.layer_cache_spec(lcfg, kind, nb, self.max_len,
                                                 L.torch_dtype(cfg.dtype),
-                                                serve_sparse=serve_sparse,
+                                                serve_sparse=self.serve_sparse,
                                                 page_size=self._page_size if n_seq else 0,
-                                                num_pages=num_pages)
+                                                num_pages=self._num_pages)
                              for kind in cfg.layer_kinds()]
-        self.caches = [KV.init_cache(cfg, spec, self.device) for spec in self._layer_specs]
-        self._empty1 = MD.init_caches(cfg, 1, self.max_len, device=self.device,
-                                      serve_sparse=serve_sparse)
+        self.caches = [KV.init_cache(lcfg, spec, self.device) for spec in self._layer_specs]
+        self._empty1 = MD.init_caches(lcfg, 1, self.max_len, device=self.device,
+                                      serve_sparse=self.serve_sparse)
         self._paged_layers = [KV.is_paged(c) for c in self.caches]
         self._rest_is_empty = self._paged and all(self._paged_layers)
         self._page_bytes = sum(leaf.nbytes // leaf.shape[0]
                                for c, p in zip(self.caches, self._paged_layers) if p
                                for leaf in c.values())
-        self._slots = [_Slot() for _ in range(self.max_slots)]
-        self._results: dict[int, RequestResult] = {}
-        self._pending_uids: set[int] = set()
 
         # ---- the decode step's static inputs ----------------------------
-        # host arrays (pinned on CUDA) that each tick fills, and the device
-        # buffers the step reads; the page table only when a layer is paged
-        b, pin = self.max_slots, self.device.type == "cuda"
+        # host arrays (pinned on CUDA) that each tick fills for every slot,
+        # and the device buffers the step reads: the model's inputs for this
+        # rank's rows, the sampler's for all; the page table only when a
+        # layer is paged
+        pin = self.device.type == "cuda"
 
-        def buffers(shape, dtype):
+        def buffers(shape, dtype, rows=False):
             host = torch.zeros(shape, dtype=dtype, pin_memory=pin)
-            return host, host.numpy(), torch.zeros(shape, dtype=dtype, device=self.device)
+            dev_shape = (nb,) + tuple(shape[1:]) if rows else shape
+            return host, host.numpy(), torch.zeros(dev_shape, dtype=dtype, device=self.device)
 
-        self._tok_host, self._tok_np, self._tok = buffers((b,), torch.int64)
-        self._t_host, self._t_np, self._t = buffers((b,), torch.int64)
+        self._tok_host, self._tok_np, self._tok = buffers((b,), torch.int64, True)
+        self._t_host, self._t_np, self._t = buffers((b,), torch.int64, True)
         self._pt_host = self._pt_np = self._pt = None
         if n_seq:
-            self._pt_host, self._pt_np, self._pt = buffers((b, n_seq), torch.int32)
+            self._pt_host, self._pt_np, self._pt = buffers((b, n_seq), torch.int32, True)
         self._forced = self._forced_x = None
         if self._uses_embeds:
-            self._forced_host, self._forced_np, self._forced = buffers((b,), torch.bool)
+            self._forced_host, self._forced_np, self._forced = buffers((b,), torch.bool, True)
             self._fx_host, self._fx_np, self._forced_x = buffers((b, cfg.d_model),
-                                                                 torch.float32)
+                                                                 torch.float32, True)
         # sampling: a row's temperature, uid and generated-token count
         self._temps_host, self._temps_np, self._temps = buffers((b,), torch.float32)
         self._uids_host, self._uids_np, self._uids = buffers((b,), torch.int32)
         self._ctr_host, self._ctr_np, self._ctr = buffers((b,), torch.int32)
-        self._base_key = prng_key(config.seed, self.device)
-        self._sampler = make_sampler(config.top_k)
         self._graph = self._sample_graph = None
         self._next = self._logits = self._sampled = None
-        self.launches_per_replay: dict[str, int] = {}
-        if self.device.type == "cuda" and cuda_graph:
+        if self.device.type == "cuda" and self._cuda_graph and self._topology is None:
             self._capture()
 
     # -- the captured step ------------------------------------------------
 
     def _step_fn(self) -> torch.Tensor:
-        """The decode step over the static buffers -> logits (B, V) float32."""
+        """The decode step over the static buffers -> logits (B, V) float32
+        (a rank's rows gathered over the data axes)."""
         logits, _ = MD.decode_step(self.model, self.caches, self._tok, self._t,
                                    serve_sparse=self.serve_sparse,
                                    page_table=self._pt, forced=self._forced,
                                    forced_x=self._forced_x)
+        if self._rows != (0, self.max_slots):
+            logits = collectives.gather(logits, self._mesh, "data", 0, self._rows[0],
+                                        self.max_slots)
         return logits
 
     def _sample_fn(self, logits: torch.Tensor) -> torch.Tensor:
@@ -376,13 +452,14 @@ class ServeEngine:
         """Copy the host inputs to the static buffers, run the step (a graph
         replay on CUDA) and return the ids, sampled when ``sampling`` (some
         row has a temperature above 0) else greedy: the step's one sync."""
-        self._tok.copy_(self._tok_host, non_blocking=True)
-        self._t.copy_(self._t_host, non_blocking=True)
+        b0, b1 = self._rows
+        self._tok.copy_(self._tok_host[b0:b1], non_blocking=True)
+        self._t.copy_(self._t_host[b0:b1], non_blocking=True)
         if self._pt is not None:
-            self._pt.copy_(self._pt_host, non_blocking=True)
+            self._pt.copy_(self._pt_host[b0:b1], non_blocking=True)
         if self._forced is not None:
-            self._forced.copy_(self._forced_host, non_blocking=True)
-            self._forced_x.copy_(self._fx_host, non_blocking=True)
+            self._forced.copy_(self._forced_host[b0:b1], non_blocking=True)
+            self._forced_x.copy_(self._fx_host[b0:b1], non_blocking=True)
         if sampling:
             self._temps.copy_(self._temps_host, non_blocking=True)
             self._uids.copy_(self._uids_host, non_blocking=True)
@@ -485,7 +562,7 @@ class ServeEngine:
         """Zero the virtual clock and the stats between traces (caches and
         graphs survive: warm up before a timed replay).  Only valid when the
         engine is drained."""
-        if self.num_active or self.scheduler:
+        if self.num_active or self.scheduler or self._replays:
             raise RuntimeError("reset_clock on a non-drained engine")
         self.vtime = 0
         self.stats = EngineStats(max_slots=self.max_slots,
@@ -521,18 +598,25 @@ class ServeEngine:
             False to exit.  None: an idle engine returns (``run``).
 
         With nothing active, a future-dated arrival fast-forwards the
-        virtual clock to it."""
+        virtual clock to it.  A ``fault.WorkerFailure`` in a tick is
+        survived by ``recover``; a rank that the recovery leaves out returns
+        at once."""
         t0 = time.perf_counter()
         try:
-            while True:
+            while not self.retired:
                 if should_stop is not None and should_stop():
                     break
                 if poll is not None:
                     poll()
                 self._admit_ready()
                 if self.num_active:
-                    self.step_decode()
+                    try:
+                        self.step_decode()
+                    except fault.WorkerFailure:
+                        self.recover()
                     continue
+                if self._replays:
+                    continue      # a deferred replay admission: retry
                 nxt = self.scheduler.next_arrival()
                 if nxt is not None:
                     if nxt > self.vtime:
@@ -543,6 +627,57 @@ class ServeEngine:
                     break
         finally:
             self.stats.wall_seconds += time.perf_counter() - t0
+
+    # -- elastic recovery --------------------------------------------------
+
+    @property
+    def topology(self):
+        """The live Topology (None on one device); shrinks on recovery."""
+        return self._topology
+
+    def sharding_plan(self) -> ShardingPlan | None:
+        """The live topology's ShardingPlan of the full weights, with the
+        cache specs of this engine's slots (None on one device)."""
+        if self._topology is None:
+            return None
+        n_seq = self._pages_per_seq
+        caches = MD.init_caches(self.cfg, self.max_slots, self.max_len, device="meta",
+                                serve_sparse=self.serve_sparse,
+                                page_size=self._page_size if n_seq else 0,
+                                num_pages=self._num_pages)
+        return ShardingPlan.for_tree(self.host_model, self._topology).with_caches(
+            caches, batch=self.max_slots)
+
+    def recover(self, lost_devices: int | None = None) -> None:
+        """Survive a device loss mid-serving: snapshot every active slot
+        (its request and the tokens generated so far), shrink the topology
+        by ``lost_devices`` (default ``fault_lost_devices``), rebuild the
+        device state (mesh, shards, caches; a rank outside the shrunk mesh
+        retires) and queue the snapshots for re-admission: in-flight
+        requests resume from their last token, never dropped.  One device
+        rebuilds in place."""
+        t0 = time.perf_counter()
+        with self._lock:
+            snaps = []
+            for s in self._slots:
+                if s.state == FREE:
+                    continue
+                snaps.append({"req": s.req, "out": list(s.out), "admit_vtime": s.admit_vtime,
+                              # no first token yet: the replay stamps it
+                              "first_tok_vtime": s.first_tok_vtime if s.out else None,
+                              "admitted_with_active": s.admitted_with_active})
+                s.state, s.req, s.input_x, s.tail, s.pages, s.page_budget = (
+                    FREE, None, None, None, None, 0)
+            lost = self.fault_lost_devices if lost_devices is None else lost_devices
+            if self._topology is not None and lost > 0:
+                self._topology = self._topology.shrink(self._topology.n_devices - lost)
+            self._build_device_state()
+            self._replays.extend(snaps)
+            self.stats.reshards += 1
+            dt = time.perf_counter() - t0
+            self.stats.recovery_seconds += dt
+        if self.telemetry is not None:
+            self.telemetry.on_reshard(self, lost=lost, seconds=dt, in_flight=len(snaps))
 
     # -- admission --------------------------------------------------------
 
@@ -581,6 +716,13 @@ class ServeEngine:
             self._retire(victim, preempted=True)
 
     def _admit_ready_locked(self) -> None:
+        # recovery replays outrank fresh admissions: these requests were
+        # mid-stream when the failure hit and must never be dropped
+        while self._replays:
+            idx = next((i for i, s in enumerate(self._slots) if s.state == FREE), None)
+            if idx is None or not self._replay_admit(idx, self._replays[0]):
+                break   # no slot, or the pool is too tight now: retry next tick
+            self._replays.pop(0)
         if self.policy == "wave" and self.num_active:
             return
         if self._preempt:
@@ -622,8 +764,14 @@ class ServeEngine:
         slot.out = []
         slot.input_x = None
         slot.first_tok_vtime = None
+        return self._admit_slot(idx, slot, req, prefix)
+
+    def _admit_slot(self, idx: int, slot: _Slot, req: Request, prefix: int,
+                    replay: tuple = (), notify: bool = True) -> bool:
+        """Fill slot ``idx`` (its fields set) by the layout's admission;
+        False backs off (paged only), leaving the slot FREE."""
         if self._paged:
-            ok = self._admit_paged(idx, slot, req, prefix)
+            ok = self._admit_paged(idx, slot, req, prefix, replay, notify)
             if not ok:
                 slot.req = None     # back off: the slot stays FREE
             return ok
@@ -633,7 +781,26 @@ class ServeEngine:
             self._insert(idx, small)
         else:
             self._insert(idx, self._empty1)
-        self._start_slot(idx, slot, req, prefix, logits)
+        self._start_slot(idx, slot, req, prefix, logits, replay, notify)
+        return True
+
+    def _replay_admit(self, idx: int, snap: dict) -> bool:
+        """Re-admit a snapshot that ``recover`` took: prefill the prompt's
+        prefix, then feed the rest of the prompt and the tokens already
+        generated, so the slot's caches and sampling counter land where they
+        were and its tokens continue unchanged."""
+        slot, req = self._slots[idx], snap["req"]
+        slot.admitted_with_active = snap["admitted_with_active"]
+        slot.req = req
+        slot.admit_vtime = snap["admit_vtime"]
+        slot.out = list(snap["out"])
+        slot.input_x = None
+        slot.first_tok_vtime = None
+        prefix = (req.prompt_len // self._chunk) * self._chunk
+        if not self._admit_slot(idx, slot, req, prefix, tuple(snap["out"]), notify=False):
+            return False
+        if snap["first_tok_vtime"] is not None:
+            slot.first_tok_vtime = snap["first_tok_vtime"]
         return True
 
     def _prefill(self, req: Request, prefix: int):
@@ -648,14 +815,17 @@ class ServeEngine:
         return logits[0], small
 
     def _start_slot(self, idx: int, slot: _Slot, req: Request, absorbed: int,
-                    logits: torch.Tensor | None) -> None:
+                    logits: torch.Tensor | None, replay: tuple = (),
+                    notify: bool = True) -> None:
         """First token from the prefill's (or a stored entry's) logits when
         the whole prompt is absorbed, else feed the tail from ``absorbed``
-        one token a tick."""
+        one token a tick.  ``replay`` (recovery) appends the tokens already
+        generated to the tail, so the slot derives its state again through
+        the decode step and sampling resumes at counter len(out)."""
         p = req.prompt_len
-        if self.telemetry is not None:
+        if notify and self.telemetry is not None:
             self.telemetry.on_admit(req, self.vtime)
-        if absorbed == p:
+        if absorbed == p and not replay:
             slot.state = DECODE
             slot.first_tok_vtime = self.vtime
             slot.input_pos = p
@@ -664,27 +834,32 @@ class ServeEngine:
             slot.state = PREFILL
             rest = np.asarray(req.prompt[absorbed:])
             slot.tail = (list(rest.astype(np.float32)) if self._uses_embeds
-                         else [int(x) for x in rest])
+                         else [int(x) for x in rest]) + list(replay)
             slot.tail_idx = 1
             slot.input_pos = absorbed
             self._feed(slot, slot.tail[0])
 
     def _feed(self, slot: _Slot, nxt) -> None:
         """One tail element into the decode step's input: an embedding row
-        through ``forced_x``, a token id as the input token."""
-        if self._uses_embeds:
+        through ``forced_x``, a token id (a prompt's, or a replayed
+        generated one) as the input token."""
+        if self._uses_embeds and np.ndim(nxt) > 0:
             slot.input_tok, slot.input_x = 0, nxt
         else:
-            slot.input_tok = nxt
+            slot.input_tok, slot.input_x = int(nxt), None
 
     def _insert(self, idx: int, small: list) -> None:
         """Overwrite slot ``idx``'s rows of every per-slot layer with a
-        batch-1 cache (``small`` holds None for a layer it skips)."""
+        batch-1 cache (``small`` holds None for a layer it skips); a rank
+        keeps the rows of its own slots only."""
+        b0, b1 = self._rows
+        if not b0 <= idx < b1:
+            return
         for big, sm, paged in zip(self.caches, small, self._paged_layers):
             if paged or sm is None:
                 continue
             for key, buf in big.items():
-                buf[idx].copy_(sm[key][0])
+                buf[idx - b0].copy_(sm[key][0])
 
     # -- the paged layout's device pieces, all in place -------------------
 
@@ -733,7 +908,8 @@ class ServeEngine:
 
     # -- paged admission --------------------------------------------------
 
-    def _admit_paged(self, idx: int, slot: _Slot, req: Request, prefix: int) -> bool:
+    def _admit_paged(self, idx: int, slot: _Slot, req: Request, prefix: int,
+                     replay: tuple = (), notify: bool = True) -> bool:
         p, g, ps = req.prompt_len, req.max_new_tokens, self._page_size
         n_seq = self._pages_per_seq
         tokens = tuple(int(x) for x in np.asarray(req.prompt)) if self._share else None
@@ -822,7 +998,7 @@ class ServeEngine:
             self._pt_np[idx, :] = pages
             self.stats.pool_peak_pages = max(self.stats.pool_peak_pages,
                                              self._pool.pages_in_use)
-        self._start_slot(idx, slot, req, absorbed, logits)
+        self._start_slot(idx, slot, req, absorbed, logits, replay, notify)
         return True
 
     def _paged_room(self, need_new: int, reserve_exclude=()) -> bool:
@@ -896,6 +1072,10 @@ class ServeEngine:
 
     def step_decode(self) -> None:
         t0 = time.perf_counter()
+        if self.fault_injector is not None:
+            # an injected device loss lands here, mid-serving; the run loop
+            # catches the WorkerFailure and calls recover()
+            self.fault_injector.maybe_fail(self.stats.decode_steps)
         # free rows: token 0 at position 0 (a don't-care), or t = -1 under
         # the paged layout, which sends their writes to the null page
         self._tok_np[:] = 0
@@ -933,9 +1113,11 @@ class ServeEngine:
                     s.tail_idx += 1
                 else:
                     # the last prompt token went in this tick -> first sample
+                    # (a replayed slot keeps its first token's time)
                     s.state = DECODE
                     s.input_x = None
-                    s.first_tok_vtime = self.vtime
+                    if s.first_tok_vtime is None:
+                        s.first_tok_vtime = self.vtime
                     self._deliver(i, int(next_tok[i]))
             elif s.state == DECODE:
                 self._deliver(i, int(next_tok[i]))

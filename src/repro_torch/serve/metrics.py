@@ -7,6 +7,9 @@ A copy of the JAX package's ``serve/metrics.py`` (pure Python).
   * ``on_admit(req, vtime)``   queue-wait accounting at slot claim
   * ``on_tick(engine, n, dt)`` once per batched decode step (wall dt)
   * ``on_finish(result, eng)`` once per retired request
+  * ``on_reshard(engine, ...)`` once per elastic recovery (a device loss
+    survived: mesh shrink and replay); logs a ``{"type": "reshard", ...}``
+    JSON line with the recovery latency and the surviving topology
 
 From those it keeps (a) cumulative counters that must agree with
 ``EngineStats`` (tokens, requests, preemptions), (b) a rolling window of
@@ -19,8 +22,7 @@ line per finished request and a ``{"type": "tick", ...}`` snapshot every
 
 The port has no silent kernel fallback (a kernel wrapper on a CUDA tensor
 launches its kernel or raises), so the snapshot has no ``kernel_fallbacks``
-key; nor, until the distributed slice ports elastic recovery, reshard
-counters.
+key.
 
 Thread safety: the engine thread writes, any thread may ``snapshot()``; one
 lock covers the rolling state.
@@ -61,6 +63,8 @@ class Telemetry:
         self.slo_tracked = 0
         self.slo_met = 0
         self.preemptions = 0
+        self.reshards = 0
+        self.recovery_seconds = 0.0
         self.ticks_seen = 0
         self._last_generated = None   # EngineStats.generated_tokens baseline
         self._f = open(jsonl_path, "a") if jsonl_path else None
@@ -125,6 +129,20 @@ class Telemetry:
         if self._f is not None:
             self._write({"type": "request", "ts": time.time(), **rec})
 
+    def on_reshard(self, engine, *, lost: int, seconds: float, in_flight: int) -> None:
+        topo = getattr(engine, "topology", None)
+        with self._lock:
+            self.reshards += 1
+            self.recovery_seconds += seconds
+        if self._f is not None:
+            self._write({
+                "type": "reshard", "ts": time.time(), "vtime": engine.vtime,
+                "lost_devices": lost, "recovery_seconds": round(seconds, 6),
+                "in_flight_replayed": in_flight,
+                "topology": (None if topo is None else
+                             {"pods": topo.pods, "dp": topo.dp, "tp": topo.tp}),
+            })
+
     # -- reads ------------------------------------------------------------
 
     def _gauges(self, engine=None) -> dict:
@@ -139,6 +157,8 @@ class Telemetry:
                 "slo_tracked": self.slo_tracked,
                 "slo_met": self.slo_met,
                 "preemptions": self.preemptions,
+                "reshards": self.reshards,
+                "recovery_seconds": round(self.recovery_seconds, 6),
                 "ticks": self.ticks_seen,
             }
         wall = sum(t[0] for t in ticks)
@@ -178,6 +198,8 @@ class Telemetry:
                 "prefill_tokens": st.prefill_tokens,
                 "slot_utilization": st.slot_utilization,
                 "preemptions": st.preemptions,
+                "reshards": st.reshards,
+                "recovery_seconds": round(st.recovery_seconds, 6),
             }
             pool = engine.pool_stats()
             out["pool"] = {k: pool[k] for k in

@@ -1,10 +1,12 @@
 """The package boundary of the port, checked in a fresh interpreter.
 
 Importing every ``repro_torch`` module (the trainer's too: optim, data,
-checkpoint, distributed.fault, launch.train) and chip_smoke.py's
+checkpoint, distributed.fault, launch.train; the distributed layer: plan,
+sharding, collectives, elastic, launch) and chip_smoke.py's
 module-level imports must pull in neither JAX nor any module of the JAX
 package, nor may running the training pass of every block kind (the MoE,
-rwkv, gla, mamba and the shared attention) on the CPU; and without a CUDA
+rwkv, gla, mamba and the shared attention) on the CPU, nor a rank that
+``distributed.launch.run_ranks`` spawns to serve a shard; and without a CUDA
 device the entry points (the serving ones, the train CLI, a checkpoint
 restore) must refuse to start unless the caller asks for the CPU.
 """
@@ -24,7 +26,9 @@ names = {m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torc
 missing = {"repro_torch.serve." + m for m in ("sampler", "metrics", "server", "scheduler")}
 missing |= {"repro_torch." + m for m in (
     "tree", "optim.adamw", "optim.schedule", "optim.grad", "data.pipeline",
-    "checkpoint.ckpt", "distributed.fault", "launch.train")}
+    "checkpoint.ckpt", "distributed.fault", "launch.train", "distributed.plan",
+    "distributed.sharding", "distributed.collectives", "distributed.elastic",
+    "distributed.launch")}
 missing -= names
 assert not missing, f"not walked: {missing}"
 for name in sorted(names):
@@ -74,6 +78,24 @@ for arch in ("qwen3-moe-30b-a3b", "kimi-k2-1t-a32b", "rwkv6-3b", "gla-1.3b", "za
 leaked = sorted(k for k in sys.modules
                 if k.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not leaked, f"the port's training passes imported {leaked}"
+# a spawned rank (a fresh interpreter of its own) serving its shard
+import pathlib, tempfile
+probe_dir = tempfile.mkdtemp()
+pathlib.Path(probe_dir, "rank_probe.py").write_text(
+    "import sys\n"
+    "def leaked(rank):\n"
+    "    from repro_torch.configs import get_config, reduced\n"
+    "    from repro_torch.distributed.plan import Topology\n"
+    "    from repro_torch.launch import serve as cli\n"
+    "    from repro_torch.serve import ServeConfig\n"
+    "    sc = ServeConfig(max_slots=2, max_len=32, topology=Topology(tp=2))\n"
+    "    assert cli.serve_rank(rank, cli.RankJob(reduced(get_config('bitnet-1.3b')), sc))\n"
+    "    return sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n")
+sys.path.insert(0, probe_dir)
+import rank_probe
+from repro_torch.distributed.launch import run_ranks
+leaked = run_ranks(rank_probe.leaked, 2)
+assert leaked == [[], []], f"a spawned rank imported {leaked}"
 print("BOUNDARY-OK")
 """
 

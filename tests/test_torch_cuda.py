@@ -1285,3 +1285,171 @@ def test_cuda_moe_train_grads_bitwise_across_runs(cuda):
     assert torch.equal(la, lb)
     for a, b in zip(ga, gb):
         assert torch.equal(a, b)
+
+
+# --------------------------------------------------------------------------
+# tensor parallelism: the kernels on bitnet-1.3b's tp = 2 shards
+# --------------------------------------------------------------------------
+
+# (logical dim, its cut at tp 2): q heads (wq's N, wo's K), d_ff on whole
+# DAS blocks with the 20-lane dense tail on rank 1 (w_gate / w_in's N,
+# w_out's K)
+TP2_BOUNDS = {"q": ((0, 1024), (1024, 2048)), "ff": ((0, 2720), (2720, 5460))}
+
+
+@pytest.mark.parametrize("m", [4, 256])
+def test_cuda_packed_gemms_at_tp2_shards(cuda, rng, m):
+    """Column-parallel (wq, w_gate): the shards' outputs joined over N equal
+    the unsharded kernel's within the GEMM tolerance; row-parallel (wo, and
+    w_out by both routes, compacted on rank 0's 2720 lanes and masked dense
+    on rank 1's 2740): the shards' K partials summed.  das_topk on each K
+    shard gives the unsharded mask's columns exactly (no DAS block
+    straddles the cut)."""
+    from repro_torch.distributed.plan import shard_bounds
+    assert shard_bounds(5460, 2, unit=32) == TP2_BOUNDS["ff"]
+    bf16 = torch.bfloat16
+
+    def close(got, want):
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-4 * float(want.abs().max()))
+
+    x = torch.from_numpy(rng.standard_normal((m, 2048)).astype(np.float32)).to(cuda, bf16)
+    ca = ops.das_topk(x, keep=16)
+    for n, bounds in ((2048, TP2_BOUNDS["q"]), (5460, TP2_BOUNDS["ff"])):
+        p = _packed(rng, 2048, n, cuda)
+        full = ops.das_ternary_gemm(ca.values, ca.indices, p, SCALE, keep=16)
+        joined = torch.cat([ops.das_ternary_gemm(ca.values, ca.indices,
+                                                 p[:, lo:hi].contiguous(), SCALE, keep=16)
+                            for lo, hi in bounds], dim=1)
+        close(joined, full)
+    for k, bounds in ((2048, TP2_BOUNDS["q"]), (5460, TP2_BOUNDS["ff"])):
+        trits = torch.from_numpy(rng.integers(-1, 2, size=(k, 2048)).astype(np.int8))
+        p = twd.pack_ternary(trits, row_align=16).to(cuda)
+        xk = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32)).to(cuda, bf16)
+        step = ops.das_topk(xk, keep=16, with_dense=True)
+        full = (ops.das_ternary_gemm(step.values, step.indices, p, SCALE, keep=16)
+                if k % 32 == 0 else ops.ternary_gemm(step.dense, p, SCALE))
+        dense_sum = compact_sum = 0
+        for lo, hi in bounds:
+            shard = twd.pack_ternary(trits[lo:hi], row_align=16).to(cuda)
+            s = ops.das_topk(xk[:, lo:hi].contiguous(), keep=16, with_dense=True)
+            assert torch.equal(s.mask, step.mask[:, lo:hi])
+            dense_sum = dense_sum + ops.ternary_gemm(s.dense, shard, SCALE)
+            if (hi - lo) % 32 == 0:
+                compact_sum = compact_sum + ops.das_ternary_gemm(s.values, s.indices, shard,
+                                                                 SCALE, keep=16)
+            else:
+                compact_sum = compact_sum + ops.ternary_gemm(s.dense, shard, SCALE)
+        close(dense_sum, full)
+        close(compact_sum, full)
+
+
+@pytest.mark.parametrize("lq", [1, 256])
+def test_cuda_sparse_attention_at_tp2_heads(cuda, rng, lq):
+    """32 heads of 64 (bitnet-1.3b) against each rank's 16, joined over
+    heads: the decode class over a full ring and an LPSA pack (rounded
+    scores), within the attention tolerance."""
+    bf16 = torch.bfloat16
+    lk = 1024 if lq == 1 else 128 + 896 + 256
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(cuda, bf16)
+
+    q, k, v = t(2, lq, 32, 64), t(2, lk, 32, 64), t(2, lk, 32, 64)
+    if lq == 1:
+        qp = torch.full((2, 1), 3000, dtype=torch.int32, device=cuda)
+        kp = torch.from_numpy(np.stack([np.arange(lk)] * 2).astype(np.int32)).to(cuda)
+        kw = dict(sink=128, window=896)
+    else:
+        qp1, kp1 = (p.to(torch.int32) for p in lpsa.pack_positions(
+            2048, lpsa.LpsaSpec(sink=128, window=896, chunk=256)))
+        qp, kp = qp1[None].expand(2, -1).to(cuda), kp1[None].expand(2, -1).to(cuda)
+        qp, kp = qp.contiguous(), kp.contiguous()
+        kw = dict(sink=128, window=896, round_scores=True)
+    full = ops.sparse_attention(q, k, v, qp, kp, **kw)
+    joined = torch.cat([ops.sparse_attention(q[:, :, h:h + 16].contiguous(),
+                                             k[:, :, h:h + 16].contiguous(),
+                                             v[:, :, h:h + 16].contiguous(), qp, kp, **kw)
+                        for h in (0, 16)], dim=2)
+    torch.testing.assert_close(joined.float(), full.float(), rtol=2e-2, atol=2e-2)
+
+
+def test_cuda_spmd_engine_matches_one_device(cuda, tmp_path):
+    """Reduced bitnet-1.3b at Topology(dp=2, tp=2): 4 ranks on this card
+    over gloo serve the tokens of the one-device engine on the same weights,
+    each rank launching the kernels on its shard."""
+    from repro_torch.distributed.launch import run_ranks
+    from repro_torch.distributed.plan import Topology
+    from repro_torch.launch import serve as cli
+    cfg = reduced(get_config("bitnet-1.3b"))
+    model = MD.export_serving(MD.init_params(cfg, seed=5, device=cuda), cfg)
+    rng = np.random.default_rng(5)
+    trace = tuple(Request(uid=i, prompt=rng.integers(0, cfg.vocab, p), max_new_tokens=8,
+                          arrival=2 * i) for i, p in enumerate((40, 16, 9, 33)))
+    sc = ServeConfig(max_slots=4, max_len=64)
+    eng = ServeEngine(model, sc, device="cuda")
+    for r in trace:
+        eng.submit(r)
+    want = {uid: r.tokens.tolist() for uid, r in eng.run().items()}
+    path = str(tmp_path / "weights.pt")
+    torch.save(model.state_dict(), path)
+    job = cli.RankJob(cfg, dataclasses.replace(sc, topology=Topology(dp=2, tp=2)), "cuda",
+                      path, trace)
+    for out in run_ranks(cli.serve_jobs, 4, [job]):
+        assert out[0]["tokens"] == want
+        assert all(out[0]["launches"][k] > 0 for k in ("das_topk", "das_ternary_gemm",
+                                                       "sparse_attention"))
+
+
+class _OneProcessMesh:
+    """A Mesh stand-in for one model rank of tp ways, in one process: its
+    collectives see a group of one, so each row-parallel output is the
+    rank's partial, which the test sums itself."""
+
+    def __init__(self, tp, index):
+        from repro_torch.distributed.plan import Topology
+        self.topology, self.model_index, self.data_index = Topology(tp=tp), index, 0
+        self.backend = "none"
+
+    def size(self, axis):
+        return 1
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_tp2_blocks_match_unsharded(cuda, dtype):
+    """bitnet-1.3b's widths, one layer: each rank's attention (a 256-token
+    LPSA pack, then a decode step) and FFN on its shard, the row-parallel
+    partials summed, against the unsharded block; float32 within the GEMM
+    tolerance of the output's max, bf16 within 2e-2 of it."""
+    from repro_torch.models import attention as A
+    from repro_torch.models import transformer as T
+    cfg = dataclasses.replace(get_config("bitnet-1.3b"), n_layers=1, dtype=dtype)
+    full = MD.init_serving(cfg, seed=6, device=cuda)
+    shards = [MD.shard_model(full, _OneProcessMesh(2, r), cuda) for r in (0, 1)]
+    dt = full.embed.dtype
+    g = torch.Generator(device=cuda).manual_seed(6)
+    x = torch.randn((1, 256, cfg.d_model), generator=g, device=cuda).to(dt)
+    tol = 1e-4 if dtype == "float32" else 2e-2
+
+    def close(parts, want):
+        got = sum(p.float() for p in parts)
+        err = float((got - want.float()).abs().max() / want.float().abs().max())
+        assert err <= tol, err
+
+    blk = full.layers[0]
+    want, state = A.attn_prefill_streaming(blk.attn, cfg, x, blk.norm1.scale, "attn")
+    outs = [A.attn_prefill_streaming(m.layers[0].attn, m.cfg, x, m.layers[0].norm1.scale,
+                                     "attn") for m in shards]
+    close([o[0] for o in outs], want)
+    close([T.ffn_apply(m.layers[0].ffn, m.cfg, x, m.layers[0].norm2.scale) for m in shards],
+          T.ffn_apply(blk.ffn, cfg, x, blk.norm2.scale))
+    xd = x[:, -1:]
+    t = torch.tensor([256], device=cuda)
+    step = A.decode_step_inputs(cfg, t, ["attn"], True)
+    cache = T.KV.ring_from_stream(cfg, state, sink=cfg.lpsa.sink, window=cfg.lpsa.window)
+    want = A.attn_decode(blk.attn, cfg, xd, blk.norm1.scale, cache, step, "attn")
+    parts = []
+    for m, o in zip(shards, outs):
+        c = T.KV.ring_from_stream(m.cfg, o[1], sink=cfg.lpsa.sink, window=cfg.lpsa.window)
+        parts.append(A.attn_decode(m.layers[0].attn, m.cfg, xd, m.layers[0].norm1.scale, c,
+                                   A.decode_step_inputs(m.cfg, t, ["attn"], True), "attn"))
+    close(parts, want)
