@@ -11,7 +11,8 @@ Phases:
            empty-slot / int8 cases, each max error beside its tolerance;
            das_topk also with the mask null, with the mask alone at the
            train phase's 8192 rows (K = 2048, 5460, and the other train
-           paths' 2560, 5120, 5632, 8960, 10240), on unaligned rows, with its
+           paths' 2560, 5120, 5632, 8960, 10240) and at a dist trainer rank's
+           4096 rows (K = 2048, 1024, 2720, 2740), on unaligned rows, with its
            rmsnorm prologue (normed rows within a step, the DAS step exact)
            and bitwise invariant to M; sparse_attention's bf16 prefill class
            also at LPSA packs of three stream offsets, full causal attention
@@ -198,7 +199,32 @@ Phases:
            one-rank run; requests 0, 2 and 4 in float32 with DAS off as in
            (a), within 1e-4 with the experts' int8 fake-quant the identity
            on both sides, and as served (reported: the fake-quant is a
-           discontinuity too)
+           discontinuity too); then, in the same world, the distributed
+           trainer (bitnet-1.3b at full width, Topology(dp=2, tp=2), ZeRO-1,
+           4 x 2048 tokens a step): (d) 2 layers in float32 with DAS off and
+           the fake-quants on (the whole-weight absmean over "model", a
+           row-parallel input's absmax its max over "model") against one
+           rank, each rank taking one rank's int8 value or trit where its
+           own differs within 1e-5 of a .5 boundary (another sum order moves
+           such ties; tests/torch_ties.py ``Replay``, at most 0.01 % of the
+           decisions): step 1's loss within 2e-5, every gradient leaf
+           (summed over "dp", gathered over "model") within 1e-4 of its max
+           and the params after 2 steps within 1e-4; (g) (d)'s state after
+           step 1 gathered and checkpointed, restored onto Topology(dp=1,
+           tp=2) (2 ranks lost), step 2 there (one rank's ties again) within
+           1e-4 of one rank's; (f) the GPipe pipeline at Topology(pods=2,
+           dp=1, tp=2), one block a stage on its tp 2 shard (the ternary
+           stack off: float32 sums alone), 4 microbatches of 256 tokens: the
+           output within 1e-5 and every gradient within 1e-4 of the
+           sequential blocks on one rank, then the int8 error-feedback mean
+           of (d)'s gradients over the 2 pods within 2 % of the exact mean,
+           the residual nonzero; (e) bitnet-1.3b as trained (bf16, DAS
+           16/32, remat), 4 of its 24 layers, 2 steps: every rank launches das_topk once for each
+           das_train_mask call (8 a layer a step) and the profiler sees as
+           many das_topk kernels; each step's loss beside one rank's, ms a
+           step, the collectives a step with their bytes and host seconds,
+           the card's idle share (the union of the ranks' device spans),
+           peak memory a rank (reported)
   train    QAT training of bitnet-1.3b at full width (d_model 2048, d_ff 5460,
            vocab 32000, bf16 masters from the config, remat on; seeded random
            weights, SyntheticLM batches of 4 x 2048 tokens, so LPSA's sink of
@@ -233,9 +259,7 @@ Phases:
              gla-1.3b, rwkv6-3b  2 layers each;
            each (c) on a cut (2 layers; zamba2 one pattern period of 6):
            the kernel's masks equal the plain das_mask's, and the loss,
-           every gradient and every updated param bitwise; the MoE (d): 2
-           steps, its checkpoint saved and restored, 2 more equal 4
-           straight bitwise (its dispatch's backward has no atomics); (a)
+           every gradient and every updated param bitwise; (a)
            finite losses and gradient norms, the schedule's rates; (b)
            das_topk launched once a DAS input a layer forward, twice with
            remat (MoE 3 a layer, mamba 2, gla 4, rwkv 8, zamba2's attention
@@ -264,7 +288,9 @@ Phases:
            (bf16 decode, bf16 and float32 LPSA packs) and the float32-query
            decode over bf16 rings (library: SDPA on K/V upcast to float32);
            bitnet-1.3b's tp = 2 shard shapes at a rank's 2 decode rows
-           (das_topk, the packed GEMMs, sparse_attention over 16 heads)
+           (das_topk, the packed GEMMs, sparse_attention over 16 heads); the
+           dist trainer's das_topk calls at a rank's 4096 rows (K = 2048,
+           1024, 2720, 2740)
   profile  (only when named) the packed and int8w decode steps and the
            admission under torch.profiler, as the serve phase profiles them
   http     (only when named) the serve phase's packed path, then its http
@@ -325,6 +351,11 @@ TRAIN_ROWS = TRAIN_BATCH * TRAIN_SEQ
 # the K of every DAS input on the train paths: bitnet-1.3b's 2048 and 5460,
 # zamba2-2.7b's 2560 / 5120 / 10240, gla-1.3b's 5632, rwkv6-3b's 8960
 TRAIN_TOPK_K = (2048, 5460, 2560, 5120, 5632, 8960, 10240)
+# a dist trainer rank's DAS inputs (bitnet-1.3b at dp 2 x tp 2): its 2 x 2048
+# rows at K = 2048 (q/k/v, gate/up: replicated), 1024 (o: its 16 heads) and
+# 2720 / 2740 (down: rank 0's and rank 1's d_ff shard, the dense tail last)
+DIST_TRAIN_ROWS = TRAIN_ROWS // 2
+DIST_TOPK_K = (2048, 1024, 2720, 2740)
 FULL_SINK = 1 << 30                     # the full-cache prefill's sink: every key
 
 
@@ -634,10 +665,12 @@ class Smoke:
         x = rows(5, 5460, bf16)[1:]     # starts 8 bytes past a 16-byte boundary
         same("bf16 (4,5460) from row 1", das_topk_cuda(x, keep=16, block=32),
              ref.das_topk_ref(x, keep=16, block=32))
-        for k in TRAIN_TOPK_K:          # the training step's call: the mask alone
-            x = rows(TRAIN_ROWS, k, bf16)
+        # the training step's call, the mask alone: one rank, then a dist rank's shards
+        for m, k in [(TRAIN_ROWS, k) for k in TRAIN_TOPK_K] + [(DIST_TRAIN_ROWS, k)
+                                                              for k in DIST_TOPK_K]:
+            x = rows(m, k, bf16)
             got = das_topk_cuda(x, keep=16, block=32, with_compact=False)
-            same(f"training, mask only ({TRAIN_ROWS},{k})", got,
+            same(f"training, mask only ({m},{k})", got,
                  ref.das_topk_ref(x, keep=16, block=32, with_compact=False))
             if k % 32 and not bool((got.mask[:, k - k % 32:] == 1).all()):
                 raise AssertionError("das_topk: the dense tail lanes are not all kept")
@@ -1542,7 +1575,17 @@ class Smoke:
         layers, Topology(tp=2): each rank 64 of the 128 experts, twd_decode
         on each rank, tokens and logits beside a one-rank run, and in
         float32 with DAS off as in (a), within 1e-4 with the experts' int8
-        fake-quant the identity (reported as served)."""
+        fake-quant the identity (reported as served).  Then, in the same
+        world, the distributed trainer (``_dist_train_jobs``): (d) bitnet-1.3b
+        at full width, DIST_TRAIN_CUT layers, float32, DAS off, the
+        fake-quants on with one rank's ties, dp 2 x tp 2 with ZeRO-1
+        against one rank; (g) its checkpoint after step 1 restored onto dp
+        1 x tp 2 (2 ranks lost) and step 2 taken there; (f) the GPipe
+        pipeline over 2 pods of tp 2 ranks, then the int8
+        cross-pod mean of (d)'s gradients; (e) bitnet-1.3b at full width
+        and DIST_TRAIN_DEPTH layers, bf16, DAS on, as trained, 2 steps of 4
+        x 2048 tokens at dp 2 x tp 2."""
+        import shutil
         import tempfile
 
         torch = self.torch
@@ -1579,19 +1622,20 @@ class Smoke:
             sc_d = dataclasses.replace(sc, topology=topo)
             dev = self.dev.type
             jobs = [cli.RankJob(cfg, sc_d, dev, path, trace,
-                                teacher=(prompts[teach], forced), profile_steps=8),
+                                teachers=((prompts[teach], forced),), profile_steps=8),
                     cli.RankJob(cfg, sc_d, dev, path, trace, fail_at=(3,), lost=2)]
-            jobs += [cli.RankJob(cfg32, sc_d, dev, path32, teacher=f) for f in feeds.values()]
+            jobs.append(cli.RankJob(cfg32, sc_d, dev, path32, teachers=tuple(feeds.values())))
             log(f"[dist] {cfg.name}: Topology(dp=2, tp=2); d_ff {cfg.d_ff} cut "
                 f"{[hi - lo for lo, hi in MD.model_bounds(cfg, 2)['ff']]}; references and "
                 f"weights in {time.perf_counter() - t0:.1f} s")
             moe_jobs, moe_check = self._dist_moe_jobs(tmp)
+            train_jobs, train_check = self._dist_train_jobs(tmp)
             t0 = time.perf_counter()
             log(f"[dist] {topo.n_devices} ranks spawned on cuda:0, backend gloo, world size "
                 f"{topo.n_devices}: (a), (b), (a) in float32 (requests {self.DIST_EXACT}), then "
-                f"(c) on ranks 0 and 1")
+                f"(c) on ranks 0 and 1, then the trainer's (d), (g), (f), (e)")
             outs = run_ranks(_dist_world, topo.n_devices,
-                             [(j, False) for j in jobs] + moe_jobs, backend="gloo")
+                             [(j, False) for j in jobs] + moe_jobs + train_jobs, backend="gloo")
             log(f"[dist] the ranks' world took {time.perf_counter() - t0:.1f} s (spawn, CUDA "
                 f"init, every job's load, cut and run)")
             tails = [(hi - lo) % cfg.ternary.das.block != 0
@@ -1602,8 +1646,8 @@ class Smoke:
                               path, sc.max_len)
             n = len(jobs)
             self._dist_exact("a", f"{cfg.name} in float32, DAS off, {cfg.n_layers} layers",
-                             {u: (len(f[0]), [o[2 + i] for o in outs], one32[u])
-                              for i, (u, f) in enumerate(feeds.items())})
+                             {u: (len(f[0]), [o[2]["teachers"][i] for o in outs],
+                                  one32[u]) for i, (u, f) in enumerate(feeds.items())})
             prof = [o[0]["profile"] for o in outs]
             wall = max(p["ms_step"] for p in prof)
             busy = sum(p["busy_ms_step"] for p in prof)
@@ -1633,11 +1677,11 @@ class Smoke:
                 f"{st['recovery_seconds']:.3f} (rank 0; {outs[1][1]['stats']['recovery_seconds']:.3f}"
                 f" rank 1), the tokens (a)'s exactly; ranks 2 and 3 retired; rank 0's host "
                 f"seconds {self._secs(outs[0][1])}")
-            moe_check([o[n:] for o in outs])
+            m = n + len(moe_jobs)
+            moe_check([o[n:m] for o in outs])
+            train_check([o[m:] for o in outs])
         finally:
-            for f in tmp.glob("*"):
-                f.unlink()
-            tmp.rmdir()
+            shutil.rmtree(tmp, ignore_errors=True)
 
     @staticmethod
     def _secs(out):
@@ -1680,7 +1724,7 @@ class Smoke:
         del model
         log(f"[dist] ({label}) tokens: {sum(ref[u] == got[u] for u in ref)} of {len(ref)} "
             f"requests token for token the one-rank run's; every rank the same")
-        rels = [float(abs(g - w).max() / abs(w).max()) for g, w in zip(outs[0]["teacher"],
+        rels = [float(abs(g - w).max() / abs(w).max()) for g, w in zip(outs[0]["teachers"][0],
                                                                      one_rank)]
         log(f"[dist] ({label}) teacher-forced request: max |diff| / one-rank max |logit| by "
             f"step {[round(v, 4) for v in rels]} (bf16 tolerance {TOL_BF16})")
@@ -1714,13 +1758,12 @@ class Smoke:
     def _dist_exact(self, label, what, runs, tol=TOL_F32_GEMM):
         """The float32 teacher-forced logits of every rank within ``tol``
         (the float32 GEMM tolerance) of the one-rank max at every step, for
-        each request of ``runs`` {uid: (its prefix's tokens, the ranks'
-        outputs, the one-rank logits)}; ``tol`` None: reported only."""
+        each request of ``runs`` {uid: (its prefix's tokens, each rank's
+        logits, the one-rank logits)}; ``tol`` None: reported only."""
         bad = []
         for uid, (prefix, outs, one_rank) in runs.items():
-            outs = [o for o in outs if o is not None]
             worst = max(float(abs(g - w).max() / abs(w).max())
-                        for o in outs for g, w in zip(o["teacher"], one_rank))
+                        for o in outs for g, w in zip(o, one_rank))
             log(f"[dist] ({label}) {what}, request {uid}: a prefill of {prefix} tokens and "
                 f"{len(one_rank) - 1} steps teacher-forced on {len(outs)} ranks, max |diff| / "
                 f"one-rank max |logit| {worst:.3e} ({'reported' if tol is None else f'bar {tol}'})")
@@ -1783,10 +1826,10 @@ class Smoke:
         torch.cuda.empty_cache()
         sc_t = dataclasses.replace(sc, topology=Topology(tp=2))
         dev = self.dev.type
-        jobs = [(cli.RankJob(cfg, sc_t, dev, path, trace, teacher=(prompts[teach], forced)),
+        jobs = [(cli.RankJob(cfg, sc_t, dev, path, trace, teachers=((prompts[teach], forced),)),
                  False)]
-        jobs += [(cli.RankJob(cfg32, sc_t, dev, path32, teacher=f), ident)
-                 for ident in (True, False) for f in feeds.values()]
+        jobs += [(cli.RankJob(cfg32, sc_t, dev, path32, teachers=tuple(feeds.values())), ident)
+                 for ident in (True, False)]
         log(f"[dist] (c) {cfg.name} at {cfg.n_layers} of {get_config(self.MOE_ARCH).n_layers} "
             f"layers, Topology(tp=2): references and weights in "
             f"{time.perf_counter() - t0:.1f} s")
@@ -1797,12 +1840,12 @@ class Smoke:
             outs = outs[:2]
             self._dist_report("c", cfg, trace, ref, [o[0] for o in outs], one_rank,
                               [self.DIST_MOE_KERNELS] * 2, path, sc.max_len)
-            k = len(feeds)
             for off, one, what, tol in (
                     (1, smooth, "the experts' int8 fake-quant the identity", TOL_F32_GEMM),
-                    (1 + k, one32, "as served", None)):
+                    (2, one32, "as served", None)):
                 self._dist_exact("c", f"{cfg.name} in float32, DAS off, {cfg.n_layers} layers, "
-                                 f"{what}", {u: (len(f[0]), [o[off + i] for o in outs], one[u])
+                                 f"{what}", {u: (len(f[0]), [o[off]["teachers"][i]
+                                                             for o in outs], one[u])
                                              for i, (u, f) in enumerate(feeds.items())}, tol)
             e = cfg.moe.n_experts
             for rank, o in enumerate(outs):
@@ -1814,6 +1857,205 @@ class Smoke:
                     f"decodes {e1 - e0} of the {e} stacks one rank decodes "
                     f"({o['launches']['twd_decode']} launches)")
         return jobs, check
+
+    # the dist phase's trainer: (d) and (g) at DIST_TRAIN_CUT layers in
+    # float32 with DAS off, (e) at DIST_TRAIN_DEPTH in bf16 with DAS on (as
+    # trained), each DIST_TRAIN_STEPS steps of TRAIN_BATCH x TRAIN_SEQ
+    # tokens; (f) 2 stages of one block, DIST_PIPE_MB microbatches of one
+    # DIST_PIPE_SEQ-token row.  (e) is cut to 4 of bitnet-1.3b's 24 layers:
+    # with 24 the whole script read 1326 s of its 1200 on a slow host (a step
+    # ~30 s of host round trips), with 12 up to ~1188 s (PERF.md §5)
+    DIST_TRAIN_CUT, DIST_TRAIN_DEPTH, DIST_TRAIN_STEPS = 2, 4, 2
+    DIST_PIPE_MB, DIST_PIPE_SEQ = 4, 256
+    DIST_TRAIN_TOL = {"loss": 2e-5, "grad": TOL_F32_GEMM, "param": TOL_F32_GEMM,
+                      "pipe_fwd": 1e-5, "pipe_grad": TOL_F32_GEMM, "crosspod": 0.02}
+
+    @staticmethod
+    def _unquantized(cfg):
+        """``cfg`` with the ternary stack off: the weights and activations
+        unquantized, so no rounding decision (an int8 value or a trit at a
+        .5 boundary, which another sum order can move across) sits between
+        the sharded sums and one rank's."""
+        return dataclasses.replace(cfg, ternary=dataclasses.replace(cfg.ternary, enabled=False,
+                                                                    das=None))
+
+    def _dist_train_jobs(self, tmp):
+        """(d)-(g): the one-rank references computed here on the card (then
+        freed) and written with the weights and batches under ``tmp``; the
+        ranks' jobs (``_TrainJob``, run by ``_dist_world``) and the check of
+        their outputs -> (jobs, check(each rank's outputs of these jobs)).
+        (d) and (g) run bitnet-1.3b in float32 with DAS off, its one-rank
+        rounding decisions recorded here (``torch_ties.Replay``) for the
+        ranks to take at near ties; (f) with the ternary stack off
+        (``_unquantized``); each held to DIST_TRAIN_TOL."""
+        torch = self.torch
+        from repro_torch.configs import get_config
+        from repro_torch.data.pipeline import SyntheticLM
+        from repro_torch.launch import train as TR
+        from repro_torch.models import model as MD
+        from repro_torch.models import transformer as T
+        from repro_torch.optim import adamw
+        from repro_torch.tree import leaves, tree_map, unflatten
+        t0 = time.perf_counter()
+        base = get_config(self.TRAIN_ARCH)
+        host = lambda tree: tree_map(lambda x: x.detach().cpu(), tree)  # noqa: E731
+        path = lambda name: str(tmp / f"{name}.pt")  # noqa: E731
+
+        def batches(seed, name):
+            data = SyntheticLM(vocab=base.vocab, seq_len=TRAIN_SEQ, batch=TRAIN_BATCH, seed=seed)
+            bs = [data.batch_at(s) for s in range(self.DIST_TRAIN_STEPS)]
+            torch.save(bs, path(name))
+            return bs
+
+        def one_rank(cfg, p, bs, before=lambda s: None):
+            step = TR.make_train_step(cfg, TR.make_runtime(), peak_lr=self.TRAIN_LR,
+                                      warmup=self.TRAIN_WARMUP, total=self.DIST_TRAIN_STEPS)
+            o, losses = adamw.adamw_init(p), []
+            for s, b in enumerate(bs):
+                before(s)
+                p, o, m = step(p, o, b)
+                losses.append(float(m["loss"]))
+            return p, losses
+
+        # (d), (g): float32, DAS off; the params before, the step-1 gradients,
+        # the params after the steps on one rank and its rounding decisions
+        # (one record for the gradients and step 1, one for step 2)
+        cfg_d = dataclasses.replace(base, n_layers=self.DIST_TRAIN_CUT, dtype="float32",
+                                    ternary=dataclasses.replace(base.ternary, das=None))
+        cfg_s = self._unquantized(cfg_d)
+        bs = batches(self.seed + 21, "batches")
+        refs = {}
+        p = MD.init_params(cfg_d, seed=self.seed + 21, device=self.dev)
+        torch.save(host(p), path("d_params"))
+        ties, recs = _torch_ties().Replay(), []
+        try:
+            recs.append(ties.record())
+            _, aux, g = TR.loss_and_grads(p, cfg_d, bs[0], TR.make_runtime())
+            torch.save({"loss": float(aux["loss"]), "grads": host(g)}, path("d_ref"))
+            del g
+
+            def new_pass(s):          # step 1 repeats the gradients' decisions
+                if s:
+                    recs.append(ties.record())
+            p, refs["d"] = one_rank(cfg_d, p, bs, new_pass)
+        finally:
+            ties.restore()
+        torch.save(recs, path("d_ties"))
+        n_rec = sum(len(v) for r in recs for v in r.values())
+        torch.save(host(p), path("d_params2"))
+        del p, recs
+        # (f): two blocks of the same widths, sequential on one rank
+        blocks = MD.init_params(cfg_s, seed=self.seed + 22, device=self.dev)["layers"]["tail"]
+        gen = self.gen(self.seed + 22)
+        x = torch.randn((self.DIST_PIPE_MB, self.DIST_PIPE_SEQ, base.d_model), generator=gen,
+                        device=self.dev)
+        ct = torch.randn(x.shape, generator=gen, device=self.dev)
+        flat = [t.requires_grad_() for t in leaves(blocks)]
+        y = x
+        for bp in unflatten(blocks, flat):
+            y = T.block_train(bp, cfg_s, y, "attn", None, T.Runtime())
+        grads = torch.autograd.grad((y * ct).sum(), flat)
+        torch.save({"blocks": host(blocks), "x": x.cpu(), "ct": ct.cpu(), "y": y.detach().cpu(),
+                    "grads": host(unflatten(blocks, list(grads)))}, path("pipe"))
+        del blocks, flat, grads, x, ct, y
+        # (e): bf16, DAS on, as trained
+        cfg_e = dataclasses.replace(base, n_layers=self.DIST_TRAIN_DEPTH)
+        bs_e = batches(self.seed + 23, "e_batches")
+        p = MD.init_params(cfg_e, seed=self.seed + 23, device=self.dev)
+        torch.save(host(p), path("e_params"))
+        p, refs["e"] = one_rank(cfg_e, p, bs_e)
+        del p
+        torch.cuda.empty_cache()
+        kw = dict(steps=self.DIST_TRAIN_STEPS, lr=self.TRAIN_LR, warmup=self.TRAIN_WARMUP)
+        d_files = {"params": path("d_params"), "ref": path("d_ref"), "params2": path("d_params2"),
+                   "batches": path("batches"), "ties": path("d_ties"), "ckpt": str(tmp / "ckpt")}
+        jobs = [_TrainJob("d", cfg_d, d_files, **kw), _TrainJob("g", cfg_d, d_files, **kw),
+                _TrainJob("f", cfg_s, {"pipe": path("pipe"), "params": path("d_params"),
+                                       "batches": path("batches")}, **kw),
+                _TrainJob("e", cfg_e, {"params": path("e_params"), "batches": path("e_batches")},
+                          **kw)]
+        log(f"[dist] the trainer's references on one rank and their files in "
+            f"{time.perf_counter() - t0:.1f} s: (d) {cfg_d.n_layers} layers float32, DAS off, "
+            f"the fake-quants on ({n_rec} distinct int8 and trit decisions recorded), losses "
+            f"{[round(v, 6) for v in refs['d']]}; (e) "
+            f"{cfg_e.n_layers} layers {cfg_e.dtype} DAS "
+            f"{cfg_e.ternary.das.keep}/{cfg_e.ternary.das.block}, losses "
+            f"{[round(v, 6) for v in refs['e']]}")
+
+        def check(outs):
+            self._dist_train_check(outs, cfg_e, refs)
+        return [(j, False) for j in jobs], check
+
+    def _dist_train_check(self, outs, cfg_e, refs):
+        """(d), (g) (each rank's ties within the tie rule) and (f) against
+        DIST_TRAIN_TOL; (e)'s launches against the path's structure, its
+        costs reported."""
+        tol, smi, bad = self.DIST_TRAIN_TOL, _nvidia_smi(), []
+        for rank, (d, g, f, e) in enumerate(outs):
+            rel = abs(d["loss"] - d["ref_loss"]) / abs(d["ref_loss"])
+            log(f"[dist] (d) rank {rank}: step 1 loss {d['loss']:.6f} vs one rank "
+                f"{d['ref_loss']:.6f} (rel {rel:.2e}, tol {tol['loss']}); worst gradient leaf "
+                f"{d['grad_err']:.3e} of its max (tol {tol['grad']}); params after "
+                f"{len(d['losses'])} steps worst |diff| {d['param_err']:.3e} (tol {tol['param']}; "
+                f"{d['param_rel']:.3e} of a leaf's max); losses "
+                f"{[round(v, 6) for v in d['losses']]} vs one rank "
+                f"{[round(v, 6) for v in refs['d']]}; ties: {d['ties'][1]}; {d['seconds']:.1f} s")
+            if not (rel <= tol["loss"] and d["grad_err"] <= tol["grad"]
+                    and d["param_err"] <= tol["param"] and d["ties"][0]):
+                bad.append(f"(d) rank {rank}")
+            if rank >= 2:
+                if g is not None:
+                    bad.append(f"(g) rank {rank} trained after its loss")
+            else:
+                log(f"[dist] (g) rank {rank}: step {g['restored']} restored onto "
+                    f"{g['topology']}, moment shapes {g['moments']}; step 2 loss {g['loss']:.6f} "
+                    f"vs one rank {refs['d'][-1]:.6f}; params worst |diff| {g['param_err']:.3e} "
+                    f"(tol {tol['param']}) against the uninterrupted one-rank step 2; ties: "
+                    f"{g['ties'][1]}; {g['seconds']:.1f} s")
+                if not (g["restored"] == 1 and g["param_err"] <= tol["param"] and g["ties"][0]):
+                    bad.append(f"(g) rank {rank}")
+            log(f"[dist] (f) rank {rank} (pod {f['pod']}): {self.DIST_PIPE_MB} microbatches "
+                f"through 2 stages of tp 2, {f['ticks']} ticks: output {f['y_err']:.3e} of its "
+                f"max (tol {tol['pipe_fwd']}), worst gradient leaf of its stage {f['g_err']:.3e} "
+                f"(tol {tol['pipe_grad']}); {f['hops']} sends; int8 cross-pod mean of the "
+                f"gradients of (d)'s weights and batch {f['crosspod']:.3e} of a leaf's max from the exact mean (tol "
+                f"{tol['crosspod']}), residual max {f['residual']:.3e}; {f['seconds']:.1f} s")
+            if not (f["y_err"] <= tol["pipe_fwd"] and f["g_err"] <= tol["pipe_grad"]
+                    and f["crosspod"] <= tol["crosspod"] and f["residual"] > 0):
+                bad.append(f"(f) rank {rank}")
+        per = sum(_das_inputs(cfg_e, k) for k in cfg_e.layer_kinds()) * (2 if cfg_e.remat else 1)
+        es = [o[-1] for o in outs]
+        for rank, e in enumerate(es):
+            for s, st in enumerate(e["steps"]):
+                n = st["launches"]
+                others = {k: v for k, v in n.items() if k != "das_topk" and v}
+                prof = (f", profiled: {e['profiled_topk']} das_topk kernels"
+                        if s == len(e["steps"]) - 1 else "")
+                log(f"[dist] (e) rank {rank} step {s}: loss {st['loss']:.6f} (one rank "
+                    f"{refs['e'][s]:.6f}; reported: bf16 and DAS ties part in sum order), "
+                    f"{st['ms']:.1f} ms on the host clock; das_topk {n['das_topk']} launches, "
+                    f"das_train_mask {st['mask_calls']} calls (expected {per}: "
+                    f"{per // cfg_e.n_layers} a layer with remat){prof}; collectives "
+                    f"{st['collectives']}")
+                if n["das_topk"] != per or st["mask_calls"] != per or others:
+                    bad.append(f"(e) rank {rank} step {s}: launches {n}, mask calls "
+                               f"{st['mask_calls']}")
+                self.launches["das_topk"] += n["das_topk"]
+            if e["profiled_topk"] != e["steps"][-1]["launches"]["das_topk"]:
+                bad.append(f"(e) rank {rank}: {e['profiled_topk']} das_topk kernels profiled")
+        wall = max(e["steps"][-1]["ms"] for e in es)
+        busy = _union_ms([sp for e in es for sp in e["spans"]])
+        log(f"[dist] (e) {cfg_e.name}, {cfg_e.n_layers} layers, dp 2 x tp 2, ZeRO-1: the profiled "
+            f"step {wall:.1f} ms (the slowest rank, host clock); the card busy {busy:.1f} ms (the "
+            f"union of the 4 ranks' device spans: their kernels and copies time-slice one card, so "
+            f"their summed durations, {[round(e['busy_ms'], 1) for e in es]} ms of which copies "
+            f"{[round(e['copy_ms'], 1) for e in es]}, overlap), idle share "
+            f"{max(0.0, 1 - busy / wall):.3f}; peak memory a rank "
+            f"{[round(e['peak'] / 1e9, 2) for e in es]} GB, the card's used "
+            f"{max(e['card_used'] for e in es) / 1e9:.2f} GB (mem_get_info); "
+            f"{smi}; ranks sharing one card over gloo, not a multi-card time")
+        if bad:
+            raise AssertionError(f"dist trainer: {bad}")
 
     MOE_ARCH = "qwen3-moe-30b-a3b"
     # the MoE path's depth, cut from 48 to keep the whole run within the
@@ -3464,21 +3706,21 @@ class Smoke:
             + f"({', '.join(f'{n[:40]} {v:.1f}' for n, v in top) or 'none'})"
             + f" (aggregated in {time.perf_counter() - t0:.1f} s); {smi}")
 
-    def _train_topk_times(self, smi):
-        """das_topk's training calls (the mask alone) at 8192 rows x every K
-        of the train paths, bf16: CUDA-event median beside the bound (x
-        read, the int8 mask written) and the plain version."""
+    def _train_topk_times(self, smi, rows=TRAIN_ROWS, ks=TRAIN_TOPK_K, what="training call"):
+        """das_topk's training calls (the mask alone) at ``rows`` x every K
+        of ``ks``, bf16: CUDA-event median beside the bound (x read, the int8
+        mask written) and the plain version."""
         torch = self.torch
         from repro_torch.kernels import ref
         from repro_torch.kernels.topk_mask import das_topk_cuda
         g = self.gen(self.seed + 9)
-        for k in TRAIN_TOPK_K:
-            x = torch.randn((TRAIN_ROWS, k), generator=g, device=self.dev).to(torch.bfloat16)
+        for k in ks:
+            x = torch.randn((rows, k), generator=g, device=self.dev).to(torch.bfloat16)
             ms = self._t_ms(lambda: das_topk_cuda(x, keep=16, block=32, with_compact=False))
             plain = self._t_ms(lambda: ref.das_topk_ref(x, keep=16, block=32,
                                                        with_compact=False), reps=5)
-            bound = TRAIN_ROWS * k * 3 / HBM_BYTES_PER_S * 1e3
-            log(f"[times] das_topk training call, mask only ({TRAIN_ROWS},{k}) bf16: "
+            bound = rows * k * 3 / HBM_BYTES_PER_S * 1e3
+            log(f"[times] das_topk {what}, mask only ({rows},{k}) bf16: "
                 f"{ms * 1e3:.1f} us, bound {bound * 1e3:.2f} us (bytes), plain {plain * 1e3:.1f} "
                 f"us; {smi}")
 
@@ -3813,6 +4055,8 @@ class Smoke:
         if 160 in sparse_attn.HEAD_DIMS:      # a tree before the frontends has no D = 160
             self._frontend_times(t_ms, attn_row, g)
         self._tp2_times(t_ms, g)
+        self._train_topk_times(_nvidia_smi(), DIST_TRAIN_ROWS, DIST_TOPK_K,
+                               "dist trainer call (a rank of dp 2 x tp 2)")
 
     def _tp2_times(self, t_ms, g):
         """bitnet-1.3b's tp = 2 shard shapes at a rank's decode step (2 rows:
@@ -4625,19 +4869,285 @@ def _is_attention(kernel_name: str) -> bool:
 
 
 def _dist_world(rank: int, jobs) -> list:
-    """One rank of the dist phase's world: ``serve_rank`` of each (job,
-    smooth) of ``jobs`` in turn, the MoE experts' int8 fake-quant the
-    identity where ``smooth`` (as ``Smoke._moe_width_parity`` makes it)."""
+    """One rank of the dist phase's world: each (job, smooth) of ``jobs`` in
+    turn, a serving job through ``serve_rank`` (the MoE experts' int8
+    fake-quant the identity where ``smooth``, as ``Smoke._moe_width_parity``
+    makes it), a ``_TrainJob`` through ``_DIST_TRAIN[job.kind]``; the
+    card's cache emptied between jobs."""
+    import torch
+
     from repro_torch.core import ternary as tq
     from repro_torch.launch import serve as cli
     quant, out = tq.int8_fake_quant, []
     try:
         for job, smooth in jobs:
             tq.int8_fake_quant = (lambda x: x) if smooth else quant
-            out.append(cli.serve_rank(rank, job))
+            if isinstance(job, _TrainJob):
+                out.append(_DIST_TRAIN[job.kind](rank, job))
+            else:
+                out.append(cli.serve_rank(rank, job))
+            torch.cuda.empty_cache()
     finally:
         tq.int8_fake_quant = quant
     return out
+
+
+@dataclasses.dataclass(frozen=True)
+class _TrainJob:
+    """A job of the dist phase's trainer (``Smoke._dist_train_jobs``):
+    ``kind`` (d, e, f or g), the config, the files the parent wrote
+    (weights, batches, one-rank references, the checkpoint directory), the
+    steps and the schedule."""
+    kind: str
+    cfg: object
+    files: dict
+    steps: int
+    lr: float
+    warmup: int
+
+
+def _union_ms(spans) -> float:
+    """The length in ms of the union of (start_ns, end_ns) spans."""
+    total, end = 0, None
+    for a, b in sorted(spans):
+        if end is None or a > end:
+            total += b - a
+            end = b
+        elif b > end:
+            total += b - end
+            end = b
+    return total / 1e6
+
+
+def _rank_setup(rank: int):
+    """(torch, this rank's card) with the card made current."""
+    import torch
+
+    from repro_torch.distributed.launch import rank_device
+    dev = rank_device(rank, "cuda")
+    torch.cuda.set_device(dev)
+    return torch, dev
+
+
+def _worst(got, want, rel: bool = True) -> float:
+    """The largest |got - want| over two trees' leaves (``want`` on the
+    host), each relative to its leaf's max |want| where ``rel``."""
+    from repro_torch.tree import leaves
+    worst = 0.0
+    for a, b in zip(leaves(got), leaves(want), strict=True):
+        b = b.to(a.device).float()
+        err = float((a.float() - b).abs().max())
+        worst = max(worst, err / max(float(b.abs().max()), 1e-30) if rel else err)
+    return worst
+
+
+def _torch_ties():
+    """tests/torch_ties.py: ``Replay``, the tie rule of the training tests."""
+    if str(ROOT / "tests") not in sys.path:
+        sys.path.append(str(ROOT / "tests"))
+    import torch_ties
+    return torch_ties
+
+
+def _train_d(rank: int, job: _TrainJob) -> dict:
+    """(d): bitnet-1.3b at dp 2 x tp 2 with ZeRO-1 from the parent's
+    weights: step 1's loss and its gradients (each rank's part summed over
+    "dp", gathered over "model") against one rank's, then the steps (the
+    state after step 1 gathered and saved by rank 0 for (g)) and the params
+    after them against one rank's; each pass takes one rank's rounding
+    decisions at near ties (``torch_ties.Replay``)."""
+    t0 = time.perf_counter()
+    torch, dev = _rank_setup(rank)
+    from repro_torch import checkpoint as ckpt
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed.plan import Topology
+    from repro_torch.launch import train as TR
+    from repro_torch.models import model as MD
+    from repro_torch.tree import leaves, unflatten
+    cfg, f = job.cfg, job.files
+    mesh = Topology(dp=2, tp=2).build_mesh()
+    sh = TR.train_shardings(mesh, torch.load(f["params"], mmap=True), cfg=cfg, device=dev)
+    bs = torch.load(f["batches"], weights_only=False)
+    rt = TR.make_runtime(mesh, TRAIN_BATCH)
+    recs = torch.load(f["ties"], mmap=True)
+    ties = _torch_ties().Replay(TR.batch_rows(mesh, TRAIN_BATCH), MD.model_bounds(cfg, 2),
+                                mesh.model_index)
+    try:
+        ties.force(recs[0])
+        _, aux, grads = TR.loss_and_grads(sh.params, cfg, sh.batch(bs[0]), rt)
+        grads = MD.gather_params(grads, cfg, mesh)
+        grads = unflatten(grads, [C.psum(g.float(), mesh, "dp") for g in leaves(grads)])
+        ref = torch.load(f["ref"], mmap=True)
+        out = {"loss": float(aux["loss"]), "ref_loss": ref["loss"],
+               "grad_err": _worst(grads, ref["grads"])}
+        del grads, ref
+        step = TR.make_train_step(cfg, rt, peak_lr=job.lr, warmup=job.warmup, total=job.steps)
+        p, o, losses = sh.params, sh.opt, []
+        for s, b in enumerate(bs):
+            ties.force(recs[s])
+            p, o, m = step(p, o, b)
+            losses.append(float(m["loss"]))
+            if s == 0:
+                state = TR.gather_state(mesh, p, o, cfg=cfg)
+                if rank == 0:
+                    ckpt.save_checkpoint(f["ckpt"], 1, state)
+                del state
+    finally:
+        ties.restore()
+    final, want = MD.gather_params(p, cfg, mesh), torch.load(f["params2"], mmap=True)
+    out.update(ties=(ties.ok(), ties.summary()), losses=losses,
+               param_err=_worst(final, want, rel=False),
+               param_rel=_worst(final, want), seconds=time.perf_counter() - t0)
+    torch.distributed.barrier()              # the checkpoint is whole before (g) reads it
+    return out
+
+
+def _train_g(rank: int, job: _TrainJob) -> dict | None:
+    """(g): (d)'s checkpoint after step 1 restored onto Topology(dp=1,
+    tp=2), ranks 2 and 3 lost, and step 2 taken there (one rank's ties
+    taken as in (d)): the params against the uninterrupted one-rank step
+    2."""
+    t0 = time.perf_counter()
+    torch, dev = _rank_setup(rank)
+    from repro_torch.distributed.elastic import elastic_restore
+    from repro_torch.distributed.plan import ShardingPlan, Topology
+    from repro_torch.launch import train as TR
+    from repro_torch.models import model as MD
+    from repro_torch.tree import leaves
+    cfg, f = job.cfg, job.files
+    topo = Topology(dp=1, tp=2)
+    mesh = topo.build_mesh()
+    if not mesh.member:
+        return None
+    full = torch.load(f["params"], mmap=True)
+    plan = ShardingPlan.for_tree(full, topo, validate=False, cfg=cfg)
+    tree, restored = elastic_restore(f["ckpt"], mesh, plan, device=dev)
+    step = TR.make_train_step(cfg, TR.make_runtime(mesh, TRAIN_BATCH), peak_lr=job.lr,
+                              warmup=job.warmup, total=job.steps)
+    bs = torch.load(f["batches"], weights_only=False)
+    ties = _torch_ties().Replay(TR.batch_rows(mesh, TRAIN_BATCH), MD.model_bounds(cfg, 2),
+                                mesh.model_index)
+    try:
+        ties.force(torch.load(f["ties"], mmap=True)[restored])
+        p, _, m = step(tree["params"], tree["opt"], bs[restored])
+    finally:
+        ties.restore()
+    return {"restored": restored, "topology": topo, "loss": float(m["loss"]),
+            "ties": (ties.ok(), ties.summary()),
+            "moments": sorted({tuple(x.shape) for x in leaves(tree["opt"].m)})[:2],
+            "param_err": _worst(MD.gather_params(p, cfg, mesh),
+                                torch.load(f["params2"], mmap=True), rel=False),
+            "seconds": time.perf_counter() - t0}
+
+
+def _train_f(rank: int, job: _TrainJob) -> dict:
+    """(f): the GPipe pipeline over Topology(pods=2, dp=1, tp=2), one block
+    a pod on its tp 2 shard: the output and the stage's gradients
+    (gathered over "model") against the sequential blocks on one rank;
+    then the int8 error-feedback mean over the 2 pods of the gradients of
+    (d)'s weights and batch with the ternary stack off (each pod the
+    gradient of its batch rows) against the exact mean."""
+    t0 = time.perf_counter()
+    torch, dev = _rank_setup(rank)
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed.pipeline import pipeline_apply
+    from repro_torch.distributed.plan import Topology
+    from repro_torch.launch import train as TR
+    from repro_torch.models import model as MD
+    from repro_torch.models import transformer as T
+    from repro_torch.models.ternary_linear import shard_scales
+    from repro_torch.optim.grad import compressed_crosspod_mean, zeros_error
+    from repro_torch.tree import leaves, unflatten
+    cfg, f = job.cfg, job.files
+    mesh = Topology(pods=2, dp=1, tp=2).build_mesh()
+    ref = torch.load(f["pipe"], mmap=True)
+    bp = MD.shard_params(ref["blocks"][mesh.pod_index], cfg, mesh, dev)
+    flat = [t.requires_grad_() for t in leaves(bp)]
+    lcfg, rt = MD.local_config(cfg, mesh), TR.make_runtime(mesh, TRAIN_BATCH)
+    C.reset_counts()
+    y = pipeline_apply(lambda p, xm: T.block_train(p, lcfg, xm, "attn", None, rt),
+                       shard_scales(bp, mesh), ref["x"].to(dev), mesh=mesh,
+                       n_microbatches=ref["x"].shape[0])
+    grads = torch.autograd.grad((y * ref["ct"].to(dev)).sum(), flat)
+    hops = C.counts["send"]
+    out = {"pod": mesh.pod_index, "ticks": ref["x"].shape[0] + 1, "hops": hops,
+           "y_err": _worst(y.detach(), ref["y"]),
+           "g_err": _worst(MD.gather_params(unflatten(bp, list(grads)), cfg, mesh),
+                           ref["grads"][mesh.pod_index])}
+    del bp, flat, grads, y, ref
+    p = MD.shard_params(torch.load(f["params"], mmap=True), cfg, mesh, dev)
+    bs = torch.load(f["batches"], weights_only=False)
+    _, _, g = TR.loss_and_grads(p, cfg, {k: v[TR.batch_rows(mesh, TRAIN_BATCH)]
+                                         for k, v in bs[0].items()}, rt)
+    g = unflatten(g, [x.float() for x in leaves(g)])
+    exact = unflatten(g, [C.psum(x, mesh, "pod") / 2 for x in leaves(g)])
+    mean, err = compressed_crosspod_mean(g, zeros_error(g), mesh)
+    out.update(crosspod=_worst(mean, exact), residual=max(float(e.abs().max())
+                                                           for e in leaves(err)),
+               seconds=time.perf_counter() - t0)
+    return out
+
+
+def _train_e(rank: int, job: _TrainJob) -> dict:
+    """(e): bitnet-1.3b as trained (bf16, DAS on, remat) at dp 2 x tp 2 with
+    ZeRO-1, the steps of 4 x 2048 tokens from the parent's weights: each
+    step's loss, host ms, kernel launches, das_train_mask's calls and
+    collectives; the last step under the profiler (device busy ms, its
+    das_topk kernels); peak memory and the card's use."""
+    torch, dev = _rank_setup(rank)
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed.plan import Topology
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as TR
+    from repro_torch.models import ternary_linear as TL
+    cfg, f = job.cfg, job.files
+    mesh = Topology(dp=2, tp=2).build_mesh()
+    sh = TR.train_shardings(mesh, torch.load(f["params"], mmap=True), cfg=cfg, device=dev)
+    bs = torch.load(f["batches"], weights_only=False)
+    step = TR.make_train_step(cfg, TR.make_runtime(mesh, TRAIN_BATCH), peak_lr=job.lr,
+                              warmup=job.warmup, total=job.steps)
+    calls, orig = [0], TL.das_train_mask
+
+    def counted(x, tc):
+        calls[0] += 1
+        return orig(x, tc)
+    TL.das_train_mask = counted
+    p, o, steps, prof = sh.params, sh.opt, [], None
+    del sh
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        for s, b in enumerate(bs):
+            last = s == len(bs) - 1
+            ops.reset_launches()
+            C.reset_counts()
+            calls[0] = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with (torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
+                  if last else contextlib.nullcontext()) as pr:
+                p, o, m = step(p, o, b)
+                torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            prof = pr if last else prof
+            steps.append({"loss": float(m["loss"]), "ms": ms, "launches": dict(ops.launches),
+                          "mask_calls": calls[0],
+                          "collectives": {k: (round(v, 3) if isinstance(v, float) else v)
+                                          for k, v in C.counts.items()}})
+    finally:
+        TL.das_train_mask = orig
+    cuda = torch.autograd.DeviceType.CUDA
+    events = [e for e in prof.profiler.kineto_results.events()
+              if e.device_type() == cuda and not e.is_user_annotation()]
+    copies = [e for e in events if e.name().startswith(("Memcpy", "Memset"))]
+    free, total = torch.cuda.mem_get_info()
+    return {"steps": steps, "busy_ms": sum(e.duration_ns() for e in events) / 1e6,
+            "copy_ms": sum(e.duration_ns() for e in copies) / 1e6,
+            "spans": sorted((e.start_ns(), e.start_ns() + e.duration_ns()) for e in events),
+            "profiled_topk": sum(1 for e in events if "das_topk" in e.name()),
+            "peak": torch.cuda.max_memory_allocated(), "card_used": total - free}
+
+
+_DIST_TRAIN = {"d": _train_d, "e": _train_e, "f": _train_f, "g": _train_g}
 
 
 def _nvidia_smi() -> str:

@@ -20,7 +20,9 @@ under a Topology: the full tree through ``load_serving_tree`` on the CPU
 leaves, the same nesting; scan-stacked groups kept stacked, as
 ``transformer.stack_train`` runs them) to tensors on a device with
 ``requires_grad`` set, or its ``AdamWState`` (a NamedTuple of step, m and v)
-to the port's.
+to the port's.  ``load_master_shard`` carries that tree to one rank's
+shard under a Topology (``models.model.shard_params``), so every rank
+starts from the JAX package's weights.
 """
 
 from __future__ import annotations
@@ -30,11 +32,12 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.model import TernaryLM, shard_model
+from repro_torch.models.model import TernaryLM, shard_model, shard_params
 from repro_torch.optim.adamw import AdamWState
 from repro_torch.tree import leaves, tree_map
 
-__all__ = ["to_torch", "load_serving_tree", "load_serving_shard", "load_master_tree"]
+__all__ = ["to_torch", "load_serving_tree", "load_serving_shard", "load_master_tree",
+           "load_master_shard"]
 
 
 def to_torch(a: np.ndarray) -> torch.Tensor:
@@ -83,3 +86,11 @@ def load_master_tree(tree, cfg: ModelConfig, device=None):
     if n != cfg.n_layers:
         raise ValueError(f"tree holds {n} layers, {cfg.name} has {cfg.n_layers}")
     return _on(tree, device, True)
+
+
+def load_master_shard(tree, cfg: ModelConfig, mesh, device=None):
+    """The JAX package's master params (numpy leaves) cut to the shard of
+    ``mesh``'s rank (a ``distributed.plan.Mesh``) on ``device`` (CUDA
+    unless "cpu"), floating leaves with ``requires_grad``."""
+    shard = shard_params(load_master_tree(tree, cfg, "cpu"), cfg, mesh, resolve_device(device))
+    return tree_map(lambda t: t.requires_grad_() if t.is_floating_point() else t, shard)

@@ -14,6 +14,13 @@ manifest.  ``async_save`` hands the write to a daemon thread after the
 leaves are copied to the host; ``wait_pending`` joins it (and raises what it
 raised), as every save and restore does first.
 
+Checkpoints hold the global tree, as the JAX package's do: a sharded
+trainer gathers its state before saving (``launch.train.gather_state``),
+and ``restore_checkpoint(..., mesh=, plan=)`` restores the global arrays on
+the host and cuts this rank's shard of {"params", "opt"}, ZeRO-1 moments
+included (``distributed.elastic.shard_state``), so a step saved at one
+topology restores at another.
+
 ``restore_repro_checkpoint`` reads a step written by the JAX package's
 ``save_checkpoint`` from its ``payload.npz`` alone: leaf_i is the i-th leaf
 of a tree of the same structure given as ``like``, in ``jax.tree.flatten``'s
@@ -186,25 +193,48 @@ def _resolve_step(directory: str, step: int | None) -> tuple[str, int]:
 
 
 def restore_checkpoint(directory: str, step: int | None = None, *,
-                       device=None) -> tuple[Any, int]:
+                       device=None, mesh=None, plan=None) -> tuple[Any, int]:
     """Load the tree of the given (default: the latest committed) step onto
-    ``device`` (CUDA unless "cpu") -> (tree, step)."""
+    ``device`` (CUDA unless "cpu") -> (tree, step).  With ``mesh`` (a
+    ``distributed.plan.Mesh``) and ``plan`` (a ``ShardingPlan`` with its
+    ``cfg``), the tree is a trainer's {"params", "opt"}, read on the host
+    and cut to the rank's shard on ``device``."""
     device = resolve_device(device)
     d, step = _resolve_step(directory, step)
     with open(os.path.join(d, "manifest.json")) as f:
         man = json.load(f)
+    host = mesh is not None
     with np.load(os.path.join(d, "payload.npz")) as payload:
-        flat = [_tensor(payload[f"leaf_{i}"], leaf["dtype"], device)
+        flat = [_tensor(payload[f"leaf_{i}"], leaf["dtype"], "cpu" if host else device)
                 for i, leaf in enumerate(man["leaves"])]
-    return unflatten(_skeleton(man["structure"]), flat), step
+    tree = unflatten(_skeleton(man["structure"]), flat)
+    if not host:
+        return tree, step
+    return _shard(tree, d=d, mesh=mesh, plan=plan, device=device), step
+
+
+def _shard(tree, *, d: str, mesh, plan, device):
+    """A restored trainer state {"params", "opt"} cut to ``mesh``'s rank."""
+    from repro_torch.distributed.elastic import shard_state
+    if plan is None or plan.cfg is None or plan.topology != mesh.topology:
+        raise ValueError("a restore onto a mesh needs the ShardingPlan of its topology, "
+                         "with the model's cfg")
+    if not isinstance(tree, dict) or set(tree) != {"params", "opt"}:
+        raise ValueError(f"{d} holds no trainer state {{params, opt}}")
+    return shard_state(tree, plan.cfg, mesh, device)[0]
 
 
 def restore_repro_checkpoint(directory: str, like: Any, step: int | None = None, *,
-                             device=None) -> tuple[Any, int]:
+                             device=None, mesh=None, plan=None) -> tuple[Any, int]:
     """Load a step written by the JAX package's ``save_checkpoint`` into a
     tree shaped as ``like`` (the same structure, e.g. {"params", "opt"} of
-    the port's), each leaf checked against ``like``'s shape and dtype."""
+    the port's), each leaf checked against ``like``'s shape and dtype; with
+    ``mesh`` and ``plan``, cut to the rank's shard as ``restore_checkpoint``
+    does."""
     device = resolve_device(device)
+    if mesh is not None:
+        tree, step = restore_repro_checkpoint(directory, like, step, device="cpu")
+        return _shard(tree, d=directory, mesh=mesh, plan=plan, device=device), step
     d, step = _resolve_step(directory, step)
     want = leaves(like)
     out = []

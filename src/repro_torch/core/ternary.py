@@ -14,6 +14,13 @@ The fake-quants (``ternary_fake_quant``, ``int8_fake_quant``,
 ``ternary_fake_quant_stacked``) are ``torch.autograd.Function``s: forward
 quantizes and dequantizes in the input's dtype, backward passes the
 gradient through unchanged, as the JAX package's ``custom_vjp``s do.
+
+On a tensor-parallel shard the per-tensor and per-token statistics are the
+whole tensor's, given by the caller (``models.ternary_linear``): a weight
+shard's absmean scale ``gamma`` (the sum of |W| over the ranks over the
+whole count), a row-parallel input's ``amax`` (the max over the ranks:
+exact).  The STE backward is the identity either way, so neither carries a
+gradient.
 """
 
 from __future__ import annotations
@@ -49,8 +56,12 @@ def absmean_scale(w: torch.Tensor, *, per_channel: bool = False) -> torch.Tensor
     return w.abs().mean(dtype=torch.float32).to(w.dtype) + EPS
 
 
-def ternary_quantize(w: torch.Tensor, *, per_channel: bool = False) -> TernaryWeight:
-    gamma = absmean_scale(w, per_channel=per_channel)
+def ternary_quantize(w: torch.Tensor, *, per_channel: bool = False,
+                     gamma: torch.Tensor | None = None) -> TernaryWeight:
+    """W -> TernaryWeight, its scale ``absmean_scale(w)`` unless ``gamma``
+    (in W's dtype) is given."""
+    if gamma is None:
+        gamma = absmean_scale(w, per_channel=per_channel)
     q = torch.clamp(torch.round(w / gamma), -1.0, 1.0)
     return TernaryWeight(values=q.to(torch.int8), scale=gamma.float())
 
@@ -59,9 +70,12 @@ def ternary_dequantize(tw: TernaryWeight, dtype=torch.float32) -> torch.Tensor:
     return tw.values.to(dtype) * tw.scale.to(dtype)
 
 
-def int8_quantize(x: torch.Tensor, *, dim: int = -1) -> QuantizedActivation:
-    """Per-token absmax int8 quantization of activations (the paper's Q_int8)."""
-    amax = x.abs().amax(dim=dim, keepdim=True)
+def int8_quantize(x: torch.Tensor, *, dim: int = -1,
+                  amax: torch.Tensor | None = None) -> QuantizedActivation:
+    """Per-token absmax int8 quantization of activations (the paper's
+    Q_int8); ``amax`` (x's dtype, ``dim`` kept) replaces x's own."""
+    if amax is None:
+        amax = x.abs().amax(dim=dim, keepdim=True)
     scale = (amax / 127.0 + EPS).float()
     q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
     return QuantizedActivation(values=q, scale=scale)
@@ -73,22 +87,23 @@ def int8_dequantize(qa: QuantizedActivation, dtype=torch.float32) -> torch.Tenso
 
 class _TernaryFakeQuant(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, w):
-        return ternary_dequantize(ternary_quantize(w), dtype=w.dtype)
+    def forward(ctx, w, gamma):
+        return ternary_dequantize(ternary_quantize(w, gamma=gamma), dtype=w.dtype)
 
     @staticmethod
     def backward(ctx, g):
-        return g
+        return g, None
 
 
 class _Int8FakeQuant(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x):
-        return int8_dequantize(int8_quantize(x), dtype=x.dtype)
+    def forward(ctx, x, amax):
+        qa = int8_quantize(x) if amax is None else int8_quantize(x, amax=amax)
+        return int8_dequantize(qa, dtype=x.dtype)
 
     @staticmethod
     def backward(ctx, g):
-        return g
+        return g, None
 
 
 class _TernaryFakeQuantStacked(torch.autograd.Function):
@@ -104,16 +119,18 @@ class _TernaryFakeQuantStacked(torch.autograd.Function):
         return g
 
 
-def ternary_fake_quant(w: torch.Tensor) -> torch.Tensor:
+def ternary_fake_quant(w: torch.Tensor, gamma: torch.Tensor | None = None) -> torch.Tensor:
     """STE ternary fake-quant (QAT): forward dequantize(quantize(w)) in w's
-    dtype with a per-tensor scale, backward the identity."""
-    return _TernaryFakeQuant.apply(w)
+    dtype with a per-tensor scale (``gamma`` where given: a shard's, the
+    whole weight's), backward the identity."""
+    return _TernaryFakeQuant.apply(w, gamma)
 
 
-def int8_fake_quant(x: torch.Tensor) -> torch.Tensor:
-    """STE int8 fake-quant: x quantized per token and back, in x's dtype;
-    backward the identity."""
-    return _Int8FakeQuant.apply(x)
+def int8_fake_quant(x: torch.Tensor, amax: torch.Tensor | None = None) -> torch.Tensor:
+    """STE int8 fake-quant: x quantized per token and back, in x's dtype,
+    from its own absmax or ``amax`` (a row-parallel shard's, over the whole
+    row); backward the identity."""
+    return _Int8FakeQuant.apply(x, amax)
 
 
 def ternary_fake_quant_stacked(w: torch.Tensor) -> torch.Tensor:

@@ -20,9 +20,12 @@ The plan says *which* axis a leaf shards on; ``shard_bounds`` gives each
 rank's ``[lo, hi)`` along it.  The two are kept apart because the cut need
 not be even: an input of the DAS step is cut on whole DAS blocks, its
 dense tail (the last ``K % 32`` lanes) on the last rank, so every rank
-masks exactly the lanes one device masks (``models.model.shard_model``).
-``ShardingPlan.zero1`` (ZeRO-1 moment specs) waits for the training half
-(ROADMAP queue 1, item 2).
+masks exactly the lanes one device masks (``models.model.shard_model``,
+``shard_params``).  A plan resolves against a serving model or against a
+training master tree (nested dicts, leaves named by their path:
+``layers.tail.0.attn.wq.w``); ``ShardingPlan.zero1`` gives the ZeRO-1
+specs of its optimizer moments (``sharding.zero1_specs``), whose "data"
+cut is even (``data_bounds``).
 """
 
 from __future__ import annotations
@@ -35,8 +38,10 @@ import torch
 
 from repro_torch.distributed import elastic
 from repro_torch.distributed import sharding as _rules
+from repro_torch.tree import is_leaf, leaves_with_paths
 
-__all__ = ["Topology", "Mesh", "ShardingPlan", "shard_bounds", "cache_leaf_spec"]
+__all__ = ["Topology", "Mesh", "ShardingPlan", "shard_bounds", "data_bounds",
+           "cache_leaf_spec", "tree_leaves"]
 
 
 # -------------------------------------------------------------------------
@@ -135,17 +140,30 @@ class Topology:
                 f"{len(ranks)}: relaunch with {self.n_devices} ranks (the serve CLI "
                 f"spawns dp * tp of them) or shrink --tp/--dp")
         ranks = ranks[:self.n_devices]
-        tp, dpx = self.tp, self.dp_extent
-        model_groups = [dist.new_group([ranks[d * tp + m] for m in range(tp)])
-                        for d in range(dpx)]
-        data_groups = [dist.new_group([ranks[d * tp + m] for d in range(dpx)])
-                       for m in range(tp)]
+        tp, dp, pods = self.tp, self.dp, self.pods
+
+        def at(p, d, m):
+            return ranks[(p * dp + d) * tp + m]
+
+        def groups(members):          # one new_group a list, on every rank alike
+            return [dist.new_group(m) for m in members]
+
+        model = groups([[at(p, d, m) for m in range(tp)]
+                        for p in range(pods) for d in range(dp)])
+        data = groups([[at(p, d, m) for d in range(dp)] for p in range(pods) for m in range(tp)])
+        pod = groups([[at(p, d, m) for p in range(pods)] for d in range(dp) for m in range(tp)]) \
+            if pods > 1 else None
+        dpg = groups([[at(p, d, m) for p in range(pods) for d in range(dp)] for m in range(tp)]) \
+            if pods > 1 else None
         me = dist.get_rank()
+        backend = dist.get_backend()
         if me not in ranks:
-            return Mesh(self, ranks, me, dist.get_backend(), None, None)
+            return Mesh(self, ranks, me, backend, None, None)
         i = ranks.index(me)
-        return Mesh(self, ranks, me, dist.get_backend(), model_groups[i // tp],
-                    data_groups[i % tp])
+        p, d, m = i // (dp * tp), i // tp % dp, i % tp
+        return Mesh(self, ranks, me, backend, model[p * dp + d], data[p * tp + m],
+                    None if pod is None else pod[d * tp + m],
+                    None if dpg is None else dpg[m])
 
     @classmethod
     def from_mesh(cls, mesh: "Mesh") -> "Topology":
@@ -171,36 +189,68 @@ class Topology:
 @dataclass(frozen=True)
 class Mesh:
     """One rank's view of a built ``Topology``: the world ``ranks`` of the
-    mesh (data-major), this process's world ``rank``, the backend, and the
-    process groups of its "model" axis and its data axes (pods and data
-    together; None outside the mesh)."""
+    mesh (pod-, then data-major: position i = (pod, data, model) with i =
+    (pod * dp + data) * tp + model), this process's world ``rank``, the
+    backend, and the process groups of its axes: "model", "data" (the data
+    ranks of its pod), "pod" (the same (data, model) place in every pod) and
+    "dp" (pods and data together: the batch axes).  Groups are None outside
+    the mesh; with one pod, "dp" is "data" and "pod" has one rank."""
     topology: Topology
     ranks: tuple
     rank: int
     backend: str
     model_group: object
     data_group: object
+    pod_group: object = None
+    dp_group: object = None
 
     @property
     def member(self) -> bool:
         return self.rank in self.ranks
 
     @property
+    def _pos(self) -> int:
+        return self.ranks.index(self.rank)
+
+    @property
     def model_index(self) -> int:
-        return self.ranks.index(self.rank) % self.topology.tp
+        return self._pos % self.topology.tp
 
     @property
     def data_index(self) -> int:
-        return self.ranks.index(self.rank) // self.topology.tp
+        """The rank's index on "data", within its pod."""
+        return self._pos // self.topology.tp % self.topology.dp
+
+    @property
+    def pod_index(self) -> int:
+        return self._pos // (self.topology.dp * self.topology.tp)
+
+    @property
+    def dp_index(self) -> int:
+        """The rank's index on "dp" (pods and data together): its batch rows."""
+        return self._pos // self.topology.tp
+
+    def index(self, axis: str) -> int:
+        return {"model": self.model_index, "data": self.data_index, "pod": self.pod_index,
+                "dp": self.dp_index}[axis]
 
     def group(self, axis: str):
-        """The process group of ``axis``: "model" or "data" (pods and data
-        together)."""
-        return {"model": self.model_group, "data": self.data_group}[axis]
+        """The process group of ``axis``: "model", "data", "pod" or "dp"."""
+        if axis == "dp" and self.dp_group is None:
+            return self.data_group
+        return {"model": self.model_group, "data": self.data_group, "pod": self.pod_group,
+                "dp": self.dp_group}[axis]
 
     def size(self, axis: str) -> int:
         t = self.topology
-        return {"model": t.tp, "data": t.dp_extent}[axis]
+        return {"model": t.tp, "data": t.dp, "pod": t.pods, "dp": t.dp_extent}[axis]
+
+    def axis_ranks(self, axis: str) -> tuple:
+        """The world ranks of this rank's ``axis`` group, in axis order."""
+        t, i = self.topology, self._pos
+        stride = {"model": 1, "data": t.tp, "pod": t.dp * t.tp, "dp": t.tp}[axis]
+        first = i - self.index(axis) * stride
+        return tuple(self.ranks[first + j * stride] for j in range(self.size(axis)))
 
 
 def shard_bounds(size: int, parts: int, *, unit: int = 1) -> tuple[tuple[int, int], ...]:
@@ -269,35 +319,60 @@ def cache_leaf_spec(name: str, shape: tuple, topo: Topology, batch: int) -> tupl
 # ShardingPlan
 # -------------------------------------------------------------------------
 
-def _shapes(tree) -> dict:
-    """{name: shape} of a TernaryLM (its state_dict) or of a {name: tensor}
-    dict."""
+def tree_leaves(tree) -> dict:
+    """{name: leaf} of a master tree (or a moment tree of its structure),
+    each leaf named by its path joined with "." (``layers.tail.0.attn.wq.w``,
+    ``layers.stacked.1.ffn.w_in.w``)."""
+    return {path.replace("/", "."): x for path, x in leaves_with_paths(tree)}
+
+
+def _leaves(tree) -> dict:
+    """{name: tensor} of a TernaryLM (its state_dict), of a {name: tensor}
+    dict, or of a nested master tree (``tree_leaves``)."""
     if isinstance(tree, torch.nn.Module):
-        tree = tree.state_dict()
-    return {name: tuple(t.shape) for name, t in tree.items()}
+        return tree.state_dict()
+    if isinstance(tree, dict) and all(is_leaf(v) for v in tree.values()):
+        return tree
+    return tree_leaves(tree)
+
+
+def _shapes(tree) -> dict:
+    return {name: tuple(t.shape) for name, t in _leaves(tree).items()}
+
+
+def data_bounds(size: int, parts: int, index: int) -> tuple[int, int]:
+    """Rank ``index``'s ``[lo, hi)`` of a ZeRO-1 "data" cut: ``size`` / parts
+    rows each (zero1 picks only dims the data extent divides)."""
+    if size % parts:
+        raise ValueError(f"a ZeRO-1 cut of {size} over {parts} ranks")
+    n = size // parts
+    return index * n, (index + 1) * n
 
 
 @dataclass(frozen=True)
 class ShardingPlan:
-    """The specs of one (topology, serving tree[, caches]) triple, resolved
-    once: ``params`` and ``caches`` map a leaf's name to its spec tuple."""
+    """The specs of one (topology, serving or master tree[, caches]) triple,
+    resolved once: ``params`` and ``caches`` map a leaf's name to its spec
+    tuple."""
 
     topology: Topology
     params: dict                # name -> spec tuple
     batch: tuple                # (B, ...) activation spec
     caches: dict | None = None  # "layers.i.key" -> spec tuple
+    cfg: object = None          # the model config, where cuts need its bounds
 
     # -- constructors ------------------------------------------------------
 
     @classmethod
     def for_tree(cls, tree, topology: Topology | None = None, *,
-                 validate: bool = True) -> "ShardingPlan":
-        """Resolve specs against a serving model (or its state dict): packed
-        slabs inherit the master spec."""
+                 validate: bool = True, cfg=None) -> "ShardingPlan":
+        """Resolve specs against a serving model (or its state dict; packed
+        slabs inherit the master spec) or a master tree; ``cfg`` (kept) lets
+        ``elastic.shard_state`` cut by the model's bounds."""
         topo = topology or Topology()
         specs = {name: _rules.leaf_spec(name, len(shape))
                  for name, shape in _shapes(tree).items()}
-        plan = cls(topology=topo, params=specs, batch=topo.batch_spec())
+        plan = cls(topology=topo, params=specs, batch=topo.batch_spec(), cfg=cfg)
         if validate:
             plan.validate(tree)
         return plan
@@ -308,7 +383,7 @@ class ShardingPlan:
         """Resolve specs for a model config without materialising weights:
         the serving model is built on the ``meta`` device."""
         from repro_torch.models.model import TernaryLM
-        return cls.for_tree(TernaryLM(cfg, "meta"), topology, validate=validate)
+        return cls.for_tree(TernaryLM(cfg, "meta"), topology, validate=validate, cfg=cfg)
 
     def with_caches(self, caches: list, *, batch: int) -> "ShardingPlan":
         """Attach the specs of a cache list (one dict a layer) as
@@ -317,6 +392,15 @@ class ShardingPlan:
         specs = {f"layers.{i}.{key}": cache_leaf_spec(key, tuple(t.shape), self.topology, batch)
                  for i, layer in enumerate(caches) for key, t in layer.items()}
         return dataclasses.replace(self, caches=specs)
+
+    def zero1(self, shapes, *, data_axis: str = "data", base: dict | None = None) -> dict:
+        """The optimizer moments' specs: the params' specs (or ``base``'s)
+        with ``data_axis`` in the first unsharded dim its extent divides,
+        and the once-a-tree summary warning of the leaves that stay
+        unsharded (``sharding.zero1_specs``).  ``shapes``: the moment tree
+        (its shapes, and its dtype for the warning's bytes)."""
+        return _rules.zero1_specs(self.params if base is None else base, _leaves(shapes),
+                                  self.topology.axis_size(data_axis), data_axis)
 
     # -- validation / inspection ------------------------------------------
 

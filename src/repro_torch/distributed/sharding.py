@@ -17,20 +17,25 @@ spec: an N shard never splits a byte.  A K shard of a packed slab is not a
 slice of the slab (its rows are padded to 16 and a byte holds 5 lanes):
 ``models.shard`` repacks it from its trits.
 
-Rules key on the nearest named ancestor of the leaf.  The port's layers
-are a ModuleList, so no leaf carries a scan group axis and no spec has the
-JAX package's leading None for one.  Left out, since nothing in the port
-calls them: the deprecated shims ``param_specs`` / ``zero1_specs`` /
-``batch_spec`` (``distributed.plan`` replaces them), the ``shard_map``
-helper (the port has explicit per-rank shards), and ZeRO-1's moment specs
-(``ShardingPlan.zero1`` waits for the training half, ROADMAP queue 1,
-item 2).
+Rules key on the nearest named ancestor of the leaf.  The serving
+model's layers are a ModuleList, so its leaves carry no scan group axis; a
+master tree's scan-stacked groups (``layers.stacked``) do, and their specs
+get the JAX package's leading None for it.  ZeRO-1 (``zero1_specs``, which
+``plan.ShardingPlan.zero1`` calls) shards an optimizer moment further along
+the data axis: the first dim its param spec leaves unsharded whose size the
+data extent divides, with one summary warning a tree for the leaves that
+stay unsharded.  Left out, since nothing in the port calls them: the
+deprecated shims ``param_specs`` / ``batch_spec`` (``distributed.plan``
+replaces them) and the ``shard_map`` helper (the port has explicit per-rank
+shards).
 """
 
 from __future__ import annotations
 
+import warnings
+
 __all__ = ["MODEL_AXIS", "COL_PARALLEL", "ROW_PARALLEL", "EXPERT", "VOCAB", "INNER_VEC",
-           "REPLICATED", "names_of", "leaf_spec"]
+           "REPLICATED", "names_of", "leaf_spec", "zero1_specs"]
 
 MODEL_AXIS = "model"
 
@@ -55,11 +60,15 @@ def names_of(name: str) -> list[str]:
 
 
 def leaf_spec(name: str, ndim: int) -> tuple:
-    """The spec of the leaf ``name`` with ``ndim`` dims (``_leaf_spec``)."""
+    """The spec of the leaf ``name`` with ``ndim`` dims (``_leaf_spec``);
+    a leaf under ``stacked`` has a leading None for its group axis."""
     names = names_of(name)
+    stacked = "stacked" in names
+    core = ndim - (1 if stacked else 0)
 
     def spec(parts: tuple) -> tuple:
-        return tuple(parts[:ndim])
+        parts = tuple(parts[:core])
+        return ((None,) + parts) if stacked else parts
 
     leaf_name = names[-1] if names else ""
     hit = None
@@ -72,9 +81,9 @@ def leaf_spec(name: str, ndim: int) -> tuple:
     if hit in VOCAB:
         return spec((MODEL_AXIS, None))
     if hit in COL_PARALLEL:
-        return () if ndim <= 1 else spec((None, MODEL_AXIS))
+        return () if core <= 1 else spec((None, MODEL_AXIS))
     if hit in ROW_PARALLEL:
-        return () if ndim <= 1 else spec((MODEL_AXIS, None))
+        return () if core <= 1 else spec((MODEL_AXIS, None))
     if hit in EXPERT:
         return spec((MODEL_AXIS, None, None))
     if hit in INNER_VEC:
@@ -84,3 +93,32 @@ def leaf_spec(name: str, ndim: int) -> tuple:
     if hit == "mamba" and leaf_name == "scale":   # mamba's gated norm over d_inner
         return spec((MODEL_AXIS,))
     return spec((None,) * 4)
+
+
+def zero1_specs(specs: dict, leaves: dict, data_size: int, data_axis: str = "data") -> dict:
+    """ZeRO-1 (``_zero1_specs``): each leaf's spec with ``data_axis`` put
+    into the first dim it leaves unsharded whose size divides by
+    ``data_size``.  A leaf with no such dim keeps its spec; one summary
+    warning a tree counts those leaves and their bytes.  ``specs`` and
+    ``leaves`` ({name: tensor}, shapes and dtypes read) share their names."""
+    skipped = [0, 0]    # leaves, bytes
+
+    def one(spec: tuple, x) -> tuple:
+        shape = tuple(x.shape)
+        parts = list(spec) + [None] * (len(shape) - len(spec))
+        for i, s in enumerate(parts):
+            if s is None and shape[i] > 0 and shape[i] % data_size == 0:
+                parts[i] = data_axis
+                return tuple(parts)
+        skipped[0] += 1
+        skipped[1] += x.numel() * x.element_size()
+        return spec
+
+    out = {name: one(spec, leaves[name]) for name, spec in specs.items()}
+    if skipped[0]:
+        warnings.warn(
+            f"zero1_specs: {skipped[0]} moment leaves "
+            f"({skipped[1] / 2**20:.2f} MiB per moment) have no dim "
+            f"divisible by {data_axis}={data_size} and stay unsharded "
+            f"(replicated across the data axis)", stacklevel=3)
+    return out

@@ -374,10 +374,11 @@ class RankJob:
     """What ``serve_rank`` serves: the model config, the ServeConfig (its
     topology), "cpu" or "cuda", the full serving weights (a state dict
     written by ``torch.save``; None: ``init_serving`` from the config's
-    seed), the trace, the injected failures and the ranks each costs, one
-    teacher-forced request (prompt, tokens: the logits of each step, fed
-    those tokens) and ``profile_steps`` > 0: a full batch of that many
-    decode steps under the profiler after the trace."""
+    seed), the trace, the injected failures and the ranks each costs, the
+    teacher-forced requests (``teachers``: (prompt, tokens) pairs, the
+    logits of each step fed those tokens), and ``profile_steps`` > 0: a
+    full batch of that many decode steps under the profiler after the
+    trace."""
     cfg: object
     config: ServeConfig
     device: str = "cpu"
@@ -386,7 +387,7 @@ class RankJob:
     serve_sparse: bool = True
     fail_at: tuple = ()
     lost: int = 1
-    teacher: tuple | None = None
+    teachers: tuple = ()
     profile_steps: int = 0
 
 
@@ -442,10 +443,11 @@ def _profile(eng: ServeEngine, cfg, steps: int) -> dict:
 def serve_rank(rank: int, job: RankJob) -> dict | None:
     """One rank of a ``run_ranks`` world: load the full weights as the host
     copy, serve ``job.trace`` on the rank's shard, then the teacher-forced
-    request and the profile -> {"tokens" {uid: ids}, "stats", "launches"
+    requests and the profile -> {"tokens" {uid: ids}, "stats", "launches"
     (the trace's kernel launches on this rank), "topology" (after any
-    recovery), "teacher", "profile", "experts" (the rank's expert range),
-    "seconds" {part: host seconds}}; None for a rank the recovery left out."""
+    recovery), "teachers" (each teacher-forced request's logits), "profile",
+    "experts" (the rank's expert range), "seconds" {part: host seconds}};
+    None for a rank the recovery left out."""
     clock = [time.perf_counter()]
     secs = {}
 
@@ -482,14 +484,14 @@ def serve_rank(rank: int, job: RankJob) -> dict | None:
     out = {"tokens": {uid: r.tokens.tolist() for uid, r in results.items()},
            "stats": dataclasses.asdict(eng.stats), "launches": dict(ops.launches),
            "collectives": dict(collectives.counts), "topology": eng.topology,
-           "experts": None, "teacher": None, "profile": None, "seconds": secs}
+           "experts": None, "teachers": [], "profile": None, "seconds": secs}
     moe = [m for m in eng.model.modules() if isinstance(m, MoE)]
     if moe:
         out["experts"] = moe[0].experts
-    if job.teacher is not None:
-        prompt, tokens = job.teacher
-        out["teacher"] = teacher_forced(eng.model, prompt, tokens, max_len=job.config.max_len,
-                                        serve_sparse=job.serve_sparse)
+    if job.teachers:
+        out["teachers"] = [teacher_forced(eng.model, prompt, tokens, max_len=job.config.max_len,
+                                          serve_sparse=job.serve_sparse)
+                           for prompt, tokens in job.teachers]
         took("teacher")
     if job.profile_steps:
         out["profile"] = _profile(eng, job.cfg, job.profile_steps)

@@ -17,11 +17,22 @@ Usage:
 Runs on the CUDA device unless ``--device cpu``, where the DAS masks come
 from the plain PyTorch version of the ``das_topk`` kernel.  On the CPU run
 an arch ``--reduced``: a full-size one takes minutes and tens of GB.
+
+Under a Topology (the JAX package's ``make_runtime`` and
+``train_shardings``; the CLI has no mesh flag, as the JAX package's has
+none): each rank of a ``distributed.plan.Mesh`` holds its tensor-parallel
+shard of the master tree and its ZeRO-1 slices of the AdamW moments
+(``train_shardings``), takes its rows of every global batch, and the step
+runs the sharded ``loss_fn`` and the ZeRO-1 update (``optim.adamw``).
+``gather_state`` gathers a rank's state back into the global tree that a
+checkpoint holds (every rank calls it; ``checkpoint.restore_checkpoint(...,
+mesh=, plan=)`` cuts it again, onto any topology).
 """
 
 from __future__ import annotations
 
 import argparse
+from typing import NamedTuple
 
 import torch
 
@@ -29,42 +40,110 @@ from repro_torch import resolve_device
 from repro_torch import checkpoint as ckpt_lib
 from repro_torch.configs import get_config, reduced as reduced_cfg
 from repro_torch.data.pipeline import SyntheticLM
-from repro_torch.distributed import fault
+from repro_torch.distributed import elastic, fault
 from repro_torch.models import model as MD
 from repro_torch.models import transformer as T
 from repro_torch.optim import adamw, schedule
 from repro_torch.tree import leaves, unflatten
 
-__all__ = ["make_runtime", "make_train_step", "main"]
+__all__ = ["make_runtime", "TrainShards", "train_shardings", "batch_rows", "loss_and_grads",
+           "make_train_step", "gather_state", "main"]
 
 
-def make_runtime() -> T.Runtime:
-    """The step's Runtime on one device: the JAX package's no-mesh branch
-    (the sharded trainer waits for the distributed slice, ROADMAP queue 1,
-    item 2)."""
-    return T.Runtime()
+def make_runtime(mesh=None, global_batch: int | None = None) -> T.Runtime:
+    """The step's Runtime: one device without a mesh; on ``mesh`` (a
+    ``distributed.plan.Mesh``) the batch's data-parallel axes
+    (``Topology.dp_axes_for(global_batch)``)."""
+    if mesh is None:
+        return T.Runtime()
+    return T.Runtime(mesh=mesh, dp_axes=mesh.topology.dp_axes_for(global_batch))
+
+
+class TrainShards(NamedTuple):
+    """What one rank trains: its params, its AdamW state with ZeRO-1 moment
+    slices, and its mesh (``batch`` cuts its rows of a global batch)."""
+    params: dict
+    opt: adamw.AdamWState
+    mesh: object
+
+    def batch(self, batch: dict) -> dict:
+        return {k: v[batch_rows(self.mesh, len(v))] for k, v in batch.items()}
+
+
+def batch_rows(mesh, size: int) -> slice:
+    """A rank's rows of a global batch of ``size`` rows: its "dp" share."""
+    n = mesh.size("dp")
+    if size % n:
+        raise ValueError(f"a batch of {size} rows does not split over {n} data ranks")
+    i = mesh.dp_index
+    return slice(i * size // n, (i + 1) * size // n)
+
+
+def train_shardings(mesh, params, opt: adamw.AdamWState | None = None, *, cfg,
+                    device=None) -> TrainShards:
+    """This rank's share of a global training state: ``params`` (a master
+    tree, e.g. on the host) cut over "model", ``opt`` (global; None: fresh
+    zero moments) cut over "model" and then over "data" (ZeRO-1), on
+    ``device`` (default: the params')."""
+    state, zero = elastic.shard_state({"params": params, "opt": opt}, cfg, mesh, device)
+    opt = state["opt"] if opt is not None else adamw.adamw_init(state["params"], zero)
+    return TrainShards(state["params"], opt, mesh)
+
+
+def loss_and_grads(params, cfg, batch: dict, rt: T.Runtime):
+    """(loss, aux, gradients in params' tree) of ``MD.loss_fn`` on
+    ``batch`` (a rank's rows under ``rt.mesh``: the gradients are then the
+    rank's part, not yet summed over "dp"); leaves without a gradient get
+    zeros."""
+    flat = [p.detach().requires_grad_() for p in leaves(params)]
+    dev = flat[0].device
+    b = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+    loss, aux = MD.loss_fn(unflatten(params, flat), cfg, b, rt)
+    grads = torch.autograd.grad(loss, flat, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(flat, grads)]
+    return loss, aux, unflatten(params, grads)
 
 
 def make_train_step(cfg, rt: T.Runtime, *, peak_lr: float = 3e-4, warmup: int = 100,
                     total: int = 10_000, sched: str = "cosine", weight_decay: float = 0.1):
     """The step (params, opt, batch) -> (params, opt, {"loss", "lr",
-    "grad_norm"}) for a master tree ``params`` on one device; ``batch``
-    {"inputs", "labels"} may be numpy and is moved to the params' device."""
+    "grad_norm"}); ``batch`` {"inputs", "labels"} may be numpy and is moved
+    to the params' device.  Under ``rt.mesh``: params and opt a rank's
+    (``train_shardings``), ``batch`` the global batch (the step takes the
+    rank's rows), the update ZeRO-1, and "loss" the whole batch's."""
     sched_fn = schedule.wsd_schedule if sched == "wsd" else schedule.cosine_schedule
+    mesh = rt.mesh
+    if mesh is not None and tuple(rt.dp_axes) != mesh.topology.dp_axes:
+        raise ValueError(f"the batch must split over every data axis "
+                         f"{mesh.topology.dp_axes}; got dp_axes {rt.dp_axes}")
+    zero = []           # the rank's ZeroLayout, resolved at the first step
 
     def train_step(params, opt: adamw.AdamWState, batch):
-        flat = [p.detach().requires_grad_() for p in leaves(params)]
-        dev = flat[0].device
-        b = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
-        loss, _ = MD.loss_fn(unflatten(params, flat), cfg, b, rt)
-        grads = torch.autograd.grad(loss, flat, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(flat, grads)]
+        if mesh is not None:
+            batch = {k: v[batch_rows(mesh, len(v))] for k, v in batch.items()}
+            if not zero:
+                zero.append(elastic.zero_layout(params, mesh))
+        _, aux, grads = loss_and_grads(params, cfg, batch, rt)
         lr = sched_fn(opt.step, peak_lr=peak_lr, warmup=warmup, total=total)
-        params, opt, info = adamw.adamw_step(params, unflatten(params, grads), opt, lr=lr,
-                                             weight_decay=weight_decay)
-        return params, opt, {"loss": loss.detach(), "lr": lr, **info}
+        params, opt, info = adamw.adamw_step(params, grads, opt, lr=lr,
+                                             weight_decay=weight_decay,
+                                             zero=zero[0] if zero else None)
+        return params, opt, {"loss": aux["loss"].detach(), "lr": lr, **info}
 
     return train_step
+
+
+def gather_state(mesh, params, opt: adamw.AdamWState, *, cfg) -> dict:
+    """The global {"params", "opt"} of a rank's ``TrainShards`` state, on
+    every rank (the ZeRO-1 slices all-gathered over "data", then every cut
+    gathered over "model"): what a checkpoint holds.  Every rank of the
+    mesh calls it, in one order."""
+    zero = elastic.zero_layout(params, mesh)
+
+    def moments(t):
+        return MD.gather_params(zero.gather(t), cfg, mesh)
+    return {"params": MD.gather_params(params, cfg, mesh),
+            "opt": adamw.AdamWState(step=opt.step, m=moments(opt.m), v=moments(opt.v))}
 
 
 def main(argv=None):

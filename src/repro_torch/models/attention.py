@@ -228,9 +228,12 @@ def attn_train(p: dict, cfg: ModelConfig, x: torch.Tensor, kind: str, rt) -> tor
     on master weights {wq, wk, wv, wo}: q/k/v take one DAS step and one
     int8 fake-quant of x, RoPE at positions 0..L-1, ``flash_masked`` with
     the layer kind's sink and window (LPSA on global layers when
-    ``rt.serve_sparse``), then wo."""
+    ``rt.serve_sparse``), then wo.  On a head shard (``rt.model_mesh``;
+    ``cfg`` with the rank's head counts) wo is row-parallel: its input's
+    int8 scale comes over "model" and the float32 partial is returned, for
+    the block to sum."""
     b, l, _ = x.shape
-    tc, hd = cfg.ternary, cfg.head_dim_
+    tc, hd, mesh = cfg.ternary, cfg.head_dim_, rt.model_mesh
     sink, window = kind_sink_window(cfg, kind, rt.serve_sparse)
     xq = tlin_train_input(x, tc)
     q = tlin_train(p["wq"], xq, tc).reshape(b, l, cfg.n_heads, hd)
@@ -241,4 +244,4 @@ def attn_train(p: dict, cfg: ModelConfig, x: torch.Tensor, kind: str, rt) -> tor
     q, k = rp(q, pos), rp(k, pos)
     o = flash_masked(q, k, v, pos, pos, sink=sink, window=window, softcap=cfg.attn_softcap)
     o = o.reshape(b, l, cfg.q_dim)
-    return tlin_train(p["wo"], tlin_train_input(o, tc), tc)
+    return tlin_train(p["wo"], tlin_train_input(o, tc, mesh), tc, partial=mesh is not None)

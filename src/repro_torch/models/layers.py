@@ -17,9 +17,12 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from repro_torch.distributed.collectives import reduce_from_model
+
 __all__ = ["torch_dtype", "full_f32", "RMSNorm", "rmsnorm", "GroupNorm", "group_norm",
            "softcap", "rope", "apply_rope", "sigmoid", "silu", "gelu", "softplus", "log_sigmoid",
-           "ACT", "xla_cumsum", "take_embed", "scale_embed", "logits_from_embed"]
+           "ACT", "xla_cumsum", "take_embed", "take_embed_shard", "scale_embed",
+           "logits_from_embed"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -237,6 +240,19 @@ def take_embed(embed: torch.Tensor, tokens: torch.Tensor, *,
     a row's gradients in a fixed order on the card, where indexing's
     backward may add with atomics."""
     x = F.embedding(tokens, embed)
+    return scale_embed(x) if scale else x
+
+
+def take_embed_shard(embed: torch.Tensor, tokens: torch.Tensor, lo: int, mesh, *,
+                     scale: bool = False) -> torch.Tensor:
+    """``take_embed`` on a vocab shard: ``embed`` holds rows [lo, lo + n) of
+    the vocab; a token outside them gives a zero row, and the rows are
+    summed over the mesh's "model" axis in float32 (exact: one contributor
+    an element).  Backward, each rank's gradient reaches its own rows only,
+    through ``F.embedding`` (no atomics)."""
+    inside = (tokens >= lo) & (tokens < lo + embed.shape[0])
+    rows = F.embedding(torch.where(inside, tokens - lo, 0), embed) * inside[..., None]
+    x = reduce_from_model(rows.float(), mesh).to(embed.dtype)
     return scale_embed(x) if scale else x
 
 

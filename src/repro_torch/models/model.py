@@ -39,7 +39,16 @@ mask and its float32 rows, as the JAX engine's step builds its input.
 Training: ``forward`` and ``loss_fn`` run a master tree (``init_params``,
 or the JAX package's through ``bridge.load_master_tree``) under autograd,
 from token ids or float embeddings, through ``transformer.stack_train``
-(every block kind: attention, MoE, rwkv, gla, mamba).
+(every block kind: attention, MoE, rwkv, gla, mamba).  Under a Topology
+(``Runtime.mesh``) they run a rank's shard of the tree (``shard_params``;
+``gather_params`` is its inverse) on the rank's batch rows: the
+vocab-parallel embedding lookup, the blocks on the rank's heads and d_ff
+(``local_config``), the tied logits of the rank's vocab columns (padding
+masked by their global ids), and a vocab-parallel cross entropy (the row
+max and the sum of exponentials over "model", the gold logit from the
+rank that holds it).  The loss is divided by the global token count (over
+the data axes), so the ranks' losses and gradients sum to the JAX
+package's ``loss_fn`` over the whole batch.
 """
 
 from __future__ import annotations
@@ -55,6 +64,7 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import collectives
 from repro_torch.distributed.plan import ShardingPlan, shard_bounds
+from repro_torch.distributed.sharding import leaf_spec
 from repro_torch.kernels import ops
 from repro_torch.models import attention as A
 from repro_torch.models import gla as G
@@ -65,13 +75,14 @@ from repro_torch.models import moe as MOE
 from repro_torch.models import rwkv6 as R
 from repro_torch.models import transformer as T
 from repro_torch.models.ternary_linear import (TRITS_FORMATS, TernaryLinear,
-                                               export_tlin, shard_tlin, tlin_init)
-from repro_torch.tree import leaves, tree_map
+                                               export_tlin, shard_scales, shard_tlin,
+                                               tlin_init)
+from repro_torch.tree import leaves, leaves_with_paths, tree_map, unflatten
 
 __all__ = ["TernaryLM", "RankShard", "Runtime", "embed_scale", "uses_embeds", "init_params",
            "export_serving", "init_serving", "trits_from_packed", "flatten_tree",
-           "check_shardable", "model_bounds", "shard_model", "prefill", "decode_step",
-           "init_caches", "forward", "loss_fn"]
+           "check_shardable", "model_bounds", "local_config", "shard_model", "shard_params",
+           "gather_params", "prefill", "decode_step", "init_caches", "forward", "loss_fn"]
 
 Runtime = T.Runtime
 
@@ -367,15 +378,21 @@ _ROLE = {"wq": "q", "wo": "q", "wk": "kv", "wv": "kv", "w_gate": "ff", "w_in": "
          "experts_in": "experts", "experts_out": "experts"}
 
 
-def check_shardable(cfg: ModelConfig, tp: int) -> None:
-    """Raise ValueError where the port cannot serve ``cfg`` at ``tp`` ways."""
+def check_shardable(cfg: ModelConfig, tp: int, *, training: bool = False) -> None:
+    """Raise ValueError where the port cannot serve (or, with ``training``,
+    train) ``cfg`` at ``tp`` ways."""
     kinds = set(cfg.layer_kinds())
+    what = "train" if training else "serve"
     if not kinds <= set(T.ATTN_KINDS) or uses_embeds(cfg) or cfg.shared_attn:
         raise ValueError(
             f"{cfg.name} ({', '.join(sorted(kinds))} blocks"
-            f"{', a stub frontend' if uses_embeds(cfg) else ''}) does not serve under a "
+            f"{', a stub frontend' if uses_embeds(cfg) else ''}) does not {what} under a "
             f"Topology yet: the port shards the attention, FFN and MoE blocks of token "
             f"models; the SSM, hybrid and frontend models wait for ROADMAP queue 1, item 2")
+    if training and cfg.moe is not None:
+        raise ValueError(f"{cfg.name}: MoE training under a Topology (expert- and "
+                         f"data-parallel) waits for ROADMAP queue 1, item 2; the MoE trains "
+                         f"on one device")
     bad = [f"{n}={v}" for n, v in (("n_heads", cfg.n_heads), ("n_kv_heads", cfg.n_kv_heads),
                                    ("vocab_padded", cfg.vocab_padded)) if v % tp]
     if cfg.moe is not None and cfg.moe.n_experts % tp:
@@ -409,6 +426,26 @@ def model_bounds(cfg: ModelConfig, tp: int) -> dict:
     return out
 
 
+def local_config(cfg: ModelConfig, mesh) -> ModelConfig:
+    """``cfg`` as one rank of ``mesh`` holds it: its heads (and their head
+    size, kept) and its width of d_ff; the attention, its caches and the
+    FFN run unchanged on the rank's shard."""
+    tp = mesh.topology.tp
+    b = model_bounds(cfg, tp)
+    d_ff = cfg.d_ff
+    if "ff" in b:
+        lo, hi = b["ff"][mesh.model_index]
+        d_ff = hi - lo
+    return dataclasses.replace(cfg, n_heads=cfg.n_heads // tp, n_kv_heads=cfg.n_kv_heads // tp,
+                               head_dim=cfg.head_dim_, d_ff=d_ff)
+
+
+def _role(name: str) -> str:
+    """The ``model_bounds`` key of a sharded leaf, by its nearest named
+    module."""
+    return _ROLE[next(n for n in reversed(name.split(".")) if n in _ROLE)]
+
+
 @torch.no_grad()
 def shard_model(full: TernaryLM, mesh, device=None) -> TernaryLM:
     """One rank's local model, cut from ``full`` (a serving model, e.g. the
@@ -421,10 +458,8 @@ def shard_model(full: TernaryLM, mesh, device=None) -> TernaryLM:
     cfg, tp = full.cfg, mesh.topology.tp
     check_shardable(cfg, tp)
     b = {k: v[mesh.model_index] for k, v in model_bounds(cfg, tp).items()}
-    lcfg = dataclasses.replace(cfg, n_heads=cfg.n_heads // tp, n_kv_heads=cfg.n_kv_heads // tp,
-                               head_dim=cfg.head_dim_,
-                               d_ff=b["ff"][1] - b["ff"][0] if "ff" in b else cfg.d_ff)
-    model = TernaryLM(lcfg, device, RankShard(mesh, b["vocab"], b.get("experts")))
+    model = TernaryLM(local_config(cfg, mesh), device,
+                      RankShard(mesh, b["vocab"], b.get("experts")))
     if "shared" in b:   # the shared expert's local width
         fs = b["shared"][1] - b["shared"][0]
         for blk in model.layers:
@@ -439,7 +474,7 @@ def shard_model(full: TernaryLM, mesh, device=None) -> TernaryLM:
         if "model" in spec:
             axis = spec.index("model")
             mod, _, leaf = name.rpartition(".")
-            lo, hi = b[_ROLE[next(n for n in reversed(name.split(".")) if n in _ROLE)]]
+            lo, hi = b[_role(name)]
             if isinstance(mods.get(mod), TernaryLinear):   # a K cut repacks on the device
                 val = shard_tlin(mods[mod], axis, lo, hi, model.device)[leaf]
             else:
@@ -455,6 +490,49 @@ def shard_model(full: TernaryLM, mesh, device=None) -> TernaryLM:
         elif isinstance(mod, MOE.MoE):
             mod.mesh = mesh
     return model
+
+
+@torch.no_grad()
+def shard_params(tree, cfg: ModelConfig, mesh, device=None):
+    """One rank's shard of a master tree (``init_params``'s layout; or an
+    optimizer moment tree of its shapes) for its place on ``mesh``'s "model"
+    axis, on ``device`` (default: each leaf's own): every leaf whose
+    ``sharding.leaf_spec`` names "model" cut to the rank's ``model_bounds``
+    (heads, DAS blocks of d_ff with the dense tail last, vocab rows), the
+    rest copied whole.  Raises ValueError for a config the port does not
+    train under a Topology."""
+    check_shardable(cfg, mesh.topology.tp, training=True)
+    b = {k: v[mesh.model_index] for k, v in model_bounds(cfg, mesh.topology.tp).items()}
+    out = []
+    for path, x in leaves_with_paths(tree):
+        name = path.replace("/", ".")
+        spec = leaf_spec(name, x.ndim)
+        x = x.detach()
+        if "model" in spec:
+            lo, hi = b[_role(name)]
+            x = x.narrow(spec.index("model"), lo, hi - lo)
+        out.append(x.to(device=x.device if device is None else device, copy=True,
+                        memory_format=torch.contiguous_format))
+    return unflatten(tree, out)
+
+
+@torch.no_grad()
+def gather_params(tree, cfg: ModelConfig, mesh):
+    """The whole tree from each rank's ``shard_params`` shard, on every rank
+    of "model" (each cut leaf gathered in float32, exact, and cast back).
+    Every rank of the axis calls it, in one order."""
+    bounds = model_bounds(cfg, mesh.topology.tp)
+    out = []
+    for path, x in leaves_with_paths(tree):
+        name = path.replace("/", ".")
+        spec = leaf_spec(name, x.ndim)
+        if "model" in spec:
+            cuts = bounds[_role(name)]
+            lo, size = cuts[mesh.model_index][0], cuts[-1][1]
+            x = collectives.gather(x.float(), mesh, "model", spec.index("model"), lo,
+                                   size).to(x.dtype)
+        out.append(x)
+    return unflatten(tree, out)
 
 
 def _take_embed(model: TernaryLM, tokens: torch.Tensor) -> torch.Tensor:
@@ -550,40 +628,80 @@ def _inputs_to_x(p: dict, cfg: ModelConfig, batch_in: torch.Tensor) -> torch.Ten
     return L.take_embed(p["embed"], batch_in, scale=embed_scale(cfg))
 
 
-def _train_logits(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+def _train_logits(p: dict, cfg: ModelConfig, x: torch.Tensor, mesh=None,
+                  lo: int = 0) -> torch.Tensor:
     """The final norm, the tied embedding's or the untied head's product in
-    x's dtype, float32, soft-capped, the padded vocab at -1e30."""
-    x = L.rmsnorm(p["final_norm"]["scale"], x)
+    x's dtype, float32, soft-capped, the padded vocab at -1e30; on a vocab
+    shard (``mesh``) the columns [lo, lo + n) of the rank's rows, padding
+    found by their global ids."""
+    x = collectives.copy_to_model(L.rmsnorm(p["final_norm"]["scale"], x), mesh)
     if cfg.tie_embeddings:
         lg = L.logits_from_embed(p["embed"], x, cfg.logit_softcap)
     else:
         lg = L.softcap(torch.matmul(x, p["head"].to(x.dtype)).float(), cfg.logit_softcap)
     if cfg.vocab_padded > cfg.vocab:
-        pad = torch.arange(cfg.vocab_padded, device=lg.device) >= cfg.vocab
+        pad = lo + torch.arange(lg.shape[-1], device=lg.device) >= cfg.vocab
         lg = lg + torch.where(pad, -1e30, 0.0)
     return lg
+
+
+def _vocab_lo(cfg: ModelConfig, mesh) -> int:
+    return model_bounds(cfg, mesh.topology.tp)["vocab"][mesh.model_index][0]
 
 
 def forward(p: dict, cfg: ModelConfig, batch_in: torch.Tensor,
             rt: T.Runtime = T.Runtime()) -> torch.Tensor:
     """Whole-sequence training forward of a master tree: token ids (B, S)
-    or float embeddings (B, S, D) -> logits (B, S, V) float32."""
-    x = _inputs_to_x(p, cfg, batch_in)
-    x = T.stack_train(p["layers"], cfg, x, rt)
-    return _train_logits(p, cfg, x)
+    or float embeddings (B, S, D) -> logits (B, S, V) float32.  Under
+    ``rt.model_mesh``, ``p`` is the rank's shard (``shard_params``) and the
+    logits are its vocab columns (B, S, V / tp)."""
+    mesh = rt.model_mesh
+    if mesh is None:
+        x = _inputs_to_x(p, cfg, batch_in)
+        return _train_logits(p, cfg, T.stack_train(p["layers"], cfg, x, rt))
+    check_shardable(cfg, mesh.topology.tp, training=True)
+    lo = _vocab_lo(cfg, mesh)
+    p = shard_scales(p, mesh)
+    x = L.take_embed_shard(p["embed"], batch_in, lo, mesh, scale=embed_scale(cfg))
+    x = T.stack_train(p["layers"], local_config(cfg, mesh), x, rt)
+    return _train_logits(p, cfg, x, mesh, lo)
+
+
+def _vocab_parallel_ce(lg: torch.Tensor, lab: torch.Tensor, mesh, lo: int):
+    """(logsumexp, gold logit) of each row over the vocab cut across
+    "model": the row max (a constant of autograd) and the sum of exp(lg -
+    max) reduced over "model", the gold logit from the rank whose columns
+    hold it."""
+    with torch.no_grad():
+        m = collectives.pmax(lg.amax(-1, keepdim=True), mesh, "model")
+    s = collectives.reduce_from_model(torch.exp(lg - m).sum(-1, keepdim=True), mesh)
+    lse = (m + torch.log(s))[..., 0]
+    inside = (lab >= lo) & (lab < lo + lg.shape[-1])
+    own = torch.gather(lg, -1, torch.where(inside, lab - lo, 0)[..., None])[..., 0]
+    return lse, collectives.reduce_from_model(own * inside, mesh)
 
 
 def loss_fn(p: dict, cfg: ModelConfig, batch: dict, rt: T.Runtime = T.Runtime()):
     """Next-token cross entropy of batch {"inputs", "labels"} (labels -1
     masked), logsumexp in float32, averaged over max(tokens, 1) -> (loss,
-    {"loss", "tokens"})."""
+    {"loss", "tokens"}).  Under ``rt.mesh`` the batch is the rank's rows and
+    the count is the whole batch's (summed over "dp"): the returned loss is
+    the rank's part (the ranks' parts and gradients sum to the whole
+    batch's), the aux "loss" the sum."""
     logits = forward(p, cfg, batch["inputs"], rt)
     labels = batch["labels"]
     mask = labels >= 0
     lab = torch.where(mask, labels, 0).long()
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, lab[..., None])[..., 0]
+    if rt.model_mesh is None:
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, lab[..., None])[..., 0]
+    else:
+        lse, gold = _vocab_parallel_ce(logits, lab, rt.model_mesh, _vocab_lo(cfg, rt.model_mesh))
     nll = (lse - gold) * mask
-    denom = torch.clamp(mask.sum(), min=1)
+    if rt.mesh is None:
+        denom = torch.clamp(mask.sum(), min=1)
+        loss = nll.sum() / denom
+        return loss, {"loss": loss, "tokens": denom}
+    denom = torch.clamp(collectives.psum(mask.sum().float(), rt.mesh, "dp"), min=1)
     loss = nll.sum() / denom
-    return loss, {"loss": loss, "tokens": denom}
+    return loss, {"loss": collectives.psum(loss.detach(), rt.mesh, "dp"), "tokens": denom}

@@ -46,6 +46,18 @@ STE ternary fake-quant of w, in x's dtype (``torch.matmul``: the JAX
 package's einsum, outside any kernel).  The mask comes from the
 ``das_topk`` kernel (mask only) where x lies on the card, from its plain
 version on the CPU.
+
+Training on a tensor-parallel shard (a ``distributed.plan.Mesh`` with a
+"model" axis of more than one rank): ``shard_scales`` gives every
+model-sharded master weight of a rank's tree the whole weight's absmean
+scale (one float32 all-reduce of each weight's sum of |W| and count, for
+the whole tree); ``tlin_train_input(x, tc, mesh)`` takes a row-parallel
+input (K cut over "model": wo's heads, the FFN down's d_ff) through the
+DAS mask of its own lanes (``das_topk`` on the shard: the cut keeps DAS
+blocks whole) and the int8 fake-quant at the row's absmax over "model" (a
+MAX all-reduce: exact); ``tlin_train(..., partial=True)`` returns a
+row-parallel shard's float32 partial, which the block sums over "model"
+before the cast to x's dtype, as serving does.
 """
 
 from __future__ import annotations
@@ -58,12 +70,14 @@ from repro_torch.core import das as das_lib
 from repro_torch.core import ternary as tq
 from repro_torch.core import twd
 from repro_torch.distributed import collectives
+from repro_torch.distributed.plan import tree_leaves
+from repro_torch.distributed.sharding import leaf_spec
 from repro_torch.kernels import ops
 from repro_torch.models.layers import rmsnorm
 
 __all__ = ["ROW_ALIGN", "TRITS_FORMATS", "TernaryLinear", "check_format", "tlin_init",
            "export_tlin", "shard_tlin", "tlin_compact", "tlin_norm_input", "tlin_apply",
-           "das_train_mask", "tlin_train_input", "tlin_train"]
+           "das_train_mask", "shard_scales", "tlin_train_input", "tlin_train"]
 
 ROW_ALIGN = 16   # packed rows of an export are a multiple of this
 TRITS_FORMATS = ("int8", "bf16")   # serve formats that hold int8 trits
@@ -202,21 +216,61 @@ def das_train_mask(x: torch.Tensor, tc: TernaryConfig) -> torch.Tensor:
     return step.mask.reshape(x.shape)
 
 
-def tlin_train_input(x: torch.Tensor, tc: TernaryConfig) -> torch.Tensor:
+@torch.no_grad()
+def shard_scales(p: dict, mesh) -> dict:
+    """The master tree ``p`` of a rank's shard with {"w", "gamma"} for every
+    ternary linear that the "model" axis cuts: gamma the whole weight's
+    absmean scale, (sum of |W| over the ranks) / (their count) + eps in W's
+    dtype, from one float32 all-reduce for the whole tree."""
+    named = [(name[:-2], w) for name, w in tree_leaves(p).items()
+             if name.endswith(".w") and "model" in leaf_spec(name, w.ndim)]
+    if not named or mesh.size("model") == 1:
+        return p
+    dev = named[0][1].device
+    sums = torch.stack([torch.stack([w.abs().sum(dtype=torch.float32) for _, w in named]),
+                        torch.tensor([float(w.numel()) for _, w in named], device=dev)], 1)
+    sums = collectives.psum(sums, mesh, "model")
+    gammas = {name: (s / n).to(w.dtype) + tq.EPS for (name, w), (s, n) in zip(named, sums)}
+
+    def walk(tree, prefix):
+        if isinstance(tree, dict):
+            out = {k: walk(v, f"{prefix}{k}.") for k, v in tree.items()}
+            if prefix[:-1] in gammas:
+                out["gamma"] = gammas[prefix[:-1]]
+            return out
+        if isinstance(tree, (tuple, list)):
+            return type(tree)(walk(v, f"{prefix}{i}.") for i, v in enumerate(tree))
+        return tree
+    return walk(p, "")
+
+
+def tlin_train_input(x: torch.Tensor, tc: TernaryConfig, mesh=None) -> torch.Tensor:
     """What the master projections of x multiply: x DAS-masked (with DAS
-    on) and int8 fake-quantized; x itself with the ternary stack off."""
+    on) and int8 fake-quantized; x itself with the ternary stack off.  With
+    ``mesh``, x is a row-parallel input cut over "model": its int8 scale is
+    the row's absmax over "model"."""
     if not tc.enabled:
         return x
     if tc.das is not None:
         x = das_lib.das_apply(x, das_train_mask(x, tc))
-    return tq.int8_fake_quant(x)
+    if mesh is None or mesh.size("model") == 1:
+        return tq.int8_fake_quant(x)
+    amax = x.detach().abs().amax(dim=-1, keepdim=True).float()
+    return tq.int8_fake_quant(x, collectives.pmax(amax, mesh, "model").to(x.dtype))
 
 
-def tlin_train(p: dict, xq: torch.Tensor, tc: TernaryConfig) -> torch.Tensor:
+def tlin_train(p: dict, xq: torch.Tensor, tc: TernaryConfig, *,
+               partial: bool = False) -> torch.Tensor:
     """xq (..., K) from ``tlin_train_input`` times the STE ternary
-    fake-quant of the master weight p["w"] (K, N), in xq's dtype; with the
-    ternary stack off, times the weight itself."""
+    fake-quant of the master weight p["w"] (K, N) (at p["gamma"], a shard's
+    whole-weight scale, where ``shard_scales`` put one), in xq's dtype; with
+    the ternary stack off, times the weight itself.  ``partial``: a
+    row-parallel shard's product, returned in float32 for the caller's sum
+    over "model"."""
     if not tc.enabled:
         w = p["w"] if "w" in p else p["w_hp"]
-        return torch.matmul(xq, w.to(xq.dtype))
-    return torch.matmul(xq, tq.ternary_fake_quant(p["w"]).to(xq.dtype))
+    else:
+        w = tq.ternary_fake_quant(p["w"], p.get("gamma"))
+    if partial:
+        return torch.matmul(xq.float(), w.float())
+    return torch.matmul(xq, w.to(xq.dtype))

@@ -18,7 +18,13 @@ is a loop over the model's ``ModuleList``, whatever the pattern and its
 tail (gemma3's 26 layers = 4 x 6 + 2).
 
 Training runs on master-weight trees in the JAX package's layout (plain
-dicts of tensors, ``models.model.init_params``): ``block_train`` is any
+dicts of tensors, ``models.model.init_params``), on one device or on a
+rank's tensor-parallel shard (``Runtime.mesh``; ``models.model.loss_fn``
+cuts the config to the rank's heads): each block half takes its normed
+input through ``copy_to_model`` (the gradient summed over "model") and
+sums the row-parallel shard's float32 partial with ``reduce_from_model``
+before the cast; under remat the recompute replays the forward's
+collectives, in one order on every rank.  ``block_train`` is any
 block over whole sequences, in the JAX package's order: an "attn" / "local"
 block (its own attention or zamba2's shared one, whose gradient autograd
 sums over every position that runs it), then its FFN or MoE
@@ -34,12 +40,14 @@ the forward is run again in the backward).
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Any
 
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.collectives import copy_to_model, reduce_from_model
 from repro_torch.models import attention as A
 from repro_torch.models import gla as G
 from repro_torch.models import kvcache as KV
@@ -65,8 +73,17 @@ FFN_KINDS = ("gated", "mlp")
 @dataclass(frozen=True)
 class Runtime:
     """What the training pass runs on: ``serve_sparse`` puts LPSA on the
-    global layers, as the JAX package's ``Runtime`` does by default."""
+    global layers, as the JAX package's ``Runtime`` does by default; under a
+    ``mesh`` (a ``distributed.plan.Mesh``) the rank's shard, its batch rows
+    split over ``dp_axes`` ("pod", "data"; ``Topology.dp_axes_for``)."""
     serve_sparse: bool = True
+    mesh: Any = None
+    dp_axes: tuple = ("data",)
+
+    @property
+    def model_mesh(self):
+        """The mesh where its "model" axis cuts the weights, else None."""
+        return self.mesh if self.mesh is not None and self.mesh.size("model") > 1 else None
 
 
 class FFN(nn.Module):
@@ -243,24 +260,34 @@ def stack_decode(layers: nn.ModuleList, cfg: ModelConfig, x: torch.Tensor,
 # training
 # --------------------------------------------------------------------------
 
-def ffn_train(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+def ffn_train(p: dict, cfg: ModelConfig, x: torch.Tensor, mesh=None) -> torch.Tensor:
     """The FFN on master weights over the normed x: gate and up share one
     DAS step and fake-quant of x (the MLP's w_in takes it alone), the down
-    projection its own of h."""
+    projection its own of h.  With ``mesh`` (a d_ff shard) the down is
+    row-parallel and its float32 partial is returned."""
     act, tc = ACT[cfg.act], cfg.ternary
     xq = tlin_train_input(x, tc)
     if "w_gate" in p:
         h = act(tlin_train(p["w_gate"], xq, tc)) * tlin_train(p["w_in"], xq, tc)
     else:
         h = act(tlin_train(p["w_in"], xq, tc))
-    return tlin_train(p["w_out"], tlin_train_input(h, tc), tc)
+    return tlin_train(p["w_out"], tlin_train_input(h, tc, mesh), tc, partial=mesh is not None)
 
 
-def _mixer_ffn_train(bp: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+def _mixer_ffn_train(bp: dict, cfg: ModelConfig, x: torch.Tensor, rt: Runtime) -> torch.Tensor:
     """The FFN or MoE half of an attention or gla block on the normed x."""
     if cfg.moe is not None:
         return MOE.moe_train(bp["moe"], cfg, x)
-    return ffn_train(bp["ffn"], cfg, x)
+    return ffn_train(bp["ffn"], cfg, x, rt.model_mesh)
+
+
+def _half(f, x: torch.Tensor, normed: torch.Tensor, mesh) -> torch.Tensor:
+    """x + f(normed), ``f`` a block half: on a tensor-parallel shard its
+    input through ``copy_to_model`` and its float32 partial summed over
+    "model" before the cast."""
+    if mesh is None:
+        return x + f(normed)
+    return x + reduce_from_model(f(copy_to_model(normed, mesh)), mesh).to(x.dtype)
 
 
 def block_train(bp: dict, cfg: ModelConfig, x: torch.Tensor, kind: str, shared,
@@ -273,14 +300,16 @@ def block_train(bp: dict, cfg: ModelConfig, x: torch.Tensor, kind: str, shared,
     if kind == "rwkv":
         x = x + R.time_mix_train(bp["rwkv"], cfg, rmsnorm(n1, x))
         return x + R.channel_mix_train(bp["rwkv"], cfg, rmsnorm(bp["norm2"]["scale"], x))
+    mesh = rt.model_mesh
     if kind == "gla":
         x = x + G.gla_train(bp["gla"], cfg, rmsnorm(n1, x))
     elif kind in ATTN_KINDS:
         ap = bp["attn"] if "attn" in bp else shared
-        x = x + A.attn_train(ap, cfg, rmsnorm(n1, x), kind, rt)
+        x = _half(lambda h: A.attn_train(ap, cfg, h, kind, rt), x, rmsnorm(n1, x), mesh)
     else:
         raise ValueError(f"unknown layer kind {kind!r}")
-    return x + _mixer_ffn_train(bp, cfg, rmsnorm(bp["norm2"]["scale"], x))
+    return _half(lambda h: _mixer_ffn_train(bp, cfg, h, rt), x,
+                 rmsnorm(bp["norm2"]["scale"], x), mesh)
 
 
 def stack_train(layers: dict, cfg: ModelConfig, x: torch.Tensor, rt: Runtime) -> torch.Tensor:

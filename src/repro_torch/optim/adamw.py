@@ -7,17 +7,32 @@ bias corrections 1 - b ** t in float32; the update p - lr * (m_hat /
 (sqrt(v_hat) + eps) + wd * p) in float32, cast to p's dtype.
 ``torch.optim.AdamW`` keeps a bfloat16 parameter's moments in bfloat16 and
 rounds its decoupled decay otherwise, so it is not used.
+
+ZeRO-1 (``ZeroLayout``, a rank's leaves on a ``distributed.plan.Mesh``):
+the moments of a leaf that ``ShardingPlan.zero1`` cuts along "data" hold
+the rank's slice of that dim; its gradient is reduce-scattered over "data"
+(float32, every such leaf in one exchange; then summed over "pod" where
+there are pods), AdamW updates the rank's slice, and the updated slices are
+all-gathered over "data" (one exchange a dtype).  A leaf that zero1 leaves
+unsharded has its gradient summed over "dp" and is updated whole.  The
+global norm counts each logical element once: the squares of the leaves
+that "model" cuts summed over "model", the replicated ones (norm scales)
+taken once, then the ZeRO slices summed over "data", so every rank clips by
+the same factor.
 """
 
 from __future__ import annotations
 
+import math
+from dataclasses import dataclass
 from typing import Any, NamedTuple
 
 import torch
 
+from repro_torch.distributed import collectives
 from repro_torch.tree import leaves, tree_map, unflatten
 
-__all__ = ["AdamWState", "adamw_init", "adamw_step", "global_norm"]
+__all__ = ["AdamWState", "ZeroLayout", "adamw_init", "adamw_step", "global_norm"]
 
 
 class AdamWState(NamedTuple):
@@ -26,10 +41,47 @@ class AdamWState(NamedTuple):
     v: Any               # float32 second moments
 
 
-def adamw_init(params: Any) -> AdamWState:
+@dataclass(frozen=True)
+class ZeroLayout:
+    """A rank's leaves (``leaves`` order) under ZeRO-1 on ``mesh``: ``dims[i]``
+    the dim whose "data" cut leaf i's moments hold (None: leaf i is updated
+    whole), ``sharded[i]`` whether "model" cuts leaf i."""
+    mesh: Any
+    dims: tuple
+    sharded: tuple
+
+    def bounds(self, size: int) -> tuple[int, int]:
+        """The rank's [lo, hi) of a dim of ``size`` cut over "data"."""
+        from repro_torch.distributed.plan import data_bounds
+        return data_bounds(size, self.mesh.size("data"), self.mesh.data_index)
+
+    def cut(self, tree: Any) -> Any:
+        """Each leaf of a tree of the params' structure cut to the rank's
+        "data" slice (a view)."""
+        def one(x, dim):
+            if dim is None:
+                return x
+            lo, hi = self.bounds(x.shape[dim])
+            return x.narrow(dim, lo, hi - lo)
+        return unflatten(tree, [one(x, d) for x, d in zip(leaves(tree), self.dims)])
+
+    def gather(self, tree: Any) -> Any:
+        """The inverse of ``cut``: each slice all-gathered over "data"."""
+        def one(x, dim):
+            if dim is None:
+                return x
+            full = collectives.all_gather(x.movedim(dim, 0), self.mesh, "data")
+            return full.movedim(0, dim).contiguous()
+        return unflatten(tree, [one(x, d) for x, d in zip(leaves(tree), self.dims)])
+
+
+def adamw_init(params: Any, zero: ZeroLayout | None = None) -> AdamWState:
+    """Zero moments in float32, of each leaf's shape or, under ``zero``, of
+    the rank's slice."""
     zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device)  # noqa: E731
     step = torch.zeros((), dtype=torch.int32, device=leaves(params)[0].device)
-    return AdamWState(step=step, m=tree_map(zeros, params), v=tree_map(zeros, params))
+    own = params if zero is None else zero.cut(params)
+    return AdamWState(step=step, m=tree_map(zeros, own), v=tree_map(zeros, own))
 
 
 def global_norm(tree: Any) -> torch.Tensor:
@@ -45,34 +97,123 @@ def global_norm(tree: Any) -> torch.Tensor:
 @torch.no_grad()
 def adamw_step(params: Any, grads: Any, state: AdamWState, *, lr, b1: float = 0.9,
                b2: float = 0.95, eps: float = 1e-8, weight_decay: float = 0.1,
-               clip_norm: float | None = 1.0) -> tuple[Any, AdamWState, dict]:
-    """One update, in a profiler range "adamw_step"."""
+               clip_norm: float | None = 1.0,
+               zero: ZeroLayout | None = None) -> tuple[Any, AdamWState, dict]:
+    """One update, in a profiler range "adamw_step"; under ``zero`` the
+    rank's ZeRO-1 update from its unreduced gradients (module docstring)."""
     with torch.profiler.record_function("adamw_step"):
-        return _adamw_step(params, grads, state, lr, b1, b2, eps, weight_decay, clip_norm)
+        if zero is None:
+            return _adamw_step(params, grads, state, lr, b1, b2, eps, weight_decay, clip_norm)
+        return _zero_step(params, grads, state, lr, b1, b2, eps, weight_decay, clip_norm, zero)
+
+
+def _bias(state, b1, b2, lr):
+    t = state.step + 1
+    tf = t.float()
+    lr = torch.as_tensor(lr, dtype=torch.float32, device=tf.device)
+    return t, 1.0 - torch.pow(b1, tf), 1.0 - torch.pow(b2, tf), lr
+
+
+def _update(p, g, m, v, *, lr, b1, b2, b1c, b2c, eps, weight_decay):
+    gf = g.float()
+    m2 = b1 * m + (1 - b1) * gf
+    v2 = b2 * v + (1 - b2) * gf * gf
+    mh = m2 / b1c
+    vh = v2 / b2c
+    pf = p.float()
+    step = mh / (torch.sqrt(vh) + eps) + weight_decay * pf
+    return (pf - lr * step).to(p.dtype), m2, v2
+
+
+def _clip_scale(gnorm, clip_norm):
+    return None if clip_norm is None else torch.clamp(clip_norm / (gnorm + 1e-9), max=1.0)
 
 
 def _adamw_step(params, grads, state, lr, b1, b2, eps, weight_decay, clip_norm):
     gnorm = global_norm(grads)
-    if clip_norm is not None:
-        scale = torch.clamp(clip_norm / (gnorm + 1e-9), max=1.0)
+    scale = _clip_scale(gnorm, clip_norm)
+    if scale is not None:
         grads = tree_map(lambda g: g.float() * scale, grads)
-    t = state.step + 1
-    tf = t.float()
-    b1c = 1.0 - torch.pow(b1, tf)
-    b2c = 1.0 - torch.pow(b2, tf)
-    lr = torch.as_tensor(lr, dtype=torch.float32, device=tf.device)
-
-    def upd(p, g, m, v):
-        gf = g.float()
-        m2 = b1 * m + (1 - b1) * gf
-        v2 = b2 * v + (1 - b2) * gf * gf
-        mh = m2 / b1c
-        vh = v2 / b2c
-        pf = p.float()
-        step = mh / (torch.sqrt(vh) + eps) + weight_decay * pf
-        return (pf - lr * step).to(p.dtype), m2, v2
-
-    out = [upd(*xs) for xs in zip(leaves(params), leaves(grads), leaves(state.m),
-                                  leaves(state.v))]
+    t, b1c, b2c, lr = _bias(state, b1, b2, lr)
+    kw = dict(lr=lr, b1=b1, b2=b2, b1c=b1c, b2c=b2c, eps=eps, weight_decay=weight_decay)
+    out = [_update(*xs, **kw) for xs in zip(leaves(params), leaves(grads), leaves(state.m),
+                                            leaves(state.v))]
     pick = lambda i: unflatten(params, [o[i] for o in out])  # noqa: E731
     return pick(0), AdamWState(step=t, m=pick(1), v=pick(2)), {"grad_norm": gnorm}
+
+
+def _split(flat: torch.Tensor, shapes: list) -> list:
+    """``flat`` cut into views of ``shapes``, in order."""
+    sizes = [math.prod(s) for s in shapes]
+    return [c.view(s) for c, s in zip(torch.split(flat, sizes), shapes)]
+
+
+def _summed(grads: list, dims: tuple, mesh, n_data: int) -> list:
+    """Each leaf's gradient summed over the data axes, in float32: a
+    ZeRO-cut leaf (``dims[i]`` set) only its rank's slice, along that dim;
+    one reduce-scatter over "data" for all of them (row r of the float32
+    buffer holds every leaf's rank-r slice), then the sum over "pod"; the
+    other leaves whole, in one all-reduce over "dp"."""
+    out = [None] * len(grads)
+    zi = [i for i, d in enumerate(dims) if d is not None]
+    wi = [i for i, d in enumerate(dims) if d is None]
+    dev = grads[0].device
+    if zi:
+        moved = [grads[i].movedim(dims[i], 0) for i in zi]
+        rows = torch.empty((n_data, sum(x.numel() for x in moved) // n_data),
+                           dtype=torch.float32, device=dev)
+        off = 0
+        for x in moved:
+            k = x.numel() // n_data
+            rows[:, off:off + k].copy_(x.reshape(n_data, k))
+            off += k
+        mine = collectives.reduce_scatter(rows.view(-1), mesh, "data")
+        del rows
+        mine = collectives.psum(mine, mesh, "pod")
+        shapes = [(x.shape[0] // n_data,) + tuple(x.shape[1:]) for x in moved]
+        for i, x in zip(zi, _split(mine, shapes)):
+            out[i] = x.movedim(0, dims[i])
+    if wi:
+        flat = torch.cat([grads[i].reshape(-1).float() for i in wi])
+        flat = collectives.psum(flat, mesh, "dp")
+        for i, x in zip(wi, _split(flat, [tuple(grads[i].shape) for i in wi])):
+            out[i] = x
+    return out
+
+
+def _zero_step(params, grads, state, lr, b1, b2, eps, weight_decay, clip_norm, zero):
+    mesh, n_data = zero.mesh, zero.mesh.size("data")
+    own = _summed(leaves(grads), zero.dims, mesh, n_data)
+    zi = [i for i, d in enumerate(zero.dims) if d is not None]
+    # the global norm: each logical element once (module docstring)
+    sq = [torch.sum(torch.square(g)) for g in own]
+    zero_t = torch.zeros((), device=sq[0].device)
+    pick = lambda keep: sum((s for i, s in enumerate(sq) if keep(i)), zero_t)  # noqa: E731
+    model = collectives.psum(torch.stack([
+        pick(lambda i: zero.dims[i] is not None and zero.sharded[i]),
+        pick(lambda i: zero.dims[i] is None and zero.sharded[i])]), mesh, "model")
+    data = collectives.psum(model[0] + pick(lambda i: zero.dims[i] is not None
+                                            and not zero.sharded[i]), mesh, "data")
+    gnorm = torch.sqrt(data + model[1] + pick(lambda i: zero.dims[i] is None
+                                              and not zero.sharded[i]))
+    scale = _clip_scale(gnorm, clip_norm)
+    t, b1c, b2c, lr = _bias(state, b1, b2, lr)
+    kw = dict(lr=lr, b1=b1, b2=b2, b1c=b1c, b2c=b2c, eps=eps, weight_decay=weight_decay)
+    mine_p = leaves(zero.cut(params))
+    out = [_update(p, g if scale is None else g * scale, m, v, **kw)
+           for p, g, m, v in zip(mine_p, own, leaves(state.m), leaves(state.v))]
+    del own
+    new = [o[0] for o in out]
+    for dtype in sorted({new[i].dtype for i in zi}, key=str):
+        ids = [i for i in zi if new[i].dtype == dtype]
+        moved = [new[i].movedim(zero.dims[i], 0) for i in ids]
+        full = collectives.all_gather(torch.cat([x.reshape(-1) for x in moved]), mesh, "data")
+        full = full.reshape(n_data, -1)
+        for i, x, part in zip(ids, moved, torch.split(full, [x.numel() for x in moved], 1)):
+            new[i] = part.reshape((n_data * x.shape[0],) + tuple(x.shape[1:])) \
+                .movedim(0, zero.dims[i]).contiguous()
+        del full
+    return (unflatten(params, new),
+            AdamWState(step=t, m=unflatten(state.m, [o[1] for o in out]),
+                       v=unflatten(state.v, [o[2] for o in out])),
+            {"grad_norm": gnorm})

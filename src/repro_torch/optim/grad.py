@@ -1,8 +1,12 @@
-"""Gradient accumulation over microbatches (one device).
+"""Gradient machinery: accumulation over microbatches (per rank), and the
+int8-compressed cross-pod exchange.
 
-The JAX package's ``compressed_crosspod_mean`` (the int8 error-feedback
-exchange across pods) waits for the training half of the distributed
-slice (ROADMAP queue 1, item 2).
+``accumulate_grads`` microbatches one batch on a rank.  ``compressed_crosspod_mean``
+is the JAX package's error-feedback int8 mean over the "pod" axis only
+(``distributed.collectives.compressed_psum``, leaf by leaf): the link
+between pods is the thin pipe, so a pod reduces in full precision within
+itself and ships int8 plus one float32 scale a leaf across pods, the
+quantization residual carried to the next step by the caller's error tree.
 """
 
 from __future__ import annotations
@@ -11,9 +15,10 @@ from typing import Any, Callable
 
 import torch
 
+from repro_torch.distributed import collectives
 from repro_torch.tree import leaves, tree_map, unflatten
 
-__all__ = ["accumulate_grads"]
+__all__ = ["accumulate_grads", "zeros_error", "compressed_crosspod_mean"]
 
 
 def accumulate_grads(loss_fn: Callable, params: Any, batches: Any,
@@ -33,3 +38,21 @@ def accumulate_grads(loss_fn: Callable, params: Any, batches: Any,
         losses.append(loss.detach())
     grads = unflatten(params, [a / n_micro for a in acc])
     return torch.stack(losses).mean(), grads, None
+
+
+def zeros_error(grads: Any) -> Any:
+    """The error-feedback tree of ``grads``: float32 zeros of its shapes."""
+    return tree_map(lambda g: torch.zeros(g.shape, dtype=torch.float32, device=g.device), grads)
+
+
+def compressed_crosspod_mean(grads: Any, error: Any, mesh,
+                             pod_axis: str = "pod") -> tuple[Any, Any]:
+    """The int8 error-feedback mean of each pod's gradients across
+    ``pod_axis`` -> (mean tree, new error tree).  ``grads`` are a pod's
+    partial means (its batch rows, its loss averaged within the pod), the
+    same on every rank of the pod; ``mesh`` a ``plan.Mesh``."""
+    n_pods = mesh.size(pod_axis)
+    out = [collectives.compressed_psum(g, mesh, pod_axis, e)
+           for g, e in zip(leaves(grads), leaves(error))]
+    return (unflatten(grads, [s / n_pods for s, _ in out]),
+            unflatten(error, [e for _, e in out]))

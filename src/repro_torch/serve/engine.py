@@ -339,7 +339,7 @@ class ServeEngine:
             self.model = MD.shard_model(self.host_model, self._mesh, self.device)
             dpx = self._topology.dp_extent
             if b % dpx == 0:
-                d = self._mesh.data_index
+                d = self._mesh.dp_index
                 self._rows = (d * b // dpx, (d + 1) * b // dpx)
 
         # the per-layer slot-state union, the caches' source of truth
@@ -403,7 +403,7 @@ class ServeEngine:
                                    page_table=self._pt, forced=self._forced,
                                    forced_x=self._forced_x)
         if self._rows != (0, self.max_slots):
-            logits = collectives.gather(logits, self._mesh, "data", 0, self._rows[0],
+            logits = collectives.gather(logits, self._mesh, "dp", 0, self._rows[0],
                                         self.max_slots)
         return logits
 

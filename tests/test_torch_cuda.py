@@ -1400,6 +1400,112 @@ def test_cuda_spmd_engine_matches_one_device(cuda, tmp_path):
                                                        "sparse_attention"))
 
 
+def _dist_train_rank(rank, path, cfg, batches, records, device="cuda"):
+    """One rank of Topology(dp=2, tp=2) with ZeRO-1: step 1's gradients
+    (summed over "dp", gathered over "model"), then the steps' losses and
+    the gathered params, each pass taking one rank's rounding decisions at
+    near ties (``records``: ``Replay.record``'s, one for the gradients and
+    step 1, one for step 2); the launches a rank made, and the ties'
+    (ok, summary)."""
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed.launch import rank_device
+    from repro_torch.distributed.plan import Topology
+    from repro_torch.launch import train as TR
+    from repro_torch.tree import leaves, unflatten
+    from torch_ties import Replay
+    dev = rank_device(rank, device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    mesh = Topology(dp=2, tp=2).build_mesh()
+    sh = TR.train_shardings(mesh, torch.load(path), cfg=cfg, device=dev)
+    rt = TR.make_runtime(mesh, len(batches[0]["inputs"]))
+    rows = TR.batch_rows(mesh, len(batches[0]["inputs"]))
+    ties = Replay(rows, MD.model_bounds(cfg, 2), mesh.model_index)
+    try:
+        ties.force(records[0])
+        ops.reset_launches()
+        _, aux, g = TR.loss_and_grads(sh.params, cfg, {k: v[rows] for k, v in batches[0].items()},
+                                      rt)
+        launches = dict(ops.launches)
+        g = MD.gather_params(g, cfg, mesh)
+        g = unflatten(g, [C.psum(x.float(), mesh, "dp").cpu() for x in leaves(g)])
+        step = TR.make_train_step(cfg, rt, total=4)
+        p, o, losses = sh.params, sh.opt, []
+        for s, b in enumerate(batches):
+            if s:
+                ties.force(records[s])
+            p, o, m = step(p, o, b)
+            losses.append(float(m["loss"]))
+    finally:
+        ties.restore()
+    p = [x.cpu() for x in leaves(MD.gather_params(p, cfg, mesh))]
+    return float(aux["loss"]), g, losses, p, launches, (ties.ok(), ties.summary())
+
+
+def dist_train_case(das, device, tmp):
+    """Reduced bitnet-1.3b (d_model 256, 2 layers, float32, remat) on
+    ``device``: one rank's loss, gradients, step losses and params (its
+    rounding decisions recorded), and the 4 ranks' outputs on the same
+    weights and batches (``_dist_train_rank``)."""
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.distributed.launch import run_ranks
+    from repro_torch.launch import train as TR
+    from repro_torch.optim import adamw
+    from repro_torch.tree import leaves, tree_map
+    from torch_ties import Replay
+    cfg = dataclasses.replace(reduced(get_config("bitnet-1.3b"), d_model=256), remat=True)
+    if not das:
+        cfg = dataclasses.replace(cfg, ternary=dataclasses.replace(cfg.ternary, das=None))
+    data = SyntheticLM(vocab=cfg.vocab, seq_len=128, batch=4, seed=9)
+    batches = [data.batch_at(s) for s in range(2)]
+    p = MD.init_params(cfg, seed=9, device=device)
+    path = str(tmp / "params.pt")
+    torch.save(tree_map(lambda x: x.cpu(), p), path)
+    ties, records = Replay(), []
+    try:
+        records.append(ties.record())
+        _, aux, g = TR.loss_and_grads(p, cfg, batches[0], TR.make_runtime())
+        step = TR.make_train_step(cfg, TR.make_runtime(), total=4)
+        o, losses = adamw.adamw_init(p), []
+        for s, b in enumerate(batches):
+            if s:
+                records.append(ties.record())
+            p, o, m = step(p, o, b)
+            losses.append(float(m["loss"]))
+    finally:
+        ties.restore()
+    want = (float(aux["loss"]), [x.float().cpu() for x in leaves(g)], losses,
+            [x.cpu() for x in leaves(p)])
+    return cfg, want, run_ranks(_dist_train_rank, 4, path, cfg, batches, records, device)
+
+
+@pytest.mark.parametrize("das", [False, True], ids=["quantized", "das"])
+def test_cuda_dist_train_matches_one_rank(cuda, tmp_path, das):
+    """Reduced bitnet-1.3b (d_model 256, 2 layers, float32, the fake-quants
+    on, DAS off or on) at Topology(dp=2, tp=2) with ZeRO-1, 4 ranks on this
+    card over gloo, against one rank on the same weights and batches:
+    step 1's loss within 2e-5 and every gradient within 1e-4 of its leaf's
+    max, the step losses and the params after 2 steps within 1e-4.  The
+    ranks sum in another order (the weight scales and row-parallel partials
+    over "model", the gradients over "data"), so a DAS, int8 or trit
+    decision at a near tie can land on the other side: a rank takes one
+    rank's decision there (``torch_ties.Replay``: within 1e-5 of a tie of
+    its own input, at most 0.01 % of them).  Every rank launches das_topk
+    on its shards with DAS on (8 a layer: 4 forward, 4 in remat's
+    recompute)."""
+    from repro_torch.tree import leaves
+    cfg, (loss0, g0, losses0, p0), outs = dist_train_case(das, cuda, tmp_path)
+    for loss, grads, steps, params, launches, (ok, summary) in outs:
+        assert launches["das_topk"] == (8 * cfg.n_layers if das else 0)
+        assert ok, summary
+        assert abs(loss - loss0) <= 2e-5 * abs(loss0)
+        for a, b in zip(leaves(grads), g0, strict=True):
+            assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+        assert all(abs(a - b) <= 1e-4 for a, b in zip(steps, losses0))
+        for a, b in zip(params, p0, strict=True):
+            assert float((a - b).abs().max()) <= 1e-4
+
+
 class _OneProcessMesh:
     """A Mesh stand-in for one model rank of tp ways, in one process: its
     collectives see a group of one, so each row-parallel output is the

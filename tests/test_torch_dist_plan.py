@@ -9,11 +9,18 @@ and shapes do.  ``Topology``'s properties, ``dp_axes_for``, ``shrink`` and
 ``elastic.plan_remesh`` equal ``repro``'s over a grid.  The rank
 boundaries (``model_bounds``) put every boundary of a DAS input on a
 multiple of the DAS block with the dense tail on the last rank, and a
-repacked K shard decodes to the rank's trits exactly.  No devices: every
-tree is built from shapes (``jax.eval_shape`` / the ``meta`` device).
+repacked K shard decodes to the rank's trits exactly.  ``ShardingPlan.zero1``
+over the master tree's float32 moments equals ``repro``'s (the ZeRO-1 specs
+of its ``train_shardings``) for every arch at (dp, tp) = (2, 1), (2, 2),
+(4, 2), with the same count in its summary warning; ``bridge.load_master_
+shard`` cuts each master leaf at the rank's bounds.  No devices: every
+serving tree is built from shapes (``jax.eval_shape`` / the ``meta``
+device), the reduced master trees on the CPU.
 """
 import dataclasses
 import functools
+import re
+import warnings
 
 import pytest
 import torch
@@ -22,6 +29,7 @@ from repro_torch.configs import ARCH_MODULES, get_config, reduced
 from repro_torch.core import twd
 from repro_torch.distributed import elastic
 from repro_torch.distributed.plan import ShardingPlan, Topology, shard_bounds
+from repro_torch.distributed.sharding import leaf_spec
 from repro_torch.models import model as MD
 from repro_torch.models.ternary_linear import ROW_ALIGN, TernaryLinear, shard_tlin
 
@@ -234,6 +242,20 @@ def test_unshardable_configs_raise():
         MD.check_shardable(cfg, 4)
 
 
+def test_untrainable_configs_raise():
+    """Training under a Topology refuses what serving does, and the MoE at
+    any tp (expert- and data-parallel training wait), each naming ROADMAP
+    queue 1, item 2; serving shards the MoE's experts."""
+    for arch in ("rwkv6-3b", "gla-1.3b", "zamba2-2.7b", "musicgen-medium"):
+        with pytest.raises(ValueError, match="does not train under a Topology.*queue 1, item 2"):
+            MD.check_shardable(reduced(get_config(arch)), 2, training=True)
+    moe = reduced(get_config("qwen3-moe-30b-a3b"))
+    for tp in (1, 2):
+        with pytest.raises(ValueError, match="MoE training under a Topology.*queue 1, item 2"):
+            MD.shard_params(MD.init_params(moe, device="cpu"), moe, _RankOf(tp, 0))
+    MD.check_shardable(moe, 2)                    # serving shards its experts
+
+
 class _RankOf:
     """A Mesh stand-in naming one model rank of tp ways (``shard_model``
     reads the topology and the index; no collective runs here)."""
@@ -276,3 +298,79 @@ def test_bridge_carries_repro_tree_to_each_rank(arch):
             else:
                 want = want.narrow(axis, lo, hi - lo)
             assert torch.equal(got, want), name
+
+
+ZERO_TOPOLOGIES = [(2, 1), (2, 2), (4, 2)]
+
+
+def _warned(fn):
+    """(fn(), the moment-leaf counts of the zero1 summary warnings it gave)."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        out = fn()
+    return out, [int(m.group(1)) for w in caught
+                 if (m := re.match(r"zero1_specs: (\d+) moment leaves", str(w.message)))]
+
+
+@pytest.mark.parametrize("topo", ZERO_TOPOLOGIES, ids=lambda t: f"dp{t[0]}tp{t[1]}")
+@pytest.mark.parametrize("arch", ARCHS)
+def test_zero1_specs_match_jax(arch, topo):
+    """The moments' ZeRO-1 specs of ``repro``'s ``train_shardings`` (its
+    plan over the master tree, ``plan.zero1(opt.m)``) leaf by leaf, and the
+    summary warning's count of the leaves that stay unsharded."""
+    import jax
+    from jax.sharding import PartitionSpec as P
+
+    from repro.configs import get_config as jget
+    from repro.configs import reduced as jreduced
+    from repro.distributed.plan import ShardingPlan as JPlan
+    from repro.distributed.plan import Topology as JTopology
+    from repro.models import model as JMD
+    from repro.optim import adamw as jadamw
+    from repro_torch.optim import adamw
+    from repro_torch.tree import leaves
+    jcfg = jreduced(jget(arch))
+    shapes = jax.eval_shape(lambda: JMD.init_params(jax.random.PRNGKey(0), jcfg))
+    moments = jax.eval_shape(lambda: jadamw.adamw_init(shapes)).m
+    jplan = JPlan.for_tree(shapes, JTopology(dp=topo[0], tp=topo[1]), validate=False)
+    want, jcount = _warned(lambda: jplan.zero1(moments))
+    want = [tuple(s) for s in jax.tree.leaves(want, is_leaf=lambda x: isinstance(x, P))]
+    params = MD.init_params(reduced(get_config(arch)), device="cpu")
+    plan = ShardingPlan.for_tree(params, Topology(dp=topo[0], tp=topo[1]), validate=False)
+    got, count = _warned(lambda: plan.zero1(adamw.adamw_init(params).m))
+    assert len(got) == len(leaves(params))
+    assert list(got.values()) == want
+    assert count == jcount
+    assert any("data" in s for s in want)
+
+
+def test_master_shard_cuts_each_leaf():
+    """``bridge.load_master_shard`` of ``repro``'s master tree: each rank's
+    leaf is the full leaf cut at the rank's bounds along the plan's "model"
+    axis (d_ff on whole DAS blocks), the rest whole; floating leaves
+    require grad."""
+    import jax
+    import numpy as np
+
+    from repro.configs import get_config as jget
+    from repro.configs import reduced as jreduced
+    from repro.models import model as JMD
+    from repro_torch.bridge import load_master_shard, load_master_tree
+    from repro_torch.distributed.plan import tree_leaves
+    cfg = dataclasses.replace(reduced(get_config("bitnet-1.3b")), d_ff=160)
+    jcfg = dataclasses.replace(jreduced(jget("bitnet-1.3b")), d_ff=160)
+    tree = jax.tree.map(np.asarray, JMD.init_params(jax.random.PRNGKey(0), jcfg))
+    full = tree_leaves(load_master_tree(tree, cfg, "cpu"))
+    bounds = MD.model_bounds(cfg, 2)
+    assert bounds["ff"] == ((0, 96), (96, 160))
+    for r in (0, 1):
+        local = tree_leaves(load_master_shard(tree, cfg, _RankOf(2, r), "cpu"))
+        assert local.keys() == full.keys()
+        for name, want in full.items():
+            got = local[name]
+            assert got.requires_grad
+            spec = leaf_spec(name, want.ndim)
+            if "model" in spec:
+                lo, hi = bounds[MD._role(name)][r]
+                want = want.narrow(spec.index("model"), lo, hi - lo)
+            assert torch.equal(got.detach(), want.detach()), name

@@ -102,7 +102,7 @@ def runs(tmp_path_factory):
     trace = tuple(_trace(tcfg))
     dp2tp2 = ServeConfig(max_slots=4, max_len=MAX_LEN, topology=Topology(dp=2, tp=2))
     jobs = [cli.RankJob(tcfg, dp2tp2, weights=path, trace=trace,
-                        teacher=(prompt[:16], forced)),
+                        teachers=((prompt[:16], forced),)),
             cli.RankJob(tcfg, dp2tp2, weights=path, trace=trace, fail_at=(3,), lost=2),
             cli.RankJob(tcfg, ServeConfig(max_slots=4, max_len=MAX_LEN, layout="paged",
                                           page_size=8, topology=Topology(dp=1, tp=2)),
@@ -123,7 +123,7 @@ def test_dp2_tp2_tokens_match_jax(runs):
 def test_dp2_tp2_teacher_forced_logits_match_jax(runs):
     want, got = runs
     for rank in range(4):
-        steps = got[rank][0]["teacher"]
+        steps = got[rank][0]["teachers"][0]
         assert len(steps) == len(want["teacher"]) == 16
         for i, (g, w) in enumerate(zip(steps, want["teacher"])):
             np.testing.assert_allclose(g, w, rtol=0, atol=TOL,
@@ -131,7 +131,7 @@ def test_dp2_tp2_teacher_forced_logits_match_jax(runs):
             assert int(np.argmax(g)) == int(np.argmax(w))
     # every rank of the world gathers the same logits
     for rank in range(1, 4):
-        for a, b in zip(got[0][0]["teacher"], got[rank][0]["teacher"]):
+        for a, b in zip(got[0][0]["teachers"][0], got[rank][0]["teachers"][0]):
             np.testing.assert_array_equal(a, b)
 
 

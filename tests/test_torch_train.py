@@ -58,11 +58,10 @@ from repro_torch.models import attention as TA
 from repro_torch.models import model as MD
 from repro_torch.tree import leaves, leaves_with_paths
 from test_torch_hybrid import one_thread  # noqa: F401
+from torch_ties import MAX_FORCED, TIE_RTOL, das_gaps, int8_gaps, near_zero
 
 B, S = 2, 64
 LOSS_RTOL, GRAD_TOL, BF16_TOL = 1e-5, 1e-4, 2e-2
-TIE_RTOL = 1e-5            # a decision the port takes from JAX lies this near a tie
-MAX_FORCED = 1e-4          # and at most this share of decisions is taken
 
 
 def cfg_pair(arch, *, das=True, moe=None, **kw):
@@ -104,40 +103,6 @@ def port_loss_grads(tcfg, tparams, batch, rt=None):
     grads = torch.autograd.grad(loss, flat, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g for p, g in zip(flat, grads)]
     return float(loss.detach()), grads
-
-
-def near_zero(x, block_size):
-    """Per lane of x's blocks (N, block_size), whether |x| is within 1e-5
-    of zero relative to its row's max |x|: relu(k)^2 of a k whose sign the
-    two packages' float32 sums set apart (the rwkv channel-mix) is 1e-16 on
-    one side and 0 on the other, which no relative gap can measure."""
-    a = x.detach().abs().float()
-    row = a.reshape(-1, a.shape[-1]).amax(-1, keepdim=True)
-    main = a.shape[-1] - a.shape[-1] % block_size
-    flat = a.reshape(-1, a.shape[-1])[:, :main]
-    return (flat <= TIE_RTOL * row).reshape(-1, block_size)
-
-
-def das_gaps(x, diff, block_size, keep):
-    """Per block where the two masks differ, the gap between the keep-th
-    and the next largest |x| relative to the keep-th, lanes near zero
-    (``near_zero``) taken as 0: a block whose keep-th lane is one of them
-    is at a tie with zero."""
-    k = x.shape[-1]
-    main = k - k % block_size
-    assert not diff[..., main:].any(), "a dense tail lane differs"
-    a = x.detach()[..., :main].abs().float().reshape(-1, block_size)
-    a = torch.where(near_zero(x, block_size), 0.0, a)
-    d = diff[..., :main].reshape(-1, block_size).any(-1)
-    top = a[d].sort(-1, descending=True).values
-    return (top[:, keep - 1] - top[:, keep]) / top[:, keep - 1].clamp_min(1e-30)
-
-
-def int8_gaps(x, scale, diff):
-    """Per differing value, how far |x / scale| lies from a .5 boundary,
-    relative to |x / scale| (a relative error of x moves it by as much)."""
-    r = (x.detach().float() / scale).abs()[diff]
-    return ((r - r.floor()) - 0.5).abs() / r
 
 
 def ternary_gaps(w, gamma, diff):
