@@ -42,6 +42,34 @@ Phases:
            over 8 in every class (bf16 decode, float32 queries over bf16
            rings, also at 24/24 of 64, a bf16 and a float32 LPSA pack), each
            bitwise batch invariant
+  tune     the packed GEMMs' launch configs and the tuned kernel mode:
+           (1) at bitnet-1.3b's shapes (das_ternary_gemm 2048 -> 2048 and
+           -> 5460, ternary_gemm 5460 -> 2048; 4 and 256 rows; bf16, and
+           float32 as the DAS-off check (4) serves it) every feasible
+           config (``subs`` 1, 2, 4, 8 windows a decode block, ``parts``
+           1..8 K parts of a tensor-core prefill tile) against the plain
+           version (2e-2 bf16, 1e-4 float32), the default config bitwise
+           the explicit built-in one and the call without a config, and
+           each config batch invariant within its class (the rows of a
+           1-row call bitwise those of a 4-row call; of a 5-row call those
+           of a 256-row call); (2) bitnet-1.3b at full width and depth,
+           packed, bf16: a ServeEngine with kernel_mode="tuned" tunes its
+           shapes into a fresh cache at construction (every candidate
+           timed: the kernel at each config, the native impls; CUDA events,
+           the L2 flushed), and each key prints its winner, its µs, the
+           built-in config's µs and every candidate's; (3) two requests of
+           the packed trace (prompts 1100 and 300, 32 new tokens) through
+           the tuned engine, launch counts at 0 before and read after (each
+           kernel its winners take launched), then the default engine:
+           tokens (reported, not gated: DAS turns another sum order into
+           other tokens), decode ms/step and the 1100-token admission's
+           ms (CUDA events: the eager prefill is host-bound) and device
+           busy ms (torch.profiler) under each mode; (4) bitnet-1.3b in
+           float32 with DAS off, 2 of its layers, full width: a tuned engine
+           (its own float32 keys tuned) and the default engine, request 0
+           teacher-forced on the default engine's tokens: logits within
+           1e-4 of the max logit; (5) a second tuned engine on the same
+           cache does zero timed runs
   serve    full-width bitnet-1.3b (seeded random weights) on six paths, each
            driven with the launch counts at 0 and read after it; every
            engine captures its decode step into a CUDA graph after one
@@ -322,7 +350,7 @@ import traceback
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ("device", "build", "kernels", "serve", "dist", "train", "times")
+PHASES = ("device", "build", "kernels", "tune", "serve", "dist", "train", "times")
 OPTIONAL_PHASES = ("profile", "http")   # run only when named
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, bf16 and f32 FLOP/s
@@ -1273,10 +1301,243 @@ class Smoke:
 
     PROMPT_LENS, GEN_LEN = (1100, 300, 256, 40, 700), 32
 
+    # -- tune ----------------------------------------------------------------
+
+    # bitnet-1.3b's packed GEMMs: (op, K, N) at 4 and 256 rows
+    TUNE_SHAPES = (("das_ternary_gemm", 2048, 2048), ("das_ternary_gemm", 2048, 5460),
+                   ("ternary_gemm", 5460, 2048))
+    TUNE_CUT = 2             # check (4)'s depth: float32, DAS off
+
+    def _gemm_call(self, op, x, packed, scale):
+        """(the kernel at a config (None: no config argument), its plain
+        version) of one packed GEMM call on rows x: das_ternary_gemm on x's
+        DAS compaction, ternary_gemm on its masked dense rows (the down
+        projection's route)."""
+        from repro_torch.kernels import ops, ref
+        step = ops.das_topk(x, keep=16, with_mask=False, with_dense=True)
+        if op == "das_ternary_gemm":
+            def run(c):
+                kw = {} if c is None else {"config": c}
+                return ops.das_ternary_gemm(step.values, step.indices, packed, scale, keep=16,
+                                            **kw)
+            return run, lambda: ref.das_ternary_gemm_ref(step.values, step.indices, packed,
+                                                         scale)
+
+        def run(c):
+            kw = {} if c is None else {"config": c}
+            return ops.ternary_gemm(step.dense, packed, scale, **kw)
+        return run, lambda: ref.ternary_gemm_ref(step.dense, packed, scale)
+
+    def _config_checks(self, g):
+        """(1): every feasible launch config against the plain version, the
+        default bitwise the built-in one, batch invariance within a class."""
+        torch = self.torch
+        from repro_torch.kernels import build
+        scale = torch.tensor(0.37, device=self.dev)
+        n_cfg = 0
+        for dt in (torch.bfloat16, torch.float32):
+            tol = TOL_BF16 if dt == torch.bfloat16 else TOL_F32_GEMM
+            for op, k, n in self.TUNE_SHAPES:
+                packed = self._packed(g, k, n)
+                r = packed.shape[0]
+                mma = (build.das_mma_route(dt, k // 32 * 16, 16, 32, n)
+                       if op == "das_ternary_gemm" else build.dense_mma_route(dt, k, n))
+                x_all = torch.randn((256, k), generator=g, device=self.dev).to(dt)
+                for m in (4, 256):
+                    run, plain = self._gemm_call(op, x_all[:m], packed, scale)
+                    want, base = plain(), run(None)
+                    label = f"{op} {dt} ({m},{k})x({r},{n})"
+                    self.check(f"{label}: the default config vs no config", run(
+                        build.DEFAULT_CONFIG), base, 0, True)
+                    builtin = build.builtin_config(m, r, n, mma)
+                    if builtin != build.DEFAULT_CONFIG:
+                        self.check(f"{label}: the built-in {tuple(builtin)} vs no config",
+                                   run(builtin), base, 0, True)
+                    small = 1 if m <= 4 else 5
+                    run_small, _ = self._gemm_call(op, x_all[:small], packed, scale)
+                    for c in build.launch_configs(m, r, n, mma):
+                        got = run(c)
+                        self.check(f"{label} subs={c.subs} parts={c.parts}", got, want, tol)
+                        self.check(f"{label} subs={c.subs} parts={c.parts}: a {small}-row "
+                                   f"call's rows", run_small(c), got[:small], 0, True)
+                        n_cfg += 1
+        log(f"[tune] {n_cfg} launch configs held against the plain versions, each batch "
+            f"invariant within its class")
+
+    def _tune_trace(self, prompts):
+        from repro_torch.serve import Request
+        return [Request(uid=i, prompt=prompts[i], max_new_tokens=self.GEN_LEN, arrival=2 * i)
+                for i in range(2)]
+
+    def phase_tune(self):
+        """(1)-(5) of the header: the launch configs, then the tuned engine
+        against the default one at bitnet-1.3b's full width."""
+        import os
+        import tempfile
+
+        import numpy as np
+        torch = self.torch
+        from repro_torch.kernels import autotune, ops
+        from repro_torch.launch.serve import teacher_forced
+        from repro_torch.models import model as MD
+        from repro_torch.serve import Request, ServeEngine
+
+        t0 = time.perf_counter()
+        self._config_checks(self.gen(self.seed + 29))
+        t0 = _took("launch configs", t0, "tune")
+        cfg, _, model, prompts, sc = self._packed_model()
+        (ROOT / "build").mkdir(exist_ok=True)
+        cache_dir = Path(tempfile.mkdtemp(prefix="tune_", dir=ROOT / "build"))
+        os.environ[autotune.ENV_VAR] = str(cache_dir / "autotune.json")
+        try:
+            tuned = ServeEngine(model, sc.with_updates(kernel_mode="tuned"), device=self.dev)
+            t0 = _took(f"tuned engine ({tuned.stats.autotune_timed_runs} timed candidate "
+                       f"runs, then the graph captured)", t0, "tune")
+            self._print_winners(tuned.autotune_cache)
+            runs = {}
+            for label in ("tuned", "default"):
+                eng = tuned if label == "tuned" else ServeEngine(model, sc, device=self.dev)
+                if label == "tuned":
+                    ops.reset_launches()           # the tuned path starts here, after its
+                                                   # tuning runs and its graph capture
+                for r in self._tune_trace(prompts):
+                    eng.submit(r)
+                res = eng.run()
+                torch.cuda.synchronize()
+                if label == "tuned":
+                    self._tuned_counts(tuned.autotune_cache, dict(ops.launches))  # ... ends
+                st = eng.stats
+                runs[label] = (res, 1e3 * st.decode_seconds / st.decode_steps,
+                               self._admission_ms(eng, prompts[0]))
+                adm_ms, adm_busy = runs[label][2]
+                log(f"[tune] {label} engine: decode {runs[label][1]:.3f} ms/step (host clock, "
+                    f"{sc.max_slots} slots, {st.decode_steps} steps), admission of the "
+                    f"{len(prompts[0])}-token prompt {adm_ms:.3f} ms (CUDA events), device busy "
+                    f"{adm_busy:.3f} ms (torch.profiler); tokens "
+                    + "; ".join(f"req {u}: {res[u].tokens[:8].tolist()}..." for u in sorted(res)))
+            same = all(runs["tuned"][0][u].tokens.tolist() == runs["default"][0][u].tokens.tolist()
+                       for u in runs["tuned"][0])
+            log(f"[tune] tuned vs default: tokens {'equal' if same else 'DIFFERENT'} (reported, "
+                f"not gated: another sum order moves a DAS tie); decode {runs['tuned'][1]:.3f} vs "
+                f"{runs['default'][1]:.3f} ms/step, admission device busy "
+                f"{runs['tuned'][2][1]:.3f} vs {runs['default'][2][1]:.3f} ms; {_nvidia_smi()}")
+            t0 = _took("tuned vs default serving", t0, "tune")
+
+            # (4) float32, DAS off, TUNE_CUT layers: teacher-forced logits
+            cfg32 = dataclasses.replace(cfg, n_layers=self.TUNE_CUT, dtype="float32",
+                                        ternary=dataclasses.replace(cfg.ternary, das=None))
+            m32 = MD.init_serving(cfg32, seed=self.seed, device=self.dev)
+            sc32 = sc.with_updates(max_slots=1)
+            default32 = ServeEngine(m32, sc32, device=self.dev)
+            default32.submit(Request(uid=0, prompt=prompts[0], max_new_tokens=8))
+            toks = default32.run()[0].tokens.tolist()
+            t32 = ServeEngine(m32, sc32.with_updates(kernel_mode="tuned"), device=self.dev)
+            self._print_winners(t32.autotune_cache, "float32 engine", "float32")
+            n = len(prompts[0]) // cfg.lpsa.chunk * cfg.lpsa.chunk
+            feed = [int(t) for t in prompts[0][n:]] + toks[:-1]
+            want = teacher_forced(m32, prompts[0][:n], feed, max_len=sc.max_len)
+            with t32._mode_scope():
+                got = teacher_forced(m32, prompts[0][:n], feed, max_len=sc.max_len)
+            err = max(float(np.abs(a - b).max() / np.abs(b).max()) for a, b in zip(got, want))
+            log(f"[tune] float32, DAS off, {self.TUNE_CUT} layers: tuned vs default "
+                f"teacher-forced logits over {len(want)} steps ({n} prompt tokens prefilled; "
+                f"{t32.stats.autotune_timed_runs} timed runs for the float32 keys): "
+                f"{err:.3e} of the max logit (tol {TOL_F32_GEMM:g})")
+            if not err <= TOL_F32_GEMM:
+                raise AssertionError("tuned float32 logits disagree with the default engine's")
+
+            # (5) a second engine on the populated cache
+            again = ServeEngine(model, sc.with_updates(kernel_mode="tuned"), device=self.dev)
+            log(f"[tune] a second tuned engine: {again.stats.autotune_timed_runs} timed runs "
+                f"({len(again.autotune_cache.entries)} cached keys)")
+            if again.stats.autotune_timed_runs:
+                raise AssertionError("a populated cache was tuned again")
+            _took("float32 check and a second engine", t0, "tune")
+        finally:
+            os.environ.pop(autotune.ENV_VAR, None)
+            for f in cache_dir.iterdir():
+                f.unlink()
+            cache_dir.rmdir()
+
+    def _print_winners(self, cache, what="packed engine", dtype="bfloat16"):
+        """Each key of ``cache`` at ``dtype``: its winner, its µs, the
+        built-in config's µs and every timed candidate's."""
+        for key, e in sorted(cache.entries.items()):
+            if f"|dtype{dtype}|" not in key:
+                continue
+            builtin = [us for name, us in e["timed"].items() if self._is_builtin(key, name)]
+            log(f"[tune] {what} {key}: winner {e['impl']} subs={e['subs']} parts={e['parts']} "
+                f"kv_chunk={e['kv_chunk']} {e['us']:.1f} us; built-in config "
+                f"{builtin[0] if builtin else 'n/a'} us; timed {e['timed']}")
+
+    @staticmethod
+    def _is_builtin(key, name):
+        """Whether the timed candidate ``name`` ("cuda subs=2", "cuda
+        parts=5", "cuda") of a cache key is the kernel's built-in config.
+        A GEMM key's fields: op, device, then block, cls, dtype, k, keep, n
+        (autotune.shape_key sorts them)."""
+        from repro_torch.core import twd
+        from repro_torch.kernels import build
+        f = key.split("|")
+        if f[0] == "sparse_attn":
+            return name == "cuda"
+        cls, k, n = f[3][len("cls"):], int(f[5][len("k"):]), int(f[7][len("n"):])
+        r = twd.packed_rows(k, twd.ROW_ALIGN)
+        c = build.builtin_config(build.DECODE_ROWS if cls == "decode" else 256, r, n, mma=True)
+        return name in ("cuda", f"cuda subs={c.subs}", f"cuda parts={c.parts}")
+
+    def _tuned_counts(self, cache, counts):
+        """The tuned path's launches: each kernel that one of its winners
+        takes was launched."""
+        want = {"das_topk"}
+        for key, e in cache.entries.items():
+            op = key.split("|")[0]
+            if e["impl"] == "cuda":
+                want.add({"sparse_attn": "sparse_attention"}.get(op, op))
+            elif e["impl"] in ("native_plain", "native_dense_plain", "native_gather"):
+                want.add("twd_decode")
+        log(f"[tune] tuned launches on the path: {counts} (each of {sorted(want)} > 0)")
+        missing = [k for k in sorted(want) if not counts.get(k)]
+        if missing:
+            raise AssertionError(f"the tuned path never launched {missing}")
+        for name, n in counts.items():
+            self.launches[name] += n
+
+    def _admission_ms(self, eng, prompt):
+        """(CUDA-event ms, device busy ms under torch.profiler) of the
+        engine's prefill of ``prompt``'s whole packs under its kernel mode,
+        after one warm-up prefill: the eager prefill is host-bound, so the
+        events bracket host gaps that the busy time leaves out."""
+        torch = self.torch
+        from torch.profiler import ProfilerActivity, profile
+
+        from repro_torch.models import model as MD
+        n = len(prompt) // eng.cfg.lpsa.chunk * eng.cfg.lpsa.chunk
+        tok = self._inputs(prompt[:n])
+        with eng._mode_scope():
+            MD.prefill(eng.model, tok, max_len=eng.max_len)
+            ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            ev0.record()
+            MD.prefill(eng.model, tok, max_len=eng.max_len)
+            ev1.record()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                MD.prefill(eng.model, tok, max_len=eng.max_len)
+                torch.cuda.synchronize()
+        busy = sum(_Trace(prof).device_times().values()) / 1e3
+        return ev0.elapsed_time(ev1), busy
+
     def _packed_model(self):
         """Full-width bitnet-1.3b, seeded random weights, base-3 packed, with
         the trace's prompts and serve config: (cfg, master params, model,
-        prompts, ServeConfig)."""
+        prompts, ServeConfig); built once, shared by the tune and serve
+        phases."""
+        if getattr(self, "_packed_cache", None) is None:
+            self._packed_cache = self._build_packed_model()
+        return self._packed_cache
+
+    def _build_packed_model(self):
         torch = self.torch
         from repro_torch.configs import get_config
         from repro_torch.models import model as MD

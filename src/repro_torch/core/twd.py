@@ -13,10 +13,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["TRITS_PER_BYTE", "decode_lut", "packed_dim", "packed_rows",
+__all__ = ["TRITS_PER_BYTE", "ROW_ALIGN", "decode_lut", "packed_dim", "packed_rows",
            "pack_ternary", "unpack_ternary", "unpack_ternary_arith"]
 
 TRITS_PER_BYTE = 5
+ROW_ALIGN = 16   # packed rows of a serving export are a multiple of this
 _POW3 = (1, 3, 9, 27, 81)
 
 

@@ -20,11 +20,15 @@ import tempfile
 import threading
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
 __all__ = ["BUILD_DIR", "library", "build", "dtype_code", "stream_of",
-           "check_launch", "last_build_seconds", "packed_rows_fit", "aligned"]
+           "check_launch", "last_build_seconds", "packed_rows_fit", "aligned",
+           "windows", "dec_subs", "mma_parts", "das_mma_route", "dense_mma_route",
+           "LaunchConfig", "gemm_class", "builtin_config", "launch_configs",
+           "check_launch_config"]
 
 CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -40,11 +44,11 @@ _SIGNATURES = {
     # normed, stream
     "tenet_das_topk": [_P, _I, _I, _I, _I, _P, _F, _P, _P, _P, _P, _P, _P],
     # values, dtype, indices, packed, w_scale, out, M, Kc, keep, block, R, N,
-    # stream
+    # subs, parts, stream
     "tenet_das_ternary_gemm": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                               _P],
-    # x, dtype, packed, w_scale, x_scale, out, M, K, R, N, stream
-    "tenet_ternary_gemm": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+                               _I, _I, _P],
+    # x, dtype, packed, w_scale, x_scale, out, M, K, R, N, subs, parts, stream
+    "tenet_ternary_gemm": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # q, k, v, q_pos, k_pos, out, dtype, kv dtype, B, Lq, Lk, Hq, Hkv, D,
     # sink, window, softcap, scale, round_scores, stream
     "tenet_sparse_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
@@ -143,11 +147,20 @@ def library(verbose: bool = False) -> ctypes.CDLL:
     return _lib
 
 
-# the GEMM core's decode class (csrc/common.cuh): M <= 4 rows, K in windows
-# of 32 packed rows (groups of 5 lanes), at most 8 windows a block and 16
-# blocks (one cluster) a column tile
+# The GEMM core's launch structure (csrc/common.cuh), the one Python mirror
+# of it: the wrappers check a launch config against it and the cost model
+# (core/perfmodel.py) prices it.  Decode class: M <= 4 rows, K in windows of
+# 32 packed rows (groups of 5 lanes), ``subs`` windows a block (1, 2, 4, 8),
+# 128 columns a block, a column tile's blocks one cluster of at most 16.
+# Prefill class: 64 x 64 tiles, on the bf16 tensor-core route split over
+# ``parts`` K parts a cluster (at most 8); float32 and int8 rows take the
+# FMA route, which has no knob.
 WIN_ROWS, DECODE_ROWS = 32, 4
-DECODE_MAX_ROWS = WIN_ROWS * 8 * 16
+DEC_COLS, MAX_CLUSTER = 128, 16
+DEC_MAX_SUBS, DEC_MAX_BLOCKS = 8, 330
+MAX_PARTS = 8
+DECODE_MAX_ROWS = WIN_ROWS * DEC_MAX_SUBS * MAX_CLUSTER
+WIN_LANES = 5 * WIN_ROWS         # a K window's lanes
 
 
 def packed_rows_fit(m: int, r: int) -> bool:
@@ -155,6 +168,98 @@ def packed_rows_fit(m: int, r: int) -> bool:
     of int8 trit rows) for M = m rows: any R above the decode class, R <=
     4096 (K <= 20480) within it."""
     return m > DECODE_ROWS or r <= DECODE_MAX_ROWS
+
+
+def windows(packed_rows: int) -> int:
+    """K windows of 32 packed rows (common.cuh ``windows``)."""
+    return -(-packed_rows // WIN_ROWS)
+
+
+def dec_subs(packed_rows: int, n: int) -> int:
+    """The decode class's built-in windows a block (common.cuh ``dec_subs``):
+    the fewest of 1, 2, 4, 8 that keep a column tile's blocks in one cluster
+    and the grid within 330 blocks."""
+    tiles = -(-n // DEC_COLS)
+    subs = 1
+    while subs < DEC_MAX_SUBS:
+        s = -(-windows(packed_rows) // subs)
+        if s <= MAX_CLUSTER and tiles * s <= DEC_MAX_BLOCKS:
+            break
+        subs *= 2
+    return subs
+
+
+def mma_parts(packed_rows: int) -> int:
+    """The tensor-core prefill's built-in K parts a cluster (common.cuh
+    ``mma_parts``): about 8 windows a part, at most 8 parts."""
+    return max(1, min(MAX_PARTS, (windows(packed_rows) + 7) // 8))
+
+
+def das_mma_route(dtype: torch.dtype, kc: int, keep: int, block: int, n: int) -> bool:
+    """Whether das_ternary_gemm's prefill class takes the tensor-core route
+    (das_gemm.cu): bf16 values, Kc and a window's entries multiples of 8, N
+    of 4."""
+    return (dtype == torch.bfloat16 and kc % 8 == 0
+            and (WIN_LANES // block * keep) % 8 == 0 and n % 4 == 0)
+
+
+def dense_mma_route(dtype: torch.dtype, k: int, n: int) -> bool:
+    """Whether ternary_gemm's prefill class takes the tensor-core route
+    (ternary_gemm.cu): bf16 rows, K and N multiples of 4."""
+    return dtype == torch.bfloat16 and k % 4 == 0 and n % 4 == 0
+
+
+class LaunchConfig(NamedTuple):
+    """A packed GEMM's launch config: ``subs``, the decode class's windows
+    a block, or ``parts``, the tensor-core prefill's K parts a cluster; 0 =
+    the kernel's built-in choice (``dec_subs`` / ``mma_parts``).  Either
+    changes the order of a row's sums, so a config is chosen by (K, N,
+    dtype, DAS, class) alone, never by M within a class."""
+    subs: int = 0
+    parts: int = 0
+
+
+DEFAULT_CONFIG = LaunchConfig()
+
+
+def gemm_class(m: int) -> str:
+    """The GEMM core's class of M rows: "decode" (M <= 4) or "prefill"."""
+    return "decode" if m <= DECODE_ROWS else "prefill"
+
+
+def builtin_config(m: int, r: int, n: int, mma: bool) -> LaunchConfig:
+    """The explicit config the kernel picks for itself (DEFAULT_CONFIG on
+    the FMA prefill, which has no knob)."""
+    if gemm_class(m) == "decode":
+        return LaunchConfig(subs=dec_subs(r, n))
+    return LaunchConfig(parts=mma_parts(r)) if mma else DEFAULT_CONFIG
+
+
+def launch_configs(m: int, r: int, n: int, mma: bool) -> list[LaunchConfig]:
+    """Every explicit launch config the GEMM core takes for M rows of R
+    packed rows x N columns: the decode class's ``subs`` whose column tile
+    fits one cluster, or the tensor-core prefill's ``parts`` up to 8 and
+    the windows (``mma``: the bf16 route)."""
+    w = windows(r)
+    if gemm_class(m) == "decode":
+        return [LaunchConfig(subs=s) for s in (1, 2, 4, 8) if -(-w // s) <= MAX_CLUSTER]
+    if not mma:
+        return []
+    return [LaunchConfig(parts=p) for p in range(1, min(MAX_PARTS, w) + 1)]
+
+
+def check_launch_config(m: int, r: int, n: int, mma: bool, config: LaunchConfig) -> None:
+    """Raise ValueError for a config the kernel would refuse (never replaced
+    by another)."""
+    if config == DEFAULT_CONFIG:
+        return
+    if config not in launch_configs(m, r, n, mma):
+        route = ("decode" if gemm_class(m) == "decode"
+                 else "tensor-core prefill" if mma else "FMA prefill")
+        raise ValueError(
+            f"launch config {tuple(config)} (subs, parts) is not feasible for the "
+            f"{route} class at M={m}, R={r} ({windows(r)} windows), N={n}: "
+            f"it takes {[tuple(c) for c in launch_configs(m, r, n, mma)] or 'only the default'}")
 
 
 def aligned(t: torch.Tensor) -> torch.Tensor:

@@ -814,15 +814,17 @@ __host__ __forceinline__ int mma_parts(int R) {
   return P < 1 ? 1 : P > 8 ? 8 : P;
 }
 
-// launch the tensor-core prefill, its K parts as one cluster
+// launch the tensor-core prefill, its K parts as one cluster: `parts` of
+// them (1..8, at most the windows; the tuned config), or mma_parts(R) at 0
 template <class Rows, class W, class Epi>
 static cudaError_t launch_prefill_mma(const Rows& rows, const W& wt, Epi epi, float* out,
-                                      cudaStream_t stream) {
+                                      cudaStream_t stream, int parts = 0) {
+  const int P = parts > 0 ? parts : mma_parts(wt.R), N = wt.N;
+  if (P < 1 || P > 8 || P > windows(wt.R)) return cudaErrorInvalidValue;
   auto kernel = prefill_mma_kernel<Rows, W, Epi>;
   const size_t smem = mma_smem<Rows, W>(rows);
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  const int P = mma_parts(wt.R), N = wt.N;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = 1;
@@ -874,18 +876,22 @@ static cudaError_t launch_decode_subs(const Rows& rows, const W& wt, Epi epi, fl
   return cudaLaunchKernelEx(&cfg, kernel, rows, wt, epi, out);
 }
 
+// `subs` windows a block (1, 2, 4 or 8, the tuned config; a column tile's
+// blocks must fit one cluster), or dec_subs(R, N) at 0
 template <typename Acc, bool kMma, class Rows, class W, class Epi>
 static cudaError_t launch_decode(const Rows& rows, const W& wt, Epi epi, float* out,
-                                 cudaStream_t stream) {
-  switch (dec_subs(wt.R, wt.N)) {
+                                 cudaStream_t stream, int subs = 0) {
+  switch (subs > 0 ? subs : dec_subs(wt.R, wt.N)) {
     case 1:
       return launch_decode_subs<Acc, kMma, 1>(rows, wt, epi, out, stream);
     case 2:
       return launch_decode_subs<Acc, kMma, 2>(rows, wt, epi, out, stream);
     case 4:
       return launch_decode_subs<Acc, kMma, 4>(rows, wt, epi, out, stream);
-    default:
+    case 8:
       return launch_decode_subs<Acc, kMma, 8>(rows, wt, epi, out, stream);
+    default:
+      return cudaErrorInvalidValue;
   }
 }
 

@@ -32,31 +32,37 @@ struct Scale {
   __device__ __forceinline__ float operator()(float v, int) const { return v * w; }
 };
 
+// subs, parts: the launch config (common.cuh), 0 = the built-in choice; a
+// knob of the other class, or parts on the FMA route, is refused
 template <typename T>
 static cudaError_t launch(const void* values, const int* indices, const uint8_t* packed,
                           Scale epi, float* out, int M, int Kc, int E, int R, int N,
-                          cudaStream_t stream) {
+                          int subs, int parts, cudaStream_t stream) {
   const CompactRows<T> rows{static_cast<const T*>(values), indices, M, Kc, E};
   const PackedW wt{packed, R, N, N % 4 == 0};
   if (M <= kDecRows) {
+    if (parts != 0) return cudaErrorInvalidValue;
     return launch_decode<float, std::is_same<T, __nv_bfloat16>::value>(rows, wt, epi, out,
-                                                                       stream);
+                                                                       stream, subs);
   }
+  if (subs != 0) return cudaErrorInvalidValue;
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
     if (Kc % 8 == 0 && E % 8 == 0 && N % 4 == 0) {
-      return launch_prefill_mma(rows, wt, epi, out, stream);
+      return launch_prefill_mma(rows, wt, epi, out, stream, parts);
     }
   }
+  if (parts != 0) return cudaErrorInvalidValue;
   return launch_prefill_fma<float>(rows, wt, epi, out, stream);
 }
 
 }  // namespace tenet
 
-// keep, block: das_compact's (kWinLanes % block == 0)
+// keep, block: das_compact's (kWinLanes % block == 0); subs, parts: the
+// launch config, 0 = built in
 extern "C" int tenet_das_ternary_gemm(const void* values, int dtype, const void* indices,
                                       const void* packed, const void* w_scale, void* out,
                                       int M, int Kc, int keep, int block, int R, int N,
-                                      void* stream) {
+                                      int subs, int parts, void* stream) {
   using namespace tenet;
   if (block < 1 || kWinLanes % block != 0) return (int)cudaErrorInvalidValue;
   const int E = kWinLanes / block * keep;
@@ -67,9 +73,9 @@ extern "C" int tenet_das_ternary_gemm(const void* values, int dtype, const void*
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case kF32:
-      return (int)launch<float>(values, idx, p, epi, o, M, Kc, E, R, N, s);
+      return (int)launch<float>(values, idx, p, epi, o, M, Kc, E, R, N, subs, parts, s);
     case kBF16:
-      return (int)launch<__nv_bfloat16>(values, idx, p, epi, o, M, Kc, E, R, N, s);
+      return (int)launch<__nv_bfloat16>(values, idx, p, epi, o, M, Kc, E, R, N, subs, parts, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

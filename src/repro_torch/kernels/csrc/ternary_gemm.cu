@@ -32,26 +32,33 @@ struct Scale {
   }
 };
 
+// subs, parts: the launch config (common.cuh), 0 = the built-in choice; a
+// knob of the other class, or parts on the FMA route, is refused
 template <typename T, typename Acc>
 static cudaError_t launch(const void* x, const uint8_t* packed, Scale epi, float* out, int M,
-                          int K, int R, int N, cudaStream_t stream) {
+                          int K, int R, int N, int subs, int parts, cudaStream_t stream) {
   const DenseRows<T> rows{static_cast<const T*>(x), M, K};
   const PackedW wt{packed, R, N, N % 4 == 0};
   if (M <= kDecRows) {
+    if (parts != 0) return cudaErrorInvalidValue;
     return launch_decode<Acc, std::is_same<T, __nv_bfloat16>::value>(rows, wt, epi, out,
-                                                                     stream);
+                                                                     stream, subs);
   }
+  if (subs != 0) return cudaErrorInvalidValue;
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    if (K % 4 == 0 && N % 4 == 0) return launch_prefill_mma(rows, wt, epi, out, stream);
+    if (K % 4 == 0 && N % 4 == 0) return launch_prefill_mma(rows, wt, epi, out, stream, parts);
   }
+  if (parts != 0) return cudaErrorInvalidValue;
   return launch_prefill_fma<Acc>(rows, wt, epi, out, stream);
 }
 
 }  // namespace tenet
 
+// subs, parts: the launch config, 0 = built in
 extern "C" int tenet_ternary_gemm(const void* x, int dtype, const void* packed,
                                   const void* w_scale, const void* x_scale, void* out,
-                                  int M, int K, int R, int N, void* stream) {
+                                  int M, int K, int R, int N, int subs, int parts,
+                                  void* stream) {
   using namespace tenet;
   const uint8_t* p = static_cast<const uint8_t*>(packed);
   const Scale epi{static_cast<const float*>(w_scale), static_cast<const float*>(x_scale), 0.f};
@@ -59,11 +66,11 @@ extern "C" int tenet_ternary_gemm(const void* x, int dtype, const void* packed,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case kF32:
-      return (int)launch<float, float>(x, p, epi, o, M, K, R, N, s);
+      return (int)launch<float, float>(x, p, epi, o, M, K, R, N, subs, parts, s);
     case kBF16:
-      return (int)launch<__nv_bfloat16, float>(x, p, epi, o, M, K, R, N, s);
+      return (int)launch<__nv_bfloat16, float>(x, p, epi, o, M, K, R, N, subs, parts, s);
     case kI8:
-      return (int)launch<int8_t, int>(x, p, epi, o, M, K, R, N, s);
+      return (int)launch<int8_t, int>(x, p, epi, o, M, K, R, N, subs, parts, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

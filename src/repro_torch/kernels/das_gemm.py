@@ -19,17 +19,14 @@ from . import build
 __all__ = ["das_ternary_gemm_cuda", "compacted_lanes"]
 
 
-WIN_LANES = 5 * build.WIN_ROWS   # a K window's lanes (csrc/common.cuh)
-
-
 def compacted_lanes(kc: int, keep: int, block: int, rows: int) -> int:
     """K of (M, Kc) entries that das_compact made with ``keep`` of every
     ``block`` lanes (Kc = K / block * keep); raises where the kernel cannot
     take them: a block that does not divide a window's 160 lanes, a Kc that
     is not whole blocks, or more lanes than the ``rows`` packed rows hold."""
-    if not 1 <= keep <= block or WIN_LANES % block:
+    if not 1 <= keep <= block or build.WIN_LANES % block:
         raise ValueError(f"das_ternary_gemm takes 1 <= keep <= block with block "
-                         f"dividing {WIN_LANES}; got keep={keep}, block={block}")
+                         f"dividing {build.WIN_LANES}; got keep={keep}, block={block}")
     if kc < 1 or kc % keep or kc // keep * block > 5 * rows:
         raise ValueError(f"Kc={kc} is not K / block * keep for a K of whole "
                          f"{block}-lane blocks within the {5 * rows} packed lanes "
@@ -39,12 +36,14 @@ def compacted_lanes(kc: int, keep: int, block: int, rows: int) -> int:
 
 def das_ternary_gemm_cuda(values: torch.Tensor, indices: torch.Tensor,
                           packed: torch.Tensor, w_scale: torch.Tensor, *,
-                          keep: int, block: int = 32) -> torch.Tensor:
+                          keep: int, block: int = 32,
+                          config: build.LaunchConfig = build.DEFAULT_CONFIG) -> torch.Tensor:
     """values/indices (M, Kc) x packed (R, N) uint8 -> (M, N) float32.
 
     ``indices`` are absolute lanes as das_compact lays them out (core.das or
     the das_topk kernel): ``keep`` ascending lanes of every ``block``, so
-    Kc == K / block * keep (checked)."""
+    Kc == K / block * keep (checked).  ``config`` is the launch config
+    (build.LaunchConfig; checked, never replaced)."""
     if values.ndim != 2 or values.shape != indices.shape or packed.ndim != 2:
         raise ValueError(f"want values/indices (M, Kc) and packed (R, N); got "
                          f"{tuple(values.shape)}, {tuple(indices.shape)}, "
@@ -62,6 +61,8 @@ def das_ternary_gemm_cuda(values: torch.Tensor, indices: torch.Tensor,
     if not build.packed_rows_fit(m, r):
         raise ValueError(f"packed rows {r}: the decode class (M <= 4) takes at most "
                          f"{build.DECODE_MAX_ROWS}")
+    build.check_launch_config(m, r, n, build.das_mma_route(values.dtype, kc, keep, block, n),
+                              config)
     if not (values.is_contiguous() and indices.is_contiguous()
             and packed.is_contiguous()):
         raise ValueError("das_ternary_gemm needs contiguous inputs")
@@ -76,6 +77,6 @@ def das_ternary_gemm_cuda(values: torch.Tensor, indices: torch.Tensor,
     err = build.library().tenet_das_ternary_gemm(
         values.data_ptr(), build.dtype_code(values), indices.data_ptr(),
         packed.data_ptr(), w_scale.data_ptr(), out.data_ptr(), m, kc, keep,
-        block, r, n, build.stream_of(values))
+        block, r, n, config.subs, config.parts, build.stream_of(values))
     build.check_launch(err, "das_ternary_gemm")
     return out

@@ -15,7 +15,6 @@ from __future__ import annotations
 import torch
 
 from . import build
-from .das_gemm import WIN_LANES
 
 __all__ = ["das_gemv_cuda", "gemv_compaction"]
 
@@ -25,9 +24,9 @@ def gemv_compaction(kc: int, k: int, keep: int, block: int) -> None:
     every ``block``: Kc == K / block * keep, as the JAX op checks
     (``Kc * BLOCK == K * keep``), with a block that divides a window's 160
     lanes."""
-    if not 1 <= keep <= block or WIN_LANES % block:
+    if not 1 <= keep <= block or build.WIN_LANES % block:
         raise ValueError(f"das_gemv takes 1 <= keep <= block with block dividing "
-                         f"{WIN_LANES}; got keep={keep}, block={block}")
+                         f"{build.WIN_LANES}; got keep={keep}, block={block}")
     if k % block or kc != k // block * keep:
         raise ValueError(f"Kc={kc} inconsistent with K={k}, keep={keep}, block={block}")
 

@@ -1,10 +1,35 @@
-"""Kernel entry points: dispatch by the tensors' device, and launch counts.
+"""Kernel entry points: dispatch by the tensors' device, the kernel mode,
+and launch counts.
 
 A CPU tensor goes to the kernel's plain PyTorch version (kernels/ref.py).
 A CUDA tensor launches the hand-written kernel or raises — there is no
 fallback from a kernel that fails to build, refuses a shape or fails to
-launch.  ``launches`` counts each kernel's launches (plain ints, bumped once
-per successful launch) so a run can show that it went through the kernels;
+launch.  The packed GEMMs take an optional launch config
+(``build.LaunchConfig``), checked on either device and never replaced.
+
+Kernel modes (``KernelMode``; ``ServeConfig.kernel_mode``,
+``--kernel-mode``) take every name and alias of the JAX package's and map
+each to one of the port's three behaviours, set for a block of calls by
+``kernel_mode(mode, cache)`` (a context variable: the engine sets it around
+its own model calls):
+
+  * "auto" (the default; and "pallas", "compiled", "interpret",
+    "sharded"): the kernels at their built-in launch configs on CUDA, the
+    plain versions on the CPU;
+  * "tuned": the packed GEMMs and the attention take the config the
+    autotune cache holds for their shape (kernels/autotune.py): a CUDA
+    kernel at a launch config or a native implementation
+    (kernels/native_gemm.py, the chunked ``flash_masked``); the plain
+    versions and the native ones on the CPU;
+  * "ref": the plain versions, on CPU tensors only — a CUDA tensor raises
+    ValueError, since no mode runs a plain version on the card.
+
+"sharded" is the engine's SPMD path: under a Topology every rank runs the
+kernels on its shard (the engine forces it there, as the JAX package
+forces its GSPMD mode); on one device it is "auto".
+
+``launches`` counts each kernel's launches (plain ints, bumped once per
+successful launch) so a run can show that it went through the kernels;
 ``reset_launches`` zeroes them.  A CUDA graph capture records launches
 without running them: ``launches_recorded`` takes what a capture counted out
 of ``launches``, and ``add_launches`` counts them once for each replay.
@@ -13,10 +38,13 @@ of ``launches``, and ``add_launches`` counts them once for each replay.
 from __future__ import annotations
 
 import contextlib
+import contextvars
+import enum
+from typing import NamedTuple
 
 import torch
 
-from . import ref
+from . import build, ref
 from .das_gemm import compacted_lanes, das_ternary_gemm_cuda
 from .das_gemv import das_gemv_cuda, gemv_compaction
 from .ref import DasTopK
@@ -25,10 +53,92 @@ from .ternary_gemm import ternary_gemm_cuda
 from .topk_mask import das_topk_cuda
 from .twd_decode import twd_decode_cuda
 
-__all__ = ["KERNELS", "launches", "reset_launches", "launches_recorded",
+__all__ = ["KernelMode", "KERNEL_MODES", "Dispatch", "kernel_mode", "current_dispatch",
+           "KERNELS", "launches", "reset_launches", "launches_recorded",
            "add_launches", "DasTopK", "das_topk",
            "das_ternary_gemm", "ternary_gemm", "sparse_attention",
            "twd_decode", "twd_decode_stack", "das_gemv"]
+
+class KernelMode(str, enum.Enum):
+    """The JAX package's kernel-mode selector, name for name; ``behaviour``
+    is what the port does under it ("auto", "tuned" or "ref")."""
+    REF = "ref"
+    INTERPRET = "interpret"
+    PALLAS = "pallas"
+    COMPILED = "compiled"
+    TUNED = "tuned"
+    AUTO = "auto"
+    SHARDED = "sharded"
+
+    def __str__(self) -> str:
+        return self.value
+
+    @classmethod
+    def parse(cls, value) -> "KernelMode":
+        """Accept a member, canonical name, or alias; reject anything else
+        with a ValueError that lists the valid modes."""
+        if isinstance(value, cls):
+            return value
+        if isinstance(value, str):
+            v = _KERNEL_MODE_ALIASES.get(value.strip().lower(), value.strip().lower())
+            try:
+                return cls(v)
+            except ValueError:
+                pass
+        raise ValueError(
+            f"unknown kernel mode {value!r}: valid modes are "
+            f"{', '.join(m.value for m in cls)} (aliases: "
+            f"{', '.join(f'{a}->{b}' for a, b in sorted(_KERNEL_MODE_ALIASES.items()))})")
+
+    @property
+    def behaviour(self) -> str:
+        if self in (KernelMode.TUNED, KernelMode.REF):
+            return self.value
+        return "auto"
+
+
+_KERNEL_MODE_ALIASES = {
+    "reference": "ref", "jnp": "ref", "xla": "ref",
+    "interp": "interpret", "emulate": "interpret", "emulated": "interpret",
+    "mosaic": "pallas",
+    "autotune": "tuned", "autotuned": "tuned",
+    "spmd": "sharded", "gspmd": "sharded",
+}
+
+KERNEL_MODES = tuple(m.value for m in KernelMode)
+
+
+class Dispatch(NamedTuple):
+    """The behaviour in force ("auto", "tuned" or "ref") and, under
+    "tuned", the autotune cache (kernels/autotune.AutotuneCache) its
+    lookups read."""
+    mode: str = "auto"
+    cache: object = None
+
+
+_dispatch: contextvars.ContextVar[Dispatch] = contextvars.ContextVar(
+    "repro_torch_kernel_mode", default=Dispatch())
+
+
+def current_dispatch() -> Dispatch:
+    return _dispatch.get()
+
+
+@contextlib.contextmanager
+def kernel_mode(mode, cache=None):
+    """Run the block under ``mode`` (a KernelMode or any of its names);
+    "tuned" reads ``cache``, an autotune.AutotuneCache (default: a cache
+    loaded from the default path)."""
+    behaviour = KernelMode.parse(mode).behaviour
+    if behaviour == "tuned" and cache is None:
+        from . import autotune
+        cache = autotune.AutotuneCache()
+    token = _dispatch.set(Dispatch(behaviour, cache if behaviour == "tuned" else None))
+    try:
+        yield
+    finally:
+        _dispatch.reset(token)
+
 
 KERNELS = ("das_topk", "das_ternary_gemm", "ternary_gemm", "sparse_attention",
            "twd_decode", "das_gemv")
@@ -69,6 +179,9 @@ def _on_cuda(*tensors: torch.Tensor) -> bool:
         if t is not None and t.device != dev:
             raise ValueError(f"tensors on {dev} and {t.device}")
     if dev.type == "cuda":
+        if _dispatch.get().mode == "ref":
+            raise ValueError("kernel_mode 'ref' runs the plain versions, on CPU tensors "
+                             "only: a CUDA tensor launches its kernel")
         return True
     if dev.type == "cpu":
         return False
@@ -104,26 +217,36 @@ def das_topk(x: torch.Tensor, *, keep: int, block: int = 32,
 
 def das_ternary_gemm(values: torch.Tensor, indices: torch.Tensor,
                      packed: torch.Tensor, w_scale, *, keep: int,
-                     block: int = 32) -> torch.Tensor:
+                     block: int = 32,
+                     config: build.LaunchConfig = build.DEFAULT_CONFIG) -> torch.Tensor:
     """(M, Kc) activations compacted to ``keep`` of every ``block`` lanes x
-    packed (R, N) -> (M, N) float32; Kc must be K / block * keep."""
+    packed (R, N) -> (M, N) float32; Kc must be K / block * keep.
+    ``config``: the launch config, checked on either device (the plain
+    version computes the same function at every config)."""
     w_scale = _scale(w_scale, packed)
     if not _on_cuda(values, indices, packed):
-        compacted_lanes(values.shape[-1], keep, block, packed.shape[0])
+        kc, (r, n) = values.shape[-1], packed.shape
+        compacted_lanes(kc, keep, block, r)
+        build.check_launch_config(values.shape[0], r, n,
+                                  build.das_mma_route(values.dtype, kc, keep, block, n), config)
         return ref.das_ternary_gemm_ref(values, indices, packed, w_scale)
     out = das_ternary_gemm_cuda(values, indices, packed, w_scale, keep=keep,
-                                block=block)
+                                block=block, config=config)
     launches["das_ternary_gemm"] += 1
     return out
 
 
 def ternary_gemm(x: torch.Tensor, packed: torch.Tensor, w_scale,
-                 x_scale: torch.Tensor | None = None) -> torch.Tensor:
-    """(M, K) x packed (R, N), 5R >= K -> (M, N) float32."""
+                 x_scale: torch.Tensor | None = None, *,
+                 config: build.LaunchConfig = build.DEFAULT_CONFIG) -> torch.Tensor:
+    """(M, K) x packed (R, N), 5R >= K -> (M, N) float32 at the launch
+    config ``config`` (checked on either device)."""
     w_scale = _scale(w_scale, packed)
     if not _on_cuda(x, packed, x_scale):
+        (m, k), (r, n) = x.shape, packed.shape
+        build.check_launch_config(m, r, n, build.dense_mma_route(x.dtype, k, n), config)
         return ref.ternary_gemm_ref(x, packed, w_scale, x_scale)
-    out = ternary_gemm_cuda(x, packed, w_scale, x_scale)
+    out = ternary_gemm_cuda(x, packed, w_scale, x_scale, config=config)
     launches["ternary_gemm"] += 1
     return out
 

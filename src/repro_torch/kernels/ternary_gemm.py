@@ -19,8 +19,11 @@ __all__ = ["ternary_gemm_cuda"]
 
 def ternary_gemm_cuda(x: torch.Tensor, packed: torch.Tensor,
                       w_scale: torch.Tensor,
-                      x_scale: torch.Tensor | None = None) -> torch.Tensor:
-    """x (M, K) x packed (R, N) uint8 with 5R >= K -> (M, N) float32."""
+                      x_scale: torch.Tensor | None = None, *,
+                      config: build.LaunchConfig = build.DEFAULT_CONFIG) -> torch.Tensor:
+    """x (M, K) x packed (R, N) uint8 with 5R >= K -> (M, N) float32, at the
+    launch config ``config`` (build.LaunchConfig; checked, never
+    replaced)."""
     if x.ndim != 2 or packed.ndim != 2:
         raise ValueError(f"want x (M, K) and packed (R, N); got {tuple(x.shape)}"
                          f" and {tuple(packed.shape)}")
@@ -39,6 +42,7 @@ def ternary_gemm_cuda(x: torch.Tensor, packed: torch.Tensor,
     if not build.packed_rows_fit(m, r):
         raise ValueError(f"packed rows {r}: the decode class (M <= 4) takes at most "
                          f"{build.DECODE_MAX_ROWS}")
+    build.check_launch_config(m, r, n, build.dense_mma_route(x.dtype, k, n), config)
     if not (x.is_contiguous() and packed.is_contiguous()):
         raise ValueError("ternary_gemm needs contiguous x and packed")
     if w_scale.dtype != torch.float32 or w_scale.numel() != 1:
@@ -55,6 +59,6 @@ def ternary_gemm_cuda(x: torch.Tensor, packed: torch.Tensor,
     err = build.library().tenet_ternary_gemm(
         x.data_ptr(), build.dtype_code(x), packed.data_ptr(),
         w_scale.data_ptr(), None if x_scale is None else x_scale.data_ptr(),
-        out.data_ptr(), m, k, r, n, build.stream_of(x))
+        out.data_ptr(), m, k, r, n, config.subs, config.parts, build.stream_of(x))
     build.check_launch(err, "ternary_gemm")
     return out

@@ -4,7 +4,8 @@ front door, the engine.
   python -m repro_torch.launch.serve --arch bitnet-1.3b [--reduced] \\
       [--device cpu] --requests 4 --prompt-len 64 --gen 32 --slots 4 --stagger 4 \\
       [--temperature 0.8 --top-k 40] [--scheduler deadline --slo-steps 48 \\
-      --preemption] [--layout paged --page-size 16] [--policy wave]
+      --preemption] [--layout paged --page-size 16] [--policy wave] \\
+      [--kernel-mode tuned]
 
 Runs on the CUDA device unless ``--device cpu``.  Master weights are drawn
 from ``--seed`` and exported layer by layer to base-3 packed ternary
@@ -109,6 +110,12 @@ def _build_parser() -> argparse.ArgumentParser:
                           "deferring admissions (MoE configs only; 0 = unbounded: "
                           "decode itself never drops tokens)")
     eng.add_argument("--seed", type=int, default=_D["seed"])
+    eng.add_argument("--kernel-mode", default=_D["kernel_mode"],
+                     help="auto (the kernels at their built-in launch configs), tuned "
+                          "(per-shape configs from the autotune cache, tuned at engine "
+                          "construction; $TENET_TORCH_AUTOTUNE_CACHE), ref (the plain "
+                          "versions: --device cpu only), or any JAX-package mode name "
+                          "or alias (kernels/ops.py KernelMode)")
 
     tr = ap.add_argument_group("trace replay", "a synthetic request trace")
     tr.add_argument("--requests", type=int, default=4)
@@ -223,8 +230,11 @@ def main(argv=None):
                          seed=args.seed, policy=args.policy,
                          moe_expert_capacity=args.moe_expert_capacity,
                          scheduler=args.scheduler, preemption=args.preemption,
-                         topology=topology)
+                         topology=topology, kernel_mode=args.kernel_mode)
         check_serve_config(cfg, sc)
+        if ops.KernelMode.parse(sc.kernel_mode).behaviour == "ref" and device.type == "cuda":
+            raise ValueError("--kernel-mode ref runs the plain versions: it needs "
+                             "--device cpu")
     except (RuntimeError, ValueError) as e:
         ap.error(f"config not serveable: {e}")
     if topology is not None:
@@ -286,6 +296,9 @@ def _serve_trace(args, cfg, eng: ServeEngine, device, report: bool = True):
         f"{st.wall_seconds:.2f}s ({st.generated_tokens / max(st.wall_seconds, 1e-9):.1f}"
         f" tok/s, {device})")
     say(f"[serve] kernel launches: {dict(ops.launches)}")
+    if eng.autotune_cache is not None:
+        say(f"[serve] kernel mode {eng.kernel_mode}: {st.autotune_timed_runs} timed "
+            f"autotune runs at construction, cache {eng.autotune_cache.path}")
     if args.layout == "paged":
         pool = eng.pool_stats()
         if pool["num_pages"]:

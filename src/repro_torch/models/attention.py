@@ -6,7 +6,10 @@ PyTorch under autograd.
 
 Layer kinds: "attn" — global attention, sink + window under LPSA or full
 causal; "local" — sliding window (sink 0, window ``cfg.window``).  Tensor
-layout at these functions is the JAX package's: (B, L, H, D).
+layout at these functions is the JAX package's: (B, L, H, D).  Under the
+"tuned" kernel mode (kernels/ops.py) each attention call takes the config
+the autotune cache holds for its shape: the kernel, or ``flash_masked`` at
+a tuned kv chunk (kernels/autotune.py ``run_attention``).
 """
 
 from __future__ import annotations
@@ -19,7 +22,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import lpsa as lpsa_lib
-from repro_torch.kernels import ops
+from repro_torch.kernels import autotune, ops
 from repro_torch.models import kvcache as KV
 from repro_torch.models import layers as L
 from repro_torch.models.ternary_linear import (TernaryLinear, tlin_norm_input, tlin_train,
@@ -65,6 +68,17 @@ def qkv_project(p: Attention, cfg: ModelConfig, x: torch.Tensor,
             p.wv(xin, ca).reshape(b, l, cfg.n_kv_heads, hd))
 
 
+def _attend(q, k, v, q_pos, k_pos, *, sink: int, window: int,
+            softcap: float | None = None, round_scores: bool = False) -> torch.Tensor:
+    """``ops.sparse_attention``, or under the "tuned" kernel mode the
+    config the autotune cache holds for the shape."""
+    if ops.current_dispatch().mode == "tuned":
+        return autotune.run_attention(q, k, v, q_pos, k_pos, sink=sink, window=window,
+                                      softcap=softcap, round_scores=round_scores)
+    return ops.sparse_attention(q, k, v, q_pos, k_pos, sink=sink, window=window,
+                                softcap=softcap, round_scores=round_scores)
+
+
 def _rope_fn(cfg: ModelConfig):
     def f(x, pos):
         cos, sin = L.rope(pos, cfg.head_dim_, cfg.rope_theta)
@@ -92,7 +106,7 @@ def attn_prefill_streaming(p: Attention, cfg: ModelConfig, x: torch.Tensor,
         x, lambda pack: qkv_project(p, cfg, pack, norm_scale), spec=spec,
         num_q_heads=cfg.n_heads, num_kv_heads=cfg.n_kv_heads,
         head_dim=cfg.head_dim_, rope=_rope_fn(cfg), softcap=cfg.attn_softcap,
-        attend=functools.partial(ops.sparse_attention, round_scores=True))
+        attend=functools.partial(_attend, round_scores=True))
     b, l = x.shape[0], x.shape[1]
     return p.wo(o.reshape(b, l, cfg.q_dim)), state
 
@@ -107,8 +121,7 @@ def attn_prefill_full(p: Attention, cfg: ModelConfig, x: torch.Tensor,
     rp = _rope_fn(cfg)
     q, k = rp(q, pos), rp(k, pos)
     pos_b = pos.to(torch.int32)[None].expand(b, l).contiguous()
-    o = ops.sparse_attention(q, k, v, pos_b, pos_b, sink=FULL_SINK, window=0,
-                             softcap=cfg.attn_softcap)
+    o = _attend(q, k, v, pos_b, pos_b, sink=FULL_SINK, window=0, softcap=cfg.attn_softcap)
     cache = KV.init_cache(cfg, KV.CacheSpec("full", b, max_len=max_len,
                                             dtype=x.dtype), x.device)
     cache["k"][:, :l] = k
@@ -160,8 +173,8 @@ def attn_decode(p: Attention, cfg: ModelConfig, x: torch.Tensor,
     KV.attn_write(cache, k, v, step.q_pos[:, 0], step.slots[kind], step.rows,
                   step.page_table)
     k_all, v_all, k_pos = KV.attn_read(cache, step.page_table)
-    o = ops.sparse_attention(q, k_all, v_all, step.q_pos, k_pos, sink=sink,
-                             window=window, softcap=cfg.attn_softcap)
+    o = _attend(q, k_all, v_all, step.q_pos, k_pos, sink=sink, window=window,
+                softcap=cfg.attn_softcap)
     return p.wo(o.reshape(b, 1, cfg.q_dim))
 
 

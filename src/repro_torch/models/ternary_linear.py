@@ -23,7 +23,13 @@ Serving dispatch (``tlin_apply``), with DAS on:
   * else:    DAS-mask with the dense tail (``das_topk``) -> ``ternary_gemm``
              (packed) or ``das_gemv`` on dense rows (trits);
 
-and the same GEMMs on the raw activations with DAS off.  A row-parallel
+and the same GEMMs on the raw activations with DAS off.  Under the "tuned"
+kernel mode (kernels/ops.py ``kernel_mode``) the packed GEMMs take the
+config the autotune cache holds for their shape (kernels/autotune.py
+``run_gemm`` / ``run_das_gemm``): a kernel at a launch config or a native
+implementation, the masked dense rows for the native dense impls coming
+from the same ``das_topk`` step; the int8-trits path keeps ``das_gemv``'s
+one config.  A row-parallel
 shard (``mesh`` set: wo, w_out or a shared expert's down projection under a
 Topology's "model" axis) sums its float32 partial over that axis before
 the cast to x's dtype, so a bfloat16 output is rounded once, as on one
@@ -72,14 +78,14 @@ from repro_torch.core import twd
 from repro_torch.distributed import collectives
 from repro_torch.distributed.plan import tree_leaves
 from repro_torch.distributed.sharding import leaf_spec
-from repro_torch.kernels import ops
+from repro_torch.kernels import autotune, ops
 from repro_torch.models.layers import rmsnorm
 
 __all__ = ["ROW_ALIGN", "TRITS_FORMATS", "TernaryLinear", "check_format", "tlin_init",
            "export_tlin", "shard_tlin", "tlin_compact", "tlin_norm_input", "tlin_apply",
            "das_train_mask", "shard_scales", "tlin_train_input", "tlin_train"]
 
-ROW_ALIGN = 16   # packed rows of an export are a multiple of this
+ROW_ALIGN = twd.ROW_ALIGN   # packed rows of an export are a multiple of this
 TRITS_FORMATS = ("int8", "bf16")   # serve formats that hold int8 trits
 
 
@@ -166,8 +172,14 @@ def tlin_compact(x: torch.Tensor, tc: TernaryConfig,
         return None
     if norm_scale is not None:
         norm_scale = norm_scale.to(x.dtype)
+    # a tuned native dense impl takes the masked dense rows: the same pass writes them
+    dispatch = ops.current_dispatch()
+    dense = (dispatch.mode == "tuned" and tc.serve_format == "packed"
+             and autotune.takes_dense(device=x.device, cache=dispatch.cache,
+                                      m=x.numel() // x.shape[-1], k=x.shape[-1],
+                                      keep=tc.das.keep, block=tc.das.block, dtype=x.dtype))
     return ops.das_topk(x, keep=tc.das.keep, block=tc.das.block,
-                        norm_scale=norm_scale, with_mask=False)
+                        norm_scale=norm_scale, with_mask=False, with_dense=dense)
 
 
 def tlin_norm_input(x: torch.Tensor, norm_scale: torch.Tensor, tc: TernaryConfig):
@@ -189,13 +201,19 @@ def tlin_apply(lin: TernaryLinear, x: torch.Tensor,
     if lin.tc.das is not None and ca is None:
         ca = tlin_compact(x, lin.tc)
     if lin.tc.serve_format == "packed":
+        tuned = ops.current_dispatch().mode == "tuned"
+        gemm = autotune.run_gemm if tuned else ops.ternary_gemm
         if ca is None:
-            y = ops.ternary_gemm(x.reshape(-1, k).contiguous(), lin.packed, lin.scale)
+            y = gemm(x.reshape(-1, k).contiguous(), lin.packed, lin.scale)
+        elif ca.values is not None and tuned:
+            y = autotune.run_das_gemm(ca.values, ca.indices, lin.packed, lin.scale,
+                                      keep=lin.tc.das.keep, block=lin.tc.das.block,
+                                      dense=ca.dense)
         elif ca.values is not None:
             y = ops.das_ternary_gemm(ca.values, ca.indices, lin.packed, lin.scale,
                                      keep=lin.tc.das.keep, block=lin.tc.das.block)
         else:
-            y = ops.ternary_gemm(ca.dense, lin.packed, lin.scale)
+            y = gemm(ca.dense, lin.packed, lin.scale)
     else:
         scale = lin.scale if x.dtype == torch.float32 else lin.scale.to(x.dtype).float()
         if ca is None:

@@ -1,8 +1,9 @@
 """ServeConfig: the validated engine configuration of the port.
 
 The JAX package's ``ServeConfig`` with its defaults and validation
-messages, less ``kernel_mode``, which waits for the tuning slice (ROADMAP
-queue 1, item 4).
+messages.  ``kernel_mode`` takes every name and alias of the JAX package's
+(kernels/ops.py ``KernelMode``) and is stored canonical; it defaults to
+"auto", the kernels at their built-in launch configs.
 """
 
 from __future__ import annotations
@@ -11,6 +12,7 @@ import dataclasses
 from dataclasses import dataclass
 
 from repro_torch.distributed.plan import Topology
+from repro_torch.kernels.ops import KernelMode
 
 __all__ = ["ServeConfig"]
 
@@ -50,7 +52,13 @@ class ServeConfig:
 
     ``topology`` (a ``distributed.plan.Topology``) serves SPMD: the engine
     is one rank of a dp x tp ``torch.distributed`` world and cuts its shard
-    of the model; None serves on one device."""
+    of the model; None serves on one device.
+
+    ``kernel_mode``: "auto" (the kernels at their built-in launch configs;
+    the plain versions on the CPU), "tuned" (each GEMM and attention shape
+    takes the config the autotune cache holds: kernels/autotune.py), "ref"
+    (the plain versions, CPU only), or any other name or alias of the JAX
+    package's (kernels/ops.py maps each)."""
     max_slots: int = 4
     max_len: int = 512
     layout: str = "auto"
@@ -66,6 +74,7 @@ class ServeConfig:
     slo_default_steps: int = 256
     preemption: bool = False
     topology: Topology | None = None
+    kernel_mode: str = "auto"
 
     def __post_init__(self):
         if self.topology is not None and not isinstance(self.topology, Topology):
@@ -111,6 +120,8 @@ class ServeConfig:
         if self.preemption and self.scheduler != "deadline":
             raise ValueError("preemption requires scheduler='deadline' "
                              "(only deadlines define an over-SLO budget)")
+        # normalise via the enum (aliases accepted, unknowns raise)
+        object.__setattr__(self, "kernel_mode", KernelMode.parse(self.kernel_mode).value)
 
     @property
     def pages_per_seq(self) -> int:

@@ -107,12 +107,25 @@ any fresh request: the prompt prefix prefills, the rest of the prompt and
 the generated tokens are fed back through the decode step, and sampling
 resumes at the request's own counter, so its tokens continue unchanged.
 Without a topology, recovery rebuilds the device state in place.
+
+Kernel modes (``ServeConfig.kernel_mode``, kernels/ops.py): the engine runs
+its model calls (the decode step, its capture, the admissions' prefills)
+under its mode.  Under "tuned" it first tunes every GEMM and attention
+shape its steps will take (``_autotune_warmup``: the projections at
+``max_slots`` rows and at a pack, the decode and pack attention), eagerly
+and before the decode step's CUDA graph is captured, since the graph bakes
+in the configs chosen at capture; ``stats.autotune_timed_runs`` counts the
+timed candidate runs, zero once the cache holds every shape.  Under a
+topology a mode other than "auto" or "sharded" warns and the ranks run the
+kernels on their shards ("sharded"), as the JAX package forces its GSPMD
+mode there; "ref" refuses a CUDA engine.
 """
 
 from __future__ import annotations
 
 import threading
 import time
+import warnings
 from dataclasses import dataclass
 
 import numpy as np
@@ -121,7 +134,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.distributed import collectives, fault
 from repro_torch.distributed.plan import ShardingPlan
-from repro_torch.kernels import ops
+from repro_torch.kernels import autotune, ops
 from repro_torch.models import attention as A
 from repro_torch.models import kvcache as KV
 from repro_torch.models import layers as L
@@ -201,6 +214,7 @@ class EngineStats:
     # elastic recovery (zero unless a WorkerFailure was survived)
     reshards: int = 0             # snapshot -> mesh shrink -> reshard cycles
     recovery_seconds: float = 0.0  # wall time spent rebuilding device state
+    autotune_timed_runs: int = 0  # timed candidate runs spent in the warmup
 
     @property
     def slot_utilization(self) -> float:
@@ -317,7 +331,71 @@ class ServeEngine:
         # triggers costs fault_lost_devices ranks
         self.fault_injector = None
         self.fault_lost_devices = 1
+
+        # ---- kernel mode ------------------------------------------------
+        mode = ops.KernelMode.parse(config.kernel_mode)
+        if config.topology is not None and mode.value not in ("auto", "sharded"):
+            warnings.warn(f"kernel_mode={mode.value!r} is a single-device path; under a "
+                          f"Topology every rank runs the kernels on its shard ('sharded')",
+                          stacklevel=2)
+            mode = ops.KernelMode.SHARDED
+        if mode.behaviour == "ref" and self.device.type == "cuda":
+            raise ValueError("kernel_mode 'ref' runs the plain versions: it serves on "
+                             "device='cpu' only")
+        self.kernel_mode = mode.value
+        self._dispatch = mode.behaviour
+        self.autotune_cache = None
+        if self._dispatch == "tuned":
+            self.autotune_cache = autotune.AutotuneCache(device=self.device)
+            self._autotune_warmup()
         self._build_device_state()
+
+    def _autotune_warmup(self) -> None:
+        """Tune every (op, shape) the serving steps will take, eagerly.
+
+        GEMM shapes (packed weights only: the int8 trits keep das_gemv's one
+        config): the projection pairs at the decode rows (``max_slots``) and
+        at the streaming-prefill pack, each under the route its K takes
+        (``das_ternary_gemm`` where the DAS block divides K, else
+        ``ternary_gemm`` on dense rows).  Attention: each layer kind's
+        decode over its cache, and its pack when it streams.  Shapes that
+        miss at dispatch time (another prompt length of a full prefill, an
+        SSM's own projections) run what "auto" runs, the kernel at its
+        built-in config, with zero timed runs."""
+        cfg, tc, cache = self.cfg, self.cfg.ternary, self.autotune_cache
+        dtype = L.torch_dtype(cfg.dtype)
+        before = cache.timed_runs
+        tune = lambda op, dims: autotune.tune(op, device=self.device, cache=cache,  # noqa: E731
+                                              budget=None, **dims)
+        if tc.enabled and tc.serve_format == "packed":
+            pairs = {(cfg.d_model, cfg.q_dim), (cfg.d_model, cfg.kv_dim),
+                     (cfg.q_dim, cfg.d_model), (cfg.d_model, cfg.d_ff),
+                     (cfg.d_ff, cfg.d_model)}
+            das = tc.das
+            for m in sorted({self.max_slots, self._chunk}):
+                for k, n in sorted(pairs):
+                    if das is not None and k % das.block == 0:
+                        tune("das_ternary_gemm", autotune.gemm_dims(
+                            m=m, k=k, n=n, keep=das.keep, block=das.block, dtype=dtype))
+                    else:
+                        tune("ternary_gemm", autotune.gemm_dims(m=m, k=k, n=n, dtype=dtype))
+        for kind in sorted(set(cfg.layer_kinds()) & set(T.ATTN_KINDS)):
+            sink, window = A.kind_sink_window(cfg, kind, self.serve_sparse)
+            ring = sink < A.FULL_SINK
+            heads = dict(hq=cfg.n_heads, hkv=cfg.n_kv_heads, d=cfg.head_dim_, sink=sink,
+                         window=window, dtype=dtype)
+            tune("sparse_attn", autotune.attn_dims(
+                lq=1, lk=sink + window if ring else self.max_len,
+                **heads))
+            if ring and self._chunk > 1:
+                tune("sparse_attn", autotune.attn_dims(
+                    lq=self._chunk, lk=sink + window + self._chunk, round_scores=True,
+                    **heads))
+        self.stats.autotune_timed_runs += cache.timed_runs - before
+
+    def _mode_scope(self):
+        """The engine's kernel mode over a block of model calls."""
+        return ops.kernel_mode(self._dispatch, self.autotune_cache)
 
     def _build_device_state(self) -> None:
         """(Re)build what lives on the device: under a topology the mesh's
@@ -398,10 +476,11 @@ class ServeEngine:
     def _step_fn(self) -> torch.Tensor:
         """The decode step over the static buffers -> logits (B, V) float32
         (a rank's rows gathered over the data axes)."""
-        logits, _ = MD.decode_step(self.model, self.caches, self._tok, self._t,
-                                   serve_sparse=self.serve_sparse,
-                                   page_table=self._pt, forced=self._forced,
-                                   forced_x=self._forced_x)
+        with self._mode_scope():
+            logits, _ = MD.decode_step(self.model, self.caches, self._tok, self._t,
+                                       serve_sparse=self.serve_sparse,
+                                       page_table=self._pt, forced=self._forced,
+                                       forced_x=self._forced_x)
         if self._rows != (0, self.max_slots):
             logits = collectives.gather(logits, self._mesh, "dp", 0, self._rows[0],
                                         self.max_slots)
@@ -566,7 +645,8 @@ class ServeEngine:
             raise RuntimeError("reset_clock on a non-drained engine")
         self.vtime = 0
         self.stats = EngineStats(max_slots=self.max_slots,
-                                 warmup_steps=self.stats.warmup_steps)
+                                 warmup_steps=self.stats.warmup_steps,
+                                 autotune_timed_runs=self.stats.autotune_timed_runs)
 
     def timed_replay(self, trace) -> dict[int, RequestResult]:
         """Replay ``trace`` twice, the first to warm up (allocator, kernel
@@ -809,8 +889,9 @@ class ServeEngine:
         dtype = torch.float32 if self._uses_embeds else torch.long
         inputs = torch.as_tensor(np.asarray(req.prompt[:prefix]), dtype=dtype,
                                  device=self.device)[None]
-        logits, small = MD.prefill(self.model, inputs, max_len=self.max_len,
-                                   serve_sparse=self.serve_sparse)
+        with self._mode_scope():
+            logits, small = MD.prefill(self.model, inputs, max_len=self.max_len,
+                                       serve_sparse=self.serve_sparse)
         self.stats.prefill_tokens += prefix
         return logits[0], small
 

@@ -1559,3 +1559,151 @@ def test_cuda_tp2_blocks_match_unsharded(cuda, dtype):
         parts.append(A.attn_decode(m.layers[0].attn, m.cfg, xd, m.layers[0].norm1.scale, c,
                                    A.decode_step_inputs(m.cfg, t, ["attn"], True), "attn"))
     close(parts, want)
+
+
+# bitnet-1.3b's packed GEMMs under their launch configs: (op, K, N), the down
+# projection (K = 5460, not whole DAS blocks) on masked dense rows
+TUNE_SHAPES = [("das_ternary_gemm", 2048, 2048), ("das_ternary_gemm", 2048, 5460),
+               ("ternary_gemm", 5460, 2048)]
+
+
+def _config_call(op, x, packed):
+    """(kernel at a config (None: no config argument), its plain version)
+    of one packed GEMM call on the DAS step of rows x."""
+    step = ops.das_topk(x, keep=16, with_mask=False, with_dense=True)
+    scale = torch.tensor(SCALE, device=x.device)
+    if op == "das_ternary_gemm":
+        def run(c):
+            kw = {} if c is None else {"config": c}
+            return ops.das_ternary_gemm(step.values, step.indices, packed, scale, keep=16, **kw)
+        return run, ref.das_ternary_gemm_ref(step.values, step.indices, packed, scale)
+
+    def run(c):
+        kw = {} if c is None else {"config": c}
+        return ops.ternary_gemm(step.dense, packed, scale, **kw)
+    return run, ref.ternary_gemm_ref(step.dense, packed, scale)
+
+
+def _mma(op, dtype, k, n):
+    from repro_torch.kernels import build
+    if op == "das_ternary_gemm":
+        return build.das_mma_route(dtype, k // 32 * 16, 16, 32, n)
+    return build.dense_mma_route(dtype, k, n)
+
+
+@pytest.mark.parametrize("op,k,n", TUNE_SHAPES)
+@pytest.mark.parametrize("m", [4, 256])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_launch_configs(cuda, rng, op, k, n, m, dtype):
+    """Every feasible subs (decode class) / parts (tensor-core prefill)
+    config against the plain version (2e-2 bf16, 1e-4 float32); the
+    default config bitwise the call without one and the explicit built-in
+    config (build.dec_subs / mma_parts), so that a call without a
+    config launches what it launched before configs existed."""
+    from repro_torch.kernels import build
+    packed = _packed(rng, k, n, cuda)
+    r = packed.shape[0]
+    x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32)).to(cuda, dtype)
+    run, want = _config_call(op, x, packed)
+    base = run(None)
+    assert torch.equal(run(build.DEFAULT_CONFIG), base)
+    mma = _mma(op, dtype, k, n)
+    assert torch.equal(run(build.builtin_config(m, r, n, mma)), base)
+    configs = build.launch_configs(m, r, n, mma)
+    assert configs or (m > 4 and not mma)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    for c in configs:
+        torch.testing.assert_close(run(c), want, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("op,k,n", TUNE_SHAPES)
+def test_cuda_launch_config_batch_invariance(cuda, rng, op, k, n):
+    """Under one config a row's result does not depend on its batch: the
+    rows of a 1-row call bitwise those of a 4-row call (decode class), of a
+    5-row call those of a 256-row call (prefill class)."""
+    from repro_torch.kernels import build
+    packed = _packed(rng, k, n, cuda)
+    r = packed.shape[0]
+    x = torch.from_numpy(rng.standard_normal((256, k)).astype(np.float32)).to(
+        cuda, torch.bfloat16)
+    for big, small in ((4, 1), (256, 5)):
+        run_big, _ = _config_call(op, x[:big], packed)
+        run_small, _ = _config_call(op, x[:small], packed)
+        for c in build.launch_configs(big, r, n, _mma(op, torch.bfloat16, k, n)):
+            assert torch.equal(run_small(c), run_big(c)[:small]), c
+
+
+def test_cuda_launch_config_refused(cuda, rng):
+    """An infeasible config raises ValueError, never replaced: subs 1 at K
+    = 5460 (35 windows, more than a cluster of 16), parts 9, a prefill knob
+    at decode, parts on the FMA route of float32 rows."""
+    from repro_torch.kernels import build
+    packed = _packed(rng, 5460, 2048, cuda)
+    scale = torch.tensor(SCALE, device=cuda)
+    for m, dtype, c in ((4, torch.bfloat16, build.LaunchConfig(subs=1)),
+                        (256, torch.bfloat16, build.LaunchConfig(parts=9)),
+                        (4, torch.bfloat16, build.LaunchConfig(parts=2)),
+                        (256, torch.float32, build.LaunchConfig(parts=2))):
+        x = torch.ones((m, 5460), device=cuda, dtype=dtype)
+        with pytest.raises(ValueError, match="launch config"):
+            ops.ternary_gemm(x, packed, scale, config=c)
+
+
+def test_cuda_tuned_miss_takes_the_kernel(cuda, rng, tmp_path, monkeypatch):
+    """Under kernel_mode "tuned", a GEMM or attention shape that no warmup
+    tuned dispatches to the hand-written kernel at its built-in config: its
+    launch count goes up by one and the result is bitwise the call without
+    a mode."""
+    from repro_torch.kernels import autotune
+    monkeypatch.setenv(autotune.ENV_VAR, str(tmp_path / "autotune.json"))
+    packed = _packed(rng, 2048, 2048, cuda)
+    scale = torch.tensor(SCALE, device=cuda)
+    x = torch.from_numpy(rng.standard_normal((256, 2048)).astype(np.float32)).to(
+        cuda, torch.bfloat16)
+    step = ops.das_topk(x, keep=16, with_mask=False)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, n, h, 64)).astype(np.float32)).to(
+        cuda, torch.bfloat16) for n, h in ((1, 32), (700, 32), (700, 32)))
+    q_pos = torch.tensor([[699]], dtype=torch.int32, device=cuda)
+    k_pos = torch.arange(700, dtype=torch.int32, device=cuda)[None]
+    kw = dict(sink=64, window=512)
+    calls = {
+        "ternary_gemm": (lambda: autotune.run_gemm(x, packed, scale),
+                         lambda: ops.ternary_gemm(x, packed, scale)),
+        "das_ternary_gemm": (
+            lambda: autotune.run_das_gemm(step.values, step.indices, packed, scale, keep=16,
+                                          block=32),
+            lambda: ops.das_ternary_gemm(step.values, step.indices, packed, scale, keep=16)),
+        "sparse_attention": (lambda: autotune.run_attention(q, k, v, q_pos, k_pos, **kw),
+                             lambda: ops.sparse_attention(q, k, v, q_pos, k_pos, **kw)),
+    }
+    cache = autotune.AutotuneCache()
+    for name, (tuned, auto) in calls.items():
+        want = auto()
+        with ops.kernel_mode("tuned", cache):
+            before = ops.launches[name]
+            got = tuned()
+            assert ops.launches[name] == before + 1, name
+        assert torch.equal(got, want), name
+    assert cache.entries == {} and cache.timed_runs == 0
+
+
+def test_cuda_tuned_engine_matches_default(cuda, tmp_path, monkeypatch):
+    """A reduced bitnet-1.3b engine in float32 under kernel_mode="tuned"
+    (every candidate timed on the card) gives the default engine's greedy
+    tokens, and a second tuned engine on the same cache times nothing."""
+    monkeypatch.setenv("TENET_TORCH_AUTOTUNE_CACHE", str(tmp_path / "autotune.json"))
+    cfg = reduced(get_config("bitnet-1.3b"))
+    model = MD.init_serving(cfg, seed=0, device=cuda)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab, p) for p in (40, 17)]
+    out = {}
+    for mode in ("auto", "tuned", "tuned"):
+        eng = ServeEngine(model, ServeConfig(max_slots=2, max_len=64, kernel_mode=mode),
+                          device=cuda)
+        for i, p in enumerate(prompts):
+            eng.submit(Request(uid=i, prompt=p, max_new_tokens=8))
+        res = eng.run()
+        out.setdefault(mode, []).append(([res[u].tokens.tolist() for u in sorted(res)],
+                                         eng.stats.autotune_timed_runs))
+    assert out["tuned"][0][0] == out["auto"][0][0] == out["tuned"][1][0]
+    assert out["tuned"][0][1] > 0 and out["tuned"][1][1] == 0

@@ -187,7 +187,8 @@ def test_serve_config_with_updates():
     sc = ServeConfig().with_updates(scheduler="deadline", preemption=True, top_k=40)
     assert (sc.scheduler, sc.preemption, sc.top_k) == ("deadline", True, 40)
     with pytest.raises(TypeError, match="unknown ServeConfig field"):
-        ServeConfig().with_updates(kernel_mode=None)
+        ServeConfig().with_updates(no_such_field=None)
+    assert ServeConfig().with_updates(kernel_mode="autotune").kernel_mode == "tuned"
     assert ServeConfig().with_updates(topology=None).topology is None
     ServeConfig(scheduler="deadline", preemption=True)
 
