@@ -229,7 +229,7 @@ Phases:
            on both sides, and as served (reported: the fake-quant is a
            discontinuity too); then, in the same world, the distributed
            trainer (bitnet-1.3b at full width, Topology(dp=2, tp=2), ZeRO-1,
-           4 x 2048 tokens a step): (d) 2 layers in float32 with DAS off and
+           4 x 2048 tokens a step): (d) 1 layer in float32 with DAS off and
            the fake-quants on (the whole-weight absmean over "model", a
            row-parallel input's absmax its max over "model") against one
            rank, each rank taking one rank's int8 value or trit where its
@@ -252,7 +252,24 @@ Phases:
            many das_topk kernels; each step's loss beside one rank's, ms a
            step, the collectives a step with their bytes and host seconds,
            the card's idle share (the union of the ranks' device spans),
-           peak memory a rank (reported)
+           peak memory a rank (reported), and beside each rank the dry run's
+           record of the same cell computed here on the meta device
+           (launch/dryrun.py at the rank's position of a virtual
+           Topology(dp=2, tp=2)): its state bytes (params, ZeRO-1 moment
+           slices, step) and collective wire bytes a step by kind equal to
+           the rank's exactly, memory_allocated after setup reported; (h)
+           qwen3-moe-30b-a3b at full width, 1 of 48 layers, Topology(dp=2,
+           tp=2): 64 experts and the ZeRO-1 slices a rank, float32, DAS on
+           (das_topk gives each rank's masks), the fake-quants on, the
+           config's capacity factor 1.25, 2 steps of 2 x 1024 tokens a data
+           half: against one rank's run of each half alone (its capacity
+           from its own tokens), averaged, computed here and freed: the
+           loss within 2e-5, every gradient leaf (the rank's part) and
+           every param leaf after the steps within 1e-4 of its max, each
+           rank taking its half's recorded rounding, routing and
+           expert-scale decisions at near ties (tests/torch_ties.py
+           ``Replay``), das_topk launched on every rank, the dropped copies
+           reported
   train    QAT training of bitnet-1.3b at full width (d_model 2048, d_ff 5460,
            vocab 32000, bf16 masters from the config, remat on; seeded random
            weights, SyntheticLM batches of 4 x 2048 tokens, so LPSA's sink of
@@ -318,7 +335,10 @@ Phases:
            bitnet-1.3b's tp = 2 shard shapes at a rank's 2 decode rows
            (das_topk, the packed GEMMs, sparse_attention over 16 heads); the
            dist trainer's das_topk calls at a rank's 4096 rows (K = 2048,
-           1024, 2720, 2740)
+           1024, 2720, 2740); das_ternary_gemm's 256-row q/k/v/o beside a
+           bf16 matmul, and ternary_gemm on float32 rows with DAS off at
+           256 rows (2048 -> 2048, -> 5460, 5460 -> 2048) beside a float32
+           matmul with TF32 off
   profile  (only when named) the packed and int8w decode steps and the
            admission under torch.profiler, as the serve phase profiles them
   http     (only when named) the serve phase's packed path, then its http
@@ -340,8 +360,10 @@ import argparse
 import contextlib
 import copy
 import dataclasses
+import gc
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -1855,7 +1877,7 @@ class Smoke:
         from repro_torch.launch import serve as cli
         from repro_torch.models import model as MD
         from repro_torch.serve import Request
-        cfg, _, model, prompts, sc = self._packed_model()
+        cfg, params, model, prompts, sc = self._packed_model()
         ref = getattr(self, "packed_tokens", None)
         if ref is None:                      # the serve phase did not run here
             self._serve_packed(cfg, model, prompts, sc)
@@ -1871,7 +1893,7 @@ class Smoke:
             teach = self.DIST_TEACHER
             forced = ref[teach][:-1]
             one_rank = cli.teacher_forced(model, prompts[teach], forced, max_len=sc.max_len)
-            del model
+            del model, params
             cfg32 = self._smooth(cfg)
             m32 = MD.init_serving(cfg32, seed=self.seed, device=self.dev)
             torch.save(m32.state_dict(), path32)
@@ -1891,14 +1913,38 @@ class Smoke:
                 f"weights in {time.perf_counter() - t0:.1f} s")
             moe_jobs, moe_check = self._dist_moe_jobs(tmp)
             train_jobs, train_check = self._dist_train_jobs(tmp)
+            mt_jobs, mt_check = self._dist_moe_train_jobs(tmp)
             t0 = time.perf_counter()
+            self._packed_cache = None        # a later phase that needs it builds it again
+            gc.collect()                     # engines and graphs left in reference cycles
+            torch.cuda.empty_cache()
+            free, total = torch.cuda.mem_get_info()
             log(f"[dist] {topo.n_devices} ranks spawned on cuda:0, backend gloo, world size "
-                f"{topo.n_devices}: (a), (b), (a) in float32 (requests {self.DIST_EXACT}), then "
-                f"(c) on ranks 0 and 1, then the trainer's (d), (g), (f), (e)")
-            outs = run_ranks(_dist_world, topo.n_devices,
-                             [(j, False) for j in jobs] + moe_jobs + train_jobs, backend="gloo")
+                f"{topo.n_devices}: first (h) (each rank ~11-13 GB at its peak: it runs while "
+                f"the ranks hold nothing else), then (a), (b), (a) in float32 (requests "
+                f"{self.DIST_EXACT}), (c) on ranks 0 and 1, the trainer's (d), (g), (f), (e); "
+                f"the card's used before the spawn {(total - free) / 1e9:.2f} GB (this "
+                f"process's tensors {torch.cuda.memory_allocated() / 1e9:.2f} GB, its cache "
+                f"{torch.cuda.memory_reserved() / 1e9:.2f} GB); the ranks' allocator with "
+                f"expandable segments")
+            alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+            try:
+                with _card_peak(torch) as card:
+                    outs = run_ranks(_dist_world, topo.n_devices,
+                                     mt_jobs + [(j, False) for j in jobs] + moe_jobs
+                                     + train_jobs, backend="gloo")
+            finally:
+                if alloc is None:
+                    os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
+                else:
+                    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
+            mt_outs = [o[:len(mt_jobs)] for o in outs]
+            outs = [o[len(mt_jobs):] for o in outs]
             log(f"[dist] the ranks' world took {time.perf_counter() - t0:.1f} s (spawn, CUDA "
-                f"init, every job's load, cut and run)")
+                f"init, every job's load, cut and run); the card's most used "
+                f"{card['peak'] / 1e9:.2f} of {total / 1e9:.2f} GB (every process, sampled "
+                f"every 20 ms), at {card['at']:.1f} s into the world")
             tails = [(hi - lo) % cfg.ternary.das.block != 0
                      for lo, hi in MD.model_bounds(cfg, topo.tp)["ff"]]
             need = [self.DIST_KERNELS + self.DIST_TAIL_KERNELS * tails[r % topo.tp]
@@ -1939,8 +1985,10 @@ class Smoke:
                 f" rank 1), the tokens (a)'s exactly; ranks 2 and 3 retired; rank 0's host "
                 f"seconds {self._secs(outs[0][1])}")
             m = n + len(moe_jobs)
+            k = m + len(train_jobs)
             moe_check([o[n:m] for o in outs])
-            train_check([o[m:] for o in outs])
+            train_check([o[m:k] for o in outs])
+            mt_check(mt_outs)
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2125,8 +2173,9 @@ class Smoke:
     # tokens; (f) 2 stages of one block, DIST_PIPE_MB microbatches of one
     # DIST_PIPE_SEQ-token row.  (e) is cut to 4 of bitnet-1.3b's 24 layers:
     # with 24 the whole script read 1326 s of its 1200 on a slow host (a step
-    # ~30 s of host round trips), with 12 up to ~1188 s (PERF.md §5)
-    DIST_TRAIN_CUT, DIST_TRAIN_DEPTH, DIST_TRAIN_STEPS = 2, 4, 2
+    # ~30 s of host round trips), with 12 up to ~1188 s (PERF.md §5); (d) and
+    # (g) to 1 layer (2 before (h) joined the phase: PERF.md §6)
+    DIST_TRAIN_CUT, DIST_TRAIN_DEPTH, DIST_TRAIN_STEPS = 1, 4, 2
     DIST_PIPE_MB, DIST_PIPE_SEQ = 4, 256
     DIST_TRAIN_TOL = {"loss": 2e-5, "grad": TOL_F32_GEMM, "param": TOL_F32_GEMM,
                       "pipe_fwd": 1e-5, "pipe_grad": TOL_F32_GEMM, "crosspod": 0.02}
@@ -2206,7 +2255,8 @@ class Smoke:
         torch.save(host(p), path("d_params2"))
         del p, recs
         # (f): two blocks of the same widths, sequential on one rank
-        blocks = MD.init_params(cfg_s, seed=self.seed + 22, device=self.dev)["layers"]["tail"]
+        blocks = MD.init_params(dataclasses.replace(cfg_s, n_layers=2), seed=self.seed + 22,
+                                device=self.dev)["layers"]["tail"]
         gen = self.gen(self.seed + 22)
         x = torch.randn((self.DIST_PIPE_MB, self.DIST_PIPE_SEQ, base.d_model), generator=gen,
                         device=self.dev)
@@ -2304,6 +2354,7 @@ class Smoke:
                 self.launches["das_topk"] += n["das_topk"]
             if e["profiled_topk"] != e["steps"][-1]["launches"]["das_topk"]:
                 bad.append(f"(e) rank {rank}: {e['profiled_topk']} das_topk kernels profiled")
+        bad += self._dryrun_against(cfg_e, es)
         wall = max(e["steps"][-1]["ms"] for e in es)
         busy = _union_ms([sp for e in es for sp in e["spans"]])
         log(f"[dist] (e) {cfg_e.name}, {cfg_e.n_layers} layers, dp 2 x tp 2, ZeRO-1: the profiled "
@@ -2317,6 +2368,174 @@ class Smoke:
             f"{smi}; ranks sharing one card over gloo, not a multi-card time")
         if bad:
             raise AssertionError(f"dist trainer: {bad}")
+
+    def _dryrun_against(self, cfg_e, es) -> list:
+        """The dry run's record of (e)'s cell, computed here on the meta
+        device (``launch.dryrun.make_cell`` at each rank's position of a
+        virtual Topology(dp=2, tp=2), the batch of TRAIN_BATCH x TRAIN_SEQ):
+        its state bytes and its collective wire bytes by kind a step must
+        equal each (e) rank's exactly; the ranks' memory_allocated after
+        setup is reported beside the state (the allocator rounds)."""
+        from repro_torch.configs.shapes import ShapeSpec
+        from repro_torch.distributed.plan import Topology
+        from repro_torch.launch import dryrun
+        t0 = time.perf_counter()
+        topo, shape = Topology(dp=2, tp=2), ShapeSpec("dist_e", "train", TRAIN_SEQ, TRAIN_BATCH)
+        bad, cells = [], {}
+        for rank, e in enumerate(es):
+            pos = e["position"] % topo.tp    # the data ranks are symmetric: one record a
+            if pos not in cells:             # "model" position
+                cell = dryrun.make_cell(cfg_e, shape, topo.virtual_mesh(pos))
+                cells[pos] = (cell, dryrun.measure(cell.run))
+            cell, m = cells[pos]
+            ok = cell.state_bytes == e["state"] and all(st["wire"] == m["collectives"]
+                                                        for st in e["steps"])
+            log(f"[dist] (e) rank {rank} beside the dry run on meta (position {e['position']}, "
+                f"model index {pos}): state {e['state']} B, the dry run's {cell.state_bytes} B "
+                f"(memory_allocated after setup {e['allocated']} B, reported); collective wire "
+                f"bytes a step {e['steps'][-1]['wire']}, the dry run's {m['collectives']}: "
+                f"{'equal' if ok else 'DIFFERENT'}; the dry run's FLOPs {m['flops']:.4e}, "
+                f"op-level bytes {m['bytes']:.4e} a step")
+            if not ok:
+                bad.append(f"(e) rank {rank} against the dry run")
+        log(f"[dist] (e)'s dry run on meta: {time.perf_counter() - t0:.1f} s (host)")
+        return bad
+
+    # (h): qwen3-moe-30b-a3b at full width and DIST_MOE_TRAIN_DEPTH layer,
+    # Topology(dp=2, tp=2), float32, DAS on, the fake-quants on, the config's
+    # capacity factor; DIST_TRAIN_STEPS steps, each data half
+    # DIST_MOE_TRAIN_ROWS x DIST_MOE_TRAIN_SEQ tokens.  One layer is ~1.23 B
+    # parameters (0.60 B of experts, a 311 M embedding, a 311 M untied head):
+    # ~20 GB of float32 state on one rank, ~7.5 GB a rank at dp 2 x tp 2
+    DIST_MOE_TRAIN_DEPTH, DIST_MOE_TRAIN_ROWS, DIST_MOE_TRAIN_SEQ = 1, 2, 1024
+
+    def _dist_moe_train_jobs(self, tmp):
+        """(h): the one-rank reference computed here on the card (then freed)
+        and dumped under ``tmp``: the JAX package's mesh semantics, each data
+        half alone (its capacity from its own 2 x 1024 tokens) through the
+        loss and gradients, the halves averaged, AdamW on the average; each
+        half's rounding and routing decisions recorded (``torch_ties.
+        Replay``) for the ranks of that half to take at near ties.  ->
+        (jobs, check(each rank's outputs of these jobs))."""
+        torch = self.torch
+        from repro_torch.configs import get_config
+        from repro_torch.data.pipeline import SyntheticLM
+        from repro_torch.launch import train as TR
+        from repro_torch.models import model as MD
+        from repro_torch.optim import adamw, schedule
+        from repro_torch.tree import leaves, leaves_with_paths, tree_map, unflatten
+        t0 = time.perf_counter()
+        base = get_config(self.MOE_ARCH)
+        cfg = dataclasses.replace(base, n_layers=self.DIST_MOE_TRAIN_DEPTH, dtype="float32")
+        rows, n = self.DIST_MOE_TRAIN_ROWS, self.DIST_TRAIN_STEPS
+        data = SyntheticLM(vocab=base.vocab, seq_len=self.DIST_MOE_TRAIN_SEQ, batch=2 * rows,
+                           seed=self.seed + 24)
+        bs = [data.batch_at(s) for s in range(n)]
+        files = {"batches": str(tmp / "h_batches.pt"), "ties": str(tmp / "h_ties.pt"),
+                 "params": str(tmp / "h_params.bin"), "params2": str(tmp / "h_params2.bin"),
+                 "grads": [str(tmp / f"h_grads{h}.bin") for h in (0, 1)],
+                 "maxes": str(tmp / "h_maxes.pt")}
+        torch.save(bs, files["batches"])
+        p = MD.init_params(cfg, seed=self.seed + 24, device=self.dev)
+        _dump(p, files["params"])
+        ties, drops = _torch_ties().Replay(), []
+
+        def halves(p, batch, per_half=None):
+            """(mean loss, mean gradients (a list), each half's records); each
+            half's own part of the mean appended to ``per_half``."""
+            losses, total, recs = [], None, []
+            for h in (0, 1):
+                recs.append(ties.record())
+                half = {k: v[h * rows:(h + 1) * rows] for k, v in batch.items()}
+                with _counting_drops(drops):
+                    _, aux, g = TR.loss_and_grads(p, cfg, half, TR.make_runtime())
+                losses.append(float(aux["loss"]))
+                g = [x.float() / 2 for x in leaves(g)]
+                if per_half is not None:
+                    per_half.append(g)
+                total = g if total is None else [a + b for a, b in zip(total, g)]
+            return sum(losses) / 2, total, recs
+
+        try:
+            parts = []
+            first = halves(p, bs[0], parts)   # the gradients' pass is step 1's too
+            loss, grad_recs = first[0], first[2]
+            maxes = {"grads": [], "params2": None}
+            for h, g in enumerate(parts):
+                _dump(g, files["grads"][h])
+                maxes["grads"].append([float(x.abs().max()) for x in g])
+            del parts
+            o, step_recs, step_losses = adamw.adamw_init(p), [], []
+            for s, b in enumerate(bs):
+                sl, g, recs = first if s == 0 else halves(p, b)
+                first = None
+                lr = schedule.cosine_schedule(o.step, peak_lr=self.TRAIN_LR,
+                                              warmup=self.TRAIN_WARMUP, total=n)
+                p, o, _ = adamw.adamw_step(p, unflatten(p, g), o, lr=lr, weight_decay=0.1)
+                step_recs.append(recs)
+                step_losses.append(sl)
+                del g
+        finally:
+            ties.restore()
+        _dump(p, files["params2"])
+        # a norm's scale leaf is an offset (``layers.rmsnorm`` scales by 1 +
+        # scale, zeros at init), so after the steps it holds nothing but the
+        # AdamW updates: its params are held against the weight the model
+        # applies, 1 + scale (each other leaf against its own max)
+        maxes["params2"] = [float((x + 1 if _norm_offset(path) else x).abs().max())
+                            for path, x in leaves_with_paths(p)]
+        torch.save(maxes, files["maxes"])
+        torch.save({"grad": grad_recs, "steps": step_recs}, files["ties"])
+        n_rec = sum(len(v) for r in grad_recs for v in r.values())
+        del p, o
+        torch.cuda.empty_cache()
+        kw = dict(steps=n, lr=self.TRAIN_LR, warmup=self.TRAIN_WARMUP)
+        job = _TrainJob("h", cfg, files, **kw)
+        ref = {"loss": loss, "losses": step_losses, "drops": drops}
+        log(f"[dist] (h) the reference on one rank and its files in "
+            f"{time.perf_counter() - t0:.1f} s: {cfg.name} at full width, {cfg.n_layers} "
+            f"layer, float32, DAS {cfg.ternary.das.keep}/{cfg.ternary.das.block}, capacity "
+            f"factor {cfg.moe.capacity_factor}; each data half of {rows} x "
+            f"{self.DIST_MOE_TRAIN_SEQ} tokens alone, averaged: loss {loss:.6f}, step losses "
+            f"{[round(v, 6) for v in step_losses]}; {n_rec} distinct rounding and routing "
+            f"decisions recorded for the gradients; dropped copies a half-pass {drops}")
+
+        def check(outs):
+            self._dist_moe_train_check(outs, cfg, ref)
+        return [(job, False)], check
+
+    def _dist_moe_train_check(self, outs, cfg, ref):
+        """(h): each rank's loss, gradients (its part: half its data half's
+        gradient) and params after the steps against the reference, every
+        rank's das_topk launched, the ties within the tie rule."""
+        tol, bad = self.DIST_TRAIN_TOL, []
+        for rank, (h,) in enumerate(outs):
+            rel = abs(h["loss"] - ref["loss"]) / abs(ref["loss"])
+            steps = [abs(a - b) for a, b in zip(h["losses"], ref["losses"])]
+            log(f"[dist] (h) rank {rank} (data half {h['half']}, experts {h['experts']}): "
+                f"loss {h['loss']:.6f} vs one rank's halves averaged {ref['loss']:.6f} (rel "
+                f"{rel:.2e}, tol {tol['loss']}); worst gradient leaf {h['grad_err']:.3e} of its "
+                f"max (tol {tol['grad']}); params after {len(h['losses'])} steps worst "
+                f"{h['param_err']:.3e} of a leaf's max, a norm's of 1 + scale (tol "
+                f"{tol['param']}); step losses "
+                f"{[round(v, 6) for v in h['losses']]} (|diff| {max(steps):.2e}); das_topk "
+                f"launches {h['topk']}; dropped copies a pass {h['drops']}; ties: "
+                f"{h['ties'][1]}; the worst param element: {h['param_worst']}; state "
+                f"{h['state'] / 1e9:.2f} GB, peak memory "
+                f"{h['peak'] / 1e9:.2f} GB allocated, {h['peak_reserved'] / 1e9:.2f} GB "
+                f"reserved; {h['seconds']:.1f} s (host seconds by stage: "
+                f"{h['stages']})")
+            if not (rel <= tol["loss"] and h["grad_err"] <= tol["grad"]
+                    and h["param_err"] <= tol["param"] and max(steps) <= tol["param"]
+                    and h["topk"] > 0 and h["ties"][0]):
+                bad.append(f"(h) rank {rank}")
+            self.launches["das_topk"] += h["topk"]
+        drops = outs[0][0]["drops"]
+        none = "" if sum(drops) else " (none: these batches' routing stays under the capacity)"
+        log(f"[dist] (h) dropped copies at capacity factor {cfg.moe.capacity_factor}: "
+            f"{sum(drops)} over the rank's passes {drops}, the reference's {ref['drops']}{none}")
+        if bad:
+            raise AssertionError(f"dist MoE trainer: {bad}")
 
     MOE_ARCH = "qwen3-moe-30b-a3b"
     # the MoE path's depth, cut from 48 to keep the whole run within the
@@ -4143,6 +4362,33 @@ class Smoke:
               lambda: ternary_gemm_cuda(xpd, packed_d, scale),
               lambda: torch.matmul(xpd, wd_bf16),
               256 * f * 2 + packed_d.numel() + 256 * n * 4 + 4, 2 * 256 * f * n)
+        xpq = torch.randn((256, k), generator=g, device=self.dev).to(bf16)
+        capq = das_lib.das_compact(xpq, block_size=32, keep=16)
+        dense_pq = torch.zeros((256, wq_bf16.shape[0]), dtype=bf16, device=self.dev)
+        dense_pq.scatter_(1, capq.indices.long(), capq.values)
+        extra(f"prefill das_ternary_gemm (256,{kc} of {k}) x packed {tuple(packed_q.shape)}"
+              f" (q/k/v/o)",
+              lambda: das_ternary_gemm_cuda(capq.values, capq.indices, packed_q, scale, keep=16),
+              lambda: torch.matmul(dense_pq, wq_bf16),
+              256 * kc * 6 + packed_q.numel() + 256 * n * 4 + 4, 2 * 256 * kc * n)
+        # ternary_gemm on float32 rows with DAS off (the tune phase's float32
+        # gate) at a 256-row prefill, beside a float32 matmul with TF32 off
+        tf32 = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            for kk, nn, pk in ((k, n, packed_q), (k, f, packed), (f, n, packed_d)):
+                x32 = torch.randn((256, kk), generator=g, device=self.dev)
+                w32 = twd.unpack_ternary_arith(pk, kk).float() * 0.37
+                ms = t_ms(lambda: ternary_gemm_cuda(x32, pk, scale))
+                lib_ms = t_ms(lambda: torch.matmul(x32, w32))
+                t_b = (256 * kk * 4 + pk.numel() + 256 * nn * 4 + 4) / HBM_BYTES_PER_S * 1e3
+                t_o = 2 * 256 * kk * nn / PEAK_FLOPS["float32"] * 1e3
+                log(f"[times] prefill ternary_gemm float32 rows, DAS off (256,{kk}) x packed "
+                    f"{tuple(pk.shape)} -> {nn}: {ms * 1e3:.2f} us, bound "
+                    f"{max(t_b, t_o) * 1e3:.2f} us ({'bytes' if t_b >= t_o else 'operations'}),"
+                    f" library {lib_ms * 1e3:.2f} us (float32 matmul, TF32 off)")
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = tf32
 
         # the int8w path: the gate/up weight decoded to trits, and das_gemv on
         # them; bytes count the trit rows that the 4 rows' kept lanes touch
@@ -5167,6 +5413,29 @@ class _TrainJob:
     warmup: int
 
 
+@contextlib.contextmanager
+def _card_peak(torch, every: float = 0.02):
+    """Samples the card's used memory (every process's: total less free)
+    every ``every`` seconds on a thread while the block runs; yields a dict
+    whose "peak" (bytes) and "at" (seconds into the block) it fills."""
+    import threading
+    out, stop, t0 = {"peak": 0, "at": 0.0}, threading.Event(), time.perf_counter()
+
+    def sample():
+        while not stop.is_set():
+            free, total = torch.cuda.mem_get_info()
+            if total - free > out["peak"]:
+                out.update(peak=total - free, at=time.perf_counter() - t0)
+            stop.wait(every)
+    th = threading.Thread(target=sample, daemon=True)
+    th.start()
+    try:
+        yield out
+    finally:
+        stop.set()
+        th.join()
+
+
 def _union_ms(spans) -> float:
     """The length in ms of the union of (start_ns, end_ns) spans."""
     total, end = 0, None
@@ -5364,6 +5633,7 @@ def _train_e(rank: int, job: _TrainJob) -> dict:
     cfg, f = job.cfg, job.files
     mesh = Topology(dp=2, tp=2).build_mesh()
     sh = TR.train_shardings(mesh, torch.load(f["params"], mmap=True), cfg=cfg, device=dev)
+    state, allocated = _tree_bytes((sh.params, sh.opt)), torch.cuda.memory_allocated()
     bs = torch.load(f["batches"], weights_only=False)
     step = TR.make_train_step(cfg, TR.make_runtime(mesh, TRAIN_BATCH), peak_lr=job.lr,
                               warmup=job.warmup, total=job.steps)
@@ -5391,7 +5661,7 @@ def _train_e(rank: int, job: _TrainJob) -> dict:
             ms = (time.perf_counter() - t0) * 1e3
             prof = pr if last else prof
             steps.append({"loss": float(m["loss"]), "ms": ms, "launches": dict(ops.launches),
-                          "mask_calls": calls[0],
+                          "mask_calls": calls[0], "wire": dict(C.wire_bytes),
                           "collectives": {k: (round(v, 3) if isinstance(v, float) else v)
                                           for k, v in C.counts.items()}})
     finally:
@@ -5405,10 +5675,161 @@ def _train_e(rank: int, job: _TrainJob) -> dict:
             "copy_ms": sum(e.duration_ns() for e in copies) / 1e6,
             "spans": sorted((e.start_ns(), e.start_ns() + e.duration_ns()) for e in events),
             "profiled_topk": sum(1 for e in events if "das_topk" in e.name()),
-            "peak": torch.cuda.max_memory_allocated(), "card_used": total - free}
+            "peak": torch.cuda.max_memory_allocated(), "card_used": total - free,
+            "state": state, "allocated": allocated, "position": mesh.model_index
+            + mesh.topology.tp * mesh.dp_index}
 
 
-_DIST_TRAIN = {"d": _train_d, "e": _train_e, "f": _train_f, "g": _train_g}
+def _dump(tree, path: str) -> None:
+    """A tree's leaves, in ``leaves`` order, as raw bytes in one file (the
+    dist phase's large references: no archive, so the ranks read their cuts
+    through ``_load_dump``'s memory map)."""
+    from repro_torch.tree import leaves
+    with open(path, "wb") as f:
+        for x in leaves(tree):
+            x.detach().contiguous().cpu().numpy().tofile(f)
+
+
+def _load_dump(path: str, template):
+    """``_dump``'s file as a tree of host tensors mapped from the file, in
+    the structure, shapes and dtypes of ``template`` (e.g. the config's
+    master tree on the meta device)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.tree import leaves, unflatten
+    flat = np.memmap(path, dtype=np.uint8, mode="r")
+    out, off = [], 0
+    for t in leaves(template):
+        n = t.numel() * t.element_size()
+        out.append(torch.from_numpy(flat[off:off + n]).view(t.dtype).view(t.shape))
+        off += n
+    if off != flat.size:
+        raise ValueError(f"{path}: {flat.size} bytes, the template {off}")
+    return unflatten(template, out)
+
+
+@contextlib.contextmanager
+def _counting_drops(drops: list):
+    """Append each MoE dispatch's dropped copies (over its capacity) to
+    ``drops`` while inside."""
+    from repro_torch.models import moe as MOE
+    orig = MOE.dispatch_compute
+
+    def counted(x_tok, x_in, weights, router, cfg, capacity, *rest):
+        out, counts = orig(x_tok, x_in, weights, router, cfg, capacity, *rest)
+        drops.append(int((counts - capacity).clamp(min=0).sum()))
+        return out, counts
+    MOE.dispatch_compute = counted
+    try:
+        yield drops
+    finally:
+        MOE.dispatch_compute = orig
+
+
+def _tree_bytes(tree) -> int:
+    from repro_torch.tree import leaves
+    return sum(x.numel() * x.element_size() for x in leaves(tree))
+
+
+def _norm_offset(path: str) -> bool:
+    """Whether a master leaf is an rmsnorm scale, which the model applies as
+    1 + scale (``layers.rmsnorm``)."""
+    parts = path.split("/")
+    return len(parts) > 1 and parts[-1] == "scale" and "norm" in parts[-2]
+
+
+def _worst_of(got, want, maxes) -> dict:
+    """The largest |got - want| of a leaf over the trees' leaves, each over
+    the leaf's max |.| in ``maxes`` (of the whole leaf, not the cut), as
+    {"rel": it, "leaf": the leaf's index and path, "abs": the difference,
+    "at": the element's flat index in the rank's cut, "got", "want": the
+    values there, "next": the next two leaves}; ``want`` on the host, moved to the device a leaf at a
+    time."""
+    from repro_torch.tree import leaves, leaves_with_paths
+    worst, rels = {"rel": -1.0}, []
+    for i, ((path, a), b, m) in enumerate(zip(leaves_with_paths(got), leaves(want), maxes,
+                                              strict=True)):
+        b = b.to(a.device).float()
+        d = (a.float() - b).abs().flatten()
+        j = int(d.argmax())
+        rels.append((float(d[j]) / max(m, 1e-30), path))
+        if rels[-1][0] > worst["rel"]:
+            worst = {"rel": rels[-1][0], "leaf": (i, path), "abs": float(d[j]),
+                     "at": j, "got": float(a.flatten()[j]), "want": float(b.flatten()[j])}
+    worst["next"] = [(p, f"{r:.3e}") for r, p in sorted(rels, reverse=True)[1:3]]
+    return worst
+
+
+def _train_h(rank: int, job: _TrainJob) -> dict:
+    """(h): qwen3-moe-30b-a3b at Topology(dp=2, tp=2), each rank its 64
+    experts and its ZeRO-1 slices, from the parent's weights: its loss, its
+    gradients (its part: half its data half's gradient) against its cut of
+    the reference's half, then the steps and its params against the cut of
+    the reference's; each pass takes its data half's recorded decisions at
+    near ties (``torch_ties.Replay``: rounding, routing, expert scales)."""
+    t0 = time.perf_counter()
+    torch, dev = _rank_setup(rank)
+    from repro_torch.distributed.plan import Topology
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as TR
+    from repro_torch.models import model as MD
+    from repro_torch.tree import leaves
+    cfg, f = job.cfg, job.files
+    mesh = Topology(dp=2, tp=2).build_mesh()
+    template = MD.init_params(cfg, device="meta")
+    sh = TR.train_shardings(mesh, _load_dump(f["params"], template), cfg=cfg, device=dev)
+    state = _tree_bytes((sh.params, sh.opt))
+    bs = torch.load(f["batches"], weights_only=False)
+    rt = TR.make_runtime(mesh, len(bs[0]["inputs"]))
+    half = mesh.dp_index
+    recs, maxes = torch.load(f["ties"], mmap=True), torch.load(f["maxes"])
+    ties = _torch_ties().Replay(slice(None), MD.model_bounds(cfg, 2), mesh.model_index)
+    drops, stages = [], {"load": time.perf_counter() - t0}
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    try:
+        ties.force(recs["grad"][half])
+        t1 = time.perf_counter()
+        with _counting_drops(drops):
+            _, aux, grads = TR.loss_and_grads(sh.params, cfg, sh.batch(bs[0]), rt)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        want = MD.shard_params(_load_dump(f["grads"][half], template), cfg, mesh)
+        grad_err = _worst_of(grads, want, maxes["grads"][half])["rel"]
+        stages.update(grads=t2 - t1, compare=time.perf_counter() - t2)
+        del grads, want
+        step = TR.make_train_step(cfg, rt, peak_lr=job.lr, warmup=job.warmup, total=job.steps)
+        p, o, losses = sh.params, sh.opt, []
+        del sh
+        for s, b in enumerate(bs):
+            ties.force(recs["steps"][s][half])
+            t1 = time.perf_counter()
+            with _counting_drops(drops):
+                p, o, m = step(p, o, b)
+            losses.append(float(m["loss"]))
+            stages[f"step {s}"] = time.perf_counter() - t1
+    finally:
+        ties.restore()
+    want = MD.shard_params(_load_dump(f["params2"], template), cfg, mesh)
+    worst = _worst_of(p, want, maxes["params2"])
+    i = worst["leaf"][0]
+    if tuple(leaves(p)[i].shape) == tuple(leaves(template)[i].shape):   # a whole leaf: the
+        g = [leaves(_load_dump(f["grads"][h], template))[i] for h in (0, 1)]  # reference's
+        g = (g[0] + g[1]).flatten()                                     # step-0 gradient there
+        worst["grad0"] = float(g[worst["at"]].abs() / g.abs().max())
+    e0, e1 = MD.model_bounds(cfg, 2)["experts"][mesh.model_index]
+    return {"half": half, "experts": (e0, e1), "loss": float(aux["loss"]),
+            "grad_err": grad_err, "losses": losses, "param_err": worst["rel"],
+            "param_worst": worst,
+            "topk": ops.launches["das_topk"], "drops": drops, "state": state,
+            "ties": (ties.ok(), ties.summary()), "peak": torch.cuda.max_memory_allocated(),
+            "peak_reserved": torch.cuda.max_memory_reserved(),
+            "stages": {k: round(v, 1) for k, v in stages.items()},
+            "seconds": time.perf_counter() - t0}
+
+
+_DIST_TRAIN = {"d": _train_d, "e": _train_e, "f": _train_f, "g": _train_g, "h": _train_h}
 
 
 def _nvidia_smi() -> str:

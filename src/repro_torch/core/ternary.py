@@ -30,7 +30,7 @@ from typing import NamedTuple
 import torch
 
 __all__ = ["EPS", "TernaryWeight", "QuantizedActivation", "absmean_scale",
-           "ternary_quantize", "ternary_dequantize", "ternary_fake_quant",
+           "ternary_quantize", "ternary_dequantize", "ternary_fake_quant", "stacked_scale",
            "ternary_fake_quant_stacked", "int8_quantize", "int8_dequantize",
            "int8_fake_quant", "ternary_matmul_ref"]
 
@@ -106,11 +106,18 @@ class _Int8FakeQuant(torch.autograd.Function):
         return g, None
 
 
+def stacked_scale(w: torch.Tensor) -> torch.Tensor:
+    """The absmean scale of each slab of a stacked weight's leading (expert)
+    axis, (E, 1, ..., 1) in w's dtype: the float32 mean of |w| over the
+    slab, cast, + EPS."""
+    dims = tuple(range(1, w.ndim))
+    return w.abs().mean(dim=dims, keepdim=True, dtype=torch.float32).to(w.dtype) + EPS
+
+
 class _TernaryFakeQuantStacked(torch.autograd.Function):
     @staticmethod
     def forward(ctx, w):
-        dims = tuple(range(1, w.ndim))
-        gamma = w.abs().mean(dim=dims, keepdim=True, dtype=torch.float32).to(w.dtype) + EPS
+        gamma = stacked_scale(w)
         q = torch.clamp(torch.round(w / gamma), -1.0, 1.0)
         return (q * gamma).to(w.dtype)
 

@@ -10,7 +10,6 @@ zero activations past K equals the contraction over K.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 __all__ = ["TRITS_PER_BYTE", "ROW_ALIGN", "decode_lut", "packed_dim", "packed_rows",
@@ -21,23 +20,15 @@ ROW_ALIGN = 16   # packed rows of a serving export are a multiple of this
 _POW3 = (1, 3, 9, 27, 81)
 
 
-def _build_decode_lut() -> np.ndarray:
-    """(256, 5) int8: byte -> 5 trits; bytes >= 243 decode to zeros."""
-    lut = np.zeros((256, TRITS_PER_BYTE), dtype=np.int8)
-    for byte in range(3 ** TRITS_PER_BYTE):
-        v = byte
-        for i in range(TRITS_PER_BYTE):
-            lut[byte, i] = (v % 3) - 1
-            v //= 3
-    return lut
-
-
-_DECODE_LUT_NP = _build_decode_lut()
-
-
 def decode_lut(device=None) -> torch.Tensor:
-    """The (256, 5) int8 decode table."""
-    return torch.from_numpy(_DECODE_LUT_NP).to(device)
+    """The (256, 5) int8 decode table: byte -> 5 trits, digit i of the byte
+    in base 3 minus one; bytes >= 243 decode to zeros.  Computed on
+    ``device`` itself, so a call on any device runs the same ops (no host
+    table copied over)."""
+    byte = torch.arange(256, dtype=torch.int32, device=device)[:, None]
+    place = torch.pow(3, torch.arange(TRITS_PER_BYTE, dtype=torch.int32, device=device))
+    lut = torch.div(byte, place, rounding_mode="floor") % 3 - 1
+    return torch.where(byte < 3 ** TRITS_PER_BYTE, lut, 0).to(torch.int8)
 
 
 def packed_dim(k: int) -> int:

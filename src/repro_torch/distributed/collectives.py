@@ -17,6 +17,8 @@
     x + error to int8 with one absmax scale, the int8 values and the
     float32 scales are gathered, and every rank sums scale_p * q_p in
     float32;
+  * ``sum_replicas`` — the identity forward, and backward the sum of the
+    gradients of the ranks that hold one cut (a replicated kv head);
   * ``copy_to_model`` / ``reduce_from_model`` — the Megatron autograd pair:
     the identity forward and the sum over "model" backward, and the sum
     forward and the identity backward (any axis: ``reduce_from``).
@@ -27,7 +29,9 @@ sample the same tokens, and ranks that clip by an all-reduced norm clip by
 the same factor.
 
 One backend rule, never a switch at run time: under NCCL a CUDA tensor is
-exchanged where it lies; under gloo a CUDA tensor always goes through a
+exchanged where it lies; a virtual mesh (``Topology.virtual_mesh``, backend
+"meta": the dry run's one rank of a topology) exchanges nothing and returns
+what the real collective returns in shape and dtype; under gloo a CUDA tensor always goes through a
 host copy (a device-to-host copy, into page-locked memory from
 ``PINNED_BYTES`` up, the gloo collective over CPU tensors, a copy back),
 so the ranks that share one card in ``chip_smoke.py`` exchange through the
@@ -40,10 +44,10 @@ import time
 
 import torch
 
-__all__ = ["counts", "reset_counts", "psum", "pmax", "gather", "reduce_scatter",
-           "psum_scatter_mean", "all_gather", "send", "recv", "int8_compress",
-           "int8_decompress", "compressed_psum", "copy_to_model", "reduce_from_model",
-           "reduce_from"]
+__all__ = ["counts", "wire_bytes", "exchanging", "reset_counts", "psum", "pmax", "gather",
+           "reduce_scatter", "psum_scatter_mean", "all_gather", "send", "recv", "sum_replicas",
+           "int8_compress", "int8_decompress", "compressed_psum", "copy_to_model",
+           "reduce_from_model", "reduce_from"]
 
 # collectives issued (a step's all-reduces, the gathers among them, the
 # reduce-scatters, all-gathers and point-to-point transfers), the bytes a
@@ -52,9 +56,29 @@ __all__ = ["counts", "reset_counts", "psum", "pmax", "gather", "reduce_scatter",
 counts = {"all_reduce": 0, "gather": 0, "reduce_scatter": 0, "all_gather": 0, "send": 0,
           "recv": 0, "bytes": 0, "seconds": 0.0, "wait_seconds": 0.0}
 
+# the same collectives' bytes on the wire a rank, by the JAX package's
+# dry-run kinds and convention (its ``collective_bytes``): an all-reduce
+# counts twice its operand (a ring's reduce-scatter and all-gather), a
+# reduce-scatter its operand, an all-gather its output, a send its operand
+# as a collective-permute (a receive is the other end of one)
+wire_bytes = {"all-gather": 0, "all-reduce": 0, "reduce-scatter": 0, "all-to-all": 0,
+              "collective-permute": 0}
+_WIRE = {"all_reduce": ("all-reduce", 2), "reduce_scatter": ("reduce-scatter", 1),
+         "all_gather": ("all-gather", 1), "send": ("collective-permute", 1)}
+
+
+_exchanging = 0     # > 0 while an exchange runs (its own host copies and ops)
+
+
+def exchanging() -> bool:
+    """Whether an exchange is running: the ops dispatched now are the
+    collective's own (the dry run's op counter leaves them out)."""
+    return _exchanging > 0
+
 
 def reset_counts() -> None:
     counts.update({k: 0.0 if isinstance(v, float) else 0 for k, v in counts.items()})
+    wire_bytes.update(dict.fromkeys(wire_bytes, 0))
 
 
 def _float32(x: torch.Tensor, what: str) -> None:
@@ -81,18 +105,31 @@ def _exchange(kind: str, x, out, mesh, fn):
     """Run ``fn(x, out)``, a torch.distributed call that reads x (None for a
     receive) and writes ``out`` (x itself for an all-reduce, None for a
     send), through host copies when gloo meets a CUDA tensor; count it.
-    Returns ``out``."""
+    Returns ``out``.  A virtual mesh (backend "meta": one position of a
+    topology, no process group) runs no call: ``out`` keeps its shape and
+    dtype and the exchange is counted as the real one is."""
     t0 = time.perf_counter()
     some = x if x is not None else out
-    if mesh.backend == "gloo" and some.is_cuda:
-        hx = None if x is None else _host(x).copy_(x)   # waits for the kernels that wrote x
-        counts["wait_seconds"] += time.perf_counter() - t0
-        hout = None if out is None else (hx if out is x else _host(out))
-        fn(hx, hout)
-        if out is not None:
-            out.copy_(hout)
-    else:
-        fn(x, out)
+    if kind in _WIRE:
+        name, times = _WIRE[kind]
+        wire = out if kind == "all_gather" else x
+        wire_bytes[name] += times * wire.numel() * wire.element_size()
+    global _exchanging
+    _exchanging += 1
+    try:
+        if mesh.backend == "meta":
+            pass
+        elif mesh.backend == "gloo" and some.is_cuda:
+            hx = None if x is None else _host(x).copy_(x)   # waits for the kernels that wrote x
+            counts["wait_seconds"] += time.perf_counter() - t0
+            hout = None if out is None else (hx if out is x else _host(out))
+            fn(hx, hout)
+            if out is not None:
+                out.copy_(hout)
+        else:
+            fn(x, out)
+    finally:
+        _exchanging -= 1
     counts[kind] += 1
     counts["bytes"] += some.numel() * some.element_size()
     counts["seconds"] += time.perf_counter() - t0
@@ -125,18 +162,45 @@ def pmax(x: torch.Tensor, mesh, axis: str = "model") -> torch.Tensor:
 
 
 def gather(local: torch.Tensor, mesh, axis: str, dim: int, lo: int,
-           size: int) -> torch.Tensor:
+           size: int, *, own: bool = True) -> torch.Tensor:
     """The full float32 tensor of size ``size`` along ``dim`` on every rank
     of ``axis``, from each rank's shard ``local`` at ``[lo, lo + n)``: the
-    sum of the shards written into zeros (exact)."""
+    sum of the shards written into zeros (exact).  Where several ranks hold
+    one cut, all but one pass ``own=False`` and write nothing."""
     if mesh.size(axis) == 1 and local.shape[dim] == size:
         return local
     shape = list(local.shape)
     shape[dim] = size
     full = torch.zeros(shape, dtype=torch.float32, device=local.device)
-    full.narrow(dim, lo, local.shape[dim]).copy_(local)
+    if own:
+        full.narrow(dim, lo, local.shape[dim]).copy_(local)
     counts["gather"] += 1
     return _all_reduce(full, mesh, axis)
+
+
+class _SumReplicas(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, dim, lo, size):
+        ctx.args = mesh, dim, lo, size
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, dim, lo, size = ctx.args
+        n = g.shape[dim]
+        full = gather(g.float(), mesh, "model", dim, lo, size)
+        return full.narrow(dim, lo, n).to(g.dtype), None, None, None, None
+
+
+def sum_replicas(x: torch.Tensor, mesh, dim: int, lo: int, size: int) -> torch.Tensor:
+    """x, a rank's cut [lo, lo + n) of a dim of ``size`` that other ranks of
+    "model" hold too (a kv head under more ranks than kv heads): the
+    identity forward; backward each rank's gradient of the cut summed over
+    the ranks that hold it (written into zeros at their cuts, summed over
+    "model", the rank's cut read back)."""
+    if mesh is None or mesh.size("model") == 1:
+        return x
+    return _SumReplicas.apply(x, mesh, dim, lo, size)
 
 
 def reduce_scatter(x: torch.Tensor, mesh, axis: str = "data") -> torch.Tensor:

@@ -31,32 +31,45 @@ def plan_remesh(n_devices: int, *, model: int = 16,
     return (data, model), axis_names
 
 
-def zero_layout(params, mesh):
+def zero_layout(params, mesh, cfg=None):
     """The ``optim.adamw.ZeroLayout`` of a master tree (global, or a rank's
     model shard: zero1 cuts only dims "model" leaves whole) on ``mesh``:
     each leaf's ZeRO-1 "data" dim (``ShardingPlan.zero1`` over its float32
-    moments, with its summary warning), and whether "model" cuts it."""
+    moments, with its summary warning), whether "model" cuts it (on a mesh
+    with ``experts_only`` the expert stacks alone), and with ``cfg`` how many
+    ranks of "model" hold its cut (a replicated kv head's wk / wv:
+    ``models.model.kv_replicas``)."""
     from repro_torch.distributed.plan import ShardingPlan
     from repro_torch.optim.adamw import ZeroLayout
     plan = ShardingPlan.for_tree(params, mesh.topology, validate=False)
+    experts_only = mesh.experts_only
+    specs = {n: s if not experts_only or ".experts_" in f".{n}" else (None,) * len(s)
+             for n, s in plan.params.items()}
     moments = tree_map(lambda p: torch.empty(p.shape, dtype=torch.float32, device="meta"),
                        params)
-    zero = plan.zero1(moments)
+    zero = plan.zero1(moments, base=specs)
+    r = 1
+    if cfg is not None and not experts_only:
+        from repro_torch.models.model import kv_replicas
+        r = kv_replicas(cfg, mesh.topology.tp)
+    kv = (".wk.w", ".wv.w")
     return ZeroLayout(mesh, tuple(z.index("data") if "data" in z else None
                                   for z in zero.values()),
-                      tuple("model" in s for s in plan.params.values()))
+                      tuple("model" in s for s in specs.values()),
+                      tuple(r if n.endswith(kv) else 1 for n in specs))
 
 
 @torch.no_grad()
 def shard_state(tree: dict, cfg, mesh, device=None):
     """A global training state {"params": master tree, "opt": AdamWState or
     None} -> (this rank's {"params", "opt"}, its ZeroLayout), on ``device``
-    (default: the leaves' own): the params cut over "model", the moments
-    over "model" and then over "data"."""
+    (default: the leaves' own): the params cut over "model" (on a mesh with
+    ``experts_only`` the expert stacks alone), the moments over "model" and
+    then over "data"."""
     from repro_torch.models.model import shard_params
     from repro_torch.optim.adamw import AdamWState
     params = shard_params(tree["params"], cfg, mesh, device)
-    zero = zero_layout(params, mesh)
+    zero = zero_layout(params, mesh, cfg)
     opt = tree.get("opt")
     if opt is not None:
         def moments(t):

@@ -10,7 +10,9 @@ The JAX package's ``distributed/plan.py`` on explicit per-rank shards:
     ``elastic.plan_remesh``).
   * ``Mesh`` — one rank's view of a built topology: its coordinates and the
     process groups of its "model" and data axes, which the collectives
-    (``distributed.collectives``) take.
+    (``distributed.collectives``) take; ``Topology.virtual_mesh`` gives one
+    position's view with no process group (backend "meta"), on which the
+    collectives exchange nothing.
   * ``ShardingPlan`` — the specs of a serving tree (``sharding.leaf_spec``
     over ``TernaryLM.state_dict()``'s names), resolved once, validated (each
     sharded dim must divide by its axis extent), and printable; with the
@@ -165,6 +167,17 @@ class Topology:
                     None if pod is None else pod[d * tp + m],
                     None if dpg is None else dpg[m])
 
+    def virtual_mesh(self, position: int = 0) -> "Mesh":
+        """The ``Mesh`` of one position of this topology with no process
+        group and no world (backend "meta"): its collectives exchange
+        nothing, return what the real ones return in shape and dtype, and
+        are counted as the real ones are (``collectives._exchange``).  The
+        dry run (``launch.dryrun``) runs a rank's step on it."""
+        if not 0 <= position < self.n_devices:
+            raise ValueError(f"position {position} of Topology{self.shape} "
+                             f"({self.n_devices} positions)")
+        return Mesh(self, tuple(range(self.n_devices)), position, "meta", None, None)
+
     @classmethod
     def from_mesh(cls, mesh: "Mesh") -> "Topology":
         """The topology a built mesh realises."""
@@ -194,7 +207,11 @@ class Mesh:
     backend, and the process groups of its axes: "model", "data" (the data
     ranks of its pod), "pod" (the same (data, model) place in every pod) and
     "dp" (pods and data together: the batch axes).  Groups are None outside
-    the mesh; with one pod, "dp" is "data" and "pod" has one rank."""
+    the mesh; with one pod, "dp" is "data" and "pod" has one rank.  With
+    ``experts_only`` (``experts_alone()``) the "model" axis cuts a MoE's
+    experts alone and every other leaf is whole on each rank (the JAX dry
+    run's ``dpattn``): what the training runtime, ``shard_params``,
+    ``gather_params`` and ``zero_layout`` all read."""
     topology: Topology
     ranks: tuple
     rank: int
@@ -203,6 +220,11 @@ class Mesh:
     data_group: object
     pod_group: object = None
     dp_group: object = None
+    experts_only: bool = False
+
+    def experts_alone(self) -> "Mesh":
+        """This mesh with "model" cutting a MoE's experts alone."""
+        return dataclasses.replace(self, experts_only=True)
 
     @property
     def member(self) -> bool:

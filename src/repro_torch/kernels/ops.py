@@ -1,7 +1,8 @@
 """Kernel entry points: dispatch by the tensors' device, the kernel mode,
 and launch counts.
 
-A CPU tensor goes to the kernel's plain PyTorch version (kernels/ref.py).
+A CPU tensor goes to the kernel's plain PyTorch version (kernels/ref.py),
+and so does a meta tensor (the dry run, launch/dryrun.py: shapes only).
 A CUDA tensor launches the hand-written kernel or raises — there is no
 fallback from a kernel that fails to build, refuses a shape or fails to
 launch.  The packed GEMMs take an optional launch config
@@ -173,7 +174,8 @@ def add_launches(counts: dict[str, int]) -> None:
 
 
 def _on_cuda(*tensors: torch.Tensor) -> bool:
-    """True for CUDA tensors, False for CPU ones; mixed devices raise."""
+    """True for CUDA tensors, False for CPU and meta ones (the dry run's:
+    the plain version then computes shapes only); mixed devices raise."""
     dev = tensors[0].device
     for t in tensors[1:]:
         if t is not None and t.device != dev:
@@ -183,7 +185,7 @@ def _on_cuda(*tensors: torch.Tensor) -> bool:
             raise ValueError("kernel_mode 'ref' runs the plain versions, on CPU tensors "
                              "only: a CUDA tensor launches its kernel")
         return True
-    if dev.type == "cpu":
+    if dev.type in ("cpu", "meta"):
         return False
     raise ValueError(f"no kernel for device {dev}")
 

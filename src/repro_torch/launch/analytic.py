@@ -2,22 +2,21 @@
 
 A copy of the JAX package's ``launch/analytic.py`` over the port's own
 ``ModelConfig`` (configs/base.py, field for field the JAX package's).  The
-notes below on XLA and the dry-run describe why the JAX package needed it;
-the terms are the same arithmetic on paper whatever runs the model.
+terms are the same arithmetic on paper whatever runs the model; ``terms``
+prices them at an H100's rates.
 
-Why this exists: XLA's `cost_analysis()` visits every `while` body ONCE, so
-any scan (layer scan, LPSA pack scan, flash kv scan, SSD chunk scan)
-undercounts, while its op-level "bytes accessed" overcounts HBM traffic
-(fusion-internal operands).  The dry-run reconstructs the layer scan from
-unrolled compiles (launch.dryrun), but inner scans remain; this module
-derives the three roofline terms from first principles — the same arithmetic
-a roofline analysis would do on paper — and the report shows both sources.
+Why this exists: a counted step (the dry run, ``launch.dryrun``) counts
+op-level bytes, every op's inputs and outputs, which overcounts the HBM
+traffic a fused kernel makes; this module derives the three roofline terms
+from first principles, the same arithmetic a roofline analysis would do on
+paper, and the report shows both sources.
 
 Counting conventions (documented in EXPERIMENTS.md §Roofline):
   * train flops factor = 8 x params x tokens with remat (2 fwd + 4 bwd +
     2 recompute), 6 without; serving = 2.
-  * DAS does NOT discount flops: the lowered XLA path is masked-dense
-    (the S_a FLOP cut needs the Pallas das kernel; reported as headroom).
+  * DAS does NOT discount flops: the counted path is masked-dense (the
+    S_a FLOP cut needs the hand-written DAS kernels; reported as
+    headroom).
   * attention keys/query: full = (L+1)/2 averaged, LPSA = TL_SA, local =
     window (exact row-average for short sequences).
   * activation HBM traffic: layer in/out + mixer internals, ~6 touches per
@@ -34,10 +33,17 @@ from dataclasses import dataclass
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.shapes import ShapeSpec
+from repro_torch.core.perfmodel import H100_SXM
 
-__all__ = ["cell_analytic", "AnalyticCost"]
+__all__ = ["cell_analytic", "AnalyticCost", "LINK_BW"]
 
 BYTES = {"bfloat16": 2, "float32": 4}
+
+
+# a GPU's share of the link between nodes: InfiniBand NDR, 400 Gb/s a GPU
+# (a 16-way "model" axis spans two 8-GPU H100 nodes, so its collectives
+# cross it)
+LINK_BW = 50e9
 
 
 @dataclass(frozen=True)
@@ -46,7 +52,11 @@ class AnalyticCost:
     hbm_bytes_per_dev: float
     coll_bytes_per_dev: float
 
-    def terms(self, peak=197e12, hbm=819e9, link=50e9):
+    def terms(self, peak=H100_SXM.peak_tops_high * 1e12, hbm=H100_SXM.hbm_gbps * 1e9,
+              link=LINK_BW):
+        """(compute, memory, collective) seconds at the given rates; the
+        defaults an H100 SXM5's dense bf16 rate and HBM3 rate
+        (``core.perfmodel.H100_SXM``) and ``LINK_BW``."""
         return (self.flops_per_dev / peak, self.hbm_bytes_per_dev / hbm,
                 self.coll_bytes_per_dev / link)
 

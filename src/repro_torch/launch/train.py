@@ -21,9 +21,10 @@ an arch ``--reduced``: a full-size one takes minutes and tens of GB.
 Under a Topology (the JAX package's ``make_runtime`` and
 ``train_shardings``; the CLI has no mesh flag, as the JAX package's has
 none): each rank of a ``distributed.plan.Mesh`` holds its tensor-parallel
-shard of the master tree and its ZeRO-1 slices of the AdamW moments
-(``train_shardings``), takes its rows of every global batch, and the step
-runs the sharded ``loss_fn`` and the ZeRO-1 update (``optim.adamw``).
+shard of the master tree (a MoE's experts cut over "model": expert
+parallel) and its ZeRO-1 slices of the AdamW moments (``train_shardings``),
+takes its rows of every global batch, and the step runs the sharded
+``loss_fn`` and the ZeRO-1 update (``optim.adamw``).
 ``gather_state`` gathers a rank's state back into the global tree that a
 checkpoint holds (every rank calls it; ``checkpoint.restore_checkpoint(...,
 mesh=, plan=)`` cuts it again, onto any topology).
@@ -50,13 +51,19 @@ __all__ = ["make_runtime", "TrainShards", "train_shardings", "batch_rows", "loss
            "make_train_step", "gather_state", "main"]
 
 
-def make_runtime(mesh=None, global_batch: int | None = None) -> T.Runtime:
+def make_runtime(mesh=None, global_batch: int | None = None, *,
+                 serve_sparse: bool = True) -> T.Runtime:
     """The step's Runtime: one device without a mesh; on ``mesh`` (a
     ``distributed.plan.Mesh``) the batch's data-parallel axes
-    (``Topology.dp_axes_for(global_batch)``)."""
+    (``Topology.dp_axes_for(global_batch)``), and a MoE's experts on
+    "model" (the JAX package's ``ep_axis="model"``; on a mesh with
+    ``experts_only`` they alone, every other leaf whole on each rank: the
+    dry run's ``dpattn``).  ``serve_sparse`` puts LPSA on the global layers (the JAX
+    package's signature, which the dry run sets per shape)."""
     if mesh is None:
-        return T.Runtime()
-    return T.Runtime(mesh=mesh, dp_axes=mesh.topology.dp_axes_for(global_batch))
+        return T.Runtime(serve_sparse=serve_sparse)
+    return T.Runtime(serve_sparse=serve_sparse, mesh=mesh,
+                     dp_axes=mesh.topology.dp_axes_for(global_batch))
 
 
 class TrainShards(NamedTuple):
@@ -82,7 +89,8 @@ def batch_rows(mesh, size: int) -> slice:
 def train_shardings(mesh, params, opt: adamw.AdamWState | None = None, *, cfg,
                     device=None) -> TrainShards:
     """This rank's share of a global training state: ``params`` (a master
-    tree, e.g. on the host) cut over "model", ``opt`` (global; None: fresh
+    tree, e.g. on the host) cut over "model" (on a mesh with
+    ``experts_only`` the expert stacks alone), ``opt`` (global; None: fresh
     zero moments) cut over "model" and then over "data" (ZeRO-1), on
     ``device`` (default: the params')."""
     state, zero = elastic.shard_state({"params": params, "opt": opt}, cfg, mesh, device)
@@ -122,7 +130,7 @@ def make_train_step(cfg, rt: T.Runtime, *, peak_lr: float = 3e-4, warmup: int = 
         if mesh is not None:
             batch = {k: v[batch_rows(mesh, len(v))] for k, v in batch.items()}
             if not zero:
-                zero.append(elastic.zero_layout(params, mesh))
+                zero.append(elastic.zero_layout(params, mesh, cfg))
         _, aux, grads = loss_and_grads(params, cfg, batch, rt)
         lr = sched_fn(opt.step, peak_lr=peak_lr, warmup=warmup, total=total)
         params, opt, info = adamw.adamw_step(params, grads, opt, lr=lr,
@@ -138,7 +146,7 @@ def gather_state(mesh, params, opt: adamw.AdamWState, *, cfg) -> dict:
     every rank (the ZeRO-1 slices all-gathered over "data", then every cut
     gathered over "model"): what a checkpoint holds.  Every rank of the
     mesh calls it, in one order."""
-    zero = elastic.zero_layout(params, mesh)
+    zero = elastic.zero_layout(params, mesh, cfg)
 
     def moments(t):
         return MD.gather_params(zero.gather(t), cfg, mesh)

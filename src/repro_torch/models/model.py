@@ -43,7 +43,8 @@ from token ids or float embeddings, through ``transformer.stack_train``
 (``Runtime.mesh``) they run a rank's shard of the tree (``shard_params``;
 ``gather_params`` is its inverse) on the rank's batch rows: the
 vocab-parallel embedding lookup, the blocks on the rank's heads and d_ff
-(``local_config``), the tied logits of the rank's vocab columns (padding
+(``local_config``) or its experts (``moe.moe_train`` with the mesh), the
+tied logits of the rank's vocab columns (padding
 masked by their global ids), and a vocab-parallel cross entropy (the row
 max and the sum of exponentials over "model", the gold logit from the
 rank that holds it).  The loss is divided by the global token count (over
@@ -81,8 +82,9 @@ from repro_torch.tree import leaves, leaves_with_paths, tree_map, unflatten
 
 __all__ = ["TernaryLM", "RankShard", "Runtime", "embed_scale", "uses_embeds", "init_params",
            "export_serving", "init_serving", "trits_from_packed", "flatten_tree",
-           "check_shardable", "model_bounds", "local_config", "shard_model", "shard_params",
-           "gather_params", "prefill", "decode_step", "init_caches", "forward", "loss_fn"]
+           "kv_replicas", "check_shardable", "model_bounds", "local_config", "shard_model",
+           "shard_params", "gather_params", "prefill", "decode_step", "init_caches",
+           "forward", "loss_fn"]
 
 Runtime = T.Runtime
 
@@ -225,8 +227,19 @@ def _flatten(tree, prefix: str, out: dict) -> None:
         out[prefix[:-1]] = tree
 
 
+class _MetaGenerator(torch.Generator):
+    """A generator whose draws land on the ``meta`` device: every leaf at
+    its shape and dtype, no value drawn and nothing allocated (the dry
+    run's full-size trees, kimi-k2-1t-a32b's ~1 T parameters included)."""
+
+    @property
+    def device(self) -> torch.device:
+        return torch.device("meta")
+
+
 def _generator(seed: int, device) -> torch.Generator:
-    gen = torch.Generator(device=resolve_device(device))
+    dev = resolve_device(device)
+    gen = _MetaGenerator() if dev.type == "meta" else torch.Generator(device=dev)
     gen.manual_seed(seed)
     return gen
 
@@ -287,7 +300,8 @@ def _top_params(gen: torch.Generator, cfg: ModelConfig, embed: torch.Tensor) -> 
 
 def init_params(cfg: ModelConfig, *, seed: int = 0, device=None) -> dict:
     """Seeded random master weights in cfg.dtype, one tree per layer, drawn
-    in the order embedding, blocks, shared attention, head."""
+    in the order embedding, blocks, shared attention, head.  On
+    ``device="meta"`` every leaf has its shape and dtype and no value."""
     gen = _generator(seed, device)
     embed = _embed_param(gen, cfg)
     blocks = tuple(_block_params(gen, cfg, kind) for kind in cfg.layer_kinds())
@@ -320,9 +334,13 @@ def export_serving(params: dict, cfg: ModelConfig) -> TernaryLM:
 def init_serving(cfg: ModelConfig, *, seed: int = 0, device=None) -> TernaryLM:
     """``export_serving(init_params(cfg, seed=seed, device=device), cfg)``,
     bit for bit, with each layer's master weights drawn, exported into the
-    model and dropped before the next layer's are drawn."""
+    model and dropped before the next layer's are drawn.  On
+    ``device="meta"`` the model's leaves have their shapes and dtypes and
+    nothing is drawn or exported."""
     gen = _generator(seed, device)
     model = TernaryLM(cfg, gen.device)
+    if gen.device.type == "meta":
+        return model
     own = model.state_dict()
     embed = _embed_param(gen, cfg)
     for i, kind in enumerate(cfg.layer_kinds()):
@@ -378,9 +396,19 @@ _ROLE = {"wq": "q", "wo": "q", "wk": "kv", "wv": "kv", "w_gate": "ff", "w_in": "
          "experts_in": "experts", "experts_out": "experts"}
 
 
+def kv_replicas(cfg: ModelConfig, tp: int) -> int:
+    """How many ranks of ``tp`` hold each kv head: 1 where tp divides the kv
+    heads; tp / n_kv_heads where the kv heads divide tp (each rank holds the
+    one kv head its q heads read, as Megatron's GQA under a wider TP does)."""
+    n = cfg.n_kv_heads
+    return tp // n if n < tp and tp % n == 0 else 1
+
+
 def check_shardable(cfg: ModelConfig, tp: int, *, training: bool = False) -> None:
     """Raise ValueError where the port cannot serve (or, with ``training``,
-    train) ``cfg`` at ``tp`` ways."""
+    train) ``cfg`` at ``tp`` ways: an SSM, hybrid or frontend model, or a
+    tp that splits a head, the vocab or the experts (both name ROADMAP
+    queue 1, item 2, where they wait)."""
     kinds = set(cfg.layer_kinds())
     what = "train" if training else "serve"
     if not kinds <= set(T.ATTN_KINDS) or uses_embeds(cfg) or cfg.shared_attn:
@@ -389,16 +417,16 @@ def check_shardable(cfg: ModelConfig, tp: int, *, training: bool = False) -> Non
             f"{', a stub frontend' if uses_embeds(cfg) else ''}) does not {what} under a "
             f"Topology yet: the port shards the attention, FFN and MoE blocks of token "
             f"models; the SSM, hybrid and frontend models wait for ROADMAP queue 1, item 2")
-    if training and cfg.moe is not None:
-        raise ValueError(f"{cfg.name}: MoE training under a Topology (expert- and "
-                         f"data-parallel) waits for ROADMAP queue 1, item 2; the MoE trains "
-                         f"on one device")
-    bad = [f"{n}={v}" for n, v in (("n_heads", cfg.n_heads), ("n_kv_heads", cfg.n_kv_heads),
-                                   ("vocab_padded", cfg.vocab_padded)) if v % tp]
+    kv = cfg.n_kv_heads if kv_replicas(cfg, tp) == 1 else tp
+    bad = [f"{n}={v}" for n, v, w in (("n_heads", cfg.n_heads, cfg.n_heads),
+                                      ("n_kv_heads", cfg.n_kv_heads, kv),
+                                      ("vocab_padded", cfg.vocab_padded, cfg.vocab_padded))
+           if w % tp]
     if cfg.moe is not None and cfg.moe.n_experts % tp:
         bad.append(f"moe.n_experts={cfg.moe.n_experts}")
     if bad:
-        raise ValueError(f"tp={tp} does not divide {cfg.name}'s {', '.join(bad)}")
+        raise ValueError(f"tp={tp} does not divide {cfg.name}'s {', '.join(bad)} (a head "
+                         f"split over ranks waits for ROADMAP queue 1, item 2)")
     das = cfg.ternary.das
     if das is not None and (cfg.q_dim // tp) % das.block:
         raise ValueError(
@@ -409,13 +437,17 @@ def check_shardable(cfg: ModelConfig, tp: int, *, training: bool = False) -> Non
 def model_bounds(cfg: ModelConfig, tp: int) -> dict:
     """Each rank's [lo, hi) along every sharded logical dim of ``cfg`` at
     ``tp`` ways (``plan.shard_bounds``): "q" / "kv" (q_dim / kv_dim, whole
-    heads), "ff" (d_ff) and "shared" (a shared expert's width) on whole DAS
-    blocks with the dense tail on the last rank, "vocab" (vocab_padded) and
-    "experts" evenly."""
+    heads; with fewer kv heads than ranks, ``kv_replicas`` ranks in a row
+    hold the same kv head), "ff" (d_ff) and "shared" (a shared expert's
+    width) on whole DAS blocks with the dense tail on the last rank,
+    "vocab" (vocab_padded) and "experts" evenly."""
     das = cfg.ternary.das
     unit = das.block if das is not None else 1
     hd = cfg.head_dim_
-    out = {"q": shard_bounds(cfg.q_dim, tp, unit=hd), "kv": shard_bounds(cfg.kv_dim, tp, unit=hd),
+    r = kv_replicas(cfg, tp)
+    kv = (shard_bounds(cfg.kv_dim, tp, unit=hd) if r == 1 else
+          tuple((m // r * hd, (m // r + 1) * hd) for m in range(tp)))
+    out = {"q": shard_bounds(cfg.q_dim, tp, unit=hd), "kv": kv,
            "vocab": shard_bounds(cfg.vocab_padded, tp)}
     if cfg.moe is None:
         out["ff"] = shard_bounds(cfg.d_ff, tp, unit=unit)
@@ -436,7 +468,8 @@ def local_config(cfg: ModelConfig, mesh) -> ModelConfig:
     if "ff" in b:
         lo, hi = b["ff"][mesh.model_index]
         d_ff = hi - lo
-    return dataclasses.replace(cfg, n_heads=cfg.n_heads // tp, n_kv_heads=cfg.n_kv_heads // tp,
+    return dataclasses.replace(cfg, n_heads=cfg.n_heads // tp,
+                               n_kv_heads=cfg.n_kv_heads * kv_replicas(cfg, tp) // tp,
                                head_dim=cfg.head_dim_, d_ff=d_ff)
 
 
@@ -492,6 +525,20 @@ def shard_model(full: TernaryLM, mesh, device=None) -> TernaryLM:
     return model
 
 
+def _cut_by(cfg: ModelConfig, mesh):
+    """The rank's ``model_bounds`` and whether a leaf's role is cut over
+    "model": every sharded role, or on a mesh with ``experts_only`` the
+    experts alone; raises ValueError where the port does not train ``cfg``
+    so."""
+    tp, experts_only = mesh.topology.tp, mesh.experts_only
+    if not experts_only:
+        check_shardable(cfg, tp, training=True)
+    elif cfg.moe is None or cfg.moe.n_experts % tp:
+        raise ValueError(f"{cfg.name}: the experts alone over tp={tp} need a MoE whose "
+                         f"experts tp divides")
+    return model_bounds(cfg, tp), (lambda role: not experts_only or role == "experts")
+
+
 @torch.no_grad()
 def shard_params(tree, cfg: ModelConfig, mesh, device=None):
     """One rank's shard of a master tree (``init_params``'s layout; or an
@@ -499,16 +546,18 @@ def shard_params(tree, cfg: ModelConfig, mesh, device=None):
     axis, on ``device`` (default: each leaf's own): every leaf whose
     ``sharding.leaf_spec`` names "model" cut to the rank's ``model_bounds``
     (heads, DAS blocks of d_ff with the dense tail last, vocab rows), the
-    rest copied whole.  Raises ValueError for a config the port does not
-    train under a Topology."""
-    check_shardable(cfg, mesh.topology.tp, training=True)
-    b = {k: v[mesh.model_index] for k, v in model_bounds(cfg, mesh.topology.tp).items()}
+    rest copied whole; on a mesh with ``experts_only`` the expert stacks
+    alone are cut.
+    Raises ValueError for a config the port does not train under a
+    Topology."""
+    bounds, cut = _cut_by(cfg, mesh)
+    b = {k: v[mesh.model_index] for k, v in bounds.items()}
     out = []
     for path, x in leaves_with_paths(tree):
         name = path.replace("/", ".")
         spec = leaf_spec(name, x.ndim)
         x = x.detach()
-        if "model" in spec:
+        if "model" in spec and cut(_role(name)):
             lo, hi = b[_role(name)]
             x = x.narrow(spec.index("model"), lo, hi - lo)
         out.append(x.to(device=x.device if device is None else device, copy=True,
@@ -519,18 +568,21 @@ def shard_params(tree, cfg: ModelConfig, mesh, device=None):
 @torch.no_grad()
 def gather_params(tree, cfg: ModelConfig, mesh):
     """The whole tree from each rank's ``shard_params`` shard, on every rank
-    of "model" (each cut leaf gathered in float32, exact, and cast back).
-    Every rank of the axis calls it, in one order."""
-    bounds = model_bounds(cfg, mesh.topology.tp)
+    of "model" (each cut leaf gathered in float32, exact, and cast back; a
+    cut that several ranks hold, a replicated kv head, from its first;
+    on a mesh with ``experts_only`` the expert stacks alone).  Every rank of the axis
+    calls it, in one order."""
+    bounds, cut = _cut_by(cfg, mesh)
     out = []
     for path, x in leaves_with_paths(tree):
         name = path.replace("/", ".")
         spec = leaf_spec(name, x.ndim)
-        if "model" in spec:
+        if "model" in spec and cut(_role(name)):
             cuts = bounds[_role(name)]
             lo, size = cuts[mesh.model_index][0], cuts[-1][1]
+            first = cuts.index(cuts[mesh.model_index]) == mesh.model_index
             x = collectives.gather(x.float(), mesh, "model", spec.index("model"), lo,
-                                   size).to(x.dtype)
+                                   size, own=first).to(x.dtype)
         out.append(x)
     return unflatten(tree, out)
 
@@ -645,6 +697,23 @@ def _train_logits(p: dict, cfg: ModelConfig, x: torch.Tensor, mesh=None,
     return lg
 
 
+def _kv_replica_grads(p: dict, cfg: ModelConfig, mesh) -> dict:
+    """``p`` with every wk / wv weight of a replicated kv head through
+    ``collectives.sum_replicas``: each rank's gradient of it comes from its
+    own q heads, so the ranks that hold the head sum theirs."""
+    tp = mesh.topology.tp
+    if kv_replicas(cfg, tp) == 1:
+        return p
+    lo = model_bounds(cfg, tp)["kv"][mesh.model_index][0]
+    out = []
+    for path, x in leaves_with_paths(p):
+        names = path.split("/")
+        if names[-1] == "w" and names[-2:-1] in (["wk"], ["wv"]):
+            x = collectives.sum_replicas(x, mesh, x.ndim - 1, lo, cfg.kv_dim)
+        out.append(x)
+    return unflatten(p, out)
+
+
 def _vocab_lo(cfg: ModelConfig, mesh) -> int:
     return model_bounds(cfg, mesh.topology.tp)["vocab"][mesh.model_index][0]
 
@@ -661,7 +730,7 @@ def forward(p: dict, cfg: ModelConfig, batch_in: torch.Tensor,
         return _train_logits(p, cfg, T.stack_train(p["layers"], cfg, x, rt))
     check_shardable(cfg, mesh.topology.tp, training=True)
     lo = _vocab_lo(cfg, mesh)
-    p = shard_scales(p, mesh)
+    p = shard_scales(_kv_replica_grads(p, cfg, mesh), mesh)
     x = L.take_embed_shard(p["embed"], batch_in, lo, mesh, scale=embed_scale(cfg))
     x = T.stack_train(p["layers"], local_config(cfg, mesh), x, rt)
     return _train_logits(p, cfg, x, mesh, lo)

@@ -37,7 +37,9 @@ its own experts (the copies routed elsewhere go to the dump row, as drops
 do), and the partial combines are summed over "model" in float32; the
 shared expert follows the column / row rules of the dense linears.  The
 capacity comes from the rank's own tokens, as the JAX package's
-``t_local = (b // dp) * s``.
+``t_local = (b // dp) * s``.  ``moe_train`` trains under the same
+cut: each rank's float32 partial summed over "model" by the block, the
+router's gradient summed over "model" (``copy_to_model``).
 """
 
 from __future__ import annotations
@@ -58,7 +60,8 @@ from repro_torch.models.ternary_linear import (ROW_ALIGN, TernaryLinear, check_f
                                                tlin_train_input)
 
 __all__ = ["EXPERT_STACKS", "SHARED", "ExpertStack", "MoE", "moe_init", "export_moe",
-           "pack_stack", "expert_weights", "Route", "route", "dispatch_compute", "shared_ffn",
+           "pack_stack", "expert_weights", "Route", "top_k_experts", "route",
+           "dispatch_compute", "shared_ffn",
            "decode_capacity", "prefill_capacity", "moe_apply", "moe_train"]
 
 EXPERT_STACKS = ("experts_gate", "experts_in", "experts_out")
@@ -200,6 +203,15 @@ class Route(NamedTuple):
     counts: torch.Tensor   # (E,) the routed copies of each expert, drops included
 
 
+def top_k_experts(probs: torch.Tensor, k: int) -> torch.Tensor:
+    """Each token's k experts (T, k) in routing order: the k largest router
+    probabilities, largest first (a routing decision: a run that replays
+    another's decisions at near ties patches this function).  torch.topk
+    and lax.top_k order exact ties differently; the router's float32
+    probabilities of distinct experts do not tie with these weights."""
+    return torch.topk(probs, k, dim=-1).indices
+
+
 def route(x_tok: torch.Tensor, router: torch.Tensor, cfg: ModelConfig, capacity: int,
           experts: tuple[int, int] | None = None) -> Route:
     """Route the (T, D) normed rows: float32 logits (TF32 off), softmax,
@@ -216,9 +228,8 @@ def route(x_tok: torch.Tensor, router: torch.Tensor, cfg: ModelConfig, capacity:
     with full_f32():
         logits = x_tok.float() @ router.float()
     probs = torch.softmax(logits, dim=-1)                        # (T, E)
-    # torch.topk and lax.top_k order exact ties differently; the router's
-    # float32 probabilities of distinct experts do not tie with these weights
-    gate, expert = torch.topk(probs, k, dim=-1)                  # (T, K)
+    expert = top_k_experts(probs, k)                             # (T, K)
+    gate = torch.gather(probs, -1, expert)
     gate = gate / gate.sum(dim=-1, keepdim=True)
 
     flat_e = expert.reshape(-1)                                  # (T*K,)
@@ -360,7 +371,7 @@ def moe_apply(p: MoE, cfg: ModelConfig, x: torch.Tensor, norm_scale: torch.Tenso
     return y.reshape(b, s, d)
 
 
-def moe_train(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+def moe_train(p: dict, cfg: ModelConfig, x: torch.Tensor, mesh=None) -> torch.Tensor:
     """The MoE FFN over whole sequences on master weights ``p`` (the JAX
     package's tree), x (B, S, D) the normed rows -> (B, S, D) in x's dtype:
     the JAX package's no-mesh branch under autograd, at the training
@@ -368,15 +379,32 @@ def moe_train(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     STE fake-quant with one scale an expert, in x's dtype; the experts'
     input (and the shared expert's gate and up) is x DAS-masked and int8
     fake-quantized (``tlin_train_input``); the router's gradient flows
-    through the gates."""
+    through the gates.
+
+    With ``mesh`` (a rank of a Topology whose "model" axis cuts the
+    experts: ``p`` holds the stacks of its experts [e0, e1), the shared
+    expert's column / row shards), x is the rank's rows, replicated over
+    "model": the rank routes them over all experts, runs its own (the
+    copies routed elsewhere go to the dump row, as drops do) at the
+    capacity of its rows, the JAX package's ``t_local``, and returns its
+    float32 partial (its experts' combine plus the shared expert's
+    row-parallel partial) for the block to sum over "model".  The router is
+    replicated, but a rank's gates carry only its experts' share of its
+    gradient: ``copy_to_model`` sums the ranks' shares in the backward."""
     b, s, d = x.shape
     t, tc = b * s, cfg.ternary
     xt = x.reshape(t, d)
     xq = tlin_train_input(xt, tc)
     weights = [(tq.ternary_fake_quant_stacked(p[n]["w"]) if tc.enabled else p[n]["w"])
                .to(x.dtype) for n in EXPERT_STACKS]
-    y, _ = dispatch_compute(xt, xq, weights, p["router"], cfg, prefill_capacity(cfg, t))
+    n = weights[0].shape[0]
+    mine = () if mesh is None else ((mesh.model_index * n, (mesh.model_index + 1) * n),)
+    y, _ = dispatch_compute(xt, xq, weights, collectives.copy_to_model(p["router"], mesh), cfg,
+                            prefill_capacity(cfg, t), *mine)
+    if mesh is not None:
+        y = y.float()
     if cfg.moe.n_shared:
         h = silu(tlin_train(p["shared_gate"], xq, tc)) * tlin_train(p["shared_in"], xq, tc)
-        y = y + tlin_train(p["shared_out"], tlin_train_input(h, tc), tc)
+        y = y + tlin_train(p["shared_out"], tlin_train_input(h, tc, mesh), tc,
+                           partial=mesh is not None)
     return y.reshape(b, s, d)

@@ -239,9 +239,12 @@ def shard_scales(p: dict, mesh) -> dict:
     """The master tree ``p`` of a rank's shard with {"w", "gamma"} for every
     ternary linear that the "model" axis cuts: gamma the whole weight's
     absmean scale, (sum of |W| over the ranks) / (their count) + eps in W's
-    dtype, from one float32 all-reduce for the whole tree."""
+    dtype, from one float32 all-reduce for the whole tree (a cut that
+    several ranks hold, a replicated kv head, adds to both sums alike).  An
+    expert stack keeps its own scale an expert, whole on its rank."""
     named = [(name[:-2], w) for name, w in tree_leaves(p).items()
-             if name.endswith(".w") and "model" in leaf_spec(name, w.ndim)]
+             if name.endswith(".w") and "model" in leaf_spec(name, w.ndim)
+             and not name.rsplit(".", 2)[-2].startswith("experts_")]
     if not named or mesh.size("model") == 1:
         return p
     dev = named[0][1].device

@@ -75,15 +75,24 @@ class Runtime:
     """What the training pass runs on: ``serve_sparse`` puts LPSA on the
     global layers, as the JAX package's ``Runtime`` does by default; under a
     ``mesh`` (a ``distributed.plan.Mesh``) the rank's shard, its batch rows
-    split over ``dp_axes`` ("pod", "data"; ``Topology.dp_axes_for``)."""
+    split over ``dp_axes`` ("pod", "data"; ``Topology.dp_axes_for``).  On a
+    mesh with ``experts_only`` the "model" axis cuts a MoE's experts alone
+    and every other leaf is whole on each rank (the JAX dry run's
+    ``dpattn``)."""
     serve_sparse: bool = True
     mesh: Any = None
     dp_axes: tuple = ("data",)
 
     @property
-    def model_mesh(self):
-        """The mesh where its "model" axis cuts the weights, else None."""
+    def expert_mesh(self):
+        """The mesh where its "model" axis cuts the experts, else None."""
         return self.mesh if self.mesh is not None and self.mesh.size("model") > 1 else None
+
+    @property
+    def model_mesh(self):
+        """The mesh where its "model" axis cuts the dense weights, else None."""
+        mesh = self.expert_mesh
+        return None if mesh is None or mesh.experts_only else mesh
 
 
 class FFN(nn.Module):
@@ -275,9 +284,11 @@ def ffn_train(p: dict, cfg: ModelConfig, x: torch.Tensor, mesh=None) -> torch.Te
 
 
 def _mixer_ffn_train(bp: dict, cfg: ModelConfig, x: torch.Tensor, rt: Runtime) -> torch.Tensor:
-    """The FFN or MoE half of an attention or gla block on the normed x."""
+    """The FFN or MoE half of an attention or gla block on the normed x
+    (on a "model" shard: the rank's float32 partial; the MoE's experts are
+    the rank's)."""
     if cfg.moe is not None:
-        return MOE.moe_train(bp["moe"], cfg, x)
+        return MOE.moe_train(bp["moe"], cfg, x, rt.expert_mesh)
     return ffn_train(bp["ffn"], cfg, x, rt.model_mesh)
 
 
@@ -309,7 +320,8 @@ def block_train(bp: dict, cfg: ModelConfig, x: torch.Tensor, kind: str, shared,
     else:
         raise ValueError(f"unknown layer kind {kind!r}")
     return _half(lambda h: _mixer_ffn_train(bp, cfg, h, rt), x,
-                 rmsnorm(bp["norm2"]["scale"], x), mesh)
+                 rmsnorm(bp["norm2"]["scale"], x),
+                 rt.expert_mesh if cfg.moe is not None else mesh)
 
 
 def stack_train(layers: dict, cfg: ModelConfig, x: torch.Tensor, rt: Runtime) -> torch.Tensor:

@@ -12,8 +12,11 @@ ZeRO-1 (``ZeroLayout``, a rank's leaves on a ``distributed.plan.Mesh``):
 the moments of a leaf that ``ShardingPlan.zero1`` cuts along "data" hold
 the rank's slice of that dim; its gradient is reduce-scattered over "data"
 (float32, every such leaf in one exchange; then summed over "pod" where
-there are pods), AdamW updates the rank's slice, and the updated slices are
-all-gathered over "data" (one exchange a dtype).  A leaf that zero1 leaves
+there are pods), AdamW updates the rank's slice, and each updated slice is
+all-gathered over "data" as soon as it is updated (one exchange a leaf, so
+a rank holds at most one leaf twice).  The update consumes the gradients:
+each leaf's storage is released once it is copied into the exchange
+buffer, so a rank never holds a second gradient tree.  A leaf that zero1 leaves
 unsharded has its gradient summed over "dp" and is updated whole.  The
 global norm counts each logical element once: the squares of the leaves
 that "model" cuts summed over "model", the replicated ones (norm scales)
@@ -45,10 +48,13 @@ class AdamWState(NamedTuple):
 class ZeroLayout:
     """A rank's leaves (``leaves`` order) under ZeRO-1 on ``mesh``: ``dims[i]``
     the dim whose "data" cut leaf i's moments hold (None: leaf i is updated
-    whole), ``sharded[i]`` whether "model" cuts leaf i."""
+    whole), ``sharded[i]`` whether "model" cuts leaf i, ``replicas[i]`` how
+    many ranks of "model" hold its cut (a replicated kv head; empty: 1
+    each)."""
     mesh: Any
     dims: tuple
     sharded: tuple
+    replicas: tuple = ()
 
     def bounds(self, size: int) -> tuple[int, int]:
         """The rank's [lo, hi) of a dim of ``size`` cut over "data"."""
@@ -97,10 +103,11 @@ def global_norm(tree: Any) -> torch.Tensor:
 @torch.no_grad()
 def adamw_step(params: Any, grads: Any, state: AdamWState, *, lr, b1: float = 0.9,
                b2: float = 0.95, eps: float = 1e-8, weight_decay: float = 0.1,
-               clip_norm: float | None = 1.0,
-               zero: ZeroLayout | None = None) -> tuple[Any, AdamWState, dict]:
+               clip_norm: float | None = 1.0, zero: ZeroLayout | None = None
+               ) -> tuple[Any, AdamWState, dict]:
     """One update, in a profiler range "adamw_step"; under ``zero`` the
-    rank's ZeRO-1 update from its unreduced gradients (module docstring)."""
+    rank's ZeRO-1 update from its unreduced gradients, which it consumes
+    (module docstring)."""
     with torch.profiler.record_function("adamw_step"):
         if zero is None:
             return _adamw_step(params, grads, state, lr, b1, b2, eps, weight_decay, clip_norm)
@@ -153,30 +160,35 @@ def _summed(grads: list, dims: tuple, mesh, n_data: int) -> list:
     ZeRO-cut leaf (``dims[i]`` set) only its rank's slice, along that dim;
     one reduce-scatter over "data" for all of them (row r of the float32
     buffer holds every leaf's rank-r slice), then the sum over "pod"; the
-    other leaves whole, in one all-reduce over "dp"."""
+    other leaves whole, in one all-reduce over "dp".  Each gradient's
+    storage is released once it is copied into its buffer."""
     out = [None] * len(grads)
     zi = [i for i, d in enumerate(dims) if d is not None]
     wi = [i for i, d in enumerate(dims) if d is None]
     dev = grads[0].device
     if zi:
-        moved = [grads[i].movedim(dims[i], 0) for i in zi]
-        rows = torch.empty((n_data, sum(x.numel() for x in moved) // n_data),
-                           dtype=torch.float32, device=dev)
+        shapes = [(grads[i].shape[dims[i]] // n_data,) + tuple(grads[i].movedim(dims[i], 0)
+                                                              .shape[1:]) for i in zi]
+        rows = torch.empty((n_data, sum(math.prod(s) for s in shapes)), dtype=torch.float32,
+                           device=dev)
         off = 0
-        for x in moved:
-            k = x.numel() // n_data
-            rows[:, off:off + k].copy_(x.reshape(n_data, k))
+        for i, s in zip(zi, shapes):
+            k = math.prod(s)
+            rows[:, off:off + k].copy_(grads[i].movedim(dims[i], 0).reshape(n_data, k))
+            grads[i].set_()
             off += k
         mine = collectives.reduce_scatter(rows.view(-1), mesh, "data")
         del rows
         mine = collectives.psum(mine, mesh, "pod")
-        shapes = [(x.shape[0] // n_data,) + tuple(x.shape[1:]) for x in moved]
         for i, x in zip(zi, _split(mine, shapes)):
             out[i] = x.movedim(0, dims[i])
     if wi:
+        shapes = [tuple(grads[i].shape) for i in wi]
         flat = torch.cat([grads[i].reshape(-1).float() for i in wi])
+        for i in wi:
+            grads[i].set_()
         flat = collectives.psum(flat, mesh, "dp")
-        for i, x in zip(wi, _split(flat, [tuple(grads[i].shape) for i in wi])):
+        for i, x in zip(wi, _split(flat, shapes)):
             out[i] = x
     return out
 
@@ -184,9 +196,11 @@ def _summed(grads: list, dims: tuple, mesh, n_data: int) -> list:
 def _zero_step(params, grads, state, lr, b1, b2, eps, weight_decay, clip_norm, zero):
     mesh, n_data = zero.mesh, zero.mesh.size("data")
     own = _summed(leaves(grads), zero.dims, mesh, n_data)
-    zi = [i for i, d in enumerate(zero.dims) if d is not None]
-    # the global norm: each logical element once (module docstring)
+    # the global norm: each logical element once (module docstring); a cut
+    # that r ranks of "model" hold counts 1/r on each
     sq = [torch.sum(torch.square(g)) for g in own]
+    sq = [s / r for s, r in zip(sq, zero.replicas)] if any(r > 1 for r in zero.replicas) \
+        else sq
     zero_t = torch.zeros((), device=sq[0].device)
     pick = lambda keep: sum((s for i, s in enumerate(sq) if keep(i)), zero_t)  # noqa: E731
     model = collectives.psum(torch.stack([
@@ -199,21 +213,18 @@ def _zero_step(params, grads, state, lr, b1, b2, eps, weight_decay, clip_norm, z
     scale = _clip_scale(gnorm, clip_norm)
     t, b1c, b2c, lr = _bias(state, b1, b2, lr)
     kw = dict(lr=lr, b1=b1, b2=b2, b1c=b1c, b2c=b2c, eps=eps, weight_decay=weight_decay)
-    mine_p = leaves(zero.cut(params))
-    out = [_update(p, g if scale is None else g * scale, m, v, **kw)
-           for p, g, m, v in zip(mine_p, own, leaves(state.m), leaves(state.v))]
-    del own
-    new = [o[0] for o in out]
-    for dtype in sorted({new[i].dtype for i in zi}, key=str):
-        ids = [i for i in zi if new[i].dtype == dtype]
-        moved = [new[i].movedim(zero.dims[i], 0) for i in ids]
-        full = collectives.all_gather(torch.cat([x.reshape(-1) for x in moved]), mesh, "data")
-        full = full.reshape(n_data, -1)
-        for i, x, part in zip(ids, moved, torch.split(full, [x.numel() for x in moved], 1)):
-            new[i] = part.reshape((n_data * x.shape[0],) + tuple(x.shape[1:])) \
-                .movedim(0, zero.dims[i]).contiguous()
-        del full
+    new, m, v = [], [], []
+    for i, (p, m0, v0) in enumerate(zip(leaves(zero.cut(params)), leaves(state.m),
+                                         leaves(state.v))):
+        g, own[i] = own[i], None
+        p, m1, v1 = _update(p, g if scale is None else g * scale, m0, v0, **kw)
+        del g
+        d = zero.dims[i]
+        if d is not None:
+            p = collectives.all_gather(p.movedim(d, 0), mesh, "data").movedim(0, d).contiguous()
+        new.append(p)
+        m.append(m1)
+        v.append(v1)
     return (unflatten(params, new),
-            AdamWState(step=t, m=unflatten(state.m, [o[1] for o in out]),
-                       v=unflatten(state.v, [o[2] for o in out])),
+            AdamWState(step=t, m=unflatten(state.m, m), v=unflatten(state.v, v)),
             {"grad_norm": gnorm})

@@ -1514,7 +1514,7 @@ class _OneProcessMesh:
     def __init__(self, tp, index):
         from repro_torch.distributed.plan import Topology
         self.topology, self.model_index, self.data_index = Topology(tp=tp), index, 0
-        self.backend = "none"
+        self.backend, self.experts_only = "none", False
 
     def size(self, axis):
         return 1

@@ -172,13 +172,16 @@ def test_build_mesh_needs_a_world():
 def test_rank_bounds_keep_das_blocks_whole(arch, tp):
     """Every boundary of a DAS input (d_ff, a shared expert's width, wo's
     q_dim) falls on a multiple of the DAS block, the dense tail on the last
-    rank; heads, vocab and experts split evenly."""
+    rank; heads, vocab and experts split evenly; fewer kv heads than ranks
+    (gemma3-1b's one) are replicated: each rank holds the one kv head its q
+    heads read, ``kv_replicas`` ranks in a row the same."""
     cfg = get_config(arch)
-    if cfg.n_kv_heads % tp:   # gemma3-1b's one kv head does not split
-        with pytest.raises(ValueError, match="does not split"):
-            MD.model_bounds(cfg, tp)
-        return
     bounds = MD.model_bounds(cfg, tp)
+    if cfg.n_kv_heads % tp:
+        r, hd = MD.kv_replicas(cfg, tp), cfg.head_dim_
+        assert r == tp // cfg.n_kv_heads > 1
+        assert bounds.pop("kv") == tuple((m // r * hd, (m // r + 1) * hd) for m in range(tp))
+        assert MD.local_config(cfg, _RankOf(tp, 0)).n_kv_heads == 1
     block = cfg.ternary.das.block if cfg.ternary.das is not None else 1
     sizes = {"q": cfg.q_dim, "kv": cfg.kv_dim, "vocab": cfg.vocab_padded,
              "ff": cfg.d_ff, "experts": cfg.moe and cfg.moe.n_experts,
@@ -243,16 +246,25 @@ def test_unshardable_configs_raise():
 
 
 def test_untrainable_configs_raise():
-    """Training under a Topology refuses what serving does, and the MoE at
-    any tp (expert- and data-parallel training wait), each naming ROADMAP
-    queue 1, item 2; serving shards the MoE's experts."""
+    """Training under a Topology refuses what serving does, naming ROADMAP
+    queue 1, item 2; the MoE trains with its experts cut over "model":
+    ``shard_params`` gives rank r of tp its experts [e0, e1) of every
+    stack (and serving shards them alike)."""
     for arch in ("rwkv6-3b", "gla-1.3b", "zamba2-2.7b", "musicgen-medium"):
         with pytest.raises(ValueError, match="does not train under a Topology.*queue 1, item 2"):
             MD.check_shardable(reduced(get_config(arch)), 2, training=True)
     moe = reduced(get_config("qwen3-moe-30b-a3b"))
+    full = MD.init_params(moe, device="cpu")
+    n = moe.moe.n_experts
     for tp in (1, 2):
-        with pytest.raises(ValueError, match="MoE training under a Topology.*queue 1, item 2"):
-            MD.shard_params(MD.init_params(moe, device="cpu"), moe, _RankOf(tp, 0))
+        for r in range(tp):
+            shard = MD.shard_params(full, moe, _RankOf(tp, r))
+            e0, e1 = r * n // tp, (r + 1) * n // tp
+            assert MD.model_bounds(moe, tp)["experts"][r] == (e0, e1)
+            for blk, want in zip(shard["layers"]["tail"], full["layers"]["tail"]):
+                for name in ("experts_gate", "experts_in", "experts_out"):
+                    assert torch.equal(blk["moe"][name]["w"], want["moe"][name]["w"][e0:e1])
+                assert torch.equal(blk["moe"]["router"], want["moe"]["router"])
     MD.check_shardable(moe, 2)                    # serving shards its experts
 
 
@@ -262,6 +274,7 @@ class _RankOf:
 
     def __init__(self, tp, index):
         self.topology, self.model_index = Topology(tp=tp), index
+        self.experts_only = False
 
 
 @pytest.mark.parametrize("arch", ["bitnet-1.3b", "qwen3-moe-30b-a3b", "kimi-k2-1t-a32b"])

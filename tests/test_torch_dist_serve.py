@@ -14,7 +14,11 @@ the module) serves, in turn:
     same tokens, ``reshards == 1``, Topology(dp=1, tp=2) after it, the two
     lost ranks retired;
   * the paged layout (full attention, pages of 8) at Topology(1, 2) on
-    ranks 0 and 1: ``repro``'s paged tokens.
+    ranks 0 and 1: ``repro``'s paged tokens;
+  * the model with one kv head (``n_kv_heads=1``, its own weights) at
+    Topology(1, 2) on ranks 0 and 1, the kv head replicated on both
+    (``models.model.kv_replicas``): ``repro``'s tokens, and one request
+    teacher-forced within 2e-4 of ``repro``'s logits.
 
 The CLI: ``--tp 2 --dp 2 --device cpu`` prints the one-device run's
 ``[serve] req`` lines, and ``--tp 3`` is an argparse error.  The row-
@@ -22,6 +26,7 @@ parallel sums add the partials in another order than one device does, so
 the logits agree within the tolerance, not bitwise (ROADMAP "Differences
 that are not faults").
 """
+import dataclasses
 import os
 import subprocess
 import sys
@@ -71,42 +76,58 @@ def runs(tmp_path_factory):
     from repro_torch.bridge import load_serving_tree
     torch.set_num_threads(1)
     jcfg, tcfg = jbase.reduced(jget(ARCH)), tbase.reduced(get_config(ARCH))
-    sparams = JMD.export_serving(JMD.init_params(jax.random.PRNGKey(0), jcfg), jcfg)
+    jcfg1, tcfg1 = (dataclasses.replace(c, n_kv_heads=1) for c in (jcfg, tcfg))
+    tmp = tmp_path_factory.mktemp("dist_serve")
 
-    def jrun(serve_sparse=True, **kw):
-        eng = JServeEngine(jcfg, sparams, Runtime(kernel_mode="sharded",
-                                                  serve_sparse=serve_sparse),
+    def model(jc, tc, seed, name):
+        """repro's serving params of ``jc`` and the port's weights file."""
+        sp = JMD.export_serving(JMD.init_params(jax.random.PRNGKey(seed), jc), jc)
+        path = str(tmp / name)
+        torch.save(load_serving_tree(jax.tree.map(np.asarray, sp), tc, "cpu").state_dict(),
+                   path)
+        return sp, path
+
+    def jrun(jc, sp, serve_sparse=True, **kw):
+        eng = JServeEngine(jc, sp, Runtime(kernel_mode="sharded", serve_sparse=serve_sparse),
                            config=JServeConfig(max_slots=4, max_len=MAX_LEN, **kw))
-        for r in _trace(jcfg, JRequest):
+        for r in _trace(jc, JRequest):
             eng.submit(r)
         return _tokens(eng.run())
 
-    want = {"auto": jrun(), "paged": jrun(False, layout="paged", page_size=8)}
-    # request 0 teacher-forced: its pack-aligned prefix, then the rest of its
-    # prompt and its first 7 tokens, a decode step each
-    prompt = _trace(jcfg)[0].prompt
-    forced = [int(t) for t in prompt[16:]] + want["auto"][0][:7]
-    rt = Runtime(kernel_mode="sharded")
-    lg, caches = jax.jit(lambda sp, x: JMD.prefill(sp, jcfg, x, rt, max_len=MAX_LEN))(
-        sparams, jnp.asarray(prompt[:16])[None])
-    step = jax.jit(lambda sp, c, tok, t: JMD.decode_step(sp, jcfg, c, tok, t, rt))
-    want["teacher"] = [np.asarray(lg[0])]
-    for i, tok in enumerate(forced):
-        lg, caches = step(sparams, caches, jnp.asarray([tok], jnp.int32),
-                          jnp.asarray([16 + i], jnp.int32))
-        want["teacher"].append(np.asarray(lg[0]))
+    def teacher(jc, sp, tokens):
+        """Request 0 teacher-forced: its pack-aligned prefix, then the rest
+        of its prompt and its first 7 tokens, a decode step each ->
+        ((prefix, forced), repro's logits after each)."""
+        prompt = _trace(jc)[0].prompt
+        forced = [int(t) for t in prompt[16:]] + tokens[0][:7]
+        rt = Runtime(kernel_mode="sharded")
+        lg, caches = jax.jit(lambda p, x: JMD.prefill(p, jc, x, rt, max_len=MAX_LEN))(
+            sp, jnp.asarray(prompt[:16])[None])
+        step = jax.jit(lambda p, c, tok, t: JMD.decode_step(p, jc, c, tok, t, rt))
+        logits = [np.asarray(lg[0])]
+        for i, tok in enumerate(forced):
+            lg, caches = step(sp, caches, jnp.asarray([tok], jnp.int32),
+                              jnp.asarray([16 + i], jnp.int32))
+            logits.append(np.asarray(lg[0]))
+        return (prompt[:16], forced), logits
 
-    path = str(tmp_path_factory.mktemp("dist_serve") / "weights.pt")
-    torch.save(load_serving_tree(jax.tree.map(np.asarray, sparams), tcfg, "cpu").state_dict(),
-               path)
+    sparams, path = model(jcfg, tcfg, 0, "weights.pt")
+    sparams1, path1 = model(jcfg1, tcfg1, 1, "weights_kv1.pt")
+    want = {"auto": jrun(jcfg, sparams),
+            "paged": jrun(jcfg, sparams, False, layout="paged", page_size=8),
+            "kv1": jrun(jcfg1, sparams1)}
+    feed, want["teacher"] = teacher(jcfg, sparams, want["auto"])
+    feed1, want["kv1_teacher"] = teacher(jcfg1, sparams1, want["kv1"])
+
     trace = tuple(_trace(tcfg))
     dp2tp2 = ServeConfig(max_slots=4, max_len=MAX_LEN, topology=Topology(dp=2, tp=2))
-    jobs = [cli.RankJob(tcfg, dp2tp2, weights=path, trace=trace,
-                        teachers=((prompt[:16], forced),)),
+    tp2 = ServeConfig(max_slots=4, max_len=MAX_LEN, topology=Topology(dp=1, tp=2))
+    jobs = [cli.RankJob(tcfg, dp2tp2, weights=path, trace=trace, teachers=(feed,)),
             cli.RankJob(tcfg, dp2tp2, weights=path, trace=trace, fail_at=(3,), lost=2),
-            cli.RankJob(tcfg, ServeConfig(max_slots=4, max_len=MAX_LEN, layout="paged",
-                                          page_size=8, topology=Topology(dp=1, tp=2)),
-                        weights=path, trace=trace, serve_sparse=False)]
+            cli.RankJob(tcfg, dataclasses.replace(tp2, layout="paged", page_size=8),
+                        weights=path, trace=trace, serve_sparse=False),
+            cli.RankJob(tcfg1, tp2, weights=path1, trace=tuple(_trace(tcfg1)),
+                        teachers=(feed1,))]
     got = run_ranks(cli.serve_jobs, 4, jobs)
     return want, got
 
@@ -151,6 +172,24 @@ def test_paged_tp2_tokens_match_jax(runs):
     for rank in (0, 1):
         assert got[rank][2]["tokens"] == want["paged"], f"rank {rank}"
     assert got[2][2] is None and got[3][2] is None   # outside Topology(1, 2)
+
+
+def test_replicated_kv_head_tp2_matches_jax(runs):
+    """One kv head under tp 2: each rank holds it whole (its q heads read
+    it), and the sharded engine gives ``repro``'s tokens and logits."""
+    from repro_torch.models import model as MD
+    want, got = runs
+    cfg1 = dataclasses.replace(tbase.reduced(get_config(ARCH)), n_kv_heads=1)
+    assert MD.kv_replicas(cfg1, 2) == 2
+    for rank in (0, 1):
+        out = got[rank][3]
+        assert out["tokens"] == want["kv1"], f"rank {rank}"
+        assert out["topology"] == Topology(dp=1, tp=2)
+        steps = out["teachers"][0]
+        assert len(steps) == len(want["kv1_teacher"]) == 16
+        for i, (g, w) in enumerate(zip(steps, want["kv1_teacher"])):
+            np.testing.assert_allclose(g, w, rtol=0, atol=TOL, err_msg=f"rank {rank}, step {i}")
+    assert got[2][3] is None and got[3][3] is None   # outside Topology(1, 2)
 
 
 def test_cli_dp2_tp2_prints_the_one_device_lines(capsys):

@@ -172,12 +172,15 @@ def test_shapes_match():
 @pytest.mark.parametrize("arch", sorted(ARCH_MODULES))
 def test_cell_analytic_matches(arch):
     """Every shape of SHAPES at 1 and 256 devices, both packages' configs
-    of the arch at full size (configs only: no weights are built)."""
+    of the arch at full size (configs only: no weights are built).  The
+    terms at the JAX package's rates, given to both sides (the port's
+    defaults are an H100's)."""
     cfg, jcfg = get_config(arch), jget_config(arch)
+    rates = dict(peak=197e12, hbm=819e9, link=50e9)   # the JAX package's defaults
     for shape, jshape in zip(SHAPES, JSHAPES):
         for n_dev in (1, 256):
             for kw in ({}, {"serve_sparse": False, "zero1": False}):
                 got = cell_analytic(cfg, shape, n_dev, **kw)
                 want = jcell(jcfg, jshape, n_dev, **kw)
                 assert _fields(got) == _fields(want), (shape.name, n_dev, kw)
-                assert got.terms() == want.terms()
+                assert got.terms(**rates) == want.terms(**rates)

@@ -52,6 +52,16 @@ def row_int8_gaps(x, scale, diff):
     return ((r - r.floor()) - 0.5).abs() / 127
 
 
+def route_gaps(probs, own, want, diff):
+    """Per token whose k experts differ (in set or order), how far apart the
+    router probabilities of the two choices lie, relative to the own
+    choice's: a k-th and (k+1)-th expert within this are at a tie."""
+    rows = diff.any(-1)
+    p_own = torch.gather(probs, -1, own)[rows].float()
+    p_want = torch.gather(probs, -1, want.to(own.device))[rows].float()
+    return ((p_own - p_want).abs() / p_own.clamp_min(1e-30)).amax(-1)
+
+
 def fingerprint(x) -> tuple:
     """A key for a distinct input of a rounding decision: its shape and two
     float64 sums (a remat recompute gives the same bits, so the same key)."""
@@ -63,7 +73,14 @@ class Replay:
     """A run that takes another run's rounding decisions at near ties, on
     any device.  ``record`` keeps, in call order, each distinct input's DAS
     keep-mask (``ternary_linear.das_train_mask``), int8 values
-    (``ternary.int8_quantize``) and trits (``ternary.ternary_quantize``);
+    (``ternary.int8_quantize``), trits (``ternary.ternary_quantize``) and a
+    MoE's routing (``moe.top_k_experts``: each token's k experts, a
+    decision at a tie where the k-th and (k+1)-th probabilities lie within
+    TIE_RTOL, ``route_gaps``) and an expert stack's per-expert scale
+    (``ternary.stacked_scale``: a float32 mean whose summation order
+    depends on how many experts the reduction holds, so a rank's scale of
+    its experts may differ from one rank's by an ulp, and every trit at a
+    .5 boundary with it; taken within TIE_RTOL, relative);
     ``force`` makes a later run take them.  Where a forced run's own
     decision differs, the difference must lie within TIE_RTOL of a tie of
     its own input (``worst``, by kind), at most MAX_FORCED of the decisions
@@ -79,15 +96,17 @@ class Replay:
     differs, its bounds (``bounds``: ``model_bounds``' cuts; ``index``: the
     rank's place on "model")."""
 
-    KINDS = ("das", "int8", "trit")
+    KINDS = ("das", "int8", "trit", "route", "scale")
 
     def __init__(self, rows=slice(None), bounds=None, index=0):
         from repro_torch.core import ternary as tq
+        from repro_torch.models import moe
         from repro_torch.models import ternary_linear as tl
-        self.tq, self.tl = tq, tl
+        self.tq, self.tl, self.moe = tq, tl, moe
         self.rows, self.bounds, self.index = rows, bounds or {}, index
         self.orig = {"das": tl.das_train_mask, "int8": tq.int8_quantize,
-                     "trit": tq.ternary_quantize}
+                     "trit": tq.ternary_quantize, "route": moe.top_k_experts,
+                     "scale": tq.stacked_scale}
         self.records, self.queue = None, {}
         self.forced = self.total = self.zero_ties = self.missing = self.left = 0
         self.worst = dict.fromkeys(self.KINDS, 0.0)
@@ -108,7 +127,14 @@ class Replay:
             own = orig["trit"](w, **kw)
             return tq.TernaryWeight(decide("trit", w, own.values, own.scale), own.scale)
 
+        def experts(probs, k):
+            return decide("route", probs, orig["route"](probs, k), probs)
+
+        def scale(w):
+            return decide("scale", w, orig["scale"](w), None)
+
         tl.das_train_mask, tq.int8_quantize, tq.ternary_quantize = mask, quant, trits
+        self.moe.top_k_experts, tq.stacked_scale = experts, scale
 
     def _close(self):
         self.left += sum(1 for q in self.queue.values() for _ in q)
@@ -120,6 +146,7 @@ class Replay:
         self._close()
         self.tl.das_train_mask = self.orig["das"]
         self.tq.int8_quantize, self.tq.ternary_quantize = self.orig["int8"], self.orig["trit"]
+        self.moe.top_k_experts, self.tq.stacked_scale = self.orig["route"], self.orig["scale"]
 
     def record(self):
         """Keep the decisions from now on; a new list of records a call
@@ -135,10 +162,10 @@ class Replay:
         self._patch(decide)
         return self.records
 
-    def _cut(self, full, like):
+    def _cut(self, full, like, kind=None):
         for d in range(full.ndim):
             big, k = full.shape[d], like.shape[d]
-            if d == 0 and full.ndim >= 3:
+            if d == 0 and full.ndim >= 3 and kind != "scale":
                 full = full[self.rows]
             elif big != k:
                 lo, hi = next(c[self.index] for c in self.bounds.values()
@@ -159,7 +186,7 @@ class Replay:
                 if want is None:
                     self.missing += 1
                     return own
-                seen[key] = self._cut(want, own)
+                seen[key] = self._cut(want, own, kind)
             want = seen[key]
             diff = own != want
             if diff.any():
@@ -173,6 +200,10 @@ class Replay:
                     diff = diff & ~zero
                 elif kind == "int8":
                     gaps = row_int8_gaps(x, arg, diff)
+                elif kind == "route":
+                    gaps = route_gaps(arg, own, want, diff)
+                elif kind == "scale":
+                    gaps = ((own - want).abs() / want.abs())[diff].float()
                 else:
                     gaps = int8_gaps(x, arg, diff)
                 if gaps.numel():
